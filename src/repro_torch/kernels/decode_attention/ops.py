@@ -1,0 +1,75 @@
+"""Device-keyed paged attention: the hand-written CUDA kernel for CUDA
+tensors, the plain PyTorch version for CPU tensors, and nothing else.
+
+There is no fallback: a CUDA tensor launches the kernel or raises, and a
+tensor on any other device raises.  Each wrapper counts its kernel
+launches in ``.launches`` (and its plain-version calls in
+``.plain_calls``), plain ints a run can reset and read to show that its
+main path went through the kernel."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.analysis.sanitizer import hot_path
+from repro_torch.kernels.decode_attention import kernel, ref
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type in ("cuda", "cpu"):
+        return t.device.type
+    raise ValueError(f"paged attention runs on cuda or cpu, not {t.device}")
+
+
+@hot_path
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
+    """q: [B, Hq, D]; pages: [num_blocks, bt, Hkv, D]; block_tables:
+    [B, max_blocks] (pad entries must be valid ids; they are never read
+    past ``lengths``); lengths: [B] -> [B, Hq, D]."""
+    if _route(q) == "cpu":
+        paged_decode_attention.plain_calls += 1
+        return ref.paged_decode_attention_ref(q, k_pages, v_pages,
+                                              block_tables, lengths)
+    out = kernel.paged_decode_attention_kernel(
+        q.contiguous(), k_pages, v_pages,
+        block_tables.to(torch.int32).contiguous(),
+        lengths.to(torch.int32).contiguous())
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+paged_decode_attention.plain_calls = 0
+
+
+@hot_path
+def paged_prefix_prefill_attention(q, k_suf, v_suf, k_pages, v_pages,
+                                   block_tables, prefix_lens, suffix_lens):
+    """Suffix-prefill attention against cached prefix pages; per-row
+    ``prefix_lens`` may be 0 (a radix miss), and a wave with no cached
+    prefix passes a width-1 null ``block_tables``.  q, k_suf, v_suf:
+    [B, S, H*, D] -> [B, S, Hq, D]."""
+    if _route(q) == "cpu":
+        paged_prefix_prefill_attention.plain_calls += 1
+        return ref.paged_prefix_prefill_attention_ref(
+            q, k_suf, v_suf, k_pages, v_pages, block_tables, prefix_lens,
+            suffix_lens)
+    out = kernel.paged_prefix_prefill_attention_kernel(
+        q.contiguous(), k_suf.contiguous(), v_suf.contiguous(), k_pages,
+        v_pages, block_tables.to(torch.int32).contiguous(),
+        prefix_lens.to(torch.int32).contiguous(),
+        suffix_lens.to(torch.int32).contiguous())
+    paged_prefix_prefill_attention.launches += 1
+    return out
+
+
+paged_prefix_prefill_attention.launches = 0
+paged_prefix_prefill_attention.plain_calls = 0
+
+KERNELS = (paged_decode_attention, paged_prefix_prefill_attention)
+
+
+def reset_counts() -> None:
+    """Zero every wrapper's launch and plain-version counts."""
+    for fn in KERNELS:
+        fn.launches = 0
+        fn.plain_calls = 0

@@ -1,0 +1,115 @@
+"""Model facade for the paged serving path (the reference package's
+``models/model.py``).  Batches are dicts of tensors:
+
+  prefill_wave       : {"tokens": [B, S], "lengths": [B], "prefix_lens",
+                        "attn_tables", "tables", "write_lens", "cow_src",
+                        "cow_dst", "slots", "row_sel", "positions"}
+  decode_step_paged  : {"tokens": [B], "positions": [B], "block_tables"}
+  decode_multi_paged : {"logits": [B, padded_vocab], "positions": [B],
+                        "block_tables": [B, M], "active": [B] bool}
+
+The functions run where their tensors live; the constructors
+(:func:`init_params`, :func:`init_paged_cache`) take a ``device`` that
+defaults to the CUDA card and raise without one.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import params as params_lib
+from repro_torch.analysis.sanitizer import hot_path
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+
+
+def supports_paged(cfg: ModelConfig) -> Tuple[bool, str]:
+    if cfg.family == "audio":
+        return False, "enc-dec cross-KV caches are not paged"
+    return transformer.supports_paged(cfg)
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
+                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """Random weights from ``seed`` (see :func:`repro_torch.params.
+    init_params`), drawn by a generator on ``device``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return params_lib.init_params(cfg, generator=gen, device=dev,
+                                  dtype=dtype)
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_tokens: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: Optional[torch.device] = None):
+    return transformer.init_paged_cache(cfg, num_blocks, block_tokens,
+                                        dtype=dtype,
+                                        device=resolve_device(device))
+
+
+@hot_path
+def prefill_suffix(params, cfg: ModelConfig, pages, batch: Dict[str, Any],
+                   *, act_dtype: torch.dtype = torch.bfloat16):
+    """Suffix-only prefill against cached prefix pages.  batch:
+    {"tokens": [B, S], "lengths": [B], "prefix_lens": [B],
+    "block_tables": [B, M]}.  Returns (logits [B, V], suffix kv)."""
+    return transformer.prefill_suffix(
+        params, cfg, pages, batch["tokens"], batch["lengths"],
+        batch["prefix_lens"], batch["block_tables"], act_dtype=act_dtype)
+
+
+@hot_path
+def prefill_wave(params, cfg: ModelConfig, pages, state,
+                 batch: Dict[str, Any], *, null_block: int,
+                 act_dtype: torch.dtype = torch.bfloat16):
+    """Single-dispatch variable-prefix admission wave (DESIGN.md §12):
+    copy-on-write clones + suffix prefill with per-row ``prefix_lens``
+    (0 = miss) + token-granular suffix-KV write + per-slot engine-state
+    update.  ``state``: {"tables", "positions", "active", "logits"},
+    updated in place; writes that the reference drops land in
+    ``null_block``.  Returns (pages, state)."""
+    return transformer.prefill_wave(
+        params, cfg, pages, state, tokens=batch["tokens"],
+        lengths=batch["lengths"], prefix_lens=batch["prefix_lens"],
+        attn_tables=batch["attn_tables"], tables=batch["tables"],
+        write_lens=batch["write_lens"], cow_src=batch["cow_src"],
+        cow_dst=batch["cow_dst"], slots=batch["slots"],
+        row_sel=batch["row_sel"], positions=batch["positions"],
+        null_block=null_block, act_dtype=act_dtype)
+
+
+@hot_path
+def decode_step_paged(params, cfg: ModelConfig, pages, batch: Dict[str, Any],
+                      *, act_dtype: torch.dtype = torch.bfloat16):
+    """batch: {"tokens": [B], "positions": [B], "block_tables": [B, M]}."""
+    return transformer.decode_step_paged(
+        params, cfg, pages, batch["tokens"], batch["positions"],
+        batch["block_tables"], act_dtype=act_dtype)
+
+
+@hot_path
+def decode_multi_paged(params, cfg: ModelConfig, pages,
+                       batch: Dict[str, Any], *, num_steps: int,
+                       act_dtype: torch.dtype = torch.bfloat16):
+    """Fused multi-step paged decode.  Returns (logits, pages, positions,
+    tokens [B, num_steps])."""
+    return transformer.decode_multi_paged(
+        params, cfg, pages, batch["logits"], batch["positions"],
+        batch["block_tables"], batch["active"], num_steps=num_steps,
+        act_dtype=act_dtype)
+
+
+def write_suffix_pages_batched(pages, kv, block_tables, starts, lengths, *,
+                               null_block: int):
+    """Token-granular suffix-KV write at arbitrary offsets (DESIGN.md
+    §11)."""
+    return transformer.write_suffix_pages_batched(
+        pages, kv, block_tables, starts, lengths, null_block=null_block)
+
+
+@hot_path
+def copy_pages(pages, src, dst):
+    """Copy-on-write block clone: pages[:, dst[i]] = pages[:, src[i]]."""
+    return transformer.copy_pages(pages, src, dst)

@@ -1,0 +1,200 @@
+"""The PyTorch port's PagedContinuousEngine against the JAX reference on
+the CPU: the same weights (carried by ``params_from_numpy``) and the same
+requests must give identical greedy token streams and equal
+``prefill_dispatches``, ``prefill_tokens``, ``cow_copies``,
+``host_syncs`` and ``evictions``, with both pools drained.  Fixtures
+follow the reference's engine tests: scripted lengths, a prediction
+undershoot that forces evict-and-requeue, shared-instruction traffic
+with the radix cache on and off (partial-tail copy-on-write), and a
+radix-aware admission wave with byte-identical retries.  Also: the
+launcher serves the same requests as the reference's, and the fused
+window property test."""
+import copy
+import functools
+
+import jax
+import numpy as np
+import pytest
+
+try:
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+except ImportError:
+    from repro.testing import given, settings
+    from repro.testing import strategies as st
+
+from repro.configs import get_config as jax_config
+from repro.models import model as JM
+from repro.serving.engine import PagedContinuousEngine as JaxEngine
+from repro.serving.engine import drive_paged as jax_drive
+from repro.workload import apps as jax_apps
+from repro_torch.configs import get_config
+from repro_torch.params import params_from_numpy
+from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
+from repro_torch.workload import apps
+
+JCFG = jax_config("smollm-135m").reduced(num_layers=2, d_model=64)
+CFG = get_config("smollm-135m").reduced(num_layers=2, d_model=64)
+COUNTERS = ("prefill_dispatches", "prefill_tokens", "cow_copies",
+            "host_syncs", "evictions", "decode_steps")
+
+
+@functools.lru_cache(maxsize=None)
+def _params():
+    jp = JM.init_params(JCFG, jax.random.PRNGKey(0))
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def _scripted(mod, n, seed, short=False, max_gen=10):
+    reqs = mod.make_dataset(2, seed=seed)[:n]
+    for i, r in enumerate(reqs):
+        if short:
+            r.user_input = " ".join(r.user_input.split()[:6])
+        r.gen_length = 3 + (i * 3) % max_gen
+        r.predicted_gen_length = r.gen_length
+    return reqs
+
+
+def _undershoot(mod):
+    reqs = _scripted(mod, 5, seed=3, short=True)
+    for r in reqs:
+        r.gen_length = 12
+        r.predicted_gen_length = 2           # severe undershoot
+    return reqs
+
+
+def _shared(mod, n=6, seed=3, gen=6, instr_words=14, input_words=5):
+    # 14 instruction words + BOS = 15 tokens: ends mid-block at
+    # block_tokens=4, so hits share a partial tail (copy-on-write)
+    reqs = mod.make_shared_prefix_dataset(
+        n, n_apps=2, instr_words=instr_words, input_words=input_words,
+        gen_length=gen, seed=seed)
+    for i, r in enumerate(reqs):
+        r.gen_length = 2 + (i * 3) % gen
+        r.predicted_gen_length = r.gen_length
+    return reqs
+
+
+def _wave_with_retries(mod):
+    reqs = _shared(mod, n=6, seed=11, instr_words=14, input_words=6)
+    return reqs + [copy.deepcopy(r) for r in reqs[:2]]   # same prompts
+
+
+CASES = {
+    "scripted": (lambda m: _scripted(m, 3, seed=2),
+                 dict(max_concurrency=4, num_blocks=32, block_tokens=16,
+                      max_len=128, max_gen=16)),
+    "evict_requeue": (_undershoot,
+                      dict(max_concurrency=6, num_blocks=10, block_tokens=8,
+                           max_len=64, max_gen=16)),
+    "prefix_off": (_shared,
+                   dict(max_concurrency=3, num_blocks=64, block_tokens=4,
+                        max_len=64, max_gen=8, prefix_cache=False)),
+    "prefix_on": (_shared,
+                  dict(max_concurrency=3, num_blocks=64, block_tokens=4,
+                       max_len=64, max_gen=8, prefix_cache=True)),
+    "wave_retries": (_wave_with_retries,
+                     dict(max_concurrency=6, num_blocks=192, block_tokens=4,
+                          max_len=64, max_gen=8, prefix_cache=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_engine_matches_jax(case):
+    make, kw = CASES[case]
+    jp, tp = _params()
+    jreqs, treqs = make(jax_apps), make(apps)
+    je = JaxEngine(JCFG, params=jp, **kw)
+    te = PagedContinuousEngine(CFG, params=tp, device="cpu", **kw)
+    js = jax_drive(je, jreqs)
+    ts = drive_paged(te, treqs)
+    assert ts["served"] == js["served"] == len(treqs)
+    assert [te.generated[r.req_id] for r in treqs] == \
+        [je.generated[r.req_id] for r in jreqs]
+    for name in COUNTERS:
+        assert getattr(te, name) == getattr(je, name), name
+    assert ts["host_syncs"] == js["host_syncs"]
+    assert ts["peak"] == js["peak"]
+    if kw.get("prefix_cache"):
+        assert te.prefix_cache.hits == je.prefix_cache.hits > 0
+        assert te.prefix_cache.misses == je.prefix_cache.misses
+    if case == "prefix_on":
+        assert te.cow_copies > 0
+    if case == "evict_requeue":
+        assert te.evictions >= 1
+    te.assert_drained()
+    je.assert_drained()
+
+
+def test_launcher_serves_the_same_requests_as_jax():
+    from repro.launch.serve import run_paged_engine_backend as jax_run
+    from repro_torch.launch.serve import run_paged_engine_backend
+
+    jcfg = jax_config("smollm-135m").reduced()
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    want = jax_run("smollm-135m", 2.0, 3.0, "magnus-paged",
+                   prefix_cache=True)
+    got = run_paged_engine_backend(
+        "smollm-135m", 2.0, 3.0, "magnus-paged", prefix_cache=True,
+        device="cpu", params=params_from_numpy(
+            jax.tree.map(np.asarray, jp), device="cpu"))
+    got.pop("engine").assert_drained()
+    assert got["requests"] > 0
+    for key in ("requests", "steps", "peak_concurrency", "evictions",
+                "prefix_hits", "prefix_misses", "prefill_dispatches",
+                "prefill_tokens", "cow_copies", "host_syncs",
+                "mean_block_utilization", "shed", "headroom"):
+        assert got[key] == want[key], key
+
+
+_PROP_ENGINE = {}
+
+
+def _prop_engine():
+    """One engine reused across examples (drained between runs)."""
+    if "eng" not in _PROP_ENGINE:
+        _PROP_ENGINE["eng"] = PagedContinuousEngine(
+            CFG, params=_params()[1], max_concurrency=4, num_blocks=12,
+            block_tokens=8, max_len=64, max_gen=16, device="cpu")
+    return _PROP_ENGINE["eng"]
+
+
+@settings(max_examples=5, deadline=None)
+@given(st.integers(min_value=1, max_value=5),
+       st.lists(st.tuples(st.integers(min_value=1, max_value=12),
+                          st.integers(min_value=1, max_value=12)),
+                min_size=5, max_size=5),
+       st.integers(min_value=0, max_value=10_000))
+def test_fusion_windows_never_skip_events(n, gens, seed):
+    """Random (target, prediction) workloads through the fused engine:
+    after every window no request decoded past its target and no
+    position outran its block table, and every request finishes with
+    exactly its target tokens (the reference's property test, with no
+    deadline: the first example pays one-off set-up time)."""
+    from collections import deque
+    eng = _prop_engine()
+    reqs = _scripted(apps, n, seed=seed % 7, short=True)
+    for r, (g, pred) in zip(reqs, gens):
+        r.gen_length = g
+        r.predicted_gen_length = pred
+    pending = deque(reqs)
+    done, guard = 0, 0
+    while (pending or eng.num_active) and guard < 400:
+        for _ in range(eng.join_many(pending)):
+            pending.popleft()
+        finished, evicted, k = eng.step_window()
+        done += len(finished)
+        for r in reversed(evicted):
+            pending.appendleft(r)
+        for slot, a in enumerate(eng.active):
+            if a is None:
+                continue
+            assert len(a["generated"]) <= a["target"]
+            cap = len(eng.allocator.tables[slot]) * eng.bt
+            assert int(eng.pos_host[slot]) <= cap
+        guard += max(k, 1)
+    assert done == len(reqs)
+    for r in reqs:
+        assert len(eng.generated[r.req_id]) == min(r.gen_length, 16)
+    assert eng.allocator.used_blocks == 1
+    eng.assert_drained()

@@ -1,0 +1,102 @@
+"""Guards of the PyTorch port's boundaries:
+
+- no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
+  JAX or anything of the reference package ``repro``;
+- the entry points default to the CUDA card and raise without one,
+  instead of running on the CPU;
+- on a CPU tensor the kernel wrappers call the plain version and never
+  count a kernel launch.
+"""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_files_found():
+    assert len(PORT_FILES) > 20
+    assert (ROOT / "src" / "repro_torch" / "csrc"
+            / "paged_decode_attention.cu").is_file()
+    assert (ROOT / "src" / "repro_torch" / "csrc"
+            / "paged_prefix_prefill_attention.cu").is_file()
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_engine_without_device_raises_instead_of_using_the_cpu(no_cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import PagedContinuousEngine
+    cfg = get_config("smollm-135m").reduced(num_layers=1, d_model=64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedContinuousEngine(cfg, num_blocks=8, max_len=32, max_gen=8)
+
+
+def test_launcher_and_model_without_device_raise(no_cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_paged_engine_backend
+    from repro_torch.models import model as M
+    cfg = get_config("smollm-135m").reduced(num_layers=1, d_model=64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_paged_engine_backend("smollm-135m", 1.0, 1.0, "magnus-paged")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        M.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        M.init_paged_cache(cfg, 8, 4)
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    from repro_torch.kernels.decode_attention import ops
+    ops.reset_counts()
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 4, 16, generator=g)
+    kp = torch.randn(5, 4, 2, 16, generator=g)
+    vp = torch.randn(5, 4, 2, 16, generator=g)
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    lens = torch.tensor([7, 3], dtype=torch.int32)
+    ops.paged_decode_attention(q, kp, vp, tables, lens)
+    qs = torch.randn(2, 3, 4, 16, generator=g)
+    ks = torch.randn(2, 3, 2, 16, generator=g)
+    ops.paged_prefix_prefill_attention(qs, ks, ks, kp, vp, tables, lens,
+                                       torch.tensor([3, 2]))
+    assert ops.paged_decode_attention.launches == 0
+    assert ops.paged_prefix_prefill_attention.launches == 0
+    assert ops.paged_decode_attention.plain_calls == 1
+    assert ops.paged_prefix_prefill_attention.plain_calls == 1
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The ctypes launchers take CUDA tensors only: a CPU tensor is an
+    error, never a silent plain-version call."""
+    from repro_torch.kernels.decode_attention import kernel
+    q = torch.zeros(1, 2, 16)
+    kp = torch.zeros(2, 4, 2, 16)
+    tables = torch.zeros(1, 1, dtype=torch.int32)
+    lens = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernel.paged_decode_attention_kernel(q, kp, kp, tables, lens)
