@@ -21,13 +21,17 @@ CUDA toolkit.  Phases, each fatal on failure:
    the prefix cache, on shared-instruction traffic.  Kernel launch counts
    are zeroed just before and read just after; every request must
    finish, the pool must drain, the prefix cache must hit and both
-   kernels must have launched;
-   Then one decode window of a fresh full wave is timed and profiled
-   (device busy time, idle share, the kernels that take the time);
-6. timings at the serve phase's shapes: each kernel, its plain version
-   and a PyTorch library yardstick (device time from the profiler, and
-   the host-bound time per call from CUDA events), beside the least time
-   the card could take (bytes at 3.35 TB/s, operations at 989 TFLOP/s).
+   kernels must have launched.  The inputs of each decode step's and
+   each admission wave's layer-0 attention call are kept.  Then one
+   decode window of a fresh full wave is timed and profiled (device busy
+   time, idle share, the kernels that take the time);
+6. timings at the serve's own shapes: each kept decode step and wave is
+   replayed through the kernel (held against its plain version), the
+   plain version and a PyTorch library yardstick; each gets the median
+   card time of its calls from CUDA events, and the least time the card
+   could take for it (the bytes it must move at 3.35 TB/s, its
+   operations at 989 TFLOP/s).  A kernel's numbers are the means over
+   the serve's steps or waves, so they are per launch of the serve.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -36,9 +40,9 @@ this script.
 """
 from __future__ import annotations
 
-import itertools
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -52,7 +56,9 @@ SERVE = dict(num_blocks=2048, block_tokens=16, max_concurrency=32,
              max_len=512, max_gen=128)
 N_REQUESTS = 48
 GEN_LENGTH = 64
-PROMPT_TOKENS = 56             # BOS + 31 head + 16 tail + 8 input words
+SPIN_CYCLES = 20_000_000       # ~10 ms spin queued ahead of each timed call
+DECODE_REPS = 5                # timed calls per served decode step
+PREFILL_REPS = 11              # timed calls per served admission wave
 
 
 class SmokeFailure(RuntimeError):
@@ -102,30 +108,16 @@ def cycle(vals, n):
     return [vals[i % len(vals)] for i in range(n)]
 
 
-def table_sets(torch, gen, *, b, nb, mb, n=4):
-    """``n`` independent random table sets over one pool: cycling through
-    them makes successive timed calls read mostly different pages, so
-    the pages are not served from the 50 MB L2 as they would not be on
-    the serving path (28 layers of pools)."""
-    return [(torch.randperm(nb - 1, generator=gen, device="cuda") + 1)
-            [:b * mb].reshape(b, mb).to(torch.int32) for _ in range(n)]
-
-
-def rotating(items):
-    it = itertools.cycle(items)
-    return lambda: next(it)
-
-
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def kernel_checks(torch, ops, ref):
-    """Returns the max abs error of each kernel at the serve phase's
-    shapes in bf16 (the main path's dtype)."""
+    """Each kernel against its plain version on random unit-size inputs
+    at chatglm-6b's and a GQA shape, f32 and bf16, then the poison
+    cases."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
-    worst = {}
     decode_shapes = [   # (name, b, hq, hkv, d, bt, nb, mb, lengths)
         ("chatglm-6b", 32, 32, 32, 128, 16, 2048, 40,
          cycle([1, 15, 16, 17, 56, 100, 127, 250, 640], 32)),
@@ -153,8 +145,6 @@ def kernel_checks(torch, ops, ref):
             log(f"kernel paged_decode_attention {name} {dtype}: "
                 f"max_abs_err {err:.3e} (tol {tol[dtype]})")
             check(err <= tol[dtype], f"decode {name} {dtype}: err {err}")
-            if name == "chatglm-6b" and dtype == torch.bfloat16:
-                worst["paged_decode_attention"] = err
         for name, b, s, hq, hkv, d, bt, nb, mb, plens, slens \
                 in prefill_shapes:
             args = prefill_inputs(torch, b=b, s=s, hq=hq, hkv=hkv, d=d,
@@ -168,10 +158,7 @@ def kernel_checks(torch, ops, ref):
             log(f"kernel paged_prefix_prefill_attention {name} {dtype}: "
                 f"max_abs_err {err:.3e} (tol {tol[dtype]})")
             check(err <= tol[dtype], f"prefill {name} {dtype}: err {err}")
-            if name == "chatglm-6b mixed" and dtype == torch.bfloat16:
-                worst["paged_prefix_prefill_attention"] = err
     poison_checks(torch, ops, gen)
-    return worst
 
 
 def poison_checks(torch, ops, gen):
@@ -300,41 +287,56 @@ def _to(torch, tree, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timings
+# phase 5: what the serve gave the kernels
 # ---------------------------------------------------------------------------
 
-def _device_us(torch, prof):
+class ServeCalls:
+    """Inside the ``with`` block, keeps the inputs of the model's layer-0
+    attention calls: one per decode step and one per admission wave, the
+    shapes and tables the kernels met in the serve.  The model's two
+    attention entry points are wrapped for the block's duration; every
+    call passes straight through to its ``ops`` wrapper, which counts its
+    launch as always."""
+
+    def __init__(self, transformer):
+        self.T = transformer
+        self.decode = []     # (q, block_tables, lengths)
+        self.prefill = []    # (q, k_suf, v_suf, tables, prefix_lens,
+        #                       suffix_lens)
+
+    def __enter__(self):
+        T = self.T
+        self.orig = dec, pre = (T.paged_decode_attention,
+                                T.paged_prefix_prefill_attention)
+
+        def layer0(pages):   # layer i's pool is pages[i], a view at offset i
+            return pages.data_ptr() == pages.untyped_storage().data_ptr()
+
+        def decode(q, kp, vp, tables, lengths):
+            if layer0(kp):
+                self.decode.append((q, tables.clone(), lengths.clone()))
+            return dec(q, kp, vp, tables, lengths)
+
+        def prefill(q, ks, vs, kp, vp, tables, plens, slens):
+            if layer0(kp):
+                self.prefill.append((q, ks, vs, tables.clone(), plens.clone(),
+                                     slens.clone()))
+            return pre(q, ks, vs, kp, vp, tables, plens, slens)
+
+        T.paged_decode_attention = decode
+        T.paged_prefix_prefill_attention = prefill
+        return self
+
+    def __exit__(self, *exc):
+        (self.T.paged_decode_attention,
+         self.T.paged_prefix_prefill_attention) = self.orig
+
+
+def _device_us(prof):
     """Device time of every kernel, copy and fill in a profile (us)."""
     return sum(getattr(e, "self_device_time_total", None)
                or getattr(e, "self_cuda_time_total", 0)
                for e in prof.key_averages())
-
-
-def time_ms(torch, fn, reps=20, warmup=3):
-    """(device ms per call, host-bound ms per call).  The first is the
-    card's busy time per call from the profiler (CUPTI), free of the
-    Python launch overhead; where the profiler sees no device time it is
-    the CUDA-event time of ``reps`` back-to-back calls.  The second is
-    always that event time: what a caller that launches from Python
-    waits."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    z = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    z.record()
-    z.synchronize()
-    call_ms = a.elapsed_time(z) / reps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = _device_us(torch, prof)
-    return (dev_us / reps / 1e3 if dev_us > 0 else call_ms), call_ms
 
 
 def profile_window(torch, engine, reqs):
@@ -354,7 +356,8 @@ def profile_window(torch, engine, reqs):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, _, k2 = engine.step_window(max_steps=8)
         torch.cuda.synchronize()
-    busy = _device_us(torch, prof) / 1e3 / k2
+    busy = _device_us(prof) / 1e3 / k2
+    check(busy > 0, "the profiler recorded no device time")
     dev = lambda e: (getattr(e, "self_device_time_total", None)
                      or getattr(e, "self_cuda_time_total", 0))
     top = sorted(prof.key_averages(), key=dev, reverse=True)[:6]
@@ -369,83 +372,192 @@ def profile_window(torch, engine, reqs):
     engine.assert_drained()
 
 
+# ---------------------------------------------------------------------------
+# phase 6: timings at the serve's shapes
+# ---------------------------------------------------------------------------
+
+def spin_ms(torch):
+    """The card's time for one spin of SPIN_CYCLES (median of 5)."""
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        z.record()
+        z.synchronize()
+        times.append(a.elapsed_time(z))
+    return statistics.median(times)
+
+
+def median_ms(torch, fn, reps, spin):
+    """Median card time of one call over ``reps`` calls ``fn(1)``,
+    ``fn(2)``, ..., from CUDA events recorded on either side of it.  Each
+    call is queued behind a spin kernel of ``spin`` ms, so the card is
+    still spinning while the host enqueues the call and the events time
+    the card's work, not the Python launch.  A call whose enqueueing
+    outlasted the spin is timed again; the phase fails if that keeps
+    happening."""
+    times, tries = [], 0
+    while len(times) < reps:
+        tries += 1
+        check(tries <= 3 * reps, "the host kept outlasting the spin kernel")
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        a.record()
+        fn(1 + len(times))
+        z.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        z.synchronize()
+        if host_ms < 0.8 * spin:
+            times.append(a.elapsed_time(z))
+    return statistics.median(times)
+
+
+def distinct_slots(tables, lens, bt):
+    """Distinct (page, slot) positions that the rows' first ``lens``
+    tokens occupy: a prefix page that several rows share counts once."""
+    ids = set()
+    for row, n in zip(tables.tolist(), lens.tolist()):
+        ids.update(row[j // bt] * bt + j % bt for j in range(n))
+    return len(ids)
+
+
 def bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timings(torch, ops, ref):
-    """Each kernel at the serve phase's shapes in bf16: chatglm-6b heads,
-    a full batch of 32 rows, the serve's prompt and generation lengths.
-    Every time is a (device ms, host-bound ms) pair from time_ms."""
+def hold(torch, name, out, want):
+    """Max abs error of the kernel against its plain version, held to
+    bf16's 5e-2 at the output's own scale (served K/V are not unit-size:
+    random weights leave values of order 10, where one bf16 step is
+    0.06)."""
+    scale = max(1.0, want.float().abs().max().item())
+    err = (out.float() - want.float()).abs().max().item()
+    check(torch.isfinite(out).all().item(), f"{name}: NaN at the serve's "
+          f"inputs")
+    check(err <= 5e-2 * scale, f"{name}: err {err} at scale {scale}")
+    return err, scale
+
+
+def time_decode(torch, ops, ref, calls, K, V, spin):
+    """Kernel 1 on each decode step of the serve (its layer-0 queries,
+    tables and lengths).  Timed calls take the pools of successive
+    layers, as the 28 layers of a step do, so no call finds the last
+    one's pages in L2.  The library yardstick is SDPA on the step's pages
+    gathered into a dense view up to its longest row."""
     import torch.nn.functional as F
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    bf = torch.bfloat16
-    bt, nb = SERVE["block_tokens"], SERVE["num_blocks"]
-    mb = -(-(SERVE["max_len"] + SERVE["max_gen"]) // bt)
-    b, h, d = SERVE["max_concurrency"], 32, 128
-    out = {}
+    nl, _, bt, hkv, d = K.shape
+    per = {k: [] for k in ("ms", "plain_ms", "library_ms", "bound")}
+    errs = []
+    for q, tables, lens in calls:
+        b, hq, _ = q.shape
+        check(hq == hkv, "the yardstick assumes the served model's MHA")
+        kern = lambda r: ops.paged_decode_attention(
+            q, K[r % nl], V[r % nl], tables, lens)
+        plain = lambda r: ref.paged_decode_attention_ref(
+            q, K[r % nl], V[r % nl], tables, lens)
+        errs.append(hold(torch, "paged_decode_attention", kern(0),
+                         plain(0)))
+        per["ms"].append(median_ms(torch, kern, DECODE_REPS, spin))
+        per["plain_ms"].append(median_ms(torch, plain, DECODE_REPS, spin))
+        w = -(-int(lens.max()) // bt)
+        dense = lambda P, l: (P[l % nl][tables[:, :w].long()]
+                              .reshape(b, w * bt, hkv, d).transpose(1, 2)
+                              .contiguous())
+        views = [(dense(K, l), dense(V, l)) for l in range(3)]
+        mask = (torch.arange(w * bt, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        lib = lambda r: F.scaled_dot_product_attention(
+            q4, *views[r % 3], attn_mask=mask)
+        lib(0)
+        per["library_ms"].append(median_ms(torch, lib, DECODE_REPS, spin))
+        del views
+        e = q.element_size()
+        n_pages = sum(-(-n // bt) for n in lens.tolist())
+        nbytes = (2 * q.numel() * e
+                  + 2 * distinct_slots(tables, lens, bt) * hkv * d * e
+                  + n_pages * 4 + b * 4)
+        per["bound"].append(bound(nbytes, 4 * d * hq * int(lens.sum())))
+    return per, errs
 
-    # decode: 32 slots mid-generation (prompt + 0..GEN_LENGTH tokens)
-    lengths = [PROMPT_TOKENS + (i * 2) % (GEN_LENGTH + 1) for i in range(b)]
-    q, kp, vp, tables, lens = paged_inputs(
-        torch, b=b, hq=h, hkv=h, d=d, bt=bt, nb=nb, mb=mb, lengths=lengths,
-        dtype=bf, gen=gen)
-    nxt = rotating([tables] + table_sets(torch, gen, b=b, nb=nb, mb=mb))
-    ms = time_ms(torch, lambda: ops.paged_decode_attention(
-        q, kp, vp, nxt(), lens))
-    plain = time_ms(torch, lambda: ref.paged_decode_attention_ref(
-        q, kp, vp, nxt(), lens))
-    kd = kp[tables.long()].reshape(b, -1, h, d).transpose(1, 2)
-    vd = vp[tables.long()].reshape(b, -1, h, d).transpose(1, 2)
-    mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
-            < lens[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, kd, vd, attn_mask=mask))
-    tot = sum(lengths)
-    nbytes = (2 * q.numel() * 2 + 2 * tot * h * d * 2
-              + sum(-(-n // bt) for n in lengths) * 4 + b * 4)
-    out["paged_decode_attention"] = dict(
-        ms=ms, plain_ms=plain, library_ms=lib,
-        bound=bound(nbytes, 4 * d * h * tot))
 
-    # prefill: one admission wave of 32 rows in the 64-token bucket with
-    # the shared-head traffic's mix of misses and radix hits
-    plens = cycle([0, 32, 48, 48], b)
-    slens = [PROMPT_TOKENS - p for p in plens]
-    s = 64
-    q, ks, vs, kp, vp, tables, pl, sl = prefill_inputs(
-        torch, b=b, s=s, hq=h, hkv=h, d=d, bt=bt, nb=nb, mb=mb, plens=plens,
-        slens=slens, dtype=bf, gen=gen)
-    nxt = rotating([tables] + table_sets(torch, gen, b=b, nb=nb, mb=mb))
-    ms = time_ms(torch, lambda: ops.paged_prefix_prefill_attention(
-        q, ks, vs, kp, vp, nxt(), pl, sl))
-    plain = time_ms(torch, lambda: ref.paged_prefix_prefill_attention_ref(
-        q, ks, vs, kp, vp, nxt(), pl, sl))
-    kpd = kp[tables.long()].reshape(b, -1, h, d)
-    vpd = vp[tables.long()].reshape(b, -1, h, d)
-    kc = torch.cat([kpd, ks], 1).transpose(1, 2)
-    vc = torch.cat([vpd, vs], 1).transpose(1, 2)
-    pcap = kpd.shape[1]
-    kv_idx = torch.arange(pcap + s, device="cuda")
-    q_idx = torch.arange(s, device="cuda")
-    mask = torch.where(
-        kv_idx[None, None, :] < pcap,
-        kv_idx[None, None, :] < pl[:, None, None],
-        (kv_idx[None, None, :] - pcap <= q_idx[None, :, None])
-        & (kv_idx[None, None, :] - pcap < sl[:, None, None]))[:, None]
-    qt = q.transpose(1, 2)
-    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kc, vc, attn_mask=mask))
-    pairs = sum(sn * p + sn * (sn + 1) // 2 for p, sn in zip(plens, slens))
-    nbytes = (4 * b * s * h * d * 2 + 2 * sum(plens) * h * d * 2
-              + sum(-(-p // bt) for p in plens) * 4 + 2 * b * 4)
-    out["paged_prefix_prefill_attention"] = dict(
-        ms=ms, plain_ms=plain, library_ms=lib,
-        bound=bound(nbytes, 4 * d * h * pairs))
-    return out
+def time_prefill(torch, ops, ref, calls, K, V, spin):
+    """Kernel 2 on each admission wave of the serve (its layer-0 suffix
+    q/K/V, attention tables and prefix and suffix lengths), with the
+    pools rotating over the layers as in ``time_decode``.  The library
+    yardstick is SDPA on the wave's prefix pages gathered and joined to
+    its suffix K/V, with the same mask."""
+    import torch.nn.functional as F
+    nl, _, bt, hkv, d = K.shape
+    per = {k: [] for k in ("ms", "plain_ms", "library_ms", "bound")}
+    errs = []
+    for q, ks, vs, tables, pl, sl in calls:
+        b, s, hq, _ = q.shape
+        kern = lambda r: ops.paged_prefix_prefill_attention(
+            q, ks, vs, K[r % nl], V[r % nl], tables, pl, sl)
+        plain = lambda r: ref.paged_prefix_prefill_attention_ref(
+            q, ks, vs, K[r % nl], V[r % nl], tables, pl, sl)
+        errs.append(hold(torch, "paged_prefix_prefill_attention", kern(0),
+                         plain(0)))
+        per["ms"].append(median_ms(torch, kern, PREFILL_REPS, spin))
+        per["plain_ms"].append(median_ms(torch, plain, PREFILL_REPS, spin))
+        pcap = tables.shape[1] * bt
+        dense = lambda P, x, l: (torch.cat(
+            [P[l % nl][tables.long()].reshape(b, pcap, hkv, d), x], 1)
+            .transpose(1, 2).contiguous())
+        views = [(dense(K, ks, l), dense(V, vs, l)) for l in range(3)]
+        kv_idx = torch.arange(pcap + s, device="cuda")
+        q_idx = torch.arange(s, device="cuda")
+        mask = torch.where(
+            kv_idx[None, None, :] < pcap,
+            kv_idx[None, None, :] < pl[:, None, None],
+            (kv_idx[None, None, :] - pcap <= q_idx[None, :, None])
+            & (kv_idx[None, None, :] - pcap < sl[:, None, None]))[:, None]
+        qt = q.transpose(1, 2)
+        lib = lambda r: F.scaled_dot_product_attention(
+            qt, *views[r % 3], attn_mask=mask)
+        lib(0)
+        per["library_ms"].append(median_ms(torch, lib, PREFILL_REPS, spin))
+        del views
+        e = q.element_size()
+        plens, slens = pl.tolist(), [min(n, s) for n in sl.tolist()]
+        # every query row, pad rows past suffix_lens included, attends
+        # its prefix and the suffix keys k <= row, k < suffix_lens
+        pairs = sum(s * p + n * (n + 1) // 2 + (s - n) * n
+                    for p, n in zip(plens, slens))
+        nbytes = (2 * q.numel() * e + 2 * sum(slens) * hkv * d * e
+                  + 2 * distinct_slots(tables, pl, bt) * hkv * d * e
+                  + sum(-(-p // bt) for p in plens) * 4 + 2 * b * 4)
+        per["bound"].append(bound(nbytes, 4 * d * hq * pairs))
+    return per, errs
+
+
+def summarize(name, per, errs):
+    """Mean over the serve's decode steps (or waves) of each median:
+    every step or wave launches the kernel once per layer, so this is
+    the mean time of one of the serve's launches."""
+    mean = lambda xs: sum(xs) / len(xs)
+    bound_by = {by for _, by in per["bound"]}
+    row = {"ms": mean(per["ms"]), "plain_ms": mean(per["plain_ms"]),
+           "library_ms": mean(per["library_ms"]),
+           "bound_ms": mean([t for t, _ in per["bound"]]),
+           "bound_by": bound_by.pop() if len(bound_by) == 1 else "bytes",
+           "max_abs_err": max(e for e, _ in errs)}
+    log(f"time {name} over {len(errs)} served shapes (mean of per-shape "
+        f"medians, CUDA events, ms): kernel {row['ms']:.4f} (shapes "
+        f"{min(per['ms']):.4f}-{max(per['ms']):.4f}), plain "
+        f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, bound "
+        f"{row['bound_ms']:.4f} ({row['bound_by']}; by shape "
+        f"{sorted({by for _, by in per['bound']})}); max abs err "
+        f"{row['max_abs_err']:.3e} at output scale up to "
+        f"{max(sc for _, sc in errs):.1f}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -490,23 +602,25 @@ def main() -> int:
 
         # 3. kernels against their plain versions
         from repro_torch.kernels.decode_attention import ops, ref
-        errs = kernel_checks(torch, ops, ref)
+        kernel_checks(torch, ops, ref)
 
         # 4. the paged model on the card against the CPU
         model_check(torch, np)
 
         # 5. serve chatglm-6b at full width
         from repro_torch.launch.serve import run_paged_engine_backend
+        from repro_torch.models import transformer
         from repro_torch.workload.apps import make_shared_head_dataset
         reqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
                                         gen_length=GEN_LENGTH, seed=0)
         t0 = time.perf_counter()
-        ops.reset_counts()
-        res = run_paged_engine_backend(
-            "chatglm-6b", 0.0, 0.0, "magnus-paged", seed=0, reduced=False,
-            device="cuda", dtype=torch.bfloat16, prefix_cache=True,
-            requests=reqs, **SERVE)
-        launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+        with ServeCalls(transformer) as served:
+            ops.reset_counts()
+            res = run_paged_engine_backend(
+                "chatglm-6b", 0.0, 0.0, "magnus-paged", seed=0,
+                reduced=False, device="cuda", dtype=torch.bfloat16,
+                prefix_cache=True, requests=reqs, **SERVE)
+            launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
         plain_calls = {fn.__name__: fn.plain_calls for fn in ops.KERNELS}
         engine = res.pop("engine")
         log(f"serve chatglm-6b full width bf16: "
@@ -532,14 +646,34 @@ def main() -> int:
                   f"request {r.req_id}: token out of range")
         check(torch.isfinite(engine.logits.float()).all().item(),
               "non-finite logits after serving")
+        check(len(served.decode) * cfg.num_layers
+              == launches["paged_decode_attention"]
+              and len(served.prefill) * cfg.num_layers
+              == launches["paged_prefix_prefill_attention"],
+              f"recorded {len(served.decode)} decode steps and "
+              f"{len(served.prefill)} waves against launches {launches}")
+        log("serve waves (rows, bucket, table width, prefix_lens, "
+            "suffix_lens): " + "; ".join(
+                f"{tuple(q.shape[:2])} {t.shape[1]} {pl.tolist()} "
+                f"{sl.tolist()}" for q, _, _, t, pl, sl in served.prefill))
         profile_window(torch, engine, make_shared_head_dataset(
             SERVE["max_concurrency"], n_apps=3, gen_length=GEN_LENGTH,
             seed=1))
+        pages = engine.pages
         del engine, res
         torch.cuda.empty_cache()
 
-        # 6. timings
-        t = timings(torch, ops, ref)
+        # 6. timings at the serve's shapes
+        spin = spin_ms(torch)
+        log(f"spin kernel: {spin:.2f} ms")
+        t = {"paged_decode_attention": summarize(
+                 "paged_decode_attention", *time_decode(
+                     torch, ops, ref, served.decode, pages["k"],
+                     pages["v"], spin)),
+             "paged_prefix_prefill_attention": summarize(
+                 "paged_prefix_prefill_attention", *time_prefill(
+                     torch, ops, ref, served.prefill, pages["k"],
+                     pages["v"], spin))}
         source = {"paged_decode_attention":
                   ("src/repro_torch/csrc/paged_decode_attention.cu",
                    "src/repro/kernels/decode_attention/kernel.py:298"),
@@ -548,16 +682,9 @@ def main() -> int:
                    "src/repro/kernels/decode_attention/kernel.py:225")}
         rows = []
         for name, (path, tpu) in source.items():
-            b_ms, b_by = t[name]["bound"]
             rows.append({"name": name, "route": "cuda", "source": path,
                          "replaces": tpu, "launches": launches[name],
-                         "max_abs_err": errs[name], "ms": t[name]["ms"][0],
-                         "plain_ms": t[name]["plain_ms"][0],
-                         "bound_ms": b_ms, "bound_by": b_by,
-                         "library_ms": t[name]["library_ms"][0]})
-            log(f"time {name} (device ms, host-bound ms per call): kernel "
-                f"{t[name]['ms']}, plain {t[name]['plain_ms']}, library "
-                f"{t[name]['library_ms']}, bound {b_ms:.4f} ({b_by})")
+                         **t[name]})
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": rows}))
     except Exception as e:  # every phase is fatal: report and fail

@@ -1,4 +1,4 @@
-"""Default-device resolution and the dtype map.
+"""Default-device resolution.
 
 Every entry point of the port runs on ``cuda`` unless its caller passes
 ``device="cpu"``.  Where CUDA is missing and the caller did not ask for
@@ -9,9 +9,6 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:

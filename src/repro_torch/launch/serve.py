@@ -4,8 +4,8 @@ bucket -> HRRN) drives the PyTorch ``PagedContinuousEngine``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --strategy magnus-paged --rate 3 --duration 6 --device cpu
 
-Runs on the CUDA card unless ``--device cpu`` is given.  ``--full-width``
-serves the configuration at its published size instead of ``reduced()``.
+Runs on the CUDA card unless ``--device cpu`` is given.  Like the
+reference launcher, it serves ``reduced()`` configurations in f32.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.types import Request
-from repro_torch.device import DTYPES, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.workload.apps import make_dataset
 from repro_torch.workload.generator import poisson_workload
 
@@ -141,19 +141,14 @@ def main() -> None:
     ap.add_argument("--block-tokens", type=int, default=16,
                     help="paged engine block size; matches shorter than "
                          "one block are misses")
-    ap.add_argument("--full-width", action="store_true",
-                    help="serve the published configuration, not reduced()")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (raises without one)")
-    ap.add_argument("--dtype", default="float32",
-                    choices=sorted(DTYPES))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     out = run_paged_engine_backend(
         args.arch, args.rate, args.duration, args.strategy, args.seed,
         block_tokens=args.block_tokens, prefix_cache=args.prefix_cache,
-        reduced=not args.full_width, device=args.device,
-        dtype=DTYPES[args.dtype])
+        device=args.device)
     out.pop("engine")
     print(json.dumps(out, indent=2))
 
