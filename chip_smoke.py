@@ -11,27 +11,44 @@ CUDA toolkit.  Phases, each fatal on failure:
    library (per-kernel register and shared-memory use printed);
 3. kernels: each hand-written kernel against its plain PyTorch version
    on the card, on chatglm-6b's shapes and a GQA shape, in f32 (TF32 off,
-   tolerance 2e-4) and bf16 (5e-2), with and without cached prefixes,
-   plus the foreign-page poison cases;
-4. model: a reduced chatglm-6b in f32, the paged model on the card
-   (kernels) against the same model on the CPU (plain versions): an
-   admission wave with hits, misses and copy-on-write, then decode steps;
-5. serve: ``run_paged_engine_backend(..., reduced=False)``: chatglm-6b at
-   full width (28 layers, d_model 4096) in bf16, ``magnus-paged`` with
-   the prefix cache, on shared-instruction traffic.  Kernel launch counts
-   are zeroed just before and read just after; every request must
-   finish, the pool must drain, the prefix cache must hit and both
-   kernels must have launched.  The inputs of each decode step's and
-   each admission wave's layer-0 attention call are kept.  Then one
-   decode window of a fresh full wave is timed and profiled (device busy
-   time, idle share, the kernels that take the time);
-6. timings at the serve's own shapes: each kept decode step and wave is
-   replayed through the kernel (held against its plain version), the
-   plain version and a PyTorch library yardstick; each gets the median
-   card time of its calls from CUDA events, and the least time the card
-   could take for it (the bytes it must move at 3.35 TB/s, its
+   tolerance 2e-4) and bf16 (5e-2): paged decode and prefix prefill with
+   and without cached prefixes plus the foreign-page poison cases; dense
+   flash prefill in its causal, sliding-window and full masks; dense
+   decode with mixed lengths and NaN written past them;
+4. model: a reduced chatglm-6b in f32 on the card (kernels) against the
+   same model on the CPU (plain versions): the paged model (an admission
+   wave with hits, misses and copy-on-write, then decode steps) and the
+   dense model (padded prefill, then a fused decode window);
+5. paged serve: ``run_paged_engine_backend(..., reduced=False)``:
+   chatglm-6b at full width (28 layers, d_model 4096) in bf16,
+   ``magnus-paged`` with the prefix cache, on shared-instruction
+   traffic.  Kernel launch counts are zeroed just before and read just
+   after; every request must finish, the pool must drain, the prefix
+   cache must hit and both paged kernels must have launched.  The inputs
+   of each decode step's and each admission wave's layer-0 attention
+   call are kept.  Then one decode window of a fresh full wave is timed
+   and profiled (device busy time, idle share, the kernels that take the
+   time);
+6. paged timings at the serve's own shapes: each kept decode step and
+   wave is replayed through the kernel (held against its plain version),
+   the plain version and a PyTorch library yardstick; each gets the
+   median card time of its calls from CUDA events, and the least time
+   the card could take for it (the bytes it must move at 3.35 TB/s, its
    operations at 989 TFLOP/s).  A kernel's numbers are the means over
-   the serve's steps or waves, so they are per launch of the serve.
+   the serve's steps or waves, so they are per launch of the serve;
+7. padded serve: ``run_engine_backend(..., reduced=False)``: chatglm-6b
+   at full width in bf16, ``magnus``, through the paper's padded
+   ``BatchEngine`` on 64 Poisson requests.  Counts are zeroed just
+   before and read just after; every request must get its generation
+   length, every batch must run G(B) iterations with one readback per
+   power-of-two window, the flash kernel must launch once per layer and
+   batch, the dense decode kernel once per layer and decode step, and no
+   plain version may run.  The layer-0 attention inputs of every batch's
+   prefill and of a sample of decode steps are kept; one decode window
+   is profiled;
+8. padded timings: as phase 6, for the flash and dense decode kernels at
+   the kept inputs (yardsticks: SDPA with ``is_causal`` for prefill, SDPA
+   with a length mask on the cache cut to its longest row for decode).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -59,6 +76,13 @@ GEN_LENGTH = 64
 SPIN_CYCLES = 20_000_000       # ~10 ms spin queued ahead of each timed call
 DECODE_REPS = 5                # timed calls per served decode step
 PREFILL_REPS = 11              # timed calls per served admission wave
+
+# padded-serve traffic: the first 64 of a Poisson stream (8 req/s over
+# 60 s, prompts of 32-256 tokens, generation targets up to 64)
+DENSE_N_REQUESTS = 64
+DENSE_MAX_LEN, DENSE_MAX_GEN = 256, 64
+DECODE_SAMPLE = 21             # keep every 21st decode step of a batch
+KEEP_BYTES = 4 << 30           # cap on the kept layer-0 inputs
 
 
 class SmokeFailure(RuntimeError):
@@ -213,6 +237,61 @@ def poison_checks(torch, ops, gen):
     check(err <= 1e-5, f"prefill poison changed the output by {err}")
 
 
+def dense_kernel_checks(torch, fops, fref, dops, dref):
+    """The flash prefill and dense decode kernels against their plain
+    versions on random unit-size inputs at chatglm-6b's heads (32/32, D
+    128) and a GQA shape (40/8, D 128), f32 and bf16; decode then again
+    with NaN written past every row's length, which must change
+    nothing."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+    modes = {"causal": dict(causal=True, window=None),
+             "window": dict(causal=True, window=64),
+             "full": dict(causal=False, window=None)}
+    flash_shapes = [("chatglm-6b", 4, 256, 32, 32, 128),   # b, s, hq, hkv, d
+                    ("gqa 40/8", 4, 200, 40, 8, 128)]
+    decode_shapes = [("chatglm-6b", 16, 512, 32, 32, 128,  # b, s, hq, hkv, d
+                      cycle([1, 17, 31, 32, 33, 200, 511, 512], 16)),
+                     ("gqa 40/8", 8, 512, 40, 8, 128,
+                      [512, 13, 256, 1, 77, 300, 500, 64])]
+    rnd = lambda *shape, dt: torch.randn(*shape, generator=gen,
+                                         device="cuda").to(dt)
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        for name, b, s, hq, hkv, d in flash_shapes:
+            q, k, v = (rnd(b, s, h, d, dt=dtype) for h in (hq, hkv, hkv))
+            for mode, kw in modes.items():
+                out = fops.flash_attention(q, k, v, **kw)
+                want = fref.flash_attention_ref(q, k, v, **kw)
+                torch.cuda.synchronize()
+                err = (out.float() - want.float()).abs().max().item()
+                check(torch.isfinite(out).all().item(),
+                      f"flash {name} {mode}: NaN")
+                log(f"kernel flash_attention {name} S={s} {mode} {dtype}: "
+                    f"max_abs_err {err:.3e} (tol {tol[dtype]})")
+                check(err <= tol[dtype], f"flash {name} {mode} {dtype}: "
+                      f"err {err}")
+        for name, b, s, hq, hkv, d, lengths in decode_shapes:
+            q = rnd(b, hq, d, dt=dtype)
+            kc, vc = rnd(b, s, hkv, d, dt=dtype), rnd(b, s, hkv, d, dt=dtype)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            out = dops.decode_attention(q, kc, vc, lens)
+            want = dref.decode_attention_ref(q, kc, vc, lens)
+            for i, n in enumerate(lengths):
+                kc[i, n:], vc[i, n:] = float("nan"), float("nan")
+            poisoned = dops.decode_attention(q, kc, vc, lens)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            change = (poisoned.float() - out.float()).abs().max().item()
+            log(f"kernel decode_attention {name} S={s} {dtype}: max_abs_err "
+                f"{err:.3e} (tol {tol[dtype]}); NaN past the lengths "
+                f"changes it by {change:.3e}")
+            check(err <= tol[dtype], f"decode {name} {dtype}: err {err}")
+            check(change == 0.0, f"decode {name}: NaN past the lengths "
+                  f"changed the output by {change}")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the paged model on the card against the plain path on the CPU
 # ---------------------------------------------------------------------------
@@ -278,6 +357,46 @@ def model_check(torch, np):
         f"{max(errs):.3e} (tol 2e-4) over wave logits, {steps} decode "
         f"steps and pages")
     check(max(errs) <= 2e-4, f"model card vs cpu: {errs}")
+
+
+def dense_model_check(torch, np):
+    """The dense model of the padded path, reduced chatglm-6b in f32:
+    prefill of right-padded prompts, then a fused decode window, on the
+    card against the CPU (logits, emitted tokens and caches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.params import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("chatglm-6b").reduced()
+    params_cpu = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    rng = np.random.default_rng(2)
+    b, s, steps = 3, 32, 6
+    tokens = rng.integers(3, cfg.vocab_size, size=(b, s))
+    lengths = np.array([32, 17, 5])
+    results = {}
+    for dev in ("cpu", "cuda"):
+        params = params_cpu if dev == "cpu" else _to(torch, params_cpu, dev)
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                      device=dev)
+        logits, cache = M.prefill(params, cfg, {"tokens": t(tokens),
+                                                "lengths": t(lengths)},
+                                  act_dtype=torch.float32, cache_len=64)
+        out = [logits.clone()]
+        logits, cache, _, toks = M.decode_multi(
+            params, cfg, cache, {"logits": logits, "positions": t(lengths)},
+            num_steps=steps, act_dtype=torch.float32)
+        results[dev] = (out + [logits, *cache["kv"]], toks.cpu())
+    errs = [((a.cpu() - c).abs().max() / (1 + c.abs().max())).item()
+            for a, c in zip(results["cuda"][0], results["cpu"][0])]
+    log(f"model chatglm-6b reduced f32 dense card vs cpu: max rel err "
+        f"{max(errs):.3e} (tol 2e-4) over prefill logits, the logits after "
+        f"{steps} fused decode steps and the caches; tokens equal: "
+        f"{torch.equal(results['cuda'][1], results['cpu'][1])}")
+    check(torch.equal(results["cuda"][1], results["cpu"][1]),
+          "dense decode tokens differ between card and cpu")
+    check(max(errs) <= 2e-4, f"dense model card vs cpu: {errs}")
 
 
 def _to(torch, tree, dev):
@@ -538,6 +657,176 @@ def time_prefill(torch, ops, ref, calls, K, V, spin):
     return per, errs
 
 
+# ---------------------------------------------------------------------------
+# phases 7-8: the padded serve and its kernels
+# ---------------------------------------------------------------------------
+
+class DenseServeCalls:
+    """Inside the ``with`` block, keeps the inputs of the dense model's
+    layer-0 attention calls: every prefill (one per batch) and every
+    ``DECODE_SAMPLE``-th decode step of each batch, with the step's
+    layer-0 cache cloned, up to ``KEEP_BYTES`` in all.  The model's two
+    attention entry points are wrapped for the block's duration; every
+    call passes straight through to its ``ops`` wrapper, which counts its
+    launch as always.  ``decode_steps`` counts the layer-0 decode calls,
+    one per decode step."""
+
+    def __init__(self, transformer, num_layers):
+        self.T, self.L = transformer, num_layers
+        self.prefill = []    # (q, k, v)
+        self.decode = []     # (q, k_cache, v_cache, lengths)
+        self.decode_steps = 0
+        self.kept_bytes = 0
+        self._prefill_calls = 0
+        self._step_in_batch = 0
+
+    def _keep(self, nbytes):
+        if self.kept_bytes + nbytes > KEEP_BYTES:
+            return False
+        self.kept_bytes += nbytes
+        return True
+
+    def __enter__(self):
+        T = self.T
+        self.orig = pre, dec = (T.gqa_prefill_attention,
+                                T.gqa_decode_attention)
+
+        def prefill(q, k, v, *, causal=True, window=None):
+            if self._prefill_calls % self.L == 0:     # a batch's layer 0
+                check(causal and window is None,
+                      "the served model is causal without a window")
+                if self._keep(q.nbytes + k.nbytes + v.nbytes):
+                    self.prefill.append((q, k, v))
+                self._step_in_batch = 0
+            self._prefill_calls += 1
+            return pre(q, k, v, causal=causal, window=window)
+
+        def decode(q, kc, vc, lengths):
+            # layer i's cache is cache[i], a view at offset i
+            if kc.data_ptr() == kc.untyped_storage().data_ptr():
+                if (self._step_in_batch % DECODE_SAMPLE == 0
+                        and self._keep(kc.nbytes + vc.nbytes)):
+                    self.decode.append((q[:, 0].clone(), kc.clone(),
+                                        vc.clone(), lengths.clone()))
+                self._step_in_batch += 1
+                self.decode_steps += 1
+            return dec(q, kc, vc, lengths)
+
+        T.gqa_prefill_attention = prefill
+        T.gqa_decode_attention = decode
+        return self
+
+    def __exit__(self, *exc):
+        self.T.gqa_prefill_attention, self.T.gqa_decode_attention = self.orig
+
+
+def profile_dense_window(torch, engine, reqs, bl, cache_len, steps=8):
+    """Where a padded decode step's time goes on the card: prefill one
+    batch of the serve's shape (its rows and lengths, random prompt ids),
+    then time one fused decode window of ``steps`` steps unprofiled
+    (wall time) and one under the profiler (device busy time and the
+    kernels that take it)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    cfg = engine.cfg
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lengths = torch.tensor([min(r.length, bl) for r in reqs],
+                           dtype=torch.int32, device="cuda")
+    tokens = torch.randint(3, cfg.vocab_size, (len(reqs), bl), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    logits, cache = M.prefill(engine.params, cfg, {"tokens": tokens,
+                                                   "lengths": lengths},
+                              act_dtype=engine.dtype, cache_len=cache_len)
+    batch = lambda lg, pos: {"logits": lg, "positions": pos}
+    logits, cache, pos, _ = M.decode_multi(
+        engine.params, cfg, cache, batch(logits, lengths), num_steps=2,
+        act_dtype=engine.dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, pos, _ = M.decode_multi(
+        engine.params, cfg, cache, batch(logits, pos), num_steps=steps,
+        act_dtype=engine.dtype)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        M.decode_multi(engine.params, cfg, cache, batch(logits, pos),
+                       num_steps=steps, act_dtype=engine.dtype)
+        torch.cuda.synchronize()
+    busy = _device_us(prof) / 1e3 / steps
+    check(busy > 0, "the profiler recorded no device time")
+    dev = lambda e: (getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0))
+    top = sorted(prof.key_averages(), key=dev, reverse=True)[:6]
+    log(f"padded decode window at {len(reqs)} rows, cache {cache_len}: "
+        f"{wall:.2f} ms per step on the host clock, device busy "
+        f"{busy:.2f} ms per step (idle share {max(0.0, 1 - busy / wall):.2f});"
+        f" top device time per step: " + "; ".join(
+            f"{e.key[:60]} {dev(e) / 1e3 / steps:.3f} ms" for e in top))
+
+
+def time_flash(torch, fops, fref, calls, spin):
+    """Kernel 3 on each batch's layer-0 prefill of the padded serve.  The
+    library yardstick is SDPA with ``is_causal`` on the same q, k, v in
+    SDPA's [B, H, S, D] layout."""
+    import torch.nn.functional as F
+    per = {k: [] for k in ("ms", "plain_ms", "library_ms", "bound")}
+    errs = []
+    for q, k, v in calls:
+        b, s, hq, d = q.shape
+        hkv = k.shape[2]
+        check(hq == hkv, "the yardstick assumes the served model's MHA")
+        kern = lambda r: fops.flash_attention(q, k, v, causal=True)
+        plain = lambda r: fref.flash_attention_ref(q, k, v, causal=True)
+        errs.append(hold(torch, "flash_attention", kern(0), plain(0)))
+        per["ms"].append(median_ms(torch, kern, PREFILL_REPS, spin))
+        per["plain_ms"].append(median_ms(torch, plain, PREFILL_REPS, spin))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = lambda r: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True)
+        lib(0)
+        per["library_ms"].append(median_ms(torch, lib, PREFILL_REPS, spin))
+        del qt, kt, vt
+        e = q.element_size()
+        pairs = b * s * (s + 1) // 2       # every (q, k) pair with k <= q
+        nbytes = 2 * q.numel() * e + 2 * k.numel() * e
+        per["bound"].append(bound(nbytes, 4 * d * hq * pairs))
+    return per, errs
+
+
+def time_dense_decode(torch, dops, dref, calls, spin):
+    """Kernel 4 on each kept decode step of the padded serve (its layer-0
+    query, the cache as the step met it, and the lengths).  The library
+    yardstick is SDPA with a length mask on the cache cut to its longest
+    row."""
+    import torch.nn.functional as F
+    per = {k: [] for k in ("ms", "plain_ms", "library_ms", "bound")}
+    errs = []
+    for q, kc, vc, lens in calls:
+        b, hq, d = q.shape
+        _, s, hkv, _ = kc.shape
+        check(hq == hkv, "the yardstick assumes the served model's MHA")
+        kern = lambda r: dops.decode_attention(q, kc, vc, lens)
+        plain = lambda r: dref.decode_attention_ref(q, kc, vc, lens)
+        errs.append(hold(torch, "decode_attention", kern(0), plain(0)))
+        per["ms"].append(median_ms(torch, kern, DECODE_REPS, spin))
+        per["plain_ms"].append(median_ms(torch, plain, DECODE_REPS, spin))
+        w = int(lens.max())
+        kt, vt = (x[:, :w].transpose(1, 2).contiguous() for x in (kc, vc))
+        mask = (torch.arange(w, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        lib = lambda r: F.scaled_dot_product_attention(q4, kt, vt,
+                                                       attn_mask=mask)
+        lib(0)
+        per["library_ms"].append(median_ms(torch, lib, DECODE_REPS, spin))
+        del kt, vt
+        e = q.element_size()
+        n_keys = int(lens.clamp(max=s).sum())
+        nbytes = 2 * q.numel() * e + 2 * n_keys * hkv * d * e + b * 4
+        per["bound"].append(bound(nbytes, 4 * d * hq * n_keys))
+    return per, errs
+
+
 def summarize(name, per, errs):
     """Mean over the serve's decode steps (or waves) of each median:
     every step or wave launches the kernel once per layer, so this is
@@ -602,26 +891,39 @@ def main() -> int:
 
         # 3. kernels against their plain versions
         from repro_torch.kernels.decode_attention import ops, ref
+        from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.flash_attention import ref as fref
         kernel_checks(torch, ops, ref)
+        dense_kernel_checks(torch, fops, fref, ops, ref)
+        all_kernels = ops.KERNELS + fops.KERNELS
 
-        # 4. the paged model on the card against the CPU
+        def reset_counts():
+            ops.reset_counts()
+            fops.reset_counts()
+
+        def counts(attr):
+            return {fn.__name__: getattr(fn, attr) for fn in all_kernels}
+
+        # 4. the paged and dense models on the card against the CPU
         model_check(torch, np)
+        dense_model_check(torch, np)
 
-        # 5. serve chatglm-6b at full width
-        from repro_torch.launch.serve import run_paged_engine_backend
+        # 5. serve chatglm-6b at full width through the paged engine
+        from repro_torch.launch.serve import (run_engine_backend,
+                                              run_paged_engine_backend)
         from repro_torch.models import transformer
         from repro_torch.workload.apps import make_shared_head_dataset
         reqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
                                         gen_length=GEN_LENGTH, seed=0)
         t0 = time.perf_counter()
         with ServeCalls(transformer) as served:
-            ops.reset_counts()
+            reset_counts()
             res = run_paged_engine_backend(
                 "chatglm-6b", 0.0, 0.0, "magnus-paged", seed=0,
                 reduced=False, device="cuda", dtype=torch.bfloat16,
                 prefix_cache=True, requests=reqs, **SERVE)
-            launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
-        plain_calls = {fn.__name__: fn.plain_calls for fn in ops.KERNELS}
+            launches = counts("launches")
+        plain_calls = counts("plain_calls")
         engine = res.pop("engine")
         log(f"serve chatglm-6b full width bf16: "
             f"{time.perf_counter() - t0:.1f} s with set-up; "
@@ -634,8 +936,10 @@ def main() -> int:
               f"{res['requests']} of {N_REQUESTS} requests finished")
         engine.assert_drained()
         check(res["prefix_hits"] > 0, "the prefix cache never hit")
-        check(all(n > 0 for n in launches.values()),
-              f"a kernel never launched: {launches}")
+        check(all(launches[fn.__name__] > 0 for fn in
+                  (ops.paged_decode_attention,
+                   ops.paged_prefix_prefill_attention)),
+              f"a paged kernel never launched: {launches}")
         check(not any(plain_calls.values()),
               f"plain versions ran on the main path: {plain_calls}")
         for r in reqs:
@@ -663,7 +967,7 @@ def main() -> int:
         del engine, res
         torch.cuda.empty_cache()
 
-        # 6. timings at the serve's shapes
+        # 6. paged timings at the serve's shapes
         spin = spin_ms(torch)
         log(f"spin kernel: {spin:.2f} ms")
         t = {"paged_decode_attention": summarize(
@@ -674,16 +978,104 @@ def main() -> int:
                  "paged_prefix_prefill_attention", *time_prefill(
                      torch, ops, ref, served.prefill, pages["k"],
                      pages["v"], spin))}
+        paged_launches = launches
+        del pages, served
+        torch.cuda.empty_cache()
+
+        # 7. serve chatglm-6b at full width through the padded BatchEngine
+        from repro_torch.workload.generator import poisson_workload
+        dreqs = poisson_workload(8, 60, seed=0, max_len=DENSE_MAX_LEN,
+                                 max_gen=DENSE_MAX_GEN)[:DENSE_N_REQUESTS]
+        targets = {r.req_id: min(r.gen_length, DENSE_MAX_GEN) for r in dreqs}
+        hbm = torch.cuda.get_device_properties(0).total_memory
+        t0 = time.perf_counter()
+        with DenseServeCalls(transformer, 28) as dserved:
+            reset_counts()
+            dres = run_engine_backend(
+                "chatglm-6b", 0.0, 0.0, "magnus", seed=0, reduced=False,
+                device="cuda", dtype=torch.bfloat16, hbm_bytes=hbm,
+                max_len=DENSE_MAX_LEN, max_gen=DENSE_MAX_GEN,
+                requests=dreqs)
+            dlaunches = counts("launches")
+        dplain = counts("plain_calls")
+        dengine, results = dres.pop("engine"), dres.pop("results")
+        log(f"padded serve chatglm-6b full width bf16 magnus: "
+            f"{time.perf_counter() - t0:.1f} s with set-up; "
+            + json.dumps(dres))
+        log(f"padded serve batches (size, batch length, G(B), host "
+            f"syncs): " + "; ".join(
+                f"({r.batch_size}, {r.batch_length}, {r.iterations}, "
+                f"{bin(r.iterations).count('1')})" for r in results))
+        log(f"padded serve kernel launches {dlaunches}, plain calls "
+            f"{dplain}")
+        dcfg = dengine.cfg
+        check(dcfg.num_layers == 28 and dcfg.d_model == 4096,
+              "padded serve did not run chatglm-6b at full width")
+        check(dres["requests"] == DENSE_N_REQUESTS,
+              f"{dres['requests']} of {DENSE_N_REQUESTS} requests served")
+        served_ids = [rid for r in results for rid in r.generated]
+        check(sorted(served_ids) == sorted(targets),
+              "the batches did not serve each request once")
+        for r in results:
+            check(r.iterations == max(targets[i] for i in r.generated),
+                  f"a batch ran {r.iterations} iterations, not its G(B)")
+            for rid, toks in r.generated.items():
+                check(len(toks) == targets[rid],
+                      f"request {rid}: {len(toks)} of {targets[rid]} tokens")
+                check(all(0 <= x < dcfg.vocab_size for x in toks),
+                      f"request {rid}: token out of range")
+        steps = sum(r.iterations for r in results)
+        check(dres["host_syncs"] == sum(bin(r.iterations).count("1")
+                                        for r in results),
+              f"host syncs {dres['host_syncs']}: not one per window")
+        check(dlaunches["flash_attention"] == 28 * len(results),
+              f"flash launches {dlaunches['flash_attention']} != 28 x "
+              f"{len(results)} batches")
+        check(dlaunches["decode_attention"] == 28 * steps,
+              f"decode launches {dlaunches['decode_attention']} != 28 x "
+              f"{steps} decode steps")
+        check(dserved.decode_steps == steps,
+              f"recorded {dserved.decode_steps} decode steps, not {steps}")
+        check(not any(dplain.values()),
+              f"plain versions ran on the padded path: {dplain}")
+        log(f"padded serve kept {len(dserved.prefill)} prefills and "
+            f"{len(dserved.decode)} decode steps "
+            f"({dserved.kept_bytes / 2 ** 30:.2f} GiB)")
+        big = max(results, key=lambda r: r.batch_size)
+        profile_dense_window(
+            torch, dengine, [r for r in dreqs if r.req_id in big.generated],
+            big.batch_length,
+            1 << (big.batch_length + big.iterations - 1).bit_length())
+        del dengine, dres, results
+        torch.cuda.empty_cache()
+
+        # 8. padded timings at the serve's shapes
+        t["flash_attention"] = summarize(
+            "flash_attention", *time_flash(torch, fops, fref,
+                                           dserved.prefill, spin))
+        t["decode_attention"] = summarize(
+            "decode_attention", *time_dense_decode(torch, ops, ref,
+                                                   dserved.decode, spin))
         source = {"paged_decode_attention":
                   ("src/repro_torch/csrc/paged_decode_attention.cu",
-                   "src/repro/kernels/decode_attention/kernel.py:298"),
+                   "src/repro/kernels/decode_attention/kernel.py:298",
+                   paged_launches),
                   "paged_prefix_prefill_attention":
                   ("src/repro_torch/csrc/paged_prefix_prefill_attention.cu",
-                   "src/repro/kernels/decode_attention/kernel.py:225")}
+                   "src/repro/kernels/decode_attention/kernel.py:225",
+                   paged_launches),
+                  "flash_attention":
+                  ("src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:76",
+                   dlaunches),
+                  "decode_attention":
+                  ("src/repro_torch/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention/kernel.py:402",
+                   dlaunches)}
         rows = []
-        for name, (path, tpu) in source.items():
+        for name, (path, tpu, count) in source.items():
             rows.append({"name": name, "route": "cuda", "source": path,
-                         "replaces": tpu, "launches": launches[name],
+                         "replaces": tpu, "launches": count[name],
                          **t[name]})
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": rows}))

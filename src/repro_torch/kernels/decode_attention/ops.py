@@ -1,5 +1,6 @@
-"""Device-keyed paged attention: the hand-written CUDA kernel for CUDA
-tensors, the plain PyTorch version for CPU tensors, and nothing else.
+"""Device-keyed decode and paged attention: the hand-written CUDA kernel
+for CUDA tensors, the plain PyTorch version for CPU tensors, and nothing
+else.
 
 There is no fallback: a CUDA tensor launches the kernel or raises, and a
 tensor on any other device raises.  Each wrapper counts its kernel
@@ -11,13 +12,26 @@ from __future__ import annotations
 import torch
 
 from repro_torch.analysis.sanitizer import hot_path
+from repro_torch.kernels import device_route
 from repro_torch.kernels.decode_attention import kernel, ref
 
 
-def _route(t: torch.Tensor) -> str:
-    if t.device.type in ("cuda", "cpu"):
-        return t.device.type
-    raise ValueError(f"paged attention runs on cuda or cpu, not {t.device}")
+@hot_path
+def decode_attention(q, k_cache, v_cache, lengths):
+    """q: [B, Hq, D]; caches: [B, S, Hkv, D]; lengths: [B] valid slots per
+    row (slots at or past it are never read) -> [B, Hq, D]."""
+    if device_route(q) == "cpu":
+        decode_attention.plain_calls += 1
+        return ref.decode_attention_ref(q, k_cache, v_cache, lengths)
+    out = kernel.decode_attention_kernel(
+        q.contiguous(), k_cache, v_cache,
+        lengths.to(torch.int32).contiguous())
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+decode_attention.plain_calls = 0
 
 
 @hot_path
@@ -25,7 +39,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
     """q: [B, Hq, D]; pages: [num_blocks, bt, Hkv, D]; block_tables:
     [B, max_blocks] (pad entries must be valid ids; they are never read
     past ``lengths``); lengths: [B] -> [B, Hq, D]."""
-    if _route(q) == "cpu":
+    if device_route(q) == "cpu":
         paged_decode_attention.plain_calls += 1
         return ref.paged_decode_attention_ref(q, k_pages, v_pages,
                                               block_tables, lengths)
@@ -48,7 +62,7 @@ def paged_prefix_prefill_attention(q, k_suf, v_suf, k_pages, v_pages,
     ``prefix_lens`` may be 0 (a radix miss), and a wave with no cached
     prefix passes a width-1 null ``block_tables``.  q, k_suf, v_suf:
     [B, S, H*, D] -> [B, S, Hq, D]."""
-    if _route(q) == "cpu":
+    if device_route(q) == "cpu":
         paged_prefix_prefill_attention.plain_calls += 1
         return ref.paged_prefix_prefill_attention_ref(
             q, k_suf, v_suf, k_pages, v_pages, block_tables, prefix_lens,
@@ -65,7 +79,8 @@ def paged_prefix_prefill_attention(q, k_suf, v_suf, k_pages, v_pages,
 paged_prefix_prefill_attention.launches = 0
 paged_prefix_prefill_attention.plain_calls = 0
 
-KERNELS = (paged_decode_attention, paged_prefix_prefill_attention)
+KERNELS = (decode_attention, paged_decode_attention,
+           paged_prefix_prefill_attention)
 
 
 def reset_counts() -> None:

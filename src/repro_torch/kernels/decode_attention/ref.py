@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the paged attention kernels: a port of the
-reference package's gather-based oracles
+"""Plain PyTorch versions of the dense and paged decode attention kernels:
+a port of the reference package's oracles
 (``src/repro/kernels/decode_attention/ref.py``).  They are the CPU path
 of ``ops.py`` and the yardstick every kernel is held against."""
 from __future__ import annotations
@@ -12,7 +12,11 @@ NEG_INF = -1e30
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor,
                          lengths: torch.Tensor) -> torch.Tensor:
-    """q: [B, Hq, D]; caches: [B, S, Hkv, D]; lengths: [B] -> [B, Hq, D]."""
+    """q: [B, Hq, D]; caches: [B, S, Hkv, D]; lengths: [B] -> [B, Hq, D].
+
+    Slots at or past ``lengths[b]`` are masked out of the scores and
+    their values zeroed, so garbage there (NaN included) never reaches
+    the output, as in the kernel."""
     b, hq, d = q.shape
     _, s, hkv, _ = k_cache.shape
     g = hq // hkv
@@ -22,7 +26,9 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     sc = torch.where(valid[:, None, None, :], sc,
                      torch.full_like(sc, NEG_INF))
     p = torch.softmax(sc, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    vf = torch.where(valid[:, :, None, None], v_cache.float(),
+                     torch.zeros((), device=q.device))
+    o = torch.einsum("bhgk,bkhd->bhgd", p, vf)
     return o.reshape(b, hq, d).to(q.dtype)
 
 

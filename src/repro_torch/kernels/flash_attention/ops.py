@@ -1,0 +1,43 @@
+"""Device-keyed prefill attention: the hand-written CUDA kernel for CUDA
+tensors, the plain PyTorch version for CPU tensors, and nothing else.
+
+There is no fallback: a CUDA tensor launches the kernel or raises, and a
+tensor on any other device raises.  The wrapper counts its kernel
+launches in ``.launches`` (and its plain-version calls in
+``.plain_calls``), plain ints a run can reset and read to show that its
+main path went through the kernel."""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.analysis.sanitizer import hot_path
+from repro_torch.kernels import device_route
+from repro_torch.kernels.flash_attention import kernel, ref
+
+
+@hot_path
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None):
+    """q: [B, S, Hq, D]; k, v: [B, S, Hkv, D] -> [B, S, Hq, D], for
+    Sq == Sk (prefill)."""
+    if device_route(q) == "cpu":
+        flash_attention.plain_calls += 1
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    out = kernel.flash_attention_kernel(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=causal,
+                                        window=window)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+flash_attention.plain_calls = 0
+
+KERNELS = (flash_attention,)
+
+
+def reset_counts() -> None:
+    """Zero the wrapper's launch and plain-version counts."""
+    for fn in KERNELS:
+        fn.launches = 0
+        fn.plain_calls = 0

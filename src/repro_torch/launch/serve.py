@@ -1,11 +1,16 @@
-"""Serving launcher for the paged engine: the Magnus service (predict ->
-bucket -> HRRN) drives the PyTorch ``PagedContinuousEngine``.
+"""Serving launcher: the Magnus service (predict -> bucket -> HRRN)
+drives the PyTorch engines.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
-        --strategy magnus-paged --rate 3 --duration 6 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        --strategy magnus --rate 3 --duration 6 --device cpu
 
-Runs on the CUDA card unless ``--device cpu`` is given.  Like the
-reference launcher, it serves ``reduced()`` configurations in f32.
+The padded strategies (``vs vsq ccb glp abp magnus``) serve through the
+paper's padded-batch ``BatchEngine`` (:func:`run_engine_backend`); the
+``-paged`` ones through the ``PagedContinuousEngine``
+(:func:`run_paged_engine_backend`).  Runs on the CUDA card unless
+``--device cpu`` is given.  Like the reference launcher, it serves
+``reduced()`` configurations in f32.  The reference's roofline
+simulator backend (``--backend sim``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +27,80 @@ from repro_torch.device import resolve_device
 from repro_torch.workload.apps import make_dataset
 from repro_torch.workload.generator import poisson_workload
 
+PADDED_STRATEGIES = ("vs", "vsq", "ccb", "glp", "abp", "magnus")
 PAGED_STRATEGIES = ("ccb-paged", "magnus-paged")
+
+
+# the reference launcher's Poisson prompts are capped at 200 tokens,
+# inside its memory model's 256
+WORKLOAD_MAX_LEN = 200
+
+
+def run_engine_backend(arch: str, rate: float, duration: float,
+                       strategy: str, seed: int = 0, *,
+                       reduced: bool = True, device=None,
+                       dtype: torch.dtype = torch.float32,
+                       hbm_bytes: int = 2 * 2 ** 30, max_len: int = 256,
+                       max_gen: int = 32,
+                       requests: Optional[List[Request]] = None,
+                       params=None) -> dict:
+    """Padded-batch serving for real (paper §II-D): MagnusService forms
+    the batches (prediction, WMA-directed batching, HRRN) and
+    ``BatchEngine.serve_batch`` pads, prefills and decodes each one until
+    its longest request finishes.
+
+    ``hbm_bytes``, ``max_len`` and ``max_gen`` size the memory model
+    that caps the batches; ``max_gen`` also caps the engine's generation.
+    ``reduced`` serves ``cfg.reduced()`` (the reference launcher always
+    does).  The traffic is a Poisson workload at ``rate`` for
+    ``duration`` seconds (prompts up to ``min(max_len, 200)`` tokens)
+    unless ``requests`` is given; every request is queued before the
+    first batch forms.  The weights are random from ``seed`` unless
+    ``params`` is given.  The result holds the engine under ``"engine"``
+    and each batch's :class:`ServeResult` under ``"results"``."""
+    from repro_torch.core.magnus import MagnusConfig, MagnusService
+    from repro_torch.core.predictor import GenerationLengthPredictor
+    from repro_torch.core.wma import MemoryModel
+    from repro_torch.serving.engine import BatchEngine
+
+    if strategy not in PADDED_STRATEGIES:
+        raise ValueError(f"strategy {strategy!r}: the padded path serves "
+                         f"{PADDED_STRATEGIES}")
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    memory = MemoryModel(cfg, hbm_bytes=hbm_bytes, max_len=max_len,
+                         max_gen=max_gen)
+    predictor = GenerationLengthPredictor(seed=seed).fit(
+        make_dataset(60, seed=seed + 1))
+    svc = MagnusService(memory, MagnusConfig(strategy=strategy),
+                        predictor=predictor)
+    engine = BatchEngine(cfg, params, seed=seed, max_gen=max_gen,
+                         dtype=dtype, device=dev)
+    wl = requests if requests is not None else poisson_workload(
+        rate, duration, seed=seed, max_len=min(max_len, WORKLOAD_MAX_LEN),
+        max_gen=max_gen)
+    for r in wl:
+        svc.on_request(r, r.arrival_time)
+    now, served, results = 0.0, 0, []
+    while len(svc.batcher.queue) > 0:
+        b = svc.next_batch(now)
+        if b is None:
+            break
+        res = engine.serve_batch(b)
+        results.append(res)
+        served += b.size
+        now += res.wall_time
+    total_tokens = sum(r.total_tokens for r in results)
+    valid = sum(r.valid_tokens for r in results)
+    return {"requests": served, "batches": len(results),
+            "wall_s": round(now, 2),
+            "token_tp": round(total_tokens / max(now, 1e-9), 1),
+            "valid_token_tp": round(valid / max(now, 1e-9), 1),
+            "wma_total": sum(r.wma for r in results),
+            "host_syncs": engine.host_syncs,
+            "device": str(dev), "engine": engine, "results": results}
 
 
 def run_paged_engine_backend(arch: str, rate: float, duration: float,
@@ -128,27 +206,36 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
             "device": str(dev), "engine": engine}
 
 
-def main() -> None:
+def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="chatglm-6b")
-    ap.add_argument("--strategy", default="magnus-paged",
-                    choices=list(PAGED_STRATEGIES))
+    ap.add_argument("--strategy", default="magnus",
+                    choices=list(PADDED_STRATEGIES + PAGED_STRATEGIES))
     ap.add_argument("--rate", type=float, default=8.0)
     ap.add_argument("--duration", type=float, default=60.0)
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="radix-tree prompt-prefix sharing across apps "
-                         "with copy-on-write partial tails")
+                    help="paged strategies: radix-tree prompt-prefix "
+                         "sharing across apps with copy-on-write partial "
+                         "tails")
     ap.add_argument("--block-tokens", type=int, default=16,
                     help="paged engine block size; matches shorter than "
                          "one block are misses")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (raises without one)")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-    out = run_paged_engine_backend(
-        args.arch, args.rate, args.duration, args.strategy, args.seed,
-        block_tokens=args.block_tokens, prefix_cache=args.prefix_cache,
-        device=args.device)
+    args = ap.parse_args(argv)
+    if args.prefix_cache and args.strategy not in PAGED_STRATEGIES:
+        ap.error("--prefix-cache needs a -paged strategy")
+    if args.strategy in PAGED_STRATEGIES:
+        out = run_paged_engine_backend(
+            args.arch, args.rate, args.duration, args.strategy, args.seed,
+            block_tokens=args.block_tokens, prefix_cache=args.prefix_cache,
+            device=args.device)
+    else:
+        out = run_engine_backend(args.arch, args.rate, args.duration,
+                                 args.strategy, args.seed,
+                                 device=args.device)
+        out.pop("results")
     out.pop("engine")
     print(json.dumps(out, indent=2))
 

@@ -1,6 +1,10 @@
-"""Model facade for the paged serving path (the reference package's
-``models/model.py``).  Batches are dicts of tensors:
+"""Model facade for the dense and paged serving paths (the reference
+package's ``models/model.py``).  Batches are dicts of tensors:
 
+  prefill            : {"tokens": [B, S], "lengths": [B]}
+  decode_step        : {"tokens": [B], "positions": [B]} against a dense
+                       cache {"kv": (k, v)}, each [L, B, S, Hkv, D]
+  decode_multi       : {"logits": [B, padded_vocab], "positions": [B]}
   prefill_wave       : {"tokens": [B, S], "lengths": [B], "prefix_lens",
                         "attn_tables", "tables", "write_lens", "cow_src",
                         "cow_dst", "slots", "row_sel", "positions"}
@@ -9,8 +13,10 @@
                         "block_tables": [B, M], "active": [B] bool}
 
 The functions run where their tensors live; the constructors
-(:func:`init_params`, :func:`init_paged_cache`) take a ``device`` that
-defaults to the CUDA card and raise without one.
+(:func:`init_params`, :func:`init_cache`, :func:`init_paged_cache`)
+take a ``device`` that defaults to the CUDA card and raise without one.
+Only the dense family has a dense cache in the port; the others raise
+``NotImplementedError`` (``transformer.supports_dense`` says why).
 """
 from __future__ import annotations
 
@@ -23,6 +29,59 @@ from repro_torch.analysis.sanitizer import hot_path
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: Optional[torch.device] = None):
+    """A zero dense decode cache {"kv": (k, v)}, each [L, batch, seq,
+    Hkv, D]."""
+    return transformer.init_cache(cfg, batch, seq, dtype=dtype,
+                                  device=resolve_device(device))
+
+
+@hot_path
+def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
+            act_dtype: torch.dtype = torch.bfloat16,
+            cache_len: Optional[int] = None):
+    """Prefill right-padded prompts.  Returns (next-token logits [B, V],
+    dense cache of capacity ``cache_len``)."""
+    return transformer.prefill(params, cfg, batch["tokens"],
+                               batch["lengths"], act_dtype=act_dtype,
+                               cache_len=cache_len)
+
+
+@hot_path
+def decode_step(params, cfg: ModelConfig, cache, batch: Dict[str, Any], *,
+                act_dtype: torch.dtype = torch.bfloat16):
+    """One token per row against the dense cache (updated in place).
+    Returns (logits [B, V], cache)."""
+    return transformer.decode_step(params, cfg, cache, batch["tokens"],
+                                   batch["positions"], act_dtype=act_dtype)
+
+
+@hot_path
+def decode_multi(params, cfg: ModelConfig, cache, batch: Dict[str, Any], *,
+                 num_steps: int, act_dtype: torch.dtype = torch.bfloat16):
+    """Fused ``num_steps``-step greedy decode against a dense cache.
+
+    batch: {"logits": [B, padded_vocab] seed logits (from prefill or the
+    previous window), "positions": [B]}.  Each step argmaxes the carried
+    logits on the device and feeds the token straight into the next
+    :func:`decode_step`; nothing is read back inside the loop.  Returns
+    ``(logits, cache, positions, tokens [B, num_steps])``, equal to
+    ``num_steps`` sequential decode_step calls with the argmax between
+    them."""
+    logits, positions = batch["logits"], batch["positions"]
+    toks = []
+    for _ in range(num_steps):
+        tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1).to(torch.int32)
+        logits, cache = decode_step(params, cfg, cache,
+                                    {"tokens": tok, "positions": positions},
+                                    act_dtype=act_dtype)
+        positions = positions + 1
+        toks.append(tok)
+    return logits, cache, positions, torch.stack(toks, dim=1)
 
 
 def supports_paged(cfg: ModelConfig) -> Tuple[bool, str]:

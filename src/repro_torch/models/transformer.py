@@ -1,26 +1,35 @@
-"""The paged half of the dense decoder-only transformer (the reference
-package's ``models/transformer.py``, DESIGN.md §8-§12).
+"""The dense decoder-only transformer's serving entry points (the
+reference package's ``models/transformer.py``), in two halves:
 
-KV lives in one K and one V pool per layer, ``[L, num_blocks, bt, Hkv,
-D]``, shared by every request and addressed through per-request block
-tables.  Attention goes through ``kernels.decode_attention.ops``: the
-hand-written CUDA kernels on the card, their plain versions on the CPU.
+- dense (the padded-batch engines, paper §II-D): ``prefill`` over
+  right-padded prompts builds a ``[L, B, S, Hkv, D]`` K and V cache
+  (padded, or ring-packed for sliding-window models), and
+  ``decode_step`` runs one token against it;
+- paged (DESIGN.md §8-§12): KV lives in one K and one V pool per layer,
+  ``[L, num_blocks, bt, Hkv, D]``, shared by every request and addressed
+  through per-request block tables.
+
+Attention goes through the kernels' ops: the hand-written CUDA kernels
+on the card, their plain versions on the CPU.  Only the dense family is
+ported; the others raise ``NotImplementedError`` with the reason.
 
 Where the reference is functional (``.at[].set`` on donated buffers),
-this port writes into the pools and the engine's state tensors in place
-and returns them; a caller that needs the old pool clones it first.
-Layers are a Python loop over the stacked ``blocks`` weights, the
-reference's ``lax.scan``.
+this port writes into the caches, the pools and the engine's state
+tensors in place and returns them; a caller that needs the old cache
+clones it first.  Layers are a Python loop over the stacked ``blocks``
+weights, the reference's ``lax.scan``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import (
     paged_decode_attention, paged_prefix_prefill_attention)
+from repro_torch.models.attention import (gqa_decode_attention,
+                                         gqa_prefill_attention)
 from repro_torch.models.layers import apply_rope, rms_norm, swiglu
 
 
@@ -79,6 +88,173 @@ def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense cache
+# ---------------------------------------------------------------------------
+
+def supports_dense(cfg: ModelConfig) -> Tuple[bool, str]:
+    """The dense half covers the plain-GQA dense family; the others need
+    parts of the model the port does not have yet."""
+    if cfg.family == "moe":
+        return False, "family moe: the MoE FFN is not ported yet"
+    if cfg.family != "dense":
+        return False, (f"family {cfg.family}: its layers (SSM, vision or "
+                       f"audio front ends) are not ported yet")
+    if cfg.uses_mla:
+        return False, "MLA latent caches are not ported yet"
+    return True, ""
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    ok, why = supports_dense(cfg)
+    if not ok:
+        raise NotImplementedError(f"{cfg.name}: {why}")
+
+
+def _attention(ap: Dict, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, *, window: Optional[int]):
+    """Full-sequence GQA attention; returns (out, (k, v))."""
+    q, k, v = _qkv(ap, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = gqa_prefill_attention(q, k, v, causal=True, window=window)
+    return _out_proj(out.to(x.dtype), ap["wo"]), (k, v)
+
+
+def _attention_decode(ap: Dict, x: torch.Tensor, cfg: ModelConfig,
+                      k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+    """One-token GQA attention against one layer's cache [B, S, Hkv, D].
+    The new K/V is written in place at slot ``positions % S`` (a ring
+    when the cache is shorter than the sequence), then attention reads
+    the first ``min(positions + 1, S)`` slots."""
+    if cfg.cache_int8:
+        raise NotImplementedError(
+            f"{cfg.name}: int8 KV caches (decode_attention_int8_kernel) "
+            f"are not ported yet")
+    if cfg.decode_cp:
+        raise NotImplementedError(
+            f"{cfg.name}: context-parallel decode (gqa_decode_attention_cp)"
+            f" needs a device mesh and is not ported yet")
+    s_cache = k_cache.shape[1]
+    q, k, v = _qkv(ap, x, cfg)
+    q = apply_rope(q, positions[:, None], cfg.rope_theta)
+    k = apply_rope(k, positions[:, None], cfg.rope_theta)
+    rows = torch.arange(x.shape[0], device=x.device)
+    slot = (positions % s_cache).long()
+    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+    valid = torch.clamp(positions + 1, max=s_cache)
+    out = gqa_decode_attention(q, k_cache, v_cache, valid)
+    return _out_proj(out.to(x.dtype), ap["wo"])
+
+
+def block_forward(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor, *, window: Optional[int] = None):
+    """Full-sequence dense block.  Returns (x, (k, v))."""
+    h = rms_norm(x, bp["norm1"], cfg.norm_eps)
+    y, kv = _attention(bp["attn"], h, cfg, positions, window=window)
+    return _ffn(bp, x + y, cfg), kv
+
+
+def block_decode(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One-token dense block; writes this layer's cache in place."""
+    h = rms_norm(x, bp["norm1"], cfg.norm_eps)
+    y = _attention_decode(bp["attn"], h, cfg, k_cache, v_cache, positions)
+    return _ffn(bp, x + y, cfg)
+
+
+def _fit_cache(leaf: torch.Tensor, s: int, cache_len: int) -> torch.Tensor:
+    """Grow (zero-pad) or ring-pack (the last ``cache_len`` positions,
+    rolled so position p lives at slot p % cache_len) one layer's cache
+    [B, S, ...].  The reference fits the stacked [L, B, S, ...] leaves
+    at once; per layer, the padded copy of all L layers never exists."""
+    if cache_len == s:
+        return leaf
+    if cache_len > s:
+        out = leaf.new_zeros((leaf.shape[0], cache_len, *leaf.shape[2:]))
+        out[:, :s] = leaf
+        return out
+    return torch.roll(leaf[:, s - cache_len:], s % cache_len, dims=1)
+
+
+def prefill(params: Dict, cfg: ModelConfig, tokens, lengths, *,
+            act_dtype: torch.dtype = torch.bfloat16,
+            cache_len: Optional[int] = None):
+    """Build the decode cache.  tokens: [B, S] right-padded to S (the
+    prompts attend causally over their pads, as in the reference);
+    lengths: [B] valid counts.  ``cache_len`` sets the cache capacity
+    (>= S pads, < S ring-packs, for sliding-window models).  Returns
+    (next-token logits [B, V], {"kv": (k, v)}, each [L, B, cache_len,
+    Hkv, D] in ``act_dtype``).
+
+    The logits are computed for each row's last valid position only
+    (the reference computes all S rows and picks one; the rows are
+    independent, so only the size of the product differs: at full width
+    the S-row product would be B * S * padded_vocab values)."""
+    _require_dense(cfg)
+    params = cast_params(params, act_dtype)
+    x = _embed_in(params, tokens, act_dtype)
+    b, s = tokens.shape
+    cl = s if cache_len is None else cache_len
+    positions = torch.arange(s, device=x.device)
+    shape = (cfg.num_layers, b, cl, cfg.num_kv_heads, cfg.head_dim)
+    ck = torch.zeros(shape, dtype=act_dtype, device=x.device)
+    cv = torch.zeros(shape, dtype=act_dtype, device=x.device)
+    for i in range(cfg.num_layers):
+        bp = _layer(params["blocks"], i)
+        x, (k, v) = block_forward(bp, x, cfg, positions,
+                                  window=cfg.sliding_window)
+        for cache, new in ((ck, k), (cv, v)):
+            if cl >= s:          # pad: the zero tail is already there
+                cache[i, :, :s] = new
+            else:
+                cache[i] = _fit_cache(new, s, cl)
+    rows = torch.arange(b, device=x.device)
+    last = x[rows, lengths.long() - 1]
+    logits = _logits(params, cfg, last[:, None])[:, 0]
+    return logits, {"kv": (ck, cv)}
+
+
+def decode_step(params: Dict, cfg: ModelConfig, cache: Dict, tokens,
+                positions, *, act_dtype: torch.dtype = torch.bfloat16):
+    """tokens: [B] new ids; positions: [B] tokens already cached (the new
+    token's absolute position).  Returns (logits [B, V], cache updated in
+    place)."""
+    _require_dense(cfg)
+    params = cast_params(params, act_dtype)
+    x = _embed_in(params, tokens[:, None], act_dtype)
+    ck, cv = cache["kv"]
+    for i in range(cfg.num_layers):
+        x = block_decode(_layer(params["blocks"], i), x, cfg, ck[i], cv[i],
+                         positions)
+    return _logits(params, cfg, x)[:, 0], cache
+
+
+def cache_struct(cfg: ModelConfig, batch: int, seq: int,
+                 dtype: torch.dtype = torch.bfloat16):
+    """Returns ({"kv": ((shape, dtype), (shape, dtype))}, logical axes) of
+    the decode cache; ``seq`` is its capacity (the window for
+    sliding-window models)."""
+    _require_dense(cfg)
+    if cfg.cache_int8:
+        raise NotImplementedError(
+            f"{cfg.name}: int8 KV caches are not ported yet")
+    shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    ax = ("layers", "cache_batch", "kv_seq", "cache_heads", None)
+    return {"kv": ((shape, dtype), (shape, dtype))}, {"kv": (ax, ax)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, *,
+               dtype: torch.dtype = torch.bfloat16, device) -> Dict:
+    """A zero decode cache {"kv": (k, v)} on ``device``."""
+    shapes, _ = cache_struct(cfg, batch, seq, dtype)
+    return {"kv": tuple(torch.zeros(shape, dtype=dt, device=device)
+                        for shape, dt in shapes["kv"])}
 
 
 # ---------------------------------------------------------------------------

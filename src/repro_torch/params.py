@@ -85,12 +85,17 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 
 
 def params_from_numpy(tree, *, device, dtype=torch.float32):
-    """Nested dicts of numpy arrays (the reference's parameter pytree
-    after ``np.asarray``) -> the same tree of tensors on ``device``;
-    floating arrays become ``dtype``."""
+    """Nested dicts (and tuples) of numpy arrays (the reference's
+    parameter or dense-cache pytree after ``np.asarray``) -> the same
+    tree of tensors on ``device``; floating arrays become ``dtype``.  The
+    reference's dense cache ``{"kv": (k, v)}`` has the port's layout, so
+    it crosses over as it is."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device=device, dtype=dtype)
                 for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(params_from_numpy(v, device=device, dtype=dtype)
+                     for v in tree)
     t = torch.tensor(np.asarray(tree))         # a copy: the tree stays
     if t.is_floating_point():
         t = t.to(dtype)

@@ -1,6 +1,12 @@
-"""The paged continuous-batching engine on PyTorch (the core of the
-reference package's ``serving/engine.py``, DESIGN.md §8-§12).
+"""The serving engines on PyTorch (the reference package's
+``serving/engine.py``).
 
+- :class:`BatchEngine` is the paper's §II-D padded batch procedure: pad
+  every request to the batch length, prefill, then decode until *every*
+  request has finished (early finishers keep generating invalid tokens:
+  request waiting), and report the measured WMA of Eqs. 2-4.
+- :class:`ContinuousEngine` is conservative continuous batching (CCB):
+  fixed slots over one dense cache; a joining request prefills alone.
 - :class:`PagedContinuousEngine` serves over a shared physical block
   pool (``serving.paged_cache.BlockAllocator``): admission reserves
   blocks for the *predicted* generation length only, decode grows
@@ -8,7 +14,8 @@ reference package's ``serving/engine.py``, DESIGN.md §8-§12).
   requeues instead of splitting the batch.
 - Decode runs in fused multi-step windows (§9): ``k`` greedy steps on the
   device with the argmax feeding the next step, and one ``[B, k]`` token
-  readback per window, counted in ``host_syncs``.
+  readback per window, counted in ``host_syncs`` (``ContinuousEngine``
+  reads its tokens back every step, as in the reference).
 - Admission is a single-dispatch variable-prefix wave (§12): radix hits
   and misses ride one ``prefill_wave`` call per suffix-length bucket.
 
@@ -17,12 +24,14 @@ real model, and a request stops at its ground-truth generation length.
 
 Not in this module yet: fault injection, deadlines and the NaN guard
 (§14), the host swap tier (§15), speculative decoding (§16),
-snapshot/restore (§17) and warm-up.
+snapshot/restore (§17) and warm-up.  Only the dense model family is
+served.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from collections import deque
 from typing import Deque, Dict, Iterable, List, Optional, Set, Tuple
 
@@ -32,10 +41,11 @@ import torch
 from repro_torch.analysis import sanitizer as _san
 from repro_torch.analysis.sanitizer import count_sync, hot_path
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.types import SHED_REASONS, Request
+from repro_torch.core.types import SHED_REASONS, Batch, Request
+from repro_torch.core.wma import batch_wma
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.models.transformer import cast_params
+from repro_torch.models.transformer import cast_params, supports_dense
 from repro_torch.serving.paged_cache import (BlockAllocator,
                                              MispredictionEWMA, NULL_SEQ,
                                              PrefixMatch, RadixPrefixCache)
@@ -102,6 +112,209 @@ def _pow2_ceil(n: int) -> int:
     """Smallest power of two >= n (n >= 1)."""
     n = max(n, 1)
     return 1 << (n - 1).bit_length() if n & (n - 1) else n
+
+
+def _upload(device: torch.device, *arrays: np.ndarray
+            ) -> List[torch.Tensor]:
+    """Host int32 arrays -> device tensors in ONE host-to-device copy
+    (the reference hands its jitted call the numpy arrays, which jit
+    batches into one transfer).  Every caller passes fresh arrays."""
+    flat = np.concatenate([a.ravel() for a in arrays]).astype(np.int32)
+    dev = torch.from_numpy(flat).to(device, non_blocking=True)
+    out, o = [], 0
+    for a in arrays:
+        out.append(dev[o:o + a.size].view(a.shape))
+        o += a.size
+    return out
+
+
+class _DenseEngine:
+    """Device, config and weights of the dense-cache engines: ``device``
+    defaults to the CUDA card and raises without one (tests pass
+    ``device="cpu"``); ``params`` defaults to random weights from
+    ``seed``, and given weights are cast once to ``dtype``."""
+
+    def __init__(self, cfg: ModelConfig, params, seed: int,
+                 dtype: torch.dtype, device):
+        ok, why = supports_dense(cfg)
+        if not ok:
+            raise NotImplementedError(f"{cfg.name}: {why}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.dtype = dtype
+        self.params = (cast_params(params, dtype) if params is not None
+                       else M.init_params(cfg, seed=seed, device=self.device,
+                                          dtype=dtype))
+        self.host_syncs = 0
+
+
+def _encode_prompt(req: Request, vocab_size: int) -> List[int]:
+    return encode(f"{req.instruction} {req.user_input}", vocab_size)
+
+
+@dataclasses.dataclass
+class ServeResult:
+    iterations: int
+    batch_size: int
+    batch_length: int
+    wall_time: float
+    wma: int
+    total_tokens: int
+    valid_tokens: int
+    generated: Dict[int, List[int]]   # req_id -> generated token ids
+    decode_time: float = 0.0          # decode loop only (prefill excluded)
+
+
+class BatchEngine(_DenseEngine):
+    """Padded batch serving with the real model (vanilla / Magnus
+    runtime)."""
+
+    def __init__(self, cfg: ModelConfig, params=None, *, seed: int = 0,
+                 max_gen: int = 64, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__(cfg, params, seed, dtype, device)
+        self.max_gen = max_gen
+
+    def _tokens(self, reqs: List[Request], pad_to: int) -> np.ndarray:
+        out = np.zeros((len(reqs), pad_to), np.int32)
+        for i, r in enumerate(reqs):
+            ids = _encode_prompt(r, self.cfg.vocab_size)[:pad_to]
+            out[i, :len(ids)] = ids
+        return out
+
+    @hot_path
+    def serve_batch(self, batch: Batch) -> ServeResult:
+        reqs = batch.requests
+        t0 = time.perf_counter()
+        bl = _bucket(max(r.length for r in reqs))
+        lengths = np.array([min(r.length, bl) for r in reqs], np.int32)
+        gen_targets = np.array([min(r.gen_length, self.max_gen)
+                                for r in reqs], np.int32)
+        bg = int(gen_targets.max())
+        cache_len = _bucket(bl + bg)
+        tokens, positions = _upload(self.device, self._tokens(reqs, bl),
+                                    lengths)
+        logits, cache = M.prefill(
+            self.params, self.cfg, {"tokens": tokens, "lengths": positions},
+            act_dtype=self.dtype, cache_len=cache_len)
+        # gen_targets are known up front, so the whole decode loop fuses
+        # into power-of-two on-device windows.  Decode until the slowest
+        # request finishes (request waiting!).  decode_time excludes the
+        # prefill: a barrier, not a readback
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t_dec = time.perf_counter()
+        chunks: List[np.ndarray] = []
+        remaining = bg
+        while remaining > 0:
+            k = _pow2_floor(remaining)
+            logits, cache, positions, toks = M.decode_multi(
+                self.params, self.cfg, cache,
+                {"logits": logits, "positions": positions}, num_steps=k,
+                act_dtype=self.dtype)
+            # the window token readback: one sync per window
+            chunks.append(toks.cpu().numpy())
+            self.host_syncs += count_sync()
+            remaining -= k
+        toks = (np.concatenate(chunks, axis=1) if chunks
+                else np.zeros((len(reqs), 0), np.int32))
+        decode_time = time.perf_counter() - t_dec
+        generated = {r.req_id: toks[i, :int(gen_targets[i])].tolist()
+                     for i, r in enumerate(reqs)}
+        wall = time.perf_counter() - t0
+        wma = batch_wma([int(l) for l in lengths],
+                        [int(g) for g in gen_targets])
+        return ServeResult(
+            iterations=bg, batch_size=len(reqs), batch_length=bl,
+            wall_time=wall, wma=wma, total_tokens=len(reqs) * bg,
+            valid_tokens=int(gen_targets.sum()), generated=generated,
+            decode_time=decode_time)
+
+
+class ContinuousEngine(_DenseEngine):
+    """Conservative continuous batching with the real model: fixed slots
+    over one dense cache ``[L, slots, max_len + max_gen, Hkv, D]``; a
+    join prefills alone (a single-request batch) while decoding pauses,
+    and every step reads its tokens back."""
+
+    def __init__(self, cfg: ModelConfig, params=None, *, seed: int = 0,
+                 slots: int = 4, max_len: int = 256, max_gen: int = 64,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(cfg, params, seed, dtype, device)
+        self.slots = slots
+        self.max_len = max_len
+        self.max_gen = max_gen
+        self.cache = M.init_cache(
+            cfg, slots, max_len + max_gen,
+            dtype=torch.float32 if dtype == torch.float32 else torch.bfloat16,
+            device=self.device)
+        self.active: List[Optional[dict]] = [None] * slots
+        self.logits = torch.zeros((slots, cfg.padded_vocab), dtype=dtype,
+                                  device=self.device)
+        self.positions = np.zeros(slots, np.int32)   # host mirror
+
+    def _merge_cache_slot(self, slot: int, single_cache) -> None:
+        """Copy a single-request prefill cache into slot ``slot``, cut or
+        zero-padded to the slot's capacity."""
+        for dst, src in zip(self.cache["kv"], single_cache["kv"]):
+            n = min(src.shape[2], dst.shape[2])
+            dst[:, slot, :n] = src[:, 0, :n].to(dst.dtype)
+            dst[:, slot, n:] = 0
+
+    @property
+    def has_capacity(self) -> bool:
+        return None in self.active
+
+    @hot_path
+    def join(self, req: Request) -> int:
+        if not self.has_capacity:
+            raise EngineFull(
+                f"all {self.slots} slots occupied; queue req "
+                f"{req.req_id} and retry after step()")
+        slot = self.active.index(None)
+        ids = _encode_prompt(req, self.cfg.vocab_size)[:self.max_len]
+        tokens = np.zeros((1, _bucket(len(ids))), np.int32)
+        tokens[0, :len(ids)] = ids
+        tokens_t, lengths_t = _upload(self.device, tokens,
+                                      np.array([len(ids)], np.int32))
+        logits, single_cache = M.prefill(
+            self.params, self.cfg, {"tokens": tokens_t, "lengths": lengths_t},
+            act_dtype=self.dtype, cache_len=self.max_len + self.max_gen)
+        self._merge_cache_slot(slot, single_cache)
+        self.logits[slot] = logits[0].to(self.dtype)
+        self.positions[slot] = len(ids)
+        self.active[slot] = {"req": req, "generated": [],
+                             "target": min(req.gen_length, self.max_gen)}
+        return slot
+
+    @hot_path
+    def step(self) -> List[Request]:
+        """One decode iteration over all active slots; returns finished."""
+        if not any(self.active):
+            return []
+        next_tok = torch.argmax(self.logits[:, :self.cfg.vocab_size],
+                                dim=-1).to(torch.int32)
+        (positions,) = _upload(self.device, self.positions)
+        self.logits, self.cache = M.decode_step(
+            self.params, self.cfg, self.cache,
+            {"tokens": next_tok, "positions": positions},
+            act_dtype=self.dtype)
+        self.logits = self.logits.to(self.dtype)
+        self.positions = self.positions + 1
+        # read the tokens back only after the decode step is queued: the
+        # copy waits for the argmax, not for the step
+        tok_host = next_tok.cpu().numpy()
+        self.host_syncs += count_sync()
+        for slot, a in enumerate(self.active):
+            if a is not None:
+                a["generated"].append(int(tok_host[slot]))
+        finished = []
+        for slot, a in enumerate(self.active):
+            if a is not None and len(a["generated"]) >= a["target"]:
+                finished.append(a["req"])
+                self.active[slot] = None
+                self.positions[slot] = 0
+        return finished
 
 
 class PagedContinuousEngine:
@@ -215,16 +428,7 @@ class PagedContinuousEngine:
     # -- host <-> device -----------------------------------------------------
 
     def _upload(self, *arrays: np.ndarray) -> List[torch.Tensor]:
-        """Host int32 arrays -> device tensors in ONE host-to-device copy
-        (the reference hands its jitted call the numpy arrays, which jit
-        batches into one transfer).  Every caller passes fresh arrays."""
-        flat = np.concatenate([a.ravel() for a in arrays]).astype(np.int32)
-        dev = torch.from_numpy(flat).to(self.device, non_blocking=True)
-        out, o = [], 0
-        for a in arrays:
-            out.append(dev[o:o + a.size].view(a.shape))
-            o += a.size
-        return out
+        return _upload(self.device, *arrays)
 
     # -- admission -----------------------------------------------------------
 

@@ -1,11 +1,12 @@
-"""Paged attention in the PyTorch port against the JAX reference.
+"""Dense and paged decode attention in the PyTorch port against the JAX
+reference.
 
 On the CPU the port's wrappers run their plain PyTorch versions; these
 are held, at 2e-4 in f32, against the JAX oracles (``ref.py``) and the
 JAX Pallas kernels in interpret mode, on the shapes of the reference's
 own kernel tests, poison cases included.  The hand-written CUDA kernels
 themselves are compared with the plain versions by the ``cuda``-marked
-test, which runs only where a card is present (``chip_smoke.py`` makes
+tests, which run only where a card is present (``chip_smoke.py`` makes
 the same comparison at the serving shapes).
 """
 import jax.numpy as jnp
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from repro.kernels.decode_attention import kernel as jax_kernel
+from repro.kernels.decode_attention import ops as jax_ops
 from repro.kernels.decode_attention import ref as jax_ref
 from repro_torch.kernels.decode_attention import ops, ref
 
@@ -186,3 +188,99 @@ def test_cuda_kernels_match_plain_versions(dtype, tol):
         want = ref.paged_prefix_prefill_attention_ref(*args)
         torch.testing.assert_close(out.float(), want.float(), atol=tol,
                                    rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# dense decode (the padded-batch path's decode_attention)
+# ---------------------------------------------------------------------------
+
+DENSE_SHAPES = [(256, 4, 4, 64), (640, 8, 2, 64), (512, 4, 1, 128)]
+DTYPES = {"f32": (torch.float32, jnp.float32, 2e-4),
+          "bf16": (torch.bfloat16, jnp.bfloat16, 5e-2)}
+
+
+def _dense_setup(s, hq, hkv, d, lengths, seed=0):
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    return (rng.normal(size=(b, hq, d)).astype(np.float32),
+            rng.normal(size=(b, s, hkv, d)).astype(np.float32),
+            rng.normal(size=(b, s, hkv, d)).astype(np.float32),
+            np.asarray(lengths, np.int32))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("s,hq,hkv,d", DENSE_SHAPES)
+def test_dense_decode_plain_matches_jax(s, hq, hkv, d, dtype):
+    """The reference's test_decode_attention shapes and lengths
+    ``(s, 13, s // 2)``: the plain version against the JAX oracle and the
+    JAX kernel (interpret mode, through its ops wrapper)."""
+    tdt, jdt, tol = DTYPES[dtype]
+    q, k, v, lens = _dense_setup(s, hq, hkv, d, (s, 13, s // 2))
+    out = ops.decode_attention(*(torch.from_numpy(a).to(tdt)
+                                 for a in (q, k, v)),
+                               torch.from_numpy(lens)).float().numpy()
+    jargs = [jnp.asarray(a, jdt) for a in (q, k, v)] + [jnp.asarray(lens)]
+    want_ref = np.asarray(jax_ref.decode_attention_ref(*jargs), np.float32)
+    want_pallas = np.asarray(jax_ops.decode_attention(*jargs, block_k=128),
+                             np.float32)
+    np.testing.assert_allclose(out, want_ref, atol=tol, rtol=0)
+    np.testing.assert_allclose(out, want_pallas, atol=tol, rtol=0)
+
+
+def test_dense_decode_plain_masks_waiting_tokens():
+    """Invalid (waiting / pad) cache slots never reach the output (the
+    reference's test_decode_attention_masks_waiting_tokens): large values
+    there leave the output as the JAX kernel gives it, and NaN there
+    leaves it unchanged."""
+    q, k, v, lens = (torch.from_numpy(a)
+                     for a in _dense_setup(128, 2, 2, 32, (40, 64)))
+    out1 = ops.decode_attention(q, k, v, lens)
+    k2, v2 = k.clone(), v.clone()
+    k2[0, 40:], v2[0, 40:] = 1e4, -1e4
+    k2[1, 64:], v2[1, 64:] = -1e4, 1e4
+    out2 = ops.decode_attention(q, k2, v2, lens)
+    torch.testing.assert_close(out1, out2, atol=1e-5, rtol=0)
+    want = np.asarray(jax_kernel.decode_attention_kernel(
+        *(jnp.asarray(t.numpy()) for t in (q, k2, v2, lens)), block_k=32,
+        interpret=True))
+    np.testing.assert_allclose(out2.numpy(), want, atol=TOL, rtol=TOL)
+    k3, v3 = k.clone(), v.clone()
+    k3[0, 40:], v3[0, 40:] = float("nan"), float("nan")
+    k3[1, 64:], v3[1, 64:] = float("nan"), float("nan")
+    out3 = ops.decode_attention(q, k3, v3, lens)
+    torch.testing.assert_close(out1, out3, atol=1e-5, rtol=0)
+
+
+def test_dense_decode_counts_plain_calls_not_launches():
+    ops.reset_counts()
+    q, k, v, lens = (torch.from_numpy(a)
+                     for a in _dense_setup(16, 4, 2, 16, (3, 16)))
+    ops.decode_attention(q, k, v, lens)
+    assert ops.decode_attention.launches == 0
+    assert ops.decode_attention.plain_calls == 1
+    assert ops.decode_attention in ops.KERNELS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_dense_decode_kernel_matches_plain_version(dtype):
+    """The hand-written dense decode kernel against its plain version on
+    the card, then with NaN written past the lengths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt, _, tol = DTYPES[dtype]
+    for s, hq, hkv, d in DENSE_SHAPES:
+        q, k, v, lens = [torch.from_numpy(a).to("cuda") for a in
+                         _dense_setup(s, hq, hkv, d, (s, 13, s // 2))]
+        q, k, v = q.to(tdt), k.to(tdt), v.to(tdt)
+        n0 = ops.decode_attention.launches
+        out = ops.decode_attention(q, k, v, lens)
+        assert ops.decode_attention.launches == n0 + 1
+        want = ref.decode_attention_ref(q, k, v, lens)
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=0)
+        for i, n in enumerate(lens.tolist()):
+            k[i, n:], v[i, n:] = float("nan"), float("nan")
+        torch.testing.assert_close(ops.decode_attention(q, k, v, lens), out,
+                                   atol=0, rtol=0)

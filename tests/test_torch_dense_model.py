@@ -1,0 +1,192 @@
+"""The PyTorch port's dense model (the padded-batch path) against the JAX
+reference, at f32 on reduced configs with the reference's weights carried
+across by ``params_from_numpy``: ``prefill`` logits and caches (padded,
+and ring-packed for a sliding-window model), ``decode_step`` logits and
+caches, and, in the port itself, the fused ``decode_multi`` against
+sequential ``decode_step`` calls.  Configs: chatglm-6b (MHA) and
+qwen2.5-14b (GQA, QKV bias), reduced.  Families the port does not cover
+yet, and int8 or context-parallel caches, raise."""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.models import model as JM
+from repro_torch.configs import get_config
+from repro_torch.models import model as M
+from repro_torch.params import params_from_numpy
+from repro_torch.serving.engine import BatchEngine, ContinuousEngine
+
+TOL = 2e-4     # f32, relative to each tensor's scale (see _allclose)
+ARCHS = ("chatglm-6b", "qwen2.5-14b")
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(arch, window=None):
+    jcfg, tcfg = jax_config(arch).reduced(), get_config(arch).reduced()
+    if window is not None:
+        jcfg = dataclasses.replace(jcfg, sliding_window=window)
+        tcfg = dataclasses.replace(tcfg, sliding_window=window)
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def _allclose(a, b):
+    """Max abs difference within TOL of the reference's largest magnitude
+    (at least 1): the reference's random weights drive activations and
+    K/V to tens, so an elementwise 2e-4 would be far tighter than f32
+    allows there."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    err = np.abs(a - b).max()
+    assert err <= TOL * max(1.0, np.abs(b).max()), (err, np.abs(b).max())
+
+
+def _prompts(cfg, b=3, s=16, seed=0):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(3, cfg.vocab_size, size=(b, s)).astype(np.int32)
+    lengths = np.array([s, 9, 1][:b], np.int32)
+    return tokens, lengths
+
+
+def _both_prefill(arch, cache_len, window=None):
+    jcfg, tcfg, jp, tp = _setup(arch, window)
+    tokens, lengths = _prompts(tcfg)
+    jl, jc = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(tokens),
+                                   "lengths": jnp.asarray(lengths)},
+                        act_dtype=jnp.float32, cache_len=cache_len)
+    tl, tc = M.prefill(tp, tcfg, {"tokens": torch.from_numpy(tokens),
+                                  "lengths": torch.from_numpy(lengths)},
+                       act_dtype=torch.float32, cache_len=cache_len)
+    return (jl, jc), (tl, tc), lengths
+
+
+CASES = {"pad": (40, None), "exact": (16, None), "ring": (8, 8)}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_matches_jax(arch, case):
+    cache_len, window = CASES[case]
+    (jl, jc), (tl, tc), _ = _both_prefill(arch, cache_len, window)
+    _allclose(tl.numpy(), jl)
+    for j, t in zip(jc["kv"], tc["kv"]):
+        assert t.shape[2] == cache_len
+        _allclose(t.numpy(), j)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_step_matches_jax(arch, case):
+    """Three decode steps after the prefill, fed the same tokens: logits
+    and the whole cache (ring slots included) match."""
+    cache_len, window = CASES[case]
+    jcfg, tcfg, jp, tp = _setup(arch, window)
+    (_, jc), (_, tc), lengths = _both_prefill(arch, cache_len, window)
+    rng = np.random.default_rng(1)
+    pos = lengths.copy()
+    for _ in range(3):
+        tok = rng.integers(3, tcfg.vocab_size, size=len(pos)).astype(
+            np.int32)
+        jl, jc = JM.decode_step(jp, jcfg, jc, {"tokens": jnp.asarray(tok),
+                                               "positions": jnp.asarray(pos)},
+                                act_dtype=jnp.float32)
+        tl, tc = M.decode_step(tp, tcfg, tc,
+                               {"tokens": torch.from_numpy(tok),
+                                "positions": torch.from_numpy(pos.copy())},
+                               act_dtype=torch.float32)
+        _allclose(tl.numpy(), jl)
+        pos = pos + 1
+    for j, t in zip(jc["kv"], tc["kv"]):
+        _allclose(t.numpy(), j)
+
+
+def test_jax_cache_crosses_over_as_it_is():
+    """A JAX dense cache carried by params_from_numpy decodes in the port
+    as the port's own prefill cache does."""
+    jcfg, tcfg, jp, tp = _setup("chatglm-6b")
+    (jl, jc), (tl, tc), lengths = _both_prefill("chatglm-6b", 40)
+    carried = params_from_numpy(jax.tree.map(np.asarray, jc), device="cpu")
+    assert isinstance(carried["kv"], tuple)
+    batch = {"tokens": torch.tensor([5, 6, 7], dtype=torch.int32),
+             "positions": torch.from_numpy(lengths.copy())}
+    a, _ = M.decode_step(tp, tcfg, carried, batch, act_dtype=torch.float32)
+    b, _ = M.decode_step(tp, tcfg, tc, batch, act_dtype=torch.float32)
+    _allclose(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_multi_equals_sequential_decode_steps(arch):
+    """Dense fused decode (the BatchEngine inner loop) equals sequential
+    decode_step calls with the argmax between them, exactly, across a
+    window split (5 = 4 + 1); the reference's
+    test_decode_multi_dense_bitexact_vs_sequential."""
+    _, cfg, _, params = _setup(arch)
+    tokens, lengths = _prompts(cfg, b=2)
+    lengths = np.array([11, 16], np.int32)
+    batch = {"tokens": torch.from_numpy(tokens),
+             "lengths": torch.from_numpy(lengths)}
+    logits, cache = M.prefill(params, cfg, batch, act_dtype=torch.float32,
+                              cache_len=64)
+    seq_cache = {"kv": tuple(c.clone() for c in cache["kv"])}
+    pos = torch.from_numpy(lengths.copy())
+    lg, seq_toks = logits, []
+    for _ in range(5):
+        tok = torch.argmax(lg[:, :cfg.vocab_size], dim=-1).to(torch.int32)
+        seq_toks.append(tok)
+        lg, seq_cache = M.decode_step(params, cfg, seq_cache,
+                                      {"tokens": tok, "positions": pos},
+                                      act_dtype=torch.float32)
+        pos = pos + 1
+    flg, fch, fpos, t1 = M.decode_multi(
+        params, cfg, cache, {"logits": logits,
+                             "positions": torch.from_numpy(lengths.copy())},
+        num_steps=4, act_dtype=torch.float32)
+    flg, fch, fpos, t2 = M.decode_multi(
+        params, cfg, fch, {"logits": flg, "positions": fpos}, num_steps=1,
+        act_dtype=torch.float32)
+    assert torch.equal(torch.cat([t1, t2], dim=1),
+                       torch.stack(seq_toks, dim=1))
+    assert torch.equal(flg, lg)
+    assert torch.equal(fpos, pos)
+    for a, b in zip(fch["kv"], seq_cache["kv"]):
+        assert torch.equal(a, b)
+
+
+UNSUPPORTED = ("olmoe-1b-7b", "deepseek-v3-671b", "mamba2-780m",
+               "hymba-1.5b", "internvl2-26b", "whisper-large-v3")
+
+
+@pytest.mark.parametrize("arch", UNSUPPORTED)
+def test_unported_families_raise(arch):
+    cfg = get_config(arch).reduced()
+    batch = {"tokens": torch.zeros(1, 8, dtype=torch.int32),
+             "lengths": torch.ones(1, dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="not ported"):
+        M.prefill(None, cfg, batch, act_dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        M.init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        BatchEngine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("flag", ["cache_int8", "decode_cp"])
+def test_int8_and_context_parallel_caches_raise(flag):
+    _, cfg, _, params = _setup("chatglm-6b")
+    cfg = dataclasses.replace(cfg, **{flag: True})
+    cache = {"kv": tuple(torch.zeros(cfg.num_layers, 1, 8, cfg.num_kv_heads,
+                                     cfg.head_dim) for _ in range(2))}
+    with pytest.raises(NotImplementedError, match="not ported"):
+        M.decode_step(params, cfg, cache,
+                      {"tokens": torch.ones(1, dtype=torch.int32),
+                       "positions": torch.ones(1, dtype=torch.int32)},
+                      act_dtype=torch.float32)
+    if flag == "cache_int8":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ContinuousEngine(cfg, params, device="cpu")

@@ -1,0 +1,83 @@
+"""Dense prefill attention in the PyTorch port against the JAX reference.
+
+On the CPU the port's ``ops.flash_attention`` runs its plain PyTorch
+version; it is held against the JAX oracle (``flash_attention_ref``) and
+the JAX Pallas kernel in interpret mode, on the shapes of the reference's
+own kernel test in its three masks (causal, sliding window, full), plus
+S = 200, which is a multiple of no power-of-two tile.  Tolerances are the
+reference's: 2e-4 in f32, 5e-2 in bf16.  The hand-written CUDA kernel is
+compared with the plain version by the ``cuda``-marked test, which runs
+only where a card is present (``chip_smoke.py`` makes the same comparison
+at chatglm-6b's shapes).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention_kernel
+from repro.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention import ops, ref
+
+SHAPES = [(128, 4, 4, 64), (256, 4, 2, 64), (192, 6, 2, 32),
+          (256, 8, 1, 128), (200, 5, 1, 32)]
+MODES = {"causal": dict(causal=True, window=None),
+         "window": dict(causal=True, window=64),
+         "full": dict(causal=False, window=None)}
+DTYPES = {"f32": (torch.float32, jnp.float32, 2e-4),
+          "bf16": (torch.bfloat16, jnp.bfloat16, 5e-2)}
+
+
+def _inputs(s, hq, hkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    b = 2
+    return (rng.normal(size=(b, s, hq, d)).astype(np.float32),
+            rng.normal(size=(b, s, hkv, d)).astype(np.float32),
+            rng.normal(size=(b, s, hkv, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("s,hq,hkv,d", SHAPES)
+def test_flash_plain_matches_jax(s, hq, hkv, d, dtype, mode):
+    tdt, jdt, tol = DTYPES[dtype]
+    kw = MODES[mode]
+    arrays = _inputs(s, hq, hkv, d)
+    out = ops.flash_attention(*(torch.from_numpy(a).to(tdt) for a in arrays),
+                              **kw).float().numpy()
+    jargs = [jnp.asarray(a, jdt) for a in arrays]
+    want_ref = np.asarray(flash_attention_ref(*jargs, **kw), np.float32)
+    want_pallas = np.asarray(flash_attention_kernel(
+        *jargs, block_q=64, block_k=64, interpret=True, **kw), np.float32)
+    np.testing.assert_allclose(out, want_ref, atol=tol, rtol=0)
+    np.testing.assert_allclose(out, want_pallas, atol=tol, rtol=0)
+
+
+def test_flash_window_wider_than_sequence_is_causal():
+    """A window that reaches past position 0 masks nothing more than the
+    causal mask does."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(40, 4, 2, 32))
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, causal=True, window=64),
+        ops.flash_attention(q, k, v, causal=True), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_flash_kernel_matches_plain_version(dtype):
+    """The hand-written kernel against its plain version on the card, on
+    the same shapes and masks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt, _, tol = DTYPES[dtype]
+    for s, hq, hkv, d in SHAPES:
+        args = [torch.from_numpy(a).to("cuda", tdt)
+                for a in _inputs(s, hq, hkv, d)]
+        for kw in MODES.values():
+            n0 = ops.flash_attention.launches
+            out = ops.flash_attention(*args, **kw)
+            assert ops.flash_attention.launches == n0 + 1
+            want = ref.flash_attention_ref(*args, **kw)
+            torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                       rtol=0)

@@ -42,6 +42,8 @@ def test_port_files_found():
             / "paged_decode_attention.cu").is_file()
     assert (ROOT / "src" / "repro_torch" / "csrc"
             / "paged_prefix_prefill_attention.cu").is_file()
+    for name in ("flash_attention.cu", "decode_attention.cu"):
+        assert (ROOT / "src" / "repro_torch" / "csrc" / name).is_file()
 
 
 @pytest.fixture
@@ -68,6 +70,22 @@ def test_launcher_and_model_without_device_raise(no_cuda):
         M.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         M.init_paged_cache(cfg, 8, 4)
+
+
+def test_dense_entry_points_without_device_raise(no_cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_engine_backend
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import BatchEngine, ContinuousEngine
+    cfg = get_config("smollm-135m").reduced(num_layers=1, d_model=64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_engine_backend("smollm-135m", 1.0, 1.0, "magnus")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BatchEngine(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ContinuousEngine(cfg, slots=1, max_len=8, max_gen=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        M.init_cache(cfg, 1, 8)
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
@@ -100,3 +118,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     lens = torch.ones(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernel.paged_decode_attention_kernel(q, kp, kp, tables, lens)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernel.decode_attention_kernel(q, kp[:1], kp[:1], lens)
+
+
+def test_flash_kernel_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels.flash_attention import kernel, ops
+    q = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernel.flash_attention_kernel(q, q, q)
+    ops.reset_counts()
+    ops.flash_attention(q, q, q)
+    assert (ops.flash_attention.launches, ops.flash_attention.plain_calls) \
+        == (0, 1)
