@@ -48,10 +48,45 @@ CUDA toolkit.  Phases, each fatal on failure:
    is profiled;
 8. padded timings: as phase 6, for the flash and dense decode kernels at
    the kept inputs (yardsticks: SDPA with ``is_causal`` for prefill, SDPA
-   with a length mask on the cache cut to its longest row for decode).
+   with a length mask on the cache cut to its longest row for decode);
+9. SSD scan and int8 decode kernels against their plain versions: the
+   scan at mamba2-780m's shapes (H 48, P 64, N 128, chunk 128; B 1 and 8;
+   S 256 and 200) in f32, against the chunked version at 2e-4 of the
+   output's scale and the per-token recurrence at the reference's 5e-3;
+   the int8 decode at chatglm-6b's and a 40/8 GQA shape, f32 and bf16
+   queries, mixed lengths, then again with int8 extremes and NaN and inf
+   scales written past the lengths, which must change nothing;
+10. models: a reduced mamba2-780m (padded prefill, then a fused decode
+   window) and a reduced chatglm-6b's fused decode on an int8 cache, in
+   f32 on the card against the CPU;
+11. SSM padded serve: ``run_engine_backend("mamba2-780m", ...,
+   reduced=False)`` at full width (48 layers, d_model 1536, 48 heads,
+   d_state 128) in bf16, ``magnus``, on phase 7's 64 requests.  Counts
+   are zeroed just before and read just after: every request gets its
+   generation length, one readback per power-of-two window, the scan
+   launches once per layer and batch, and nothing else and no plain
+   version runs.  The layer-0 scan input of every batch is kept; one
+   decode window is profiled;
+12. int8 decode window: chatglm-6b at full width in bf16, 16 rows of
+   2,048-token prompts, a dense prefill (cache 2,112) quantised into an
+   int8 cache, then a 64-step fused decode on the bf16 cache and on the
+   int8 one: the int8 kernel launches once per layer and step with no
+   plain call; the first step's logits are held, distance against
+   distance, to the same step in plain torch (the port's f32
+   dequantisation; the bf16 window's own as the control) and to the
+   reference's formulation (bf16 dequantisation), as ``int8_window``
+   sets out; the layer-0 int8 inputs of every 21st step are kept;
+13. timings of the scan and the int8 kernel at the kept inputs, as phase
+   8 (yardsticks: none for the scan, which no single PyTorch call
+   computes; SDPA with a length mask on the dequantised bf16 cache, and
+   the bf16 dense decode kernel on it, for int8).  Every bound takes
+   operations at 989 TFLOP/s; the scan's at the f32 CUDA cores' 67
+   TFLOP/s, where it now computes, is logged beside it.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
+Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
+a model stops the run before the serves.  The line before the last is a
+JSON object with one entry per kernel (six); the last line is
+``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is missing or the port's sources are not beside
 this script.
 """
@@ -67,6 +102,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12              # H100 SXM f32 peak outside the tensor cores
 
 # serve-phase geometry (bf16 pool of 2048 blocks x 16 tokens x 458,752 B)
 SERVE = dict(num_blocks=2048, block_tokens=16, max_concurrency=32,
@@ -83,6 +119,11 @@ DENSE_N_REQUESTS = 64
 DENSE_MAX_LEN, DENSE_MAX_GEN = 256, 64
 DECODE_SAMPLE = 21             # keep every 21st decode step of a batch
 KEEP_BYTES = 4 << 30           # cap on the kept layer-0 inputs
+
+# int8 decode window: chatglm-6b, 16 rows of 2,048-token prompts
+INT8_ROWS, INT8_PROMPT, INT8_STEPS = 16, 2048, 64
+SCAN_TOL = 2e-4                # f32 scan vs its chunked plain version,
+#                                of the output's scale
 
 
 class SmokeFailure(RuntimeError):
@@ -409,46 +450,57 @@ def _to(torch, tree, dev):
 # phase 5: what the serve gave the kernels
 # ---------------------------------------------------------------------------
 
-class ServeCalls:
-    """Inside the ``with`` block, keeps the inputs of the model's layer-0
-    attention calls: one per decode step and one per admission wave, the
-    shapes and tables the kernels met in the serve.  The model's two
-    attention entry points are wrapped for the block's duration; every
-    call passes straight through to its ``ops`` wrapper, which counts its
-    launch as always."""
+class Recorder:
+    """Inside the ``with`` block, ``module.<name>`` is wrapped: every call
+    passes straight through to it (its ``ops`` wrapper counts its launch
+    as always), and the calls are taken as steps of ``layers``
+    consecutive calls, one per layer.  On every ``every``-th step the
+    layer-0 call's inputs go through ``keep``, and what it returns is
+    kept (None keeps nothing).  ``steps`` counts the steps; ``restart()``
+    makes the next step the first of a new sample, as at a new batch."""
 
-    def __init__(self, transformer):
-        self.T = transformer
-        self.decode = []     # (q, block_tables, lengths)
-        self.prefill = []    # (q, k_suf, v_suf, tables, prefix_lens,
-        #                       suffix_lens)
+    def __init__(self, module, name, layers, keep=lambda *a: a, every=1):
+        self.module, self.name, self.layers = module, name, layers
+        self.keep, self.every = keep, every
+        self.kept, self.steps = [], 0
+        self._calls = self._step = 0
+
+    def restart(self):
+        self._step = 0
 
     def __enter__(self):
-        T = self.T
-        self.orig = dec, pre = (T.paged_decode_attention,
-                                T.paged_prefix_prefill_attention)
+        self.orig = orig = getattr(self.module, self.name)
 
-        def layer0(pages):   # layer i's pool is pages[i], a view at offset i
-            return pages.data_ptr() == pages.untyped_storage().data_ptr()
+        def call(*args, **kw):
+            if self._calls % self.layers == 0:
+                if self._step % self.every == 0:
+                    item = self.keep(*args, **kw)
+                    if item is not None:
+                        self.kept.append(item)
+                self._step += 1
+                self.steps += 1
+            self._calls += 1
+            return orig(*args, **kw)
 
-        def decode(q, kp, vp, tables, lengths):
-            if layer0(kp):
-                self.decode.append((q, tables.clone(), lengths.clone()))
-            return dec(q, kp, vp, tables, lengths)
-
-        def prefill(q, ks, vs, kp, vp, tables, plens, slens):
-            if layer0(kp):
-                self.prefill.append((q, ks, vs, tables.clone(), plens.clone(),
-                                     slens.clone()))
-            return pre(q, ks, vs, kp, vp, tables, plens, slens)
-
-        T.paged_decode_attention = decode
-        T.paged_prefix_prefill_attention = prefill
+        setattr(self.module, self.name, call)
         return self
 
     def __exit__(self, *exc):
-        (self.T.paged_decode_attention,
-         self.T.paged_prefix_prefill_attention) = self.orig
+        setattr(self.module, self.name, self.orig)
+
+
+def paged_recorders(transformer, layers):
+    """Recorders of the paged serve's layer-0 attention inputs: every
+    decode step (q, tables, lengths) and every admission wave (suffix
+    q/K/V, tables, prefix and suffix lengths)."""
+    decode = Recorder(transformer, "paged_decode_attention", layers,
+                      lambda q, kp, vp, tables, lengths:
+                      (q, tables.clone(), lengths.clone()))
+    prefill = Recorder(transformer, "paged_prefix_prefill_attention", layers,
+                       lambda q, ks, vs, kp, vp, tables, plens, slens:
+                       (q, ks, vs, tables.clone(), plens.clone(),
+                        slens.clone()))
+    return decode, prefill
 
 
 def _device_us(prof):
@@ -661,66 +713,40 @@ def time_prefill(torch, ops, ref, calls, K, V, spin):
 # phases 7-8: the padded serve and its kernels
 # ---------------------------------------------------------------------------
 
-class DenseServeCalls:
-    """Inside the ``with`` block, keeps the inputs of the dense model's
-    layer-0 attention calls: every prefill (one per batch) and every
-    ``DECODE_SAMPLE``-th decode step of each batch, with the step's
-    layer-0 cache cloned, up to ``KEEP_BYTES`` in all.  The model's two
-    attention entry points are wrapped for the block's duration; every
-    call passes straight through to its ``ops`` wrapper, which counts its
-    launch as always.  ``decode_steps`` counts the layer-0 decode calls,
-    one per decode step."""
+def dense_recorders(transformer, layers):
+    """Recorders of the dense model's layer-0 attention inputs: every
+    prefill (one per batch) and every ``DECODE_SAMPLE``-th decode step of
+    each batch, with the step's layer-0 cache cloned, up to
+    ``KEEP_BYTES`` in all."""
+    left = [KEEP_BYTES]
 
-    def __init__(self, transformer, num_layers):
-        self.T, self.L = transformer, num_layers
-        self.prefill = []    # (q, k, v)
-        self.decode = []     # (q, k_cache, v_cache, lengths)
-        self.decode_steps = 0
-        self.kept_bytes = 0
-        self._prefill_calls = 0
-        self._step_in_batch = 0
-
-    def _keep(self, nbytes):
-        if self.kept_bytes + nbytes > KEEP_BYTES:
+    def afford(*ts):
+        n = sum(t.nbytes for t in ts)
+        if n > left[0]:
             return False
-        self.kept_bytes += nbytes
+        left[0] -= n
         return True
 
-    def __enter__(self):
-        T = self.T
-        self.orig = pre, dec = (T.gqa_prefill_attention,
-                                T.gqa_decode_attention)
+    def keep_prefill(q, k, v, *, causal=True, window=None):
+        check(causal and window is None,
+              "the served model is causal without a window")
+        decode.restart()                      # a new batch
+        return (q, k, v) if afford(q, k, v) else None
 
-        def prefill(q, k, v, *, causal=True, window=None):
-            if self._prefill_calls % self.L == 0:     # a batch's layer 0
-                check(causal and window is None,
-                      "the served model is causal without a window")
-                if self._keep(q.nbytes + k.nbytes + v.nbytes):
-                    self.prefill.append((q, k, v))
-                self._step_in_batch = 0
-            self._prefill_calls += 1
-            return pre(q, k, v, causal=causal, window=window)
+    def keep_decode(q, kc, vc, lengths):
+        if afford(kc, vc):
+            return q[:, 0].clone(), kc.clone(), vc.clone(), lengths.clone()
+        return None
 
-        def decode(q, kc, vc, lengths):
-            # layer i's cache is cache[i], a view at offset i
-            if kc.data_ptr() == kc.untyped_storage().data_ptr():
-                if (self._step_in_batch % DECODE_SAMPLE == 0
-                        and self._keep(kc.nbytes + vc.nbytes)):
-                    self.decode.append((q[:, 0].clone(), kc.clone(),
-                                        vc.clone(), lengths.clone()))
-                self._step_in_batch += 1
-                self.decode_steps += 1
-            return dec(q, kc, vc, lengths)
-
-        T.gqa_prefill_attention = prefill
-        T.gqa_decode_attention = decode
-        return self
-
-    def __exit__(self, *exc):
-        self.T.gqa_prefill_attention, self.T.gqa_decode_attention = self.orig
+    prefill = Recorder(transformer, "gqa_prefill_attention", layers,
+                       keep_prefill)
+    decode = Recorder(transformer, "gqa_decode_attention", layers,
+                      keep_decode, every=DECODE_SAMPLE)
+    return prefill, decode
 
 
-def profile_dense_window(torch, engine, reqs, bl, cache_len, steps=8):
+def profile_dense_window(torch, engine, reqs, bl, cache_len, steps=8,
+                         label="padded"):
     """Where a padded decode step's time goes on the card: prefill one
     batch of the serve's shape (its rows and lengths, random prompt ids),
     then time one fused decode window of ``steps`` steps unprofiled
@@ -757,7 +783,7 @@ def profile_dense_window(torch, engine, reqs, bl, cache_len, steps=8):
     dev = lambda e: (getattr(e, "self_device_time_total", None)
                      or getattr(e, "self_cuda_time_total", 0))
     top = sorted(prof.key_averages(), key=dev, reverse=True)[:6]
-    log(f"padded decode window at {len(reqs)} rows, cache {cache_len}: "
+    log(f"{label} decode window at {len(reqs)} rows, cache {cache_len}: "
         f"{wall:.2f} ms per step on the host clock, device busy "
         f"{busy:.2f} ms per step (idle share {max(0.0, 1 - busy / wall):.2f});"
         f" top device time per step: " + "; ".join(
@@ -830,23 +856,522 @@ def time_dense_decode(torch, dops, dref, calls, spin):
 def summarize(name, per, errs):
     """Mean over the serve's decode steps (or waves) of each median:
     every step or wave launches the kernel once per layer, so this is
-    the mean time of one of the serve's launches."""
+    the mean time of one of the serve's launches.  A kernel that no
+    single PyTorch call computes has no library time (null)."""
     mean = lambda xs: sum(xs) / len(xs)
     bound_by = {by for _, by in per["bound"]}
     row = {"ms": mean(per["ms"]), "plain_ms": mean(per["plain_ms"]),
-           "library_ms": mean(per["library_ms"]),
+           "library_ms": (mean(per["library_ms"]) if per["library_ms"]
+                          else None),
            "bound_ms": mean([t for t, _ in per["bound"]]),
            "bound_by": bound_by.pop() if len(bound_by) == 1 else "bytes",
            "max_abs_err": max(e for e, _ in errs)}
+    lib = ("none" if row["library_ms"] is None
+           else f"{row['library_ms']:.4f}")
     log(f"time {name} over {len(errs)} served shapes (mean of per-shape "
         f"medians, CUDA events, ms): kernel {row['ms']:.4f} (shapes "
         f"{min(per['ms']):.4f}-{max(per['ms']):.4f}), plain "
-        f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, bound "
+        f"{row['plain_ms']:.4f}, library {lib}, bound "
         f"{row['bound_ms']:.4f} ({row['bound_by']}; by shape "
         f"{sorted({by for _, by in per['bound']})}); max abs err "
         f"{row['max_abs_err']:.3e} at output scale up to "
         f"{max(sc for _, sc in errs):.1f}")
     return row
+
+
+# ---------------------------------------------------------------------------
+# phases 9-13: the SSM family and the int8 decode cache
+# ---------------------------------------------------------------------------
+
+def scan_inputs(torch, b, s, h, p, n, gen):
+    """The reference test's distributions: x, b, c unit normal, dt =
+    softplus(normal) > 0, a = -exp(normal) < 0."""
+    f = dict(device="cuda", generator=gen)
+    x = torch.randn(b, s, h, p, **f)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, **f))
+    a = -torch.exp(torch.randn(h, **f))
+    return x, dt, a, torch.randn(b, s, n, **f), torch.randn(b, s, n, **f)
+
+
+def scan_err(got, want):
+    """(max abs error, output scale) of a scan's (y, state) pair."""
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    scale = max(w.abs().max().item() for w in want)
+    return err, scale
+
+
+def ssm_int8_kernel_checks(torch, sops, sref, dops, dref, quant):
+    """The scan at mamba2-780m's shapes against both plain versions: the
+    chunked one at 2e-4 of the output's scale (f32; the kernel sums the
+    cumulative log-decay and the dot products in another order), the
+    per-token recurrence at the reference's 5e-3.  The int8 decode at
+    chatglm-6b's heads (32/32, D 128) and a GQA shape (40/8), f32 and
+    bf16 queries, caches quantised with the model's ``_quant_i8``; then
+    int8 extremes and NaN and inf scales past every row's length, which
+    must change nothing."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for b, s in ((1, 256), (8, 256), (1, 200), (8, 200)):
+        args = scan_inputs(torch, b, s, 48, 64, 128, gen)
+        n0 = sops.ssd_scan.launches
+        out = sops.ssd_scan(*args, 128)
+        check(sops.ssd_scan.launches == n0 + 1, "ssd_scan did not launch")
+        chunked = sref.ssd_chunked_ref(*args, 128)
+        naive = sref.ssd_scan_ref(*args)
+        torch.cuda.synchronize()
+        check(all(torch.isfinite(t).all().item() for t in out),
+              f"ssd_scan B={b} S={s}: non-finite output")
+        err, scale = scan_err(out, chunked)
+        err_naive, _ = scan_err(out, naive)
+        log(f"kernel ssd_scan mamba2-780m B={b} S={s}: max_abs_err {err:.3e}"
+            f" against the chunked version at scale {scale:.1f} (tol "
+            f"{SCAN_TOL} of scale), {err_naive:.3e} against the recurrence "
+            f"(tol 5e-3)")
+        check(err <= SCAN_TOL * max(1.0, scale), f"ssd_scan B={b} S={s}: "
+              f"err {err} at scale {scale}")
+        check(err_naive <= 5e-3, f"ssd_scan B={b} S={s}: err {err_naive} "
+              f"against the recurrence")
+    tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+    shapes = [("chatglm-6b", 16, 512, 32, 32, 128,       # b, s, hq, hkv, d
+               cycle([1, 17, 31, 32, 33, 200, 511, 512], 16)),
+              ("gqa 40/8", 8, 512, 40, 8, 128,
+               [512, 13, 256, 1, 77, 300, 500, 64])]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, b, s, hq, hkv, d, lengths in shapes:
+            q = torch.randn(b, hq, d, generator=gen, device="cuda").to(dtype)
+            (kq, ks), (vq, vs) = (
+                quant(torch.randn(b, s, hkv, d, generator=gen,
+                                  device="cuda")) for _ in range(2))
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            out = dops.decode_attention_int8(q, kq, vq, ks, vs, lens)
+            want = dref.decode_attention_int8_ref(q, kq, vq, ks, vs, lens)
+            for i, n in enumerate(lengths):
+                kq[i, n:], vq[i, n:] = 127, -128
+                ks[i, n:], vs[i, n:] = float("nan"), float("inf")
+            poisoned = dops.decode_attention_int8(q, kq, vq, ks, vs, lens)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            change = (poisoned.float() - out.float()).abs().max().item()
+            log(f"kernel decode_attention_int8 {name} S={s} q {dtype}: "
+                f"max_abs_err {err:.3e} (tol {tol[dtype]}); int8 extremes "
+                f"and NaN/inf scales past the lengths change it by "
+                f"{change:.3e}")
+            check(torch.isfinite(out).all().item(), f"int8 {name}: NaN")
+            check(err <= tol[dtype], f"int8 {name} {dtype}: err {err}")
+            check(change == 0.0, f"int8 {name}: poison past the lengths "
+                  f"changed the output by {change}")
+
+
+def _rel_errs(torch, got, want):
+    return [((a.cpu().float() - c.float()).abs().max()
+             / (1 + c.float().abs().max())).item()
+            for a, c in zip(got, want)]
+
+
+def ssm_int8_model_checks(torch, np, quant):
+    """Reduced mamba2-780m (padded prefill, then a fused decode window)
+    and reduced chatglm-6b's fused decode on an int8 cache (the CPU
+    prefill's cache quantised, the same int8 cache on both sides), in
+    f32 on the card against the CPU: logits and caches at 2e-4 of scale,
+    tokens equal."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.params import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    b, s, steps = 3, 32, 6
+    lengths = np.array([32, 17, 5])
+    cfg = get_config("mamba2-780m").reduced()
+    params_cpu = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    tokens = rng.integers(3, cfg.vocab_size, size=(b, s))
+    results = {}
+    for dev in ("cpu", "cuda"):
+        params = params_cpu if dev == "cpu" else _to(torch, params_cpu, dev)
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                      device=dev)
+        logits, cache = M.prefill(params, cfg, {"tokens": t(tokens),
+                                                "lengths": t(lengths)},
+                                  act_dtype=torch.float32)
+        out = [logits.clone()] + [c.clone() for c in cache["ssm"]]
+        logits, cache, _, toks = M.decode_multi(
+            params, cfg, cache, {"logits": logits, "positions": t(lengths)},
+            num_steps=steps, act_dtype=torch.float32)
+        results[dev] = (out + [logits, *cache["ssm"]], toks.cpu())
+    errs = _rel_errs(torch, results["cuda"][0], results["cpu"][0])
+    same = torch.equal(results["cuda"][1], results["cpu"][1])
+    log(f"model mamba2-780m reduced f32 card vs cpu: max rel err "
+        f"{max(errs):.3e} (tol 2e-4) over prefill logits and state, the "
+        f"logits and state after {steps} fused decode steps; tokens equal: "
+        f"{same}")
+    check(same, "mamba2 decode tokens differ between card and cpu")
+    check(max(errs) <= 2e-4, f"mamba2 model card vs cpu: {errs}")
+
+    cfg = get_config("chatglm-6b").reduced()
+    cfg8 = dataclasses.replace(cfg, cache_int8=True)
+    params_cpu = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    tokens = torch.as_tensor(rng.integers(3, cfg.vocab_size, size=(b, s)),
+                             dtype=torch.int32)
+    lens = torch.as_tensor(lengths, dtype=torch.int32)
+    logits, fcache = M.prefill(params_cpu, cfg, {"tokens": tokens,
+                                                 "lengths": lens},
+                               act_dtype=torch.float32, cache_len=s + 16)
+    (kq, ks), (vq, vs) = quant(fcache["kv"][0]), quant(fcache["kv"][1])
+    results = {}
+    for dev in ("cpu", "cuda"):
+        params = params_cpu if dev == "cpu" else _to(torch, params_cpu, dev)
+        cache = {"kv": tuple(x.to(dev, copy=True) for x in (kq, vq, ks, vs))}
+        lg, cache, _, toks = M.decode_multi(
+            params, cfg8, cache, {"logits": logits.to(dev),
+                                  "positions": lens.to(dev)},
+            num_steps=4, act_dtype=torch.float32)
+        results[dev] = (lg.cpu(), [x.cpu() for x in cache["kv"]],
+                        toks.cpu())
+    (lg_g, c_g, t_g), (lg_c, c_c, t_c) = results["cuda"], results["cpu"]
+    err = _rel_errs(torch, [lg_g], [lg_c])[0]
+    i8 = max((a.int() - c.int()).abs().max().item()
+             for a, c in zip(c_g[:2], c_c[:2]))
+    sc = max(((a.float() - c.float()).abs() / c.float().abs().clamp(
+        min=1e-30)).max().item() for a, c in zip(c_g[2:], c_c[2:]))
+    log(f"model chatglm-6b reduced f32 int8-cache decode, card vs cpu: max "
+        f"rel err {err:.3e} (tol 2e-4) over the logits after 4 fused steps;"
+        f" new int8 values differ by at most {i8} (tol 1), scales by "
+        f"{sc:.2e} relative (tol one bf16 step, 2**-7); tokens equal: "
+        f"{torch.equal(t_g, t_c)}")
+    check(torch.equal(t_g, t_c), "int8 decode tokens differ, card vs cpu")
+    check(err <= 2e-4 and i8 <= 1 and sc <= 2 ** -7,
+          f"int8 model card vs cpu: {err}, {i8}, {sc}")
+
+
+def ssm_serve(torch, ssm_module, hbm, reset_counts, counts):
+    """Phase 11: mamba2-780m at full width in bf16 through
+    ``run_engine_backend`` (``magnus``, the padded ``BatchEngine``) on
+    phase 7's 64 Poisson requests, with the launch counts zeroed just
+    before and read just after.  Returns (the launch counts, the kept
+    layer-0 scan inputs, one per batch)."""
+    from repro_torch.launch.serve import run_engine_backend
+    from repro_torch.workload.generator import poisson_workload
+    reqs = poisson_workload(8, 60, seed=0, max_len=DENSE_MAX_LEN,
+                            max_gen=DENSE_MAX_GEN)[:DENSE_N_REQUESTS]
+    targets = {r.req_id: min(r.gen_length, DENSE_MAX_GEN) for r in reqs}
+    t0 = time.perf_counter()
+    with Recorder(ssm_module, "ssd_scan", 48) as scans:
+        reset_counts()
+        res = run_engine_backend(
+            "mamba2-780m", 0.0, 0.0, "magnus", seed=0, reduced=False,
+            device="cuda", dtype=torch.bfloat16, hbm_bytes=hbm,
+            max_len=DENSE_MAX_LEN, max_gen=DENSE_MAX_GEN, requests=reqs)
+        launches = counts("launches")
+    plain = counts("plain_calls")
+    engine, results = res.pop("engine"), res.pop("results")
+    log(f"SSM padded serve mamba2-780m full width bf16 magnus: "
+        f"{time.perf_counter() - t0:.1f} s with set-up; " + json.dumps(res))
+    log(f"SSM padded serve batches (size, batch length, G(B), host "
+        f"syncs): " + "; ".join(
+            f"({r.batch_size}, {r.batch_length}, {r.iterations}, "
+            f"{bin(r.iterations).count('1')})" for r in results))
+    log(f"SSM padded serve kernel launches {launches}, plain calls {plain}")
+    cfg = engine.cfg
+    check((cfg.num_layers, cfg.d_model, cfg.ssm.d_inner(cfg.d_model),
+           cfg.ssm.n_heads(cfg.d_model), cfg.ssm.d_state,
+           cfg.padded_vocab) == (48, 1536, 3072, 48, 128, 51200),
+          "the SSM serve did not run mamba2-780m at full width")
+    check(res["requests"] == DENSE_N_REQUESTS,
+          f"{res['requests']} of {DENSE_N_REQUESTS} requests served")
+    check(sorted(rid for r in results for rid in r.generated)
+          == sorted(targets), "the SSM batches did not serve each request "
+          "once")
+    for r in results:
+        check(r.iterations == max(targets[i] for i in r.generated),
+              f"an SSM batch ran {r.iterations} iterations, not its G(B)")
+        for rid, toks in r.generated.items():
+            check(len(toks) == targets[rid],
+                  f"request {rid}: {len(toks)} of {targets[rid]} tokens")
+            check(all(0 <= x < cfg.vocab_size for x in toks),
+                  f"request {rid}: token out of range")
+    check(res["host_syncs"] == sum(bin(r.iterations).count("1")
+                                   for r in results),
+          f"SSM host syncs {res['host_syncs']}: not one per window")
+    check(launches["ssd_scan"] == cfg.num_layers * len(results),
+          f"ssd_scan launches {launches['ssd_scan']} != 48 x "
+          f"{len(results)} batches")
+    check(all(v == 0 for k, v in launches.items() if k != "ssd_scan"),
+          f"the SSM serve launched an attention kernel: {launches}")
+    check(not any(plain.values()), f"plain versions ran on the SSM path: "
+          f"{plain}")
+    check(len(scans.kept) == len(results),
+          f"kept {len(scans.kept)} scans for {len(results)} batches")
+    big = max(results, key=lambda r: r.batch_size)
+    profile_dense_window(
+        torch, engine, [r for r in reqs if r.req_id in big.generated],
+        big.batch_length, big.batch_length + big.iterations,
+        label="SSM padded")
+    return launches, scans.kept
+
+
+def int8_window(torch, np, transformer, dref, reset_counts, counts):
+    """Phase 12: the reference's test_perf_knobs procedure at full width.
+    chatglm-6b in bf16, a dense prefill of INT8_ROWS 2,048-token prompts
+    into a 2,112-slot cache, that cache quantised layer by layer with the
+    model's ``_quant_i8`` into ``init_cache(cfg_int8)``, then a fused
+    decode of INT8_STEPS steps (1 + 63, to read the first step's logits)
+    on the bf16 cache with ``cfg`` and on the int8 cache with
+    ``cfg_int8``.  Held: the launch counts of both windows, no plain
+    call, finite logits and tokens in range.
+
+    Witnesses decode the first step again on copies of the caches with
+    the model's attention replaced by plain torch: the port's int8
+    formulation (``decode_attention_int8_ref``, dequantised in f32), the
+    reference model's (the cache dequantised into bf16, then the float
+    decode attention) and, as a control, the bf16 window's own
+    (``decode_attention_ref``).  With random weights at full width each
+    head's softmax is nearly one-hot, so a change in the last bits of
+    one layer moves the top key in a few heads of later ones, and the
+    first step's logits move by several hundredths of their scale: the
+    control measures that for the accepted bf16 kernel.  No bound in
+    units of the scale holds there, not even the reference's own 0.05
+    of float, so the distances are held against each other (distance =
+    max over the logits, over the second one's scale):
+    - the int8 window from its plain formulation at most 2x the bf16
+      window from its own: the int8 kernel moves the model no more than
+      the bf16 kernel does;
+    - the int8 window from the bf16 window at most 1.25x the reference's
+      formulation from it: the port's int8 decode is no further from
+      float than the reference's;
+    - the int8 window from the reference's formulation at most half its
+      distance from the bf16 window: closer to the reference's int8
+      decode than to float.
+    Returns (the int8 launch counts, the kept calls)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config("chatglm-6b")
+    cfg8 = dataclasses.replace(cfg, cache_int8=True)
+    params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    rows, cl = INT8_ROWS, INT8_PROMPT + INT8_STEPS
+    tokens = torch.as_tensor(rng.integers(3, cfg.vocab_size,
+                                          size=(rows, INT8_PROMPT)),
+                             dtype=torch.int32, device="cuda")
+    lengths = torch.full((rows,), INT8_PROMPT, dtype=torch.int32,
+                         device="cuda")
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(params, cfg, {"tokens": tokens,
+                                            "lengths": lengths},
+                              act_dtype=torch.bfloat16, cache_len=cl)
+    cache8 = M.init_cache(cfg8, rows, cl, device="cuda")
+    k8, v8, ks8, vs8 = cache8["kv"]
+    for i in range(cfg.num_layers):
+        k8[i], ks8[i] = transformer._quant_i8(cache["kv"][0][i])
+        v8[i], vs8[i] = transformer._quant_i8(cache["kv"][1][i])
+    torch.cuda.synchronize()
+    nbytes = lambda ts: sum(t.nbytes for t in ts)
+    log(f"int8 window set-up: prefill of {rows} x {INT8_PROMPT} tokens and "
+        f"quantisation {time.perf_counter() - t0:.1f} s; weights "
+        f"{nbytes(_leaves(params)) / 1e9:.2f} GB, bf16 cache "
+        f"{nbytes(cache['kv']) / 1e9:.2f} GB, int8 cache "
+        f"{nbytes(cache8['kv']) / 1e9:.2f} GB")
+
+    def window(c, kv_cache):
+        first, kv_cache, pos, t1 = M.decode_multi(
+            params, c, kv_cache, {"logits": logits, "positions": lengths},
+            num_steps=1, act_dtype=torch.bfloat16)
+        last, kv_cache, pos, t2 = M.decode_multi(
+            params, c, kv_cache, {"logits": first, "positions": pos},
+            num_steps=INT8_STEPS - 1, act_dtype=torch.bfloat16)
+        return first.float(), last, torch.cat([t1, t2], dim=1)
+
+    def first_step(c, kv_cache, name, attention):
+        """The first step's logits on a copy of ``kv_cache``, with the
+        model's attention entry point ``name`` replaced by ``attention``
+        (plain torch, counted nowhere)."""
+        kv = {"kv": tuple(x.clone() for x in kv_cache["kv"])}
+        orig = getattr(transformer, name)
+        setattr(transformer, name, attention)
+        try:
+            out = M.decode_multi(params, c, kv, {
+                "logits": logits, "positions": lengths}, num_steps=1,
+                act_dtype=torch.bfloat16)[0]
+        finally:
+            setattr(transformer, name, orig)
+        return out.float()
+
+    def reference_attention(q, kc, vc, ks, vs, lengths):
+        kd, vd = (x.to(torch.bfloat16) * sc[..., None]
+                  for x, sc in ((kc, ks), (vc, vs)))
+        return dref.decode_attention_ref(q, kd, vd, lengths)
+
+    plain_first = first_step(cfg8, cache8, "decode_attention_int8",
+                             dref.decode_attention_int8_ref)
+    ref_first = first_step(cfg8, cache8, "decode_attention_int8",
+                           reference_attention)
+    bf16_plain_first = first_step(
+        cfg, cache, "gqa_decode_attention",
+        lambda q, kc, vc, n: dref.decode_attention_ref(q[:, 0], kc, vc,
+                                                       n)[:, None])
+
+    reset_counts()
+    t0 = time.perf_counter()
+    first, last, toks = window(cfg, cache)
+    torch.cuda.synchronize()
+    t_bf16 = time.perf_counter() - t0
+    bf16_launches = counts("launches")
+    del cache
+    with Recorder(transformer, "decode_attention_int8", cfg.num_layers,
+                  lambda *a: tuple(x.clone() for x in a),
+                  every=DECODE_SAMPLE) as kept:
+        reset_counts()
+        t0 = time.perf_counter()
+        first8, last8, toks8 = window(cfg8, cache8)
+        torch.cuda.synchronize()
+        launches = counts("launches")
+    t_int8 = time.perf_counter() - t0
+    plain = counts("plain_calls")
+    agree = (toks8 == toks).float().mean().item()
+    log(f"int8 window chatglm-6b full width bf16, {rows} rows, "
+        f"{INT8_STEPS} steps: {t_bf16:.1f} s (bf16 cache), {t_int8:.1f} s "
+        f"(int8 cache) on the host clock; greedy tokens agree at "
+        f"{agree:.4f} of {toks.numel()}; launches bf16 window "
+        f"{bf16_launches}, int8 window {launches}, plain calls {plain}")
+
+    def dist(x, y):
+        """(max over all logits, median over rows of each row's max) over
+        y's scale, and the share of rows whose top logit agrees"""
+        d = (x - y).abs().amax(dim=-1) / y.abs().max()
+        same = (x.argmax(-1) == y.argmax(-1)).float().mean().item()
+        text = (f"{d.max().item():.3e} (row median "
+                f"{d.median().item():.3e}, top logit agrees in {same:.3f} "
+                f"of rows)")
+        return d.max().item(), text
+
+    (i8_plain, t1), (control, t2), (i8_bf16, t3), (ref_bf16, t4), \
+        (i8_ref, t5) = (dist(first8, plain_first),
+                        dist(first, bf16_plain_first), dist(first8, first),
+                        dist(ref_first, first), dist(first8, ref_first))
+    log(f"int8 window first step's logits, distance over their scale "
+        f"{first.abs().max().item():.2f}: int8 window from its formulation "
+        f"in plain torch {t1}; control, the bf16 window from its own {t2}; "
+        f"int8 window from the bf16 window {t3}; the reference's "
+        f"formulation (bf16 dequantisation) from the bf16 window {t4}; int8 "
+        f"window from the reference's formulation {t5}")
+    n = cfg.num_layers * INT8_STEPS
+    check(bf16_launches["decode_attention"] == n,
+          f"bf16 window: {bf16_launches['decode_attention']} dense decode "
+          f"launches, not {n}")
+    check(launches["decode_attention_int8"] == n,
+          f"int8 window: {launches['decode_attention_int8']} int8 "
+          f"launches, not 28 x {INT8_STEPS}")
+    check(launches["decode_attention"] == 0,
+          "the int8 window launched the float decode kernel")
+    check(not any(plain.values()), f"plain versions ran: {plain}")
+    check(kept.steps == INT8_STEPS, f"recorded {kept.steps} int8 steps")
+    check(i8_plain <= 2 * control, f"int8 window {i8_plain} from its plain "
+          f"formulation, past 2x the bf16 window's {control}")
+    check(i8_bf16 <= 1.25 * ref_bf16, f"int8 window {i8_bf16} from the bf16"
+          f" window, past 1.25x the reference formulation's {ref_bf16}")
+    check(i8_ref <= 0.5 * i8_bf16, f"int8 window {i8_ref} from the "
+          f"reference's formulation, past half its {i8_bf16} from float")
+    check(all(torch.isfinite(x).all().item() for x in (first8, last8)),
+          "non-finite logits on the int8 cache")
+    check(toks8.min().item() >= 0 and toks8.max().item() < cfg.vocab_size,
+          "int8 window: token out of range")
+    return launches, kept.kept
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def time_scan(torch, sops, sref, calls, spin):
+    """The scan kernel on each batch's layer-0 prefill scan of the SSM
+    serve, held against the chunked plain version at 2e-4 of scale.  No
+    single PyTorch call computes the scan, so there is no library time.
+    The bound counts x, dt, b, c, y and the state once, and the chunked
+    algorithm's operations: per row and chunk of n rows C.B^T over the
+    lower triangle once (n (n + 1) N), per head the weighted sum over x
+    (n (n + 1) P), the carried-state term and the state update (2 n P N
+    each), at the 989 TFLOP/s of every bound here (the three products are
+    tensor-core work); the log shows the bound at the f32 rate of the
+    CUDA cores, where the kernel now computes, beside it."""
+    per = {k: [] for k in ("ms", "plain_ms", "library_ms", "bound")}
+    errs, f32 = [], []
+    for x, dt, a, b, c, chunk in calls:
+        bsz, s, h, p = x.shape
+        n = b.shape[-1]
+        kern = lambda r: sops.ssd_scan(x, dt, a, b, c, chunk)
+        plain = lambda r: sref.ssd_chunked_ref(x, dt, a, b, c, chunk)
+        err, scale = scan_err(kern(0), plain(0))
+        check(all(torch.isfinite(t).all().item() for t in kern(0)),
+              "ssd_scan: non-finite at the serve's inputs")
+        check(err <= SCAN_TOL * max(1.0, scale),
+              f"ssd_scan: err {err} at scale {scale} at the serve's inputs")
+        errs.append((err, scale))
+        per["ms"].append(median_ms(torch, kern, PREFILL_REPS, spin))
+        per["plain_ms"].append(median_ms(torch, plain, PREFILL_REPS, spin))
+        lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+        flops = bsz * sum(m * (m + 1) * n + h * (m * (m + 1) * p
+                                                 + 4 * m * p * n)
+                          for m in lens)
+        nbytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + b.numel()
+                      + c.numel() + bsz * h * p * n)
+        per["bound"].append(bound(nbytes, flops))
+        f32.append(max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3)
+    log(f"ssd_scan bound at the f32 rate of the CUDA cores (67 TFLOP/s) "
+        f"instead of 989: {sum(f32) / len(f32):.4f} ms (mean over shapes)")
+    return per, errs
+
+
+def time_int8(torch, dops, dref, calls, spin):
+    """The int8 kernel on each kept decode step of the int8 window (its
+    layer-0 query, the int8 cache and scales as the step met them, the
+    lengths).  Yardsticks on the cache dequantised to bf16 (not timed):
+    SDPA with a length mask on the cache cut to its longest row, and the
+    bf16 dense decode kernel, which reads twice the bytes.  The bound
+    counts q and out, int8 K/V and their bf16 scales up to each row's
+    length."""
+    import torch.nn.functional as F
+    per = {k: [] for k in ("ms", "plain_ms", "library_ms", "bound")}
+    bf16_ms, errs = [], []
+    for q, kc, vc, ks, vs, lens in calls:
+        b, hq, d = q.shape
+        _, s, hkv, _ = kc.shape
+        check(hq == hkv, "the yardstick assumes the served model's MHA")
+        kern = lambda r: dops.decode_attention_int8(q, kc, vc, ks, vs, lens)
+        plain = lambda r: dref.decode_attention_int8_ref(q, kc, vc, ks, vs,
+                                                         lens)
+        errs.append(hold(torch, "decode_attention_int8", kern(0), plain(0)))
+        per["ms"].append(median_ms(torch, kern, DECODE_REPS, spin))
+        per["plain_ms"].append(median_ms(torch, plain, DECODE_REPS, spin))
+        kd, vd = ((x.float() * sc.float()[..., None]).to(q.dtype)
+                  for x, sc in ((kc, ks), (vc, vs)))
+        w = int(lens.max())
+        kt, vt = (x[:, :w].transpose(1, 2).contiguous() for x in (kd, vd))
+        mask = (torch.arange(w, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        lib = lambda r: F.scaled_dot_product_attention(q4, kt, vt,
+                                                       attn_mask=mask)
+        lib(0)
+        per["library_ms"].append(median_ms(torch, lib, DECODE_REPS, spin))
+        dense = lambda r: dops.decode_attention(q, kd, vd, lens)
+        dense(0)
+        bf16_ms.append(median_ms(torch, dense, DECODE_REPS, spin))
+        del kd, vd, kt, vt
+        n_keys = int(lens.clamp(max=s).sum())
+        nbytes = (2 * q.numel() * q.element_size() + 2 * n_keys * hkv * d
+                  + 2 * n_keys * hkv * ks.element_size() + b * 4)
+        per["bound"].append(bound(nbytes, 4 * d * hq * n_keys))
+    log(f"decode_attention (bf16 kernel) on the same rows dequantised to "
+        f"bf16: {sum(bf16_ms) / len(bf16_ms):.4f} ms (mean of per-shape "
+        f"medians over {len(bf16_ms)} shapes)")
+    return per, errs
 
 
 # ---------------------------------------------------------------------------
@@ -893,13 +1418,18 @@ def main() -> int:
         from repro_torch.kernels.decode_attention import ops, ref
         from repro_torch.kernels.flash_attention import ops as fops
         from repro_torch.kernels.flash_attention import ref as fref
+        from repro_torch.kernels.ssd_scan import ops as sops
+        from repro_torch.kernels.ssd_scan import ref as sref
+        from repro_torch.models import ssm as ssm_module
+        from repro_torch.models import transformer
         kernel_checks(torch, ops, ref)
         dense_kernel_checks(torch, fops, fref, ops, ref)
-        all_kernels = ops.KERNELS + fops.KERNELS
+        all_kernels = ops.KERNELS + fops.KERNELS + sops.KERNELS
 
         def reset_counts():
             ops.reset_counts()
             fops.reset_counts()
+            sops.reset_counts()
 
         def counts(attr):
             return {fn.__name__: getattr(fn, attr) for fn in all_kernels}
@@ -908,15 +1438,20 @@ def main() -> int:
         model_check(torch, np)
         dense_model_check(torch, np)
 
+        # 9-10. the SSD scan and int8 decode kernels, then their models
+        ssm_int8_kernel_checks(torch, sops, sref, ops, ref,
+                               transformer._quant_i8)
+        ssm_int8_model_checks(torch, np, transformer._quant_i8)
+
         # 5. serve chatglm-6b at full width through the paged engine
         from repro_torch.launch.serve import (run_engine_backend,
                                               run_paged_engine_backend)
-        from repro_torch.models import transformer
         from repro_torch.workload.apps import make_shared_head_dataset
         reqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
                                         gen_length=GEN_LENGTH, seed=0)
         t0 = time.perf_counter()
-        with ServeCalls(transformer) as served:
+        decoded, waves = paged_recorders(transformer, 28)
+        with decoded, waves:
             reset_counts()
             res = run_paged_engine_backend(
                 "chatglm-6b", 0.0, 0.0, "magnus-paged", seed=0,
@@ -950,16 +1485,16 @@ def main() -> int:
                   f"request {r.req_id}: token out of range")
         check(torch.isfinite(engine.logits.float()).all().item(),
               "non-finite logits after serving")
-        check(len(served.decode) * cfg.num_layers
+        check(len(decoded.kept) * cfg.num_layers
               == launches["paged_decode_attention"]
-              and len(served.prefill) * cfg.num_layers
+              and len(waves.kept) * cfg.num_layers
               == launches["paged_prefix_prefill_attention"],
-              f"recorded {len(served.decode)} decode steps and "
-              f"{len(served.prefill)} waves against launches {launches}")
+              f"recorded {len(decoded.kept)} decode steps and "
+              f"{len(waves.kept)} waves against launches {launches}")
         log("serve waves (rows, bucket, table width, prefix_lens, "
             "suffix_lens): " + "; ".join(
                 f"{tuple(q.shape[:2])} {t.shape[1]} {pl.tolist()} "
-                f"{sl.tolist()}" for q, _, _, t, pl, sl in served.prefill))
+                f"{sl.tolist()}" for q, _, _, t, pl, sl in waves.kept))
         profile_window(torch, engine, make_shared_head_dataset(
             SERVE["max_concurrency"], n_apps=3, gen_length=GEN_LENGTH,
             seed=1))
@@ -972,14 +1507,14 @@ def main() -> int:
         log(f"spin kernel: {spin:.2f} ms")
         t = {"paged_decode_attention": summarize(
                  "paged_decode_attention", *time_decode(
-                     torch, ops, ref, served.decode, pages["k"],
+                     torch, ops, ref, decoded.kept, pages["k"],
                      pages["v"], spin)),
              "paged_prefix_prefill_attention": summarize(
                  "paged_prefix_prefill_attention", *time_prefill(
-                     torch, ops, ref, served.prefill, pages["k"],
+                     torch, ops, ref, waves.kept, pages["k"],
                      pages["v"], spin))}
         paged_launches = launches
-        del pages, served
+        del pages, decoded, waves
         torch.cuda.empty_cache()
 
         # 7. serve chatglm-6b at full width through the padded BatchEngine
@@ -989,7 +1524,8 @@ def main() -> int:
         targets = {r.req_id: min(r.gen_length, DENSE_MAX_GEN) for r in dreqs}
         hbm = torch.cuda.get_device_properties(0).total_memory
         t0 = time.perf_counter()
-        with DenseServeCalls(transformer, 28) as dserved:
+        dprefill, ddecode = dense_recorders(transformer, 28)
+        with dprefill, ddecode:
             reset_counts()
             dres = run_engine_backend(
                 "chatglm-6b", 0.0, 0.0, "magnus", seed=0, reduced=False,
@@ -1034,13 +1570,13 @@ def main() -> int:
         check(dlaunches["decode_attention"] == 28 * steps,
               f"decode launches {dlaunches['decode_attention']} != 28 x "
               f"{steps} decode steps")
-        check(dserved.decode_steps == steps,
-              f"recorded {dserved.decode_steps} decode steps, not {steps}")
+        check(ddecode.steps == steps,
+              f"recorded {ddecode.steps} decode steps, not {steps}")
         check(not any(dplain.values()),
               f"plain versions ran on the padded path: {dplain}")
-        log(f"padded serve kept {len(dserved.prefill)} prefills and "
-            f"{len(dserved.decode)} decode steps "
-            f"({dserved.kept_bytes / 2 ** 30:.2f} GiB)")
+        kept = sum(t.nbytes for c in dprefill.kept + ddecode.kept for t in c)
+        log(f"padded serve kept {len(dprefill.kept)} prefills and "
+            f"{len(ddecode.kept)} decode steps ({kept / 2 ** 30:.2f} GiB)")
         big = max(results, key=lambda r: r.batch_size)
         profile_dense_window(
             torch, dengine, [r for r in dreqs if r.req_id in big.generated],
@@ -1052,10 +1588,30 @@ def main() -> int:
         # 8. padded timings at the serve's shapes
         t["flash_attention"] = summarize(
             "flash_attention", *time_flash(torch, fops, fref,
-                                           dserved.prefill, spin))
+                                           dprefill.kept, spin))
         t["decode_attention"] = summarize(
             "decode_attention", *time_dense_decode(torch, ops, ref,
-                                                   dserved.decode, spin))
+                                                   ddecode.kept, spin))
+        del dprefill, ddecode
+        torch.cuda.empty_cache()
+
+        # 11. serve mamba2-780m at full width through the padded
+        # BatchEngine, on phase 7's requests
+        slaunches, scans = ssm_serve(torch, ssm_module, hbm, reset_counts,
+                                     counts)
+        torch.cuda.empty_cache()
+
+        # 12. an int8 decode window of chatglm-6b at full width
+        i8launches, i8calls = int8_window(torch, np, transformer, ref,
+                                          reset_counts, counts)
+        torch.cuda.empty_cache()
+
+        # 13. timings of the scan and the int8 kernel at the kept inputs
+        t["ssd_scan"] = summarize(
+            "ssd_scan", *time_scan(torch, sops, sref, scans, spin))
+        t["decode_attention_int8"] = summarize(
+            "decode_attention_int8", *time_int8(torch, ops, ref, i8calls,
+                                                spin))
         source = {"paged_decode_attention":
                   ("src/repro_torch/csrc/paged_decode_attention.cu",
                    "src/repro/kernels/decode_attention/kernel.py:298",
@@ -1071,7 +1627,15 @@ def main() -> int:
                   "decode_attention":
                   ("src/repro_torch/csrc/decode_attention.cu",
                    "src/repro/kernels/decode_attention/kernel.py:402",
-                   dlaunches)}
+                   dlaunches),
+                  "decode_attention_int8":
+                  ("src/repro_torch/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention/kernel.py:345",
+                   i8launches),
+                  "ssd_scan":
+                  ("src/repro_torch/csrc/ssd_scan.cu",
+                   "src/repro/kernels/ssd_scan/kernel.py:76",
+                   slaunches)}
         rows = []
         for name, (path, tpu, count) in source.items():
             rows.append({"name": name, "route": "cuda", "source": path,

@@ -1,8 +1,11 @@
 // Dense decode attention for Hopper (sm_90a): one query token per request
 // against its own contiguous KV cache [B, S, Hkv, D], masked at
 // lengths[b] (the padded batch's waiting slots and the unwritten tail).
+// One source, two caches: K/V in the query's type, or int8 with one bf16
+// scale per (token, head).
 //
-// Replaces the TPU kernel `decode_attention_kernel` (body `_kernel`) in
+// Replaces the TPU kernels `decode_attention_kernel` (body `_kernel`) and
+// `decode_attention_int8_kernel` (body `_kernel_i8`) in
 // src/repro/kernels/decode_attention/kernel.py.
 //
 // What bounds it: bytes.  Each request's valid K/V (lengths[b] rows of
@@ -18,9 +21,19 @@
 // each staged tile.  Softmax is online in f32; q is scaled by D**-0.5 in
 // f32 before the dot.
 //
+// The int8 cache moves half the bf16 cache's bytes (one byte a value, plus
+// a 2-byte scale per D values), so its bytes bound is half the bf16
+// kernel's.  Each value is dequantised in f32 as it is staged, value *
+// scale, just before the products, as the TPU kernel does; the scales are
+// read in place as the model's cache stores them, in bf16 (the TPU
+// wrapper's f32 copy of them is a pass the card does not need).  A scale
+// past the length is never read, so NaN or inf there cannot matter.
+//
 // Simple first: scalar loads, f32 FMAs, no tensor cores and no split over
 // the KV axis; B * Hkv blocks fill the card only at large batch.
 #include <cmath>
+#include <cstdint>
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -29,12 +42,39 @@ namespace {
 
 constexpr int kDecodeTileKeys = 32;  // cache rows staged per step
 
-template <typename T>
+// Stage cache rows c0 .. c0 + TK of (request b, KV head h) into smem rows
+// [TK][ld] as f32; an int8 row is multiplied by its bf16 scale.  Rows at
+// or past `len` are written as zeros, and neither they nor their scales
+// are read.
+template <typename KV>
+__device__ __forceinline__ void stage_kv(float* dst, int ld,
+                                         const KV* __restrict__ src,
+                                         const __nv_bfloat16* __restrict__ sc,
+                                         int b, int h, int c0, int len, int S,
+                                         int Hkv, int D) {
+  for (int e = threadIdx.x; e < kDecodeTileKeys * D; e += blockDim.x) {
+    const int t = e / D, d = e - t * D;
+    float val = 0.f;
+    if (c0 + t < len) {
+      const size_t r = ((size_t)b * S + c0 + t) * Hkv + h;  // (b, slot, h)
+      val = to_f32(src[r * D + d]);
+      if constexpr (std::is_same<KV, int8_t>::value)
+        val *= __bfloat162float(sc[r]);
+    }
+    dst[t * ld + d] = val;
+  }
+}
+
+// T: the query's and output's type; KV: the cache's (T, or int8 with
+// bf16 scales k_scale / v_scale [B, S, Hkv]; null for a T cache).
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-              const T* __restrict__ v_cache, const int* __restrict__ lengths,
-              T* __restrict__ out, int S, int Hq, int Hkv, int D,
-              float scale) {
+decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_cache,
+              const KV* __restrict__ v_cache,
+              const __nv_bfloat16* __restrict__ k_scale,
+              const __nv_bfloat16* __restrict__ v_scale,
+              const int* __restrict__ lengths, T* __restrict__ out, int S,
+              int Hq, int Hkv, int D, float scale) {
   extern __shared__ float smem[];
   constexpr int TK = kDecodeTileKeys;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -61,12 +101,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   }
   for (int c0 = 0; c0 < len; c0 += TK) {
     __syncthreads();  // the previous tile is consumed
-    auto row_off = [&](int t) {
-      return (((size_t)b * S + c0 + t) * Hkv + h) * D;
-    };
-    auto ok = [&](int t) { return c0 + t < len; };
-    stage_rows(ks, ld, k_cache, TK, D, row_off, ok);
-    stage_rows(vs, ld, v_cache, TK, D, row_off, ok);
+    stage_kv(ks, ld, k_cache, k_scale, b, h, c0, len, S, Hkv, D);
+    stage_kv(vs, ld, v_cache, v_scale, b, h, c0, len, S, Hkv, D);
     __syncthreads();
     tile_scores(sc, qs, ks, ld, G, TK, D,
                 [&](int, int t) { return c0 + t < len; });
@@ -82,8 +118,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   }
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
+                   const void* k_scale, const void* v_scale,
                    const void* lengths, void* out, int B, int S, int Hq,
                    int Hkv, int D, cudaStream_t stream) {
   constexpr int TK = kDecodeTileKeys;
@@ -91,12 +128,14 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
   const size_t smem =
       sizeof(float) * ((size_t)G * ld + 2 * (size_t)TK * ld + G * TK +
                        (size_t)G * D + 3 * G);
-  cudaError_t err = set_smem(decode_kernel<T>, smem);
+  cudaError_t err = set_smem(decode_kernel<T, KV>, smem);
   if (err != cudaSuccess) return err;
-  decode_kernel<T><<<dim3(Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_cache),
-      static_cast<const T*>(v_cache), static_cast<const int*>(lengths),
-      static_cast<T*>(out), S, Hq, Hkv, D,
+  decode_kernel<T, KV><<<dim3(Hkv, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k_cache),
+      static_cast<const KV*>(v_cache),
+      static_cast<const __nv_bfloat16*>(k_scale),
+      static_cast<const __nv_bfloat16*>(v_scale),
+      static_cast<const int*>(lengths), static_cast<T*>(out), S, Hq, Hkv, D,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
@@ -119,10 +158,35 @@ extern "C" int repro_decode_attention(const void* q, const void* k_cache,
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return repro::launch<float>(q, k_cache, v_cache, lengths, out, B, S, Hq,
-                                Hkv, D, s);
+    return repro::launch<float, float>(q, k_cache, v_cache, nullptr,
+                                       nullptr, lengths, out, B, S, Hq, Hkv,
+                                       D, s);
   if (dtype == repro::kBFloat16)
-    return repro::launch<__nv_bfloat16>(q, k_cache, v_cache, lengths, out,
-                                        B, S, Hq, Hkv, D, s);
+    return repro::launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_cache, v_cache, nullptr, nullptr, lengths, out, B, S, Hq, Hkv,
+        D, s);
+  return cudaErrorInvalidValue;
+}
+
+// As repro_decode_attention, with an int8 cache: k_cache, v_cache int8
+// [B, S, Hkv, D] and k_scale, v_scale bf16 [B, S, Hkv] (slices of the
+// model's int8 cache); q and out of `dtype` (0 = f32, 1 = bf16).
+extern "C" int repro_decode_attention_int8(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* k_scale, const void* v_scale, const void* lengths,
+    void* out, int B, int S, int Hq, int Hkv, int D, int dtype,
+    void* stream) {
+  if (B == 0) return cudaSuccess;
+  if (B < 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kFloat32)
+    return repro::launch<float, int8_t>(q, k_cache, v_cache, k_scale,
+                                        v_scale, lengths, out, B, S, Hq,
+                                        Hkv, D, s);
+  if (dtype == repro::kBFloat16)
+    return repro::launch<__nv_bfloat16, int8_t>(
+        q, k_cache, v_cache, k_scale, v_scale, lengths, out, B, S, Hq, Hkv,
+        D, s);
   return cudaErrorInvalidValue;
 }

@@ -9,7 +9,7 @@ def device_route(t: torch.Tensor) -> str:
     the plain version; any other device raises."""
     if t.device.type in ("cuda", "cpu"):
         return t.device.type
-    raise ValueError(f"attention runs on cuda or cpu, not {t.device}")
+    raise ValueError(f"the kernels run on cuda or cpu, not {t.device}")
 
 
 # Shared by the ctypes launchers (``*/kernel.py``).

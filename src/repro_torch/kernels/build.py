@@ -105,4 +105,8 @@ def load_library() -> ctypes.CDLL:
     lib.repro_flash_attention.restype = i
     lib.repro_decode_attention.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.repro_decode_attention.restype = i
+    lib.repro_decode_attention_int8.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.repro_decode_attention_int8.restype = i
+    lib.repro_ssd_scan.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.repro_ssd_scan.restype = i
     return lib

@@ -1,14 +1,16 @@
 """Hand-written Hopper kernels for decode and paged attention, launched
-through ctypes (sources: ``repro_torch/csrc/decode_attention.cu``,
+through ctypes (sources: ``repro_torch/csrc/decode_attention.cu``, which
+holds both dense decode kernels,
 ``repro_torch/csrc/paged_decode_attention.cu`` and
 ``repro_torch/csrc/paged_prefix_prefill_attention.cu``).
 
 Each replaces the TPU kernel of the same name in
 ``src/repro/kernels/decode_attention/kernel.py``:
 ``decode_attention_kernel`` (body ``_kernel``),
+``decode_attention_int8_kernel`` (body ``_kernel_i8``),
 ``paged_decode_attention_kernel`` (body ``_paged_kernel``) and
 ``paged_prefix_prefill_attention_kernel`` (body
-``_prefix_prefill_kernel``).  All three are bound by the bytes they read:
+``_prefix_prefill_kernel``).  All four are bound by the bytes they read:
 each block walks only the cache rows or pages its row's length covers, so
 the bytes follow the real context, not the cache or table width (the
 sources say more).
@@ -48,6 +50,39 @@ def decode_attention_kernel(q, k_cache, v_cache, lengths) -> torch.Tensor:
             lengths.data_ptr(), out.data_ptr(), b, s, hq, hkv, d, code,
             torch.cuda.current_stream(q.device).cuda_stream)
     raise_on(rc, "decode_attention")
+    return out
+
+
+def decode_attention_int8_kernel(q, k_cache, v_cache, k_scale, v_scale,
+                                 lengths) -> torch.Tensor:
+    """q: [B, Hq, D] (f32 or bf16); caches: int8 [B, S, Hkv, D]; scales:
+    bf16 [B, S, Hkv] (slices of the model's int8 cache); lengths: [B]
+    int32 -> [B, Hq, D] in q's dtype."""
+    code = dtype_code(q)
+    check_cuda("q", q, dim=3)
+    check_cuda("k_cache", k_cache, dtype=torch.int8, dim=4)
+    check_cuda("v_cache", v_cache, dtype=torch.int8, dim=4)
+    check_cuda("k_scale", k_scale, dtype=torch.bfloat16, dim=3)
+    check_cuda("v_scale", v_scale, dtype=torch.bfloat16, dim=3)
+    check_cuda("lengths", lengths, dtype=torch.int32, dim=1)
+    b, hq, d = q.shape
+    _, s, hkv, dk = k_cache.shape
+    if (v_cache.shape != k_cache.shape or k_cache.shape[0] != b or dk != d
+            or hq % hkv or k_scale.shape != (b, s, hkv)
+            or v_scale.shape != k_scale.shape or lengths.shape[0] != b):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, caches "
+            f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, scales "
+            f"{tuple(k_scale.shape)}/{tuple(v_scale.shape)}, lengths "
+            f"{tuple(lengths.shape)}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = load_library().repro_decode_attention_int8(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), b, s, hq, hkv, d, code,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    raise_on(rc, "decode_attention_int8")
     return out
 
 

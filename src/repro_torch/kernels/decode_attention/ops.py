@@ -1,6 +1,6 @@
-"""Device-keyed decode and paged attention: the hand-written CUDA kernel
-for CUDA tensors, the plain PyTorch version for CPU tensors, and nothing
-else.
+"""Device-keyed decode (float or int8 cache) and paged attention: the
+hand-written CUDA kernel for CUDA tensors, the plain PyTorch version for
+CPU tensors, and nothing else.
 
 There is no fallback: a CUDA tensor launches the kernel or raises, and a
 tensor on any other device raises.  Each wrapper counts its kernel
@@ -32,6 +32,26 @@ def decode_attention(q, k_cache, v_cache, lengths):
 
 decode_attention.launches = 0
 decode_attention.plain_calls = 0
+
+
+@hot_path
+def decode_attention_int8(q, k_cache, v_cache, k_scale, v_scale, lengths):
+    """q: [B, Hq, D]; caches: int8 [B, S, Hkv, D]; scales: [B, S, Hkv]
+    (bf16); lengths: [B] valid slots per row (slots and scales at or past
+    it are never read) -> [B, Hq, D]."""
+    if device_route(q) == "cpu":
+        decode_attention_int8.plain_calls += 1
+        return ref.decode_attention_int8_ref(q, k_cache, v_cache, k_scale,
+                                             v_scale, lengths)
+    out = kernel.decode_attention_int8_kernel(
+        q.contiguous(), k_cache, v_cache, k_scale, v_scale,
+        lengths.to(torch.int32).contiguous())
+    decode_attention_int8.launches += 1
+    return out
+
+
+decode_attention_int8.launches = 0
+decode_attention_int8.plain_calls = 0
 
 
 @hot_path
@@ -79,7 +99,7 @@ def paged_prefix_prefill_attention(q, k_suf, v_suf, k_pages, v_pages,
 paged_prefix_prefill_attention.launches = 0
 paged_prefix_prefill_attention.plain_calls = 0
 
-KERNELS = (decode_attention, paged_decode_attention,
+KERNELS = (decode_attention, decode_attention_int8, paged_decode_attention,
            paged_prefix_prefill_attention)
 
 

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the dense and paged decode attention kernels:
+"""Plain PyTorch versions of the dense (float or int8 cache) and paged
+decode attention kernels:
 a port of the reference package's oracles
 (``src/repro/kernels/decode_attention/ref.py``).  They are the CPU path
 of ``ops.py`` and the yardstick every kernel is held against."""
@@ -30,6 +31,19 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                      torch.zeros((), device=q.device))
     o = torch.einsum("bhgk,bkhd->bhgd", p, vf)
     return o.reshape(b, hq, d).to(q.dtype)
+
+
+def decode_attention_int8_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, k_scale: torch.Tensor,
+                              v_scale: torch.Tensor,
+                              lengths: torch.Tensor) -> torch.Tensor:
+    """The int8-cache variant: caches int8 [B, S, Hkv, D], scales [B, S,
+    Hkv] (bf16 in the model's cache).  Dequantised in f32 (value * scale,
+    as the TPU kernel does), then :func:`decode_attention_ref`'s
+    arithmetic, masked values zeroed."""
+    k = k_cache.float() * k_scale.float()[..., None]
+    v = v_cache.float() * v_scale.float()[..., None]
+    return decode_attention_ref(q, k, v, lengths)
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

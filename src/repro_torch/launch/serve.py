@@ -7,7 +7,9 @@ drives the PyTorch engines.
 The padded strategies (``vs vsq ccb glp abp magnus``) serve through the
 paper's padded-batch ``BatchEngine`` (:func:`run_engine_backend`); the
 ``-paged`` ones through the ``PagedContinuousEngine``
-(:func:`run_paged_engine_backend`).  Runs on the CUDA card unless
+(:func:`run_paged_engine_backend`).  The padded path serves the dense
+and SSM (``--arch mamba2-780m``) families, the paged one the dense
+family.  Runs on the CUDA card unless
 ``--device cpu`` is given.  Like the reference launcher, it serves
 ``reduced()`` configurations in f32.  The reference's roofline
 simulator backend (``--backend sim``) is not ported yet.

@@ -1,9 +1,12 @@
-"""Model facade for the dense and paged serving paths (the reference
-package's ``models/model.py``).  Batches are dicts of tensors:
+"""Model facade for the dense-cache and paged serving paths (the
+reference package's ``models/model.py``).  Batches are dicts of tensors:
 
   prefill            : {"tokens": [B, S], "lengths": [B]}
   decode_step        : {"tokens": [B], "positions": [B]} against a dense
-                       cache {"kv": (k, v)}, each [L, B, S, Hkv, D]
+                       cache: {"kv": (k, v)}, each [L, B, S, Hkv, D];
+                       {"kv": (k, v, k_scale, v_scale)} int8 with bf16
+                       scales [L, B, S, Hkv] (``cfg.cache_int8``); or
+                       {"ssm": (state, conv)} (the SSM family)
   decode_multi       : {"logits": [B, padded_vocab], "positions": [B]}
   prefill_wave       : {"tokens": [B, S], "lengths": [B], "prefix_lens",
                         "attn_tables", "tables", "write_lens", "cow_src",
@@ -15,8 +18,10 @@ package's ``models/model.py``).  Batches are dicts of tensors:
 The functions run where their tensors live; the constructors
 (:func:`init_params`, :func:`init_cache`, :func:`init_paged_cache`)
 take a ``device`` that defaults to the CUDA card and raise without one.
-Only the dense family has a dense cache in the port; the others raise
-``NotImplementedError`` (``transformer.supports_dense`` says why).
+The dense and SSM families have a dense cache in the port; the others
+raise ``NotImplementedError`` (``transformer.supports_dense`` says why).
+The paged entry points serve the dense family only
+(:func:`supports_paged`).
 """
 from __future__ import annotations
 
@@ -34,8 +39,10 @@ from repro_torch.models import transformer
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Optional[torch.device] = None):
-    """A zero dense decode cache {"kv": (k, v)}, each [L, batch, seq,
-    Hkv, D]."""
+    """A zero dense decode cache: {"kv": (k, v)}, each [L, batch, seq,
+    Hkv, D] in ``dtype``; int8 values and bf16 scales with
+    ``cfg.cache_int8``; {"ssm": (state, conv)} in f32 for the SSM
+    family."""
     return transformer.init_cache(cfg, batch, seq, dtype=dtype,
                                   device=resolve_device(device))
 
@@ -45,7 +52,9 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
             act_dtype: torch.dtype = torch.bfloat16,
             cache_len: Optional[int] = None):
     """Prefill right-padded prompts.  Returns (next-token logits [B, V],
-    dense cache of capacity ``cache_len``)."""
+    dense cache of capacity ``cache_len``: a float KV cache, also for an
+    int8 config, as in the reference; the recurrent state for the SSM
+    family)."""
     return transformer.prefill(params, cfg, batch["tokens"],
                                batch["lengths"], act_dtype=act_dtype,
                                cache_len=cache_len)

@@ -1,17 +1,22 @@
-"""The dense decoder-only transformer's serving entry points (the
-reference package's ``models/transformer.py``), in two halves:
+"""The decoder-only model's serving entry points (the reference
+package's ``models/transformer.py``), in two halves:
 
-- dense (the padded-batch engines, paper §II-D): ``prefill`` over
-  right-padded prompts builds a ``[L, B, S, Hkv, D]`` K and V cache
-  (padded, or ring-packed for sliding-window models), and
-  ``decode_step`` runs one token against it;
+- dense cache (the padded-batch engines, paper §II-D): ``prefill`` over
+  right-padded prompts builds the decode cache and ``decode_step`` runs
+  one token against it.  For the dense family the cache is a
+  ``[L, B, S, Hkv, D]`` K and V cache (padded, or ring-packed for
+  sliding-window models), or with ``cfg.cache_int8`` int8 K and V with
+  bf16 scales per (token, head); for the SSM family (mamba2) it is the
+  per-layer recurrent state, ``[L, B, H, P, N]`` and ``[L, B, C, K-1]``
+  in f32;
 - paged (DESIGN.md §8-§12): KV lives in one K and one V pool per layer,
   ``[L, num_blocks, bt, Hkv, D]``, shared by every request and addressed
   through per-request block tables.
 
-Attention goes through the kernels' ops: the hand-written CUDA kernels
-on the card, their plain versions on the CPU.  Only the dense family is
-ported; the others raise ``NotImplementedError`` with the reason.
+Attention and the SSD scan go through the kernels' ops: the hand-written
+CUDA kernels on the card, their plain versions on the CPU.  The dense and
+SSM families are ported; the others raise ``NotImplementedError`` with
+the reason.
 
 Where the reference is functional (``.at[].set`` on donated buffers),
 this port writes into the caches, the pools and the engine's state
@@ -27,10 +32,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import (
-    paged_decode_attention, paged_prefix_prefill_attention)
+    decode_attention_int8, paged_decode_attention,
+    paged_prefix_prefill_attention)
 from repro_torch.models.attention import (gqa_decode_attention,
                                          gqa_prefill_attention)
 from repro_torch.models.layers import apply_rope, rms_norm, swiglu
+from repro_torch.models.ssm import (mamba_decode, mamba_forward,
+                                    mamba_state_spec)
+
+# SSM decay parameters stay f32 whatever the compute dtype, as in the
+# reference (its ``_KEEP_F32``)
+KEEP_F32 = frozenset({"A_log", "D", "dt_bias"})
 
 
 # ---------------------------------------------------------------------------
@@ -38,11 +50,13 @@ from repro_torch.models.layers import apply_rope, rms_norm, swiglu
 # ---------------------------------------------------------------------------
 
 def cast_params(tree, dtype: torch.dtype):
-    """Cast floating weights to the compute dtype.  A tensor already of
-    that dtype is returned as it is, so weights stored in the compute
-    dtype (the engine casts once, at construction) cost nothing here."""
+    """Cast floating weights to the compute dtype, except the SSM decay
+    parameters (``KEEP_F32``).  A tensor already of that dtype is
+    returned as it is, so weights stored in the compute dtype (the engine
+    casts once, at construction) cost nothing here."""
     if isinstance(tree, dict):
-        return {k: cast_params(v, dtype) for k, v in tree.items()}
+        return {k: v if k in KEEP_F32 else cast_params(v, dtype)
+                for k, v in tree.items()}
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
@@ -95,13 +109,15 @@ def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def supports_dense(cfg: ModelConfig) -> Tuple[bool, str]:
-    """The dense half covers the plain-GQA dense family; the others need
-    parts of the model the port does not have yet."""
+    """The dense-cache half covers the plain-GQA dense family and the
+    attention-free SSM family; the others need parts of the model the
+    port does not have yet."""
     if cfg.family == "moe":
         return False, "family moe: the MoE FFN is not ported yet"
-    if cfg.family != "dense":
-        return False, (f"family {cfg.family}: its layers (SSM, vision or "
-                       f"audio front ends) are not ported yet")
+    if cfg.family not in ("dense", "ssm"):
+        return False, (f"family {cfg.family}: its layers (hybrid "
+                       f"attention and SSM heads, vision or audio front "
+                       f"ends) are not ported yet")
     if cfg.uses_mla:
         return False, "MLA latent caches are not ported yet"
     return True, ""
@@ -123,48 +139,85 @@ def _attention(ap: Dict, x: torch.Tensor, cfg: ModelConfig,
     return _out_proj(out.to(x.dtype), ap["wo"]), (k, v)
 
 
+def _quant_i8(t: torch.Tensor):
+    """Symmetric int8 quantisation over the head_dim axis: t [B, 1, H, D]
+    -> (int8 values, bf16 scales [B, 1, H]).  Divides by the f32 scale,
+    then casts the scale to bf16, as the reference does; ``torch.round``
+    rounds half to even, like ``jnp.round``."""
+    tf = t.float()
+    sc = torch.clamp(tf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.round(tf / sc[..., None])
+    return q.to(torch.int8), sc.to(torch.bfloat16)
+
+
 def _attention_decode(ap: Dict, x: torch.Tensor, cfg: ModelConfig,
-                      k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      kv: Tuple[torch.Tensor, ...],
                       positions: torch.Tensor) -> torch.Tensor:
-    """One-token GQA attention against one layer's cache [B, S, Hkv, D].
-    The new K/V is written in place at slot ``positions % S`` (a ring
-    when the cache is shorter than the sequence), then attention reads
-    the first ``min(positions + 1, S)`` slots."""
-    if cfg.cache_int8:
-        raise NotImplementedError(
-            f"{cfg.name}: int8 KV caches (decode_attention_int8_kernel) "
-            f"are not ported yet")
+    """One-token GQA attention against one layer's cache: ``kv`` is (k,
+    v), each [B, S, Hkv, D], or with ``cfg.cache_int8`` (k int8, v int8,
+    k scales, v scales [B, S, Hkv] bf16).  The new K/V (quantised, for
+    int8) is written in place at slot ``positions % S`` (a ring when the
+    cache is shorter than the sequence), then attention reads the first
+    ``min(positions + 1, S)`` slots.  The int8 kernel dequantises in f32;
+    the reference model dequantises into a bf16 copy of the cache and
+    runs the float attention on it (ROADMAP §3)."""
     if cfg.decode_cp:
         raise NotImplementedError(
             f"{cfg.name}: context-parallel decode (gqa_decode_attention_cp)"
             f" needs a device mesh and is not ported yet")
-    s_cache = k_cache.shape[1]
+    s_cache = kv[0].shape[1]
     q, k, v = _qkv(ap, x, cfg)
     q = apply_rope(q, positions[:, None], cfg.rope_theta)
     k = apply_rope(k, positions[:, None], cfg.rope_theta)
     rows = torch.arange(x.shape[0], device=x.device)
     slot = (positions % s_cache).long()
-    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
     valid = torch.clamp(positions + 1, max=s_cache)
-    out = gqa_decode_attention(q, k_cache, v_cache, valid)
+    if cfg.cache_int8:
+        k_cache, v_cache, k_sc, v_sc = kv
+        for cache, scales, new in ((k_cache, k_sc, k), (v_cache, v_sc, v)):
+            values, scale = _quant_i8(new)
+            cache[rows, slot] = values[:, 0]
+            scales[rows, slot] = scale[:, 0]
+        out = decode_attention_int8(q[:, 0], k_cache, v_cache, k_sc, v_sc,
+                                    valid)[:, None]
+    else:
+        k_cache, v_cache = kv
+        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+        out = gqa_decode_attention(q, k_cache, v_cache, valid)
     return _out_proj(out.to(x.dtype), ap["wo"])
+
+
+def _d_inner(cfg: ModelConfig) -> int:
+    return cfg.ssm.d_inner(cfg.d_model)
 
 
 def block_forward(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor, *, window: Optional[int] = None):
-    """Full-sequence dense block.  Returns (x, (k, v))."""
+    """Full-sequence block.  Returns (x, the layer's cache entry): (k, v)
+    for the dense family, (SSD state, conv state) for the SSM family."""
     h = rms_norm(x, bp["norm1"], cfg.norm_eps)
+    if cfg.family == "ssm":
+        y, state = mamba_forward(bp["mamba"], h, cfg.ssm, _d_inner(cfg),
+                                 return_state=True)
+        return x + y, state
     y, kv = _attention(bp["attn"], h, cfg, positions, window=window)
     return _ffn(bp, x + y, cfg), kv
 
 
 def block_decode(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
-                 k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 layer_cache: Tuple[torch.Tensor, ...],
                  positions: torch.Tensor) -> torch.Tensor:
-    """One-token dense block; writes this layer's cache in place."""
+    """One-token block; writes this layer's cache entry (the leaves of
+    ``cache["kv"]`` or ``cache["ssm"]`` at this layer) in place."""
     h = rms_norm(x, bp["norm1"], cfg.norm_eps)
-    y = _attention_decode(bp["attn"], h, cfg, k_cache, v_cache, positions)
+    if cfg.family == "ssm":
+        y, new = mamba_decode(bp["mamba"], h, cfg.ssm, _d_inner(cfg),
+                              layer_cache)
+        for leaf, value in zip(layer_cache, new):
+            leaf.copy_(value)
+        return x + y
+    y = _attention_decode(bp["attn"], h, cfg, layer_cache, positions)
     return _ffn(bp, x + y, cfg)
 
 
@@ -186,11 +239,14 @@ def prefill(params: Dict, cfg: ModelConfig, tokens, lengths, *,
             act_dtype: torch.dtype = torch.bfloat16,
             cache_len: Optional[int] = None):
     """Build the decode cache.  tokens: [B, S] right-padded to S (the
-    prompts attend causally over their pads, as in the reference);
-    lengths: [B] valid counts.  ``cache_len`` sets the cache capacity
-    (>= S pads, < S ring-packs, for sliding-window models).  Returns
-    (next-token logits [B, V], {"kv": (k, v)}, each [L, B, cache_len,
-    Hkv, D] in ``act_dtype``).
+    prompts attend causally over their pads, and an SSM row's state
+    takes in its pads, as in the reference); lengths: [B] valid counts.
+    ``cache_len`` sets the KV cache capacity (>= S pads, < S ring-packs,
+    for sliding-window models).  Returns (next-token logits [B, V],
+    cache): {"kv": (k, v)}, each [L, B, cache_len, Hkv, D] in
+    ``act_dtype`` (a float cache with ``cfg.cache_int8`` too, as in the
+    reference), or for the SSM family {"ssm": (state [L, B, H, P, N],
+    conv [L, B, C, K-1])} in f32, whatever ``act_dtype``.
 
     The logits are computed for each row's last valid position only
     (the reference computes all S rows and picks one; the rows are
@@ -202,59 +258,81 @@ def prefill(params: Dict, cfg: ModelConfig, tokens, lengths, *,
     b, s = tokens.shape
     cl = s if cache_len is None else cache_len
     positions = torch.arange(s, device=x.device)
-    shape = (cfg.num_layers, b, cl, cfg.num_kv_heads, cfg.head_dim)
-    ck = torch.zeros(shape, dtype=act_dtype, device=x.device)
-    cv = torch.zeros(shape, dtype=act_dtype, device=x.device)
-    for i in range(cfg.num_layers):
-        bp = _layer(params["blocks"], i)
-        x, (k, v) = block_forward(bp, x, cfg, positions,
-                                  window=cfg.sliding_window)
-        for cache, new in ((ck, k), (cv, v)):
-            if cl >= s:          # pad: the zero tail is already there
-                cache[i, :, :s] = new
-            else:
-                cache[i] = _fit_cache(new, s, cl)
+    if cfg.family == "ssm":
+        cache = init_cache(cfg, b, cl, device=x.device)
+        for i in range(cfg.num_layers):
+            x, new = block_forward(_layer(params["blocks"], i), x, cfg,
+                                   positions)
+            for leaf, value in zip(cache["ssm"], new):
+                leaf[i] = value
+    else:
+        shape = (cfg.num_layers, b, cl, cfg.num_kv_heads, cfg.head_dim)
+        ck = torch.zeros(shape, dtype=act_dtype, device=x.device)
+        cv = torch.zeros(shape, dtype=act_dtype, device=x.device)
+        for i in range(cfg.num_layers):
+            bp = _layer(params["blocks"], i)
+            x, (k, v) = block_forward(bp, x, cfg, positions,
+                                      window=cfg.sliding_window)
+            for leaf, new in ((ck, k), (cv, v)):
+                if cl >= s:          # pad: the zero tail is already there
+                    leaf[i, :, :s] = new
+                else:
+                    leaf[i] = _fit_cache(new, s, cl)
+        cache = {"kv": (ck, cv)}
     rows = torch.arange(b, device=x.device)
     last = x[rows, lengths.long() - 1]
     logits = _logits(params, cfg, last[:, None])[:, 0]
-    return logits, {"kv": (ck, cv)}
+    return logits, cache
 
 
 def decode_step(params: Dict, cfg: ModelConfig, cache: Dict, tokens,
                 positions, *, act_dtype: torch.dtype = torch.bfloat16):
     """tokens: [B] new ids; positions: [B] tokens already cached (the new
-    token's absolute position).  Returns (logits [B, V], cache updated in
-    place)."""
+    token's absolute position; an SSM step does not read it).  Returns
+    (logits [B, V], cache updated in place)."""
     _require_dense(cfg)
     params = cast_params(params, act_dtype)
     x = _embed_in(params, tokens[:, None], act_dtype)
-    ck, cv = cache["kv"]
+    leaves = cache["ssm" if cfg.family == "ssm" else "kv"]
     for i in range(cfg.num_layers):
-        x = block_decode(_layer(params["blocks"], i), x, cfg, ck[i], cv[i],
-                         positions)
+        x = block_decode(_layer(params["blocks"], i), x, cfg,
+                         tuple(leaf[i] for leaf in leaves), positions)
     return _logits(params, cfg, x)[:, 0], cache
 
 
 def cache_struct(cfg: ModelConfig, batch: int, seq: int,
                  dtype: torch.dtype = torch.bfloat16):
-    """Returns ({"kv": ((shape, dtype), (shape, dtype))}, logical axes) of
-    the decode cache; ``seq`` is its capacity (the window for
-    sliding-window models)."""
+    """Returns ({key: ((shape, dtype), ...)}, logical axes) of the decode
+    cache: {"kv": (k, v)} in ``dtype``, {"kv": (k int8, v int8, k scales
+    bf16, v scales bf16)} with ``cfg.cache_int8``, or {"ssm": (state,
+    conv)} in f32 for the SSM family.  ``seq`` is the KV capacity (the
+    window for sliding-window models); the SSM state does not depend on
+    it."""
     _require_dense(cfg)
-    if cfg.cache_int8:
-        raise NotImplementedError(
-            f"{cfg.name}: int8 KV caches are not ported yet")
-    shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    n_layers = cfg.num_layers
+    if cfg.family == "ssm":
+        shapes, axes = mamba_state_spec(cfg, batch, _d_inner(cfg))
+        return ({"ssm": tuple(((n_layers,) + sh, torch.float32)
+                              for sh in shapes)},
+                {"ssm": tuple(("layers",) + a for a in axes)})
+    shape = (n_layers, batch, seq, cfg.num_kv_heads, cfg.head_dim)
     ax = ("layers", "cache_batch", "kv_seq", "cache_heads", None)
+    if cfg.cache_int8:
+        sc = shape[:-1]
+        return ({"kv": ((shape, torch.int8), (shape, torch.int8),
+                        (sc, torch.bfloat16), (sc, torch.bfloat16))},
+                {"kv": (ax, ax, ax[:-1], ax[:-1])})
     return {"kv": ((shape, dtype), (shape, dtype))}, {"kv": (ax, ax)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, *,
                dtype: torch.dtype = torch.bfloat16, device) -> Dict:
-    """A zero decode cache {"kv": (k, v)} on ``device``."""
+    """A zero decode cache (the layout of :func:`cache_struct`) on
+    ``device``."""
     shapes, _ = cache_struct(cfg, batch, seq, dtype)
-    return {"kv": tuple(torch.zeros(shape, dtype=dt, device=device)
-                        for shape, dt in shapes["kv"])}
+    return {key: tuple(torch.zeros(shape, dtype=dt, device=device)
+                       for shape, dt in leaves)
+            for key, leaves in shapes.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,19 @@
-"""Parameters of the dense transformer as nested dicts of tensors, with
-the reference package's keys and layouts (``embed [V, d]``,
-``blocks/attn/wq [L, d, Hq, hd]``, ``blocks/attn/wo [L, Hq, hd, d]``,
-``blocks/mlp/gate [L, d, d_ff]``, ...).
+"""Parameters of the dense and SSM (mamba2) models as nested dicts of
+tensors, with the reference package's keys and layouts (``embed [V,
+d]``, ``blocks/attn/wq [L, d, Hq, hd]``, ``blocks/attn/wo [L, Hq, hd,
+d]``, ``blocks/mlp/gate [L, d, d_ff]``, ``blocks/mamba/in_proj [L, d,
+2 d_in + 2 N + H]``, ...).
 
 Two sources: :func:`params_from_numpy` carries the reference package's
 weights across (the caller converts them to numpy), and
 :func:`init_params` draws the port's own random weights with the same
 distribution, for runs that cannot take weights from the reference.
 
-Weights are stored in the compute dtype.  The reference stores f32
-weights and casts them at each use (``cast_params``); storing them cast
-once only moves where the rounding to that dtype happens, and with
-bf16 it halves the memory the weights take on the card."""
+Weights are stored in the compute dtype, except the SSM decay
+parameters, which stay f32 (``transformer.KEEP_F32``).  The reference
+stores f32 weights and casts them at each use (``cast_params``); storing
+them cast once only moves where the rounding to that dtype happens, and
+with bf16 it halves the memory the weights take on the card."""
 from __future__ import annotations
 
 import math
@@ -21,19 +23,45 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import KEEP_F32
 
 # name -> (shape, init, scale) for one leaf of the parameter tree
 Spec = Tuple[Tuple[int, ...], str, float]
 
 
+def _mamba_spec(cfg: ModelConfig) -> Dict[str, Spec]:
+    """One stacked Mamba2 block (the reference's ``ssm.mamba_spec``)."""
+    s, d, L = cfg.ssm, cfg.d_model, cfg.num_layers
+    d_in = s.d_inner(d)
+    n_h, n = d_in // s.head_dim, s.d_state
+    conv_dim = d_in + 2 * n
+    return {"in_proj": ((L, d, 2 * d_in + 2 * n + n_h), "normal", 1.0),
+            "conv_w": ((L, conv_dim, s.conv_kernel), "normal", 1.0),
+            "conv_b": ((L, conv_dim), "zeros", 1.0),
+            "A_log": ((L, n_h), "ones", 1.0),
+            "D": ((L, n_h), "ones", 1.0),
+            "dt_bias": ((L, n_h), "zeros", 1.0),
+            "norm_w": ((L, d_in), "ones", 1.0),
+            "out_proj": ((L, d_in, d), "normal", 1.0)}
+
+
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """Shapes and initialisers of the dense family's parameters (the
-    reference package's ``transformer.model_spec``)."""
-    if cfg.family != "dense" or cfg.moe is not None or cfg.uses_mla \
-            or cfg.mtp_depth:
+    """Shapes and initialisers of the dense and SSM families' parameters
+    (the reference package's ``transformer.model_spec``)."""
+    if cfg.family not in ("dense", "ssm") or cfg.moe is not None \
+            or cfg.uses_mla or cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: the port covers the dense family only")
+            f"{cfg.name}: the port covers the dense and SSM families only")
     d, v, L = cfg.d_model, cfg.padded_vocab, cfg.num_layers
+    if cfg.family == "ssm":
+        spec: Dict[str, Any] = {
+            "embed": ((v, d), "normal", 1.0),
+            "blocks": {"norm1": ((L, d), "ones", 1.0),
+                       "mamba": _mamba_spec(cfg)},
+            "final_norm": ((d,), "ones", 1.0)}
+        if not cfg.tie_embeddings:
+            spec["lm_head"] = ((d, v), "normal", 1.0)
+        return spec
     hq = max(cfg.num_heads, cfg.pad_heads_to)
     hkv, hd, ff = cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
     attn = {"wq": ((L, d, hq, hd), "normal", 1.0),
@@ -67,31 +95,35 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     ``scale / sqrt(shape[0])`` (the leading axis, as the reference's
     ``materialize`` takes it), ones and zeros where the spec says so.
     Draws in f32 from ``generator``, which must live on ``device``, then
-    casts to ``dtype``."""
-    def make(spec):
+    casts to ``dtype`` (the ``KEEP_F32`` leaves stay f32)."""
+    def make(spec, dt):
         if isinstance(spec, dict):
-            return {k: make(s) for k, s in spec.items()}
+            return {k: make(s, torch.float32 if k in KEEP_F32 else dt)
+                    for k, s in spec.items()}
         shape, init, scale = spec
         if init == "zeros":
-            return torch.zeros(shape, dtype=dtype, device=device)
+            return torch.zeros(shape, dtype=dt, device=device)
         if init == "ones":
-            return torch.ones(shape, dtype=dtype, device=device)
+            return torch.ones(shape, dtype=dt, device=device)
         fan_in = shape[0] if len(shape) > 1 else max(shape[-1], 1)
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return w.mul_(scale / math.sqrt(fan_in)).to(dtype)
+        return w.mul_(scale / math.sqrt(fan_in)).to(dt)
 
-    return make(param_specs(cfg))
+    return make(param_specs(cfg), dtype)
 
 
 def params_from_numpy(tree, *, device, dtype=torch.float32):
     """Nested dicts (and tuples) of numpy arrays (the reference's
     parameter or dense-cache pytree after ``np.asarray``) -> the same
-    tree of tensors on ``device``; floating arrays become ``dtype``.  The
-    reference's dense cache ``{"kv": (k, v)}`` has the port's layout, so
-    it crosses over as it is."""
+    tree of tensors on ``device``; floating arrays become ``dtype``, the
+    ``KEEP_F32`` leaves f32.  The reference's dense caches (``{"kv": (k,
+    v)}``, ``{"ssm": (state, conv)}``) have the port's layout, so they
+    cross over as they are."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device=device, dtype=dtype)
+        return {k: params_from_numpy(
+                    v, device=device,
+                    dtype=torch.float32 if k in KEEP_F32 else dtype)
                 for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(params_from_numpy(v, device=device, dtype=dtype)

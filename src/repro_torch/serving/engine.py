@@ -24,8 +24,9 @@ real model, and a request stops at its ground-truth generation length.
 
 Not in this module yet: fault injection, deadlines and the NaN guard
 (§14), the host swap tier (§15), speculative decoding (§16),
-snapshot/restore (§17) and warm-up.  Only the dense model family is
-served.
+snapshot/restore (§17) and warm-up.  The padded engines serve the dense
+and SSM (mamba2) families with a float cache; the paged engine serves
+the dense family.
 """
 from __future__ import annotations
 
@@ -139,6 +140,13 @@ class _DenseEngine:
         ok, why = supports_dense(cfg)
         if not ok:
             raise NotImplementedError(f"{cfg.name}: {why}")
+        if cfg.cache_int8:
+            raise NotImplementedError(
+                f"{cfg.name}: the padded engines cannot serve an int8 KV "
+                f"cache: prefill builds a float cache, as in the "
+                f"reference, whose engines cannot serve cache_int8 either;"
+                f" an int8 cache comes from init_cache or from quantising "
+                f"a prefill cache, for decode_step and decode_multi")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype
@@ -254,12 +262,15 @@ class ContinuousEngine(_DenseEngine):
         self.positions = np.zeros(slots, np.int32)   # host mirror
 
     def _merge_cache_slot(self, slot: int, single_cache) -> None:
-        """Copy a single-request prefill cache into slot ``slot``, cut or
-        zero-padded to the slot's capacity."""
-        for dst, src in zip(self.cache["kv"], single_cache["kv"]):
-            n = min(src.shape[2], dst.shape[2])
-            dst[:, slot, :n] = src[:, 0, :n].to(dst.dtype)
-            dst[:, slot, n:] = 0
+        """Copy a single-request prefill cache into slot ``slot``, leaf by
+        leaf, each cut or zero-padded along axis 2 to the slot's (a KV
+        leaf's capacity; an SSM leaf's axis 2 is equal on both sides, so
+        it is copied whole)."""
+        for key, leaves in self.cache.items():
+            for dst, src in zip(leaves, single_cache[key]):
+                n = min(src.shape[2], dst.shape[2])
+                dst[:, slot, :n] = src[:, 0, :n].to(dst.dtype)
+                dst[:, slot, n:] = 0
 
     @property
     def has_capacity(self) -> bool:

@@ -5,7 +5,9 @@ and ring-packed for a sliding-window model), ``decode_step`` logits and
 caches, and, in the port itself, the fused ``decode_multi`` against
 sequential ``decode_step`` calls.  Configs: chatglm-6b (MHA) and
 qwen2.5-14b (GQA, QKV bias), reduced.  Families the port does not cover
-yet, and int8 or context-parallel caches, raise."""
+yet and context-parallel caches raise, and the padded engines refuse an
+int8 cache (the SSM family and the int8 decode path have their own test
+files)."""
 import dataclasses
 import functools
 
@@ -159,8 +161,8 @@ def test_decode_multi_equals_sequential_decode_steps(arch):
         assert torch.equal(a, b)
 
 
-UNSUPPORTED = ("olmoe-1b-7b", "deepseek-v3-671b", "mamba2-780m",
-               "hymba-1.5b", "internvl2-26b", "whisper-large-v3")
+UNSUPPORTED = ("olmoe-1b-7b", "deepseek-v3-671b", "hymba-1.5b",
+               "internvl2-26b", "whisper-large-v3")
 
 
 @pytest.mark.parametrize("arch", UNSUPPORTED)
@@ -178,8 +180,15 @@ def test_unported_families_raise(arch):
 
 @pytest.mark.parametrize("flag", ["cache_int8", "decode_cp"])
 def test_int8_and_context_parallel_caches_raise(flag):
+    """Context-parallel decode is not ported; an int8 cache decodes
+    (tests/test_torch_int8_decode.py), but the padded engines refuse it,
+    as the reference's cannot serve one either."""
     _, cfg, _, params = _setup("chatglm-6b")
     cfg = dataclasses.replace(cfg, **{flag: True})
+    if flag == "cache_int8":
+        with pytest.raises(NotImplementedError, match="cannot serve an int8"):
+            ContinuousEngine(cfg, params, device="cpu")
+        return
     cache = {"kv": tuple(torch.zeros(cfg.num_layers, 1, 8, cfg.num_kv_heads,
                                      cfg.head_dim) for _ in range(2))}
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -187,6 +196,3 @@ def test_int8_and_context_parallel_caches_raise(flag):
                       {"tokens": torch.ones(1, dtype=torch.int32),
                        "positions": torch.ones(1, dtype=torch.int32)},
                       act_dtype=torch.float32)
-    if flag == "cache_int8":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ContinuousEngine(cfg, params, device="cpu")

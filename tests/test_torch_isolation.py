@@ -42,7 +42,8 @@ def test_port_files_found():
             / "paged_decode_attention.cu").is_file()
     assert (ROOT / "src" / "repro_torch" / "csrc"
             / "paged_prefix_prefill_attention.cu").is_file()
-    for name in ("flash_attention.cu", "decode_attention.cu"):
+    for name in ("flash_attention.cu", "decode_attention.cu",
+                 "ssd_scan.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / name).is_file()
 
 
@@ -86,6 +87,13 @@ def test_dense_entry_points_without_device_raise(no_cuda):
         ContinuousEngine(cfg, slots=1, max_len=8, max_gen=4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         M.init_cache(cfg, 1, 8)
+    ssm = get_config("mamba2-780m").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_engine_backend("mamba2-780m", 1.0, 1.0, "magnus")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BatchEngine(ssm)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        M.init_cache(ssm, 1, 8)
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
@@ -120,6 +128,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernel.paged_decode_attention_kernel(q, kp, kp, tables, lens)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernel.decode_attention_kernel(q, kp[:1], kp[:1], lens)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernel.decode_attention_int8_kernel(
+            q, kp[:1].to(torch.int8), kp[:1].to(torch.int8),
+            kp[:1, :, :, 0].to(torch.bfloat16),
+            kp[:1, :, :, 0].to(torch.bfloat16), lens)
 
 
 def test_flash_kernel_wrapper_refuses_cpu_tensors():
