@@ -8,7 +8,10 @@ CUDA toolkit.  Phases, each fatal on failure:
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
 2. build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` into one
-   library (per-kernel register and shared-memory use printed);
+   library (its wall time printed); each kernel's registers, static
+   shared memory and spills from the ``-Xptxas -v`` log, and its
+   tensor-core instructions (HGMMA, HMMA) from ``cuobjdump -sass`` where
+   the toolkit has it; fails if the bf16 flash kernel has none;
 3. kernels: each hand-written kernel against its plain PyTorch version
    on the card, on chatglm-6b's shapes and a GQA shape, in f32 (TF32 off,
    tolerance 2e-4) and bf16 (5e-2): paged decode and prefix prefill with
@@ -78,8 +81,9 @@ CUDA toolkit.  Phases, each fatal on failure:
    sets out; the layer-0 int8 inputs of every 21st step are kept;
 13. timings of the scan and the int8 kernel at the kept inputs, as phase
    8 (yardsticks: none for the scan, which no single PyTorch call
-   computes; SDPA with a length mask on the dequantised bf16 cache, and
-   the bf16 dense decode kernel on it, for int8).  Every bound takes
+   computes; SDPA with a length mask on the dequantised bf16 cache, the
+   dequantisation pass it needs, timed apart, and the bf16 dense decode
+   kernel on it, for int8).  Every bound takes
    operations at 989 TFLOP/s; the scan's at the f32 CUDA cores' 67
    TFLOP/s, where it now computes, is logged beside it.
 
@@ -171,6 +175,80 @@ def prefill_inputs(torch, *, b, s, hq, hkv, d, bt, nb, mb, plens, slens,
 
 def cycle(vals, n):
     return [vals[i % len(vals)] for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# phase 2: what the compiler made of the kernels
+# ---------------------------------------------------------------------------
+
+def _demangle(build, names):
+    """Readable kernel names, by the toolkit's cu++filt where there is one."""
+    filt = os.path.join(os.path.dirname(build.nvcc_path()), "cu++filt")
+    if not names or not os.path.isfile(filt):
+        return {n: n for n in names}
+    res = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60)
+    out = res.stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else \
+        {n: n for n in names}
+
+
+def build_report(build, lib):
+    """Each kernel's registers, static shared memory and spills from the
+    build's ``-Xptxas -v`` log, and its tensor-core instructions (HGMMA,
+    HMMA) in the library's SASS where the toolkit has ``cuobjdump``.
+    Fails if the bf16 flash kernel has no tensor-core instruction."""
+    import re
+    kern = {}
+    name = None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            kern[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            kern[name]["spill"] = f"{m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            kern[name]["regs"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            kern[name]["smem"] = f"{sm.group(1) if sm else 0} B static"
+    tc = {}
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if os.path.isfile(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                tc[fn] = [0, 0]
+            elif fn is not None:
+                op = re.search(r"\b(HGMMA|HMMA)\.", line)
+                if op:
+                    tc[fn][op.group(1) == "HMMA"] += 1
+    else:
+        log("  cuobjdump is not in the toolkit: tensor-core instructions "
+            "not counted")
+    names = _demangle(build, sorted(kern))
+    for mangled in sorted(kern, key=lambda n: names[n]):
+        k = kern[mangled]
+        hg, hm = tc.get(mangled, ["-", "-"]) if tc else ["-", "-"]
+        log(f"  {names[mangled][:110]}: {k.get('regs', '?')} registers, "
+            f"{k.get('smem', '?')} smem, spills {k.get('spill', '?')}, "
+            f"HGMMA {hg}, HMMA {hm}")
+    if tc:
+        flash = [n for n in tc if "flash_tc_kernel" in n]
+        check(flash and all(tc[n][0] + tc[n][1] > 0 for n in flash),
+              f"the bf16 flash kernel has no tensor-core instruction: "
+              f"{ {n: tc[n] for n in flash} }")
 
 
 # ---------------------------------------------------------------------------
@@ -1331,14 +1409,17 @@ def time_scan(torch, sops, sref, calls, spin):
 def time_int8(torch, dops, dref, calls, spin):
     """The int8 kernel on each kept decode step of the int8 window (its
     layer-0 query, the int8 cache and scales as the step met them, the
-    lengths).  Yardsticks on the cache dequantised to bf16 (not timed):
-    SDPA with a length mask on the cache cut to its longest row, and the
-    bf16 dense decode kernel, which reads twice the bytes.  The bound
-    counts q and out, int8 K/V and their bf16 scales up to each row's
-    length."""
+    lengths).  Yardsticks on the cache dequantised to bf16: SDPA with a
+    length mask on the cache cut to its longest row (``library_ms``), the
+    dequantisation pass that SDPA's input needs (the int8 cache cut to the
+    longest row, times its scales, to bf16 in SDPA's layout), timed apart
+    so that the log gives "SDPA + dequantisation", the PyTorch route's
+    whole cost; and the bf16 dense decode kernel, which reads twice the
+    bytes.  The bound counts q and out, int8 K/V and their bf16 scales up
+    to each row's length."""
     import torch.nn.functional as F
     per = {k: [] for k in ("ms", "plain_ms", "library_ms", "bound")}
-    bf16_ms, errs = [], []
+    bf16_ms, deq_ms, errs = [], [], []
     for q, kc, vc, ks, vs, lens in calls:
         b, hq, d = q.shape
         _, s, hkv, _ = kc.shape
@@ -1353,6 +1434,11 @@ def time_int8(torch, dops, dref, calls, spin):
                   for x, sc in ((kc, ks), (vc, vs)))
         w = int(lens.max())
         kt, vt = (x[:, :w].transpose(1, 2).contiguous() for x in (kd, vd))
+        deq = lambda r: [(x[:, :w].float() * sc[:, :w].float()[..., None])
+                         .to(q.dtype).transpose(1, 2).contiguous()
+                         for x, sc in ((kc, ks), (vc, vs))]
+        deq(0)
+        deq_ms.append(median_ms(torch, deq, DECODE_REPS, spin))
         mask = (torch.arange(w, device="cuda")[None, :]
                 < lens[:, None])[:, None, None, :]
         q4 = q[:, :, None, :]
@@ -1368,9 +1454,12 @@ def time_int8(torch, dops, dref, calls, spin):
         nbytes = (2 * q.numel() * q.element_size() + 2 * n_keys * hkv * d
                   + 2 * n_keys * hkv * ks.element_size() + b * 4)
         per["bound"].append(bound(nbytes, 4 * d * hq * n_keys))
+    mean = lambda xs: sum(xs) / len(xs)
     log(f"decode_attention (bf16 kernel) on the same rows dequantised to "
-        f"bf16: {sum(bf16_ms) / len(bf16_ms):.4f} ms (mean of per-shape "
-        f"medians over {len(bf16_ms)} shapes)")
+        f"bf16: {mean(bf16_ms):.4f} ms (mean of per-shape medians over "
+        f"{len(bf16_ms)} shapes); the dequantisation pass SDPA's input "
+        f"needs {mean(deq_ms):.4f} ms, so SDPA + dequantisation "
+        f"{mean(per['library_ms']) + mean(deq_ms):.4f} ms")
     return per, errs
 
 
@@ -1410,9 +1499,7 @@ def main() -> int:
         lib = build.build()
         build.load_library()
         log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "Used" in line or "Compiling entry" in line:
-                log("  " + line.strip())
+        build_report(build, lib)
 
         # 3. kernels against their plain versions
         from repro_torch.kernels.decode_attention import ops, ref

@@ -7,6 +7,8 @@ A reduced copy of the reference package's sanitizer (DESIGN.md §13):
 * :func:`count_sync` is called at every intentional readback, so the
   engine's ``host_syncs`` counter is incremented at exactly the sites
   the reference counts;
+* :func:`count_host_reads` counts the tensor values that code reads on
+  the host, so a test can show that a path has none to count;
 * :func:`check_allocator` and :func:`check_engine_drained` audit the
   allocator's refcounts against the block tables and the radix cache's
   retained set at teardown.
@@ -15,7 +17,10 @@ The shadow allocator and the ``REPRO_SANITIZE`` sync ledger are not part
 of this copy."""
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator
+
+import torch
 
 
 def hot_path(fn):
@@ -28,6 +33,26 @@ def count_sync(n: int = 1) -> int:
     """One intentional host sync; returns its count contribution
     (``self.host_syncs += count_sync()`` at each readback site)."""
     return n
+
+
+@contextlib.contextmanager
+def count_host_reads() -> Iterator[Dict[str, int]]:
+    """Count, in ``counts["reads"]``, the tensor values read on the host
+    inside the block (``.item()``, ``int()``, ``float()``, ``bool()`` of
+    a tensor: each is one ``aten._local_scalar_dense``, which on a CUDA
+    tensor is a device-to-host sync)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    counts = {"reads": 0}
+    scalar = torch.ops.aten._local_scalar_dense.default
+
+    class _Reads(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is scalar:
+                counts["reads"] += 1
+            return func(*args, **(kwargs or {}))
+
+    with _Reads():
+        yield counts
 
 
 class SanitizerError(AssertionError):

@@ -8,25 +8,44 @@
 // What bounds it: at the serving shapes (S up to a few hundred, D = 128)
 // the least time is set by the bytes (q, k, v read once, out written once);
 // the causal triangle's products are ~1/5 of that time at the bf16 tensor
-// core rate.  This first version computes in f32 on the CUDA cores out of
-// shared memory, so it is bound by shared-memory loads, not by either
-// floor.  What the design keeps from the TPU kernel is the work it skips:
-// the K/V loop of a block starts at the sliding window's edge and stops at
-// the causal frontier of its last query row, so bytes and operations
-// follow the unmasked region (the TPU grid stepped over every KV block and
-// skipped the dead ones with pl.when).  Keys at or past S (the ragged last
-// tile; S need not be a multiple of the tile) are staged as zeros and
-// masked, and query rows past S are neither computed nor written.
+// core rate.  What both kernels below keep from the TPU kernel is the work
+// it skips: the K/V loop of a block starts at the sliding window's edge
+// and stops at the causal frontier of its last query row, so bytes and
+// operations follow the unmasked region (the TPU grid stepped over every
+// KV block and skipped the dead ones with pl.when).  Keys at or past S
+// (the ragged last tile; S need not be a multiple of the tile) are masked,
+// and query rows past S are neither computed nor written.  Rows are packed
+// as the TPU kernel packs them: row r of the S * G rows of a KV head is
+// position r / G, query head h * G + r % G, so the G query heads of one KV
+// head share each K/V tile.
 //
-// One block per (batch row, KV head, tile of TR query rows of the S * G
-// rows); row r is position r / G, query head h * G + r % G, so the G query
-// heads of one KV head share each staged K/V tile.  Softmax is online in
-// f32 (running max, sum and [TR, D] accumulator in shared memory); q is
-// scaled by D**-0.5 in f32 before the dot.  Simple first: scalar loads,
-// f32 FMAs, no tensor cores.
+// bf16 (the serves): `flash_tc_kernel`, on the tensor cores.  One block
+// per (batch row, KV head, 64 packed query rows): one consumer warpgroup
+// and one producer warp.  The producer's lane 0 brings 64-key K and V
+// tiles by TMA (4-D tensor maps over [B, S, Hkv, D], 128-byte swizzle, or
+// 64-byte at D = 32) into a 2-stage ring with full / empty mbarriers;
+// TMA's out-of-bounds zero fill covers the ragged last tile.  The
+// consumers compute S = Q.K^T by wgmma m64n64k16 (Q and K from shared
+// memory, f32 accumulators in registers), run the online softmax in
+// registers (a row's max and sum reduced by shuffles over the 4 lanes
+// that hold it; masks as -inf scores, built only on the diagonal,
+// window-edge and ragged tiles), convert P to bf16 in registers as the A
+// operand of O += P.V (wgmma m64nDk16, V the MN-major B operand from
+// shared memory), and write O from registers to device memory once.
+// Head sizes 32, 64 and 128.
+//
+// f32: `flash_kernel`, the scalar kernel of the first port, unchanged.
+// Its callers hold it to 2e-4 of the plain f32 version, which needs true
+// f32 products; TF32 tensor cores would give ~1e-3.  It computes in f32 on
+// the CUDA cores out of shared memory (one block per (row, KV head, 64
+// query rows), running max, sum and [64, D] accumulator in shared memory),
+// so it is bound by shared-memory loads, not by either floor.
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
+
 #include <cmath>
 
 #include "attention_common.cuh"
+#include "hopper_mma.cuh"
 
 namespace repro {
 namespace {
@@ -118,11 +137,323 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 64;                 // packed query rows per block
+constexpr int kTcKeys = 64;                 // keys per K/V tile
+constexpr int kTcStages = 2;                // K/V ring depth
+constexpr int kTcThreads = 128 + 32;        // consumer warpgroup + producer
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct TcShape {
+  static constexpr int RB = D * 2 < 128 ? D * 2 : 128;  // bytes a row
+  static constexpr int REGIONS = D * 2 / RB;             // of RB bytes
+  static constexpr int SWIZZLE = RB == 128 ? 1 : 2;      // 128 B / 64 B
+  static constexpr int Q_BYTES = kTcRows * D * 2;
+  static constexpr int TILE_BYTES = kTcKeys * D * 2;     // one K or V tile
+  static constexpr int SMEM =
+      1024 + Q_BYTES + 2 * kTcStages * TILE_BYTES + 2 * kTcStages * 8;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tmap_k,
+                const __grid_constant__ CUtensorMap tmap_v,
+                const __nv_bfloat16* __restrict__ q,
+                __nv_bfloat16* __restrict__ out, int S, int Hq, int Hkv,
+                int causal, int window, float scale_log2) {
+  using Sh = TcShape<D>;
+  constexpr int RB = Sh::RB, BN = kTcKeys, NS = kTcStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = base;                          // [REGIONS][64][RB]
+  unsigned char* ks = qs + Sh::Q_BYTES;              // [NS][REGIONS][BN][RB]
+  unsigned char* vs = ks + NS * Sh::TILE_BYTES;      // [NS][REGIONS][BN][RB]
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + NS * Sh::TILE_BYTES);
+  uint64_t* empty = full + NS;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int r0 = blockIdx.x * kTcRows;
+  const int R = min(kTcRows, S * G - r0);
+  // keys any row of this tile can see: [k_lo, k_hi)
+  const int p_lo = r0 / G, p_hi = (r0 + R - 1) / G;
+  const int k_hi = causal ? min(S, p_hi + 1) : S;
+  const int k_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
+  const int ntiles = (k_hi - k_lo + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // producer warp: lane 0 issues the TMA loads
+    if (threadIdx.x == 128) {
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % NS;
+        if (j >= NS) mbar_wait(&empty[s], ((j / NS) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * Sh::TILE_BYTES);
+        for (int kr = 0; kr < Sh::REGIONS; ++kr) {
+          const int off = s * Sh::TILE_BYTES + kr * BN * RB;
+          tma_load_4d(ks + off, &tmap_k, &full[s], kr * (RB / 2), h,
+                      k_lo + j * BN, b);
+          tma_load_4d(vs + off, &tmap_v, &full[s], kr * (RB / 2), h,
+                      k_lo + j * BN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: the Q tile into shared memory by cp.async, all of it in
+  // flight at once, in the swizzled layout that TMA would give it (rows
+  // past the last are zero-filled)
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  auto qoff = [&](int r) {  // element offset of packed row r in q / out
+    return (((size_t)b * S + r / G) * Hq + (size_t)h * G + r % G) * D;
+  };
+  constexpr int CPRow = D / 8;  // 16-byte chunks a row
+  for (int e = tid; e < kTcRows * CPRow; e += 128) {
+    const int row = e / CPRow, cc = e % CPRow;
+    const int kr = cc * 16 / RB, c16 = cc % (RB / 16);
+    uint32_t o = kr * kTcRows * RB + row * RB + c16 * 16;
+    o ^= (o >> 3) & (Sh::SWIZZLE == 1 ? 0x70 : 0x30);
+    const bool ok = row < R;
+    cp_async16(qs + o, q + (ok ? qoff(r0 + row) + cc * 8 : 0), ok);
+  }
+  cp_async_wait_all();
+  fence_proxy_async();
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+
+  // this thread's rows of the tile: lr[0] and lr[0] + 8
+  const int lr0 = warp * 16 + lane / 4, c2 = (lane % 4) * 2;
+  int qp[2];
+  for (int hr = 0; hr < 2; ++hr) qp[hr] = (r0 + lr0 + 8 * hr) / G;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  constexpr uint32_t SBO = 8 * RB;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % NS;
+    mbar_wait(&full[s], (j / NS) & 1);
+    __syncwarp();  // the warp converges before the .aligned wgmma
+    const unsigned char* kt = ks + s * Sh::TILE_BYTES;
+    const unsigned char* vt = vs + s * Sh::TILE_BYTES;
+
+    float sc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+    fence_operands(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int kr = kk * 32 / RB, kb = (kk * 32) % RB;
+      wgmma_ss_n64(sc,
+                   gmma_desc(qs + kr * kTcRows * RB + kb, 16, SBO,
+                             Sh::SWIZZLE),
+                   gmma_desc(kt + kr * BN * RB + kb, 16, SBO, Sh::SWIZZLE),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(sc);
+
+    // masks, only where some key of the tile is hidden from some row
+    const int c0 = k_lo + j * BN;
+    const bool edge = c0 + BN > k_hi || (causal && c0 + BN - 1 > p_lo) ||
+                      (window > 0 && p_hi - c0 >= window);
+    if (edge) {
+#pragma unroll
+      for (int nb = 0; nb < BN / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = c0 + nb * 8 + c2 + (e & 1), p = qp[e >> 1];
+          const bool ok = kp < k_hi && (!causal || kp <= p) &&
+                          (window <= 0 || p - kp < window);
+          if (!ok) sc[nb * 4 + e] = -CUDART_INF_F;
+        }
+    }
+
+    // online softmax in registers, rows lr0 (hr 0) and lr0 + 8 (hr 1)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int nb = 0; nb < BN / 8; ++nb)
+        mx = fmaxf(mx, fmaxf(sc[nb * 4 + 2 * hr], sc[nb * 4 + 2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[hr], mx);
+      const float mu = mn == -CUDART_INF_F ? 0.f : mn * scale_log2;
+      const float alpha = exp2f(m[hr] * scale_log2 - mu);  // 0 at -inf
+      float sum = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < BN / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[nb * 4 + 2 * hr + e];
+          x = exp2f(fmaf(x, scale_log2, -mu));
+          sum += x;
+        }
+      l[hr] = fmaf(l[hr], alpha, sum);  // this thread's share of the row
+      m[hr] = mn;
+#pragma unroll
+      for (int nb = 0; nb < D / 8; ++nb) {
+        o[nb * 4 + 2 * hr] *= alpha;
+        o[nb * 4 + 2 * hr + 1] *= alpha;
+      }
+    }
+
+    // P to bf16 in the A-operand layout, then O += P.V
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const float* lo = sc + 8 * kk;  // n8 blocks 2kk and 2kk + 1
+      pa[kk][0] = pack_bf16(lo[0], lo[1]);
+      pa[kk][1] = pack_bf16(lo[2], lo[3]);
+      pa[kk][2] = pack_bf16(lo[4], lo[5]);
+      pa[kk][3] = pack_bf16(lo[6], lo[7]);
+    }
+    fence_operands(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t dv = gmma_desc(vt + kk * 16 * RB, BN * RB, SBO,
+                                    Sh::SWIZZLE);
+      if constexpr (D == 32) wgmma_rs_n32(o, pa[kk], dv);
+      else if constexpr (D == 64) wgmma_rs_n64(o, pa[kk], dv);
+      else wgmma_rs_n128(o, pa[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(o);
+    mbar_arrive(&empty[s]);  // this thread is done with stage s
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float sum = l[hr];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    const int lr = lr0 + 8 * hr;
+    if (lr < R) {
+      __nv_bfloat16* orow = out + qoff(r0 + lr);
+#pragma unroll
+      for (int nb = 0; nb < D / 8; ++nb)
+        *reinterpret_cast<uint32_t*>(orow + nb * 8 + c2) = pack_bf16(
+            o[nb * 4 + 2 * hr] * inv, o[nb * 4 + 2 * hr + 1] * inv);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over x [B, S, Hkv, D] whose box is one region (RB bytes of
+// D) of 64 consecutive keys of one (row, KV head).
+template <int D>
+bool kv_map(CUtensorMap* map, const void* x, int B, int S, int Hkv) {
+  using Sh = TcShape<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)Hkv * D * 2,
+                                 (cuuint64_t)S * Hkv * D * 2};
+  const cuuint32_t box[4] = {Sh::RB / 2, 1, kTcKeys, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(x), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                Sh::SWIZZLE == 1 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      void* out, int B, int S, int Hq, int Hkv, int causal,
+                      int window, cudaStream_t stream) {
+  CUtensorMap mk, mv;
+  if (!kv_map<D>(&mk, k, B, S, Hkv) || !kv_map<D>(&mv, v, B, S, Hkv))
+    return cudaErrorInvalidValue;
+  const size_t smem = TcShape<D>::SMEM;
+  cudaError_t err = set_smem(flash_tc_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const int G = Hq / Hkv;
+  const dim3 grid((S * G + kTcRows - 1) / kTcRows, Hkv, B);
+  flash_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      mk, mv, static_cast<const __nv_bfloat16*>(q),
+      static_cast<__nv_bfloat16*>(out), S, Hq, Hkv, causal, window,
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))) * kLog2e);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* out, int B, int S, int Hq, int Hkv, int D,
+                        int causal, int window, cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      return launch_tc<32>(q, k, v, out, B, S, Hq, Hkv, causal, window,
+                           stream);
+    case 64:
+      return launch_tc<64>(q, k, v, out, B, S, Hq, Hkv, causal, window,
+                           stream);
+    case 128:
+      return launch_tc<128>(q, k, v, out, B, S, Hq, Hkv, causal, window,
+                            stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace repro
 
 // q, out [B, S, Hq, D]; k, v [B, S, Hkv, D].  All contiguous, of one dtype
-// (0 = f32, 1 = bf16).  causal: 0 or 1; window: 0 for none, else a query
+// (0 = f32, 1 = bf16); bf16 takes D in {32, 64, 128} and k, v on 16-byte
+// boundaries (TMA).  causal: 0 or 1; window: 0 for none, else a query
 // at position p sees keys k with p - k < window.  Launches on `stream` and
 // returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
@@ -137,7 +468,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     return repro::launch<float>(q, k, v, out, B, S, Hq, Hkv, D, causal,
                                 window, s);
   if (dtype == repro::kBFloat16)
-    return repro::launch<__nv_bfloat16>(q, k, v, out, B, S, Hq, Hkv, D,
-                                        causal, window, s);
+    return repro::launch_bf16(q, k, v, out, B, S, Hq, Hkv, D, causal,
+                              window, s);
   return cudaErrorInvalidValue;
 }

@@ -103,9 +103,11 @@ def load_library() -> ctypes.CDLL:
     lib.repro_paged_prefix_prefill_attention.restype = i
     lib.repro_flash_attention.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.repro_flash_attention.restype = i
-    lib.repro_decode_attention.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.repro_decode_attention.argtypes = \
+        [p] * 5 + [i] * 6 + [p, i, p, p, p]
     lib.repro_decode_attention.restype = i
-    lib.repro_decode_attention_int8.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.repro_decode_attention_int8.argtypes = \
+        [p] * 7 + [i] * 6 + [p, i, p, p, p]
     lib.repro_decode_attention_int8.restype = i
     lib.repro_ssd_scan.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.repro_ssd_scan.restype = i

@@ -15,16 +15,103 @@ each block walks only the cache rows or pages its row's length covers, so
 the bytes follow the real context, not the cache or table width (the
 sources say more).
 
+The two dense decode kernels are one split-KV streaming kernel
+(flash-decoding): :func:`plan_splits` cuts the KV axis into enough
+splits, from shapes alone, that B x Hkv x splits blocks fill the card;
+each split finds its slice of ``[0, lengths[b])`` on the device, and
+when there is more than one, the last split block of each (row, KV head)
+to finish merges the splits' f32 partials (an atomic counter per pair,
+left at zero by every launch, says which block is last).  The host
+never reads ``lengths`` (a device tensor: reading it would be a host
+sync on the hot path).  Head sizes 32, 64 and 128.
+
 These functions take CUDA tensors only; they validate device, dtype,
-shape and contiguity, allocate the output, launch on the current stream
-and raise if the launch is refused.  They do not synchronise.
-``ops.py`` picks between them and the plain versions in ``ref.py``."""
+shape and contiguity, allocate the output (and the split scratch),
+launch on the current stream and raise if the launch is refused.  They
+do not synchronise.  ``ops.py`` picks between them and the plain
+versions in ``ref.py``."""
 from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import check_cuda, dtype_code, raise_on
 from repro_torch.kernels.build import load_library
+
+DECODE_HEAD_SIZES = (32, 64, 128)   # the split kernel's D template values
+MAX_HEADS_PER_BLOCK = 8             # query heads one block keeps (G > 8:
+#                                     chunks of 8 across the grid)
+MIN_SPLIT_ROWS = 32                 # fewer cache rows a split is not worth
+MAX_SPLITS = 64
+
+
+def plan_splits(b: int, s: int, hkv: int, sms: int) -> int:
+    """Splits of the KV axis for a decode launch of ``b`` rows, ``s``
+    cache slots and ``hkv`` blocks per row (KV heads times head chunks),
+    on a card of ``sms`` SMs: one when ``b * hkv`` already gives two
+    blocks per SM, else enough for two per SM, at most one per
+    ``MIN_SPLIT_ROWS`` slots.  Shapes only: never the lengths."""
+    blocks = b * hkv
+    if blocks >= 2 * sms:
+        return 1
+    want = -(-2 * sms // blocks)
+    return max(1, min(want, -(-s // MIN_SPLIT_ROWS), MAX_SPLITS))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_COUNTERS = {}   # device -> int32 zeros; every launch leaves them zero
+
+
+def _split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 split counters on ``device``, kept for
+    the process (the kernel resets each counter it uses, so launches
+    that follow one another on a stream share them)."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+def decode_plan(q, k_cache, lengths, sms: int
+                ) -> Tuple[int, torch.Tensor, Optional[torch.Tensor],
+                           Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The host side of a dense decode launch, on any device: check the
+    shapes and head size, choose the splits and allocate the output and
+    the split scratch (f32 partial outputs [B, Hq, splits, D], (max, sum)
+    pairs [B, Hq, splits, 2] and the zeroed split counters; None for one
+    split).  Reads no tensor's values."""
+    b, hq, d = q.shape
+    _, s, hkv, dk = k_cache.shape
+    if k_cache.shape[0] != b or dk != d or hq % hkv \
+            or lengths.shape != (b,):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, cache "
+            f"{tuple(k_cache.shape)}, lengths {tuple(lengths.shape)}")
+    if d not in DECODE_HEAD_SIZES:
+        raise ValueError(f"decode head size {d} not in "
+                         f"{DECODE_HEAD_SIZES}")
+    chunks = -(-(hq // hkv) // MAX_HEADS_PER_BLOCK)
+    splits = plan_splits(b, s, hkv * chunks, sms)
+    out = torch.empty_like(q)
+    if splits == 1:
+        return splits, out, None, None, None
+    part_o = torch.empty((b, hq, splits, d), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((b, hq, splits, 2), dtype=torch.float32,
+                          device=q.device)
+    return (splits, out, part_o, part_ml,
+            _split_counters(q.device, b * hkv * chunks))
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def decode_attention_kernel(q, k_cache, v_cache, lengths) -> torch.Tensor:
@@ -35,20 +122,19 @@ def decode_attention_kernel(q, k_cache, v_cache, lengths) -> torch.Tensor:
     check_cuda("k_cache", k_cache, dtype=q.dtype, dim=4)
     check_cuda("v_cache", v_cache, dtype=q.dtype, dim=4)
     check_cuda("lengths", lengths, dtype=torch.int32, dim=1)
+    if v_cache.shape != k_cache.shape:
+        raise ValueError(f"shape mismatch: caches {tuple(k_cache.shape)}/"
+                         f"{tuple(v_cache.shape)}")
     b, hq, d = q.shape
-    _, s, hkv, dk = k_cache.shape
-    if (v_cache.shape != k_cache.shape or k_cache.shape[0] != b or dk != d
-            or hq % hkv or lengths.shape[0] != b):
-        raise ValueError(
-            f"shape mismatch: q {tuple(q.shape)}, caches "
-            f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, lengths "
-            f"{tuple(lengths.shape)}")
-    out = torch.empty_like(q)
+    _, s, hkv, _ = k_cache.shape
+    splits, out, part_o, part_ml, counters = decode_plan(
+        q, k_cache, lengths, _sm_count(q.device.index))
     with torch.cuda.device(q.device):
         rc = load_library().repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), b, s, hq, hkv, d, code,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream, splits,
+            _ptr(part_o), _ptr(part_ml), _ptr(counters))
     raise_on(rc, "decode_attention")
     return out
 
@@ -65,23 +151,24 @@ def decode_attention_int8_kernel(q, k_cache, v_cache, k_scale, v_scale,
     check_cuda("k_scale", k_scale, dtype=torch.bfloat16, dim=3)
     check_cuda("v_scale", v_scale, dtype=torch.bfloat16, dim=3)
     check_cuda("lengths", lengths, dtype=torch.int32, dim=1)
-    b, hq, d = q.shape
-    _, s, hkv, dk = k_cache.shape
-    if (v_cache.shape != k_cache.shape or k_cache.shape[0] != b or dk != d
-            or hq % hkv or k_scale.shape != (b, s, hkv)
-            or v_scale.shape != k_scale.shape or lengths.shape[0] != b):
+    if (v_cache.shape != k_cache.shape
+            or k_scale.shape != k_cache.shape[:3]
+            or v_scale.shape != k_scale.shape):
         raise ValueError(
-            f"shape mismatch: q {tuple(q.shape)}, caches "
-            f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, scales "
-            f"{tuple(k_scale.shape)}/{tuple(v_scale.shape)}, lengths "
-            f"{tuple(lengths.shape)}")
-    out = torch.empty_like(q)
+            f"shape mismatch: caches {tuple(k_cache.shape)}/"
+            f"{tuple(v_cache.shape)}, scales {tuple(k_scale.shape)}/"
+            f"{tuple(v_scale.shape)}")
+    b, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    splits, out, part_o, part_ml, counters = decode_plan(
+        q, k_cache, lengths, _sm_count(q.device.index))
     with torch.cuda.device(q.device):
         rc = load_library().repro_decode_attention_int8(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), b, s, hq, hkv, d, code,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream, splits,
+            _ptr(part_o), _ptr(part_ml), _ptr(counters))
     raise_on(rc, "decode_attention_int8")
     return out
 

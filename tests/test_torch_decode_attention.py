@@ -284,3 +284,130 @@ def test_cuda_dense_decode_kernel_matches_plain_version(dtype):
             k[i, n:], v[i, n:] = float("nan"), float("nan")
         torch.testing.assert_close(ops.decode_attention(q, k, v, lens), out,
                                    atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the split-KV decode kernel's host side and edges
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("b,s,hkv", [(1, 512, 32), (1, 2112, 32),
+                                     (1, 512, 8), (3, 512, 32),
+                                     (4, 640, 2), (1, 128, 1)])
+def test_plan_splits_fills_the_card_at_small_batch(b, s, hkv):
+    """At small B x Hkv the splits give every SM a block, without cutting
+    the cache below MIN_SPLIT_ROWS slots a split."""
+    from repro_torch.kernels.decode_attention import kernel
+    splits = kernel.plan_splits(b, s, hkv, H100_SMS)
+    assert 1 < splits <= kernel.MAX_SPLITS
+    assert splits <= -(-s // kernel.MIN_SPLIT_ROWS)
+    if -(-s // kernel.MIN_SPLIT_ROWS) * b * hkv >= H100_SMS:
+        assert b * hkv * splits >= H100_SMS
+
+
+@pytest.mark.parametrize("b,s,hkv", [(20, 512, 32), (16, 2112, 32),
+                                     (9, 512, 32), (33, 512, 8)])
+def test_plan_splits_is_one_at_large_batch(b, s, hkv):
+    """B x Hkv >= 2 x SMs already fills the card: one split, no merge."""
+    from repro_torch.kernels.decode_attention import kernel
+    assert b * hkv >= 2 * H100_SMS
+    assert kernel.plan_splits(b, s, hkv, H100_SMS) == 1
+
+
+def test_decode_plan_reads_no_device_value():
+    """The wrapper's host side (shape checks, split plan, output and
+    scratch allocation) reads no tensor value: none is counted on CPU
+    tensors, and it runs on meta tensors, which hold no values at all.
+    So on the card it adds no host sync to a decode step."""
+    from repro_torch.analysis.sanitizer import count_host_reads
+    from repro_torch.kernels.decode_attention import kernel
+    for b, hq, hkv in ((1, 32, 32), (20, 32, 32), (2, 40, 8)):
+        q = torch.zeros(b, hq, 128, dtype=torch.bfloat16)
+        k = torch.zeros(b, 512, hkv, 128, dtype=torch.bfloat16)
+        lens = torch.full((b,), 300, dtype=torch.int32)
+        with count_host_reads() as counts:
+            splits, out, part_o, part_ml, counters = kernel.decode_plan(
+                q, k, lens, H100_SMS)
+        assert counts["reads"] == 0
+        assert out.shape == q.shape and out.dtype == q.dtype
+        assert splits == kernel.plan_splits(b, 512, hkv, H100_SMS)
+        if splits > 1:
+            assert part_o.shape == (b, hq, splits, 128)
+            assert part_ml.shape == (b, hq, splits, 2)
+            assert counters.dtype == torch.int32
+            assert counters.numel() >= b * hkv and not counters.any()
+        else:
+            assert part_o is None and part_ml is None and counters is None
+        meta = [t.to("meta") for t in (q, k, lens)]
+        assert kernel.decode_plan(*meta, H100_SMS)[0] == splits
+    with count_host_reads() as counts:         # the counter does count
+        int(lens.max())
+    assert counts["reads"] == 1
+
+
+def test_decode_plan_refuses_other_head_sizes():
+    from repro_torch.kernels.decode_attention import kernel
+    q = torch.zeros(2, 4, 96)
+    k = torch.zeros(2, 64, 2, 96)
+    with pytest.raises(ValueError, match="head size"):
+        kernel.decode_plan(q, k, torch.zeros(2, dtype=torch.int32),
+                           H100_SMS)
+
+
+# (name, s, hq, hkv, d, lengths): B = len(lengths)
+SPLIT_CASES = [
+    ("b1 many splits", 512, 8, 1, 128, (300,)),
+    ("b1 g2", 512, 4, 2, 64, (512,)),
+    ("b1 len 0", 512, 4, 4, 64, (0,)),
+    ("b1 len 1", 640, 3, 1, 32, (1,)),
+    ("split edges g3", 512, 6, 2, 64, (15, 16, 17, 31, 32, 33, 64, 0)),
+    ("split edges g8", 256, 16, 2, 128, (1, 8, 9, 255, 256, 128)),
+    ("g12 head chunks", 256, 24, 2, 64, (200, 37)),
+    ("one split", 128, 132, 132, 32, (128, 1, 64)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+def test_cuda_split_decode_edges(case, dtype):
+    """The split-KV kernel (dense and int8 caches) at lengths on tile and
+    split boundaries, 0, 1 and S, at B = 1 (many splits) and at
+    B x Hkv >= 264 (one split), for G in {1, 2, 3, 8, 12}: against the
+    plain versions, then with NaN (int8: extremes, NaN and inf scales)
+    written past the lengths, which must change nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.decode_attention import kernel
+    from repro_torch.models.transformer import _quant_i8
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, s, hq, hkv, d, lengths = case
+    tdt, _, tol = DTYPES[dtype]
+    b = len(lengths)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunks = -(-(hq // hkv) // kernel.MAX_HEADS_PER_BLOCK)
+    splits = kernel.plan_splits(b, s, hkv * chunks, sms)
+    assert (splits == 1) == (b * hkv * chunks >= 2 * sms)
+    q, k, v, lens = [torch.from_numpy(a).to("cuda") for a in
+                     _dense_setup(s, hq, hkv, d, lengths, seed=3)]
+    q, k, v = q.to(tdt), k.to(tdt), v.to(tdt)
+    out = ops.decode_attention(q, k, v, lens)
+    want = ref.decode_attention_ref(q, k, v, lens)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
+    (kq, ks), (vq, vs) = _quant_i8(k.float()), _quant_i8(v.float())
+    out8 = ops.decode_attention_int8(q, kq, vq, ks, vs, lens)
+    want8 = ref.decode_attention_int8_ref(q, kq, vq, ks, vs, lens)
+    torch.testing.assert_close(out8.float(), want8.float(), atol=tol,
+                               rtol=0)
+    for i, n in enumerate(lengths):
+        k[i, n:], v[i, n:] = float("nan"), float("nan")
+        kq[i, n:], vq[i, n:] = 127, -128
+        ks[i, n:], vs[i, n:] = float("nan"), float("inf")
+    torch.testing.assert_close(ops.decode_attention(q, k, v, lens), out,
+                               atol=0, rtol=0)
+    torch.testing.assert_close(
+        ops.decode_attention_int8(q, kq, vq, ks, vs, lens), out8, atol=0,
+        rtol=0)

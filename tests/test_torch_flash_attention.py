@@ -81,3 +81,45 @@ def test_cuda_flash_kernel_matches_plain_version(dtype):
             want = ref.flash_attention_ref(*args, **kw)
             torch.testing.assert_close(out.float(), want.float(), atol=tol,
                                        rtol=0)
+
+
+# (s, hq, hkv, d, window): the tensor-core kernel's edges
+TC_CASES = [(200, 3, 1, 128, 37),     # ragged S, G 3, window edge mid-tile
+            (77, 5, 1, 32, 20),       # one ragged tile, G 5
+            (130, 4, 4, 64, 70),      # G 1, window straddling tiles
+            (64, 6, 2, 128, 1),       # one tile, G 3, window 1
+            (333, 10, 2, 64, 100)]    # G 5 over several ragged tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("s,hq,hkv,d,window", TC_CASES)
+def test_cuda_flash_tensor_core_edges(s, hq, hkv, d, window, mode):
+    """The bf16 tensor-core kernel against its plain version where tiles
+    are ragged (S not a multiple of 64), where the window's edge falls
+    inside a tile, with G in {1, 3, 5} packed rows and D in {32, 64,
+    128}, in the causal, windowed and full masks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kw = dict(MODES[mode])
+    if mode == "window":
+        kw["window"] = window
+    args = [torch.from_numpy(a).to("cuda", torch.bfloat16)
+            for a in _inputs(s, hq, hkv, d, seed=7)]
+    n0 = ops.flash_attention.launches
+    out = ops.flash_attention(*args, **kw)
+    assert ops.flash_attention.launches == n0 + 1
+    want = ref.flash_attention_ref(*args, **kw)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=5e-2, rtol=0)
+
+
+def test_flash_kernel_refuses_other_bf16_head_sizes():
+    """The tensor-core kernel takes D in {32, 64, 128}; the wrapper raises
+    on any other bf16 head size before it reaches the card (f32 keeps
+    the scalar kernel, which takes any D)."""
+    from repro_torch.kernels.flash_attention import kernel
+    assert kernel.BF16_HEAD_SIZES == (32, 64, 128)
+    q = torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head size 96"):
+        kernel.flash_attention_kernel(q, q, q)
