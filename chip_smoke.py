@@ -11,13 +11,19 @@ CUDA toolkit.  Phases, each fatal on failure:
    library (its wall time printed); each kernel's registers, static
    shared memory and spills from the ``-Xptxas -v`` log, and its
    tensor-core instructions (HGMMA, HMMA) from ``cuobjdump -sass`` where
-   the toolkit has it; fails if the bf16 flash kernel has none;
+   the toolkit has it; fails if the bf16 flash or bf16 prefix-prefill
+   kernel has none;
 3. kernels: each hand-written kernel against its plain PyTorch version
-   on the card, on chatglm-6b's shapes and a GQA shape, in f32 (TF32 off,
-   tolerance 2e-4) and bf16 (5e-2): paged decode and prefix prefill with
-   and without cached prefixes plus the foreign-page poison cases; dense
-   flash prefill in its causal, sliding-window and full masks; dense
-   decode with mixed lengths and NaN written past them;
+   on the card, on chatglm-6b's shapes, GQA shapes and edge shapes, in
+   f32 (TF32 off, tolerance 2e-4) and bf16 (5e-2): paged decode with
+   lengths around a page, split-KV (B 1-2, lengths 640+), G > 8 in head
+   chunks and D 32/64/128 at bt 8/16/32; prefix prefill with and without
+   cached prefixes, prefix lengths off the 64-key tile, two 64-row tiles
+   of G = 3 and S > 64; then the poison cases (NaN or large values in pad
+   pages, foreign pages, slots past a length and suffix keys past
+   suffix_lens), which must change the output by exactly 0, in both
+   dtypes; dense flash prefill in its causal, sliding-window and full
+   masks; dense decode with mixed lengths and NaN written past them;
 4. model: a reduced chatglm-6b in f32 on the card (kernels) against the
    same model on the CPU (plain versions): the paged model (an admission
    wave with hits, misses and copy-on-write, then decode steps) and the
@@ -197,7 +203,8 @@ def build_report(build, lib):
     """Each kernel's registers, static shared memory and spills from the
     build's ``-Xptxas -v`` log, and its tensor-core instructions (HGMMA,
     HMMA) in the library's SASS where the toolkit has ``cuobjdump``.
-    Fails if the bf16 flash kernel has no tensor-core instruction."""
+    Fails if the bf16 flash or bf16 prefix-prefill kernel has no
+    tensor-core instruction."""
     import re
     kern = {}
     name = None
@@ -245,10 +252,11 @@ def build_report(build, lib):
             f"{k.get('smem', '?')} smem, spills {k.get('spill', '?')}, "
             f"HGMMA {hg}, HMMA {hm}")
     if tc:
-        flash = [n for n in tc if "flash_tc_kernel" in n]
-        check(flash and all(tc[n][0] + tc[n][1] > 0 for n in flash),
-              f"the bf16 flash kernel has no tensor-core instruction: "
-              f"{ {n: tc[n] for n in flash} }")
+        for kind in ("flash_tc_kernel", "prefix_prefill_tc_kernel"):
+            fns = [n for n in tc if kind in n]
+            check(fns and all(tc[n][0] + tc[n][1] > 0 for n in fns),
+                  f"a bf16 {kind} has no tensor-core instruction: "
+                  f"{ {n: tc[n] for n in fns} }")
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +265,7 @@ def build_report(build, lib):
 
 def kernel_checks(torch, ops, ref):
     """Each kernel against its plain version on random unit-size inputs
-    at chatglm-6b's and a GQA shape, f32 and bf16, then the poison
+    at chatglm-6b's, GQA and edge shapes, f32 and bf16, then the poison
     cases."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
@@ -265,14 +273,22 @@ def kernel_checks(torch, ops, ref):
         ("chatglm-6b", 32, 32, 32, 128, 16, 2048, 40,
          cycle([1, 15, 16, 17, 56, 100, 127, 250, 640], 32)),
         ("gqa smollm-135m", 8, 9, 3, 64, 16, 256, 16,
-         [1, 16, 33, 64, 200, 256, 77, 5])]
+         [1, 16, 33, 64, 200, 256, 77, 5]),
+        ("b2 splits g2 d64 bt8", 2, 8, 4, 64, 8, 256, 120, [641, 900]),
+        ("b1 splits g12 d32 bt32", 1, 24, 2, 32, 32, 64, 40, [1000]),
+        ("page edges g3 d32 bt32", 6, 6, 2, 32, 32, 64, 4,
+         [15, 16, 17, 31, 32, 33])]
     prefill_shapes = [  # (name, b, s, hq, hkv, d, bt, nb, mb, plens, slens)
         ("chatglm-6b mixed", 32, 64, 32, 32, 128, 16, 2048, 40,
          cycle([0, 32, 48, 47, 0, 600], 32), cycle([56, 24, 8, 9, 64, 1], 32)),
         ("chatglm-6b misses", 32, 64, 32, 32, 128, 16, 2048, 1,
          [0] * 32, cycle([56, 13, 64, 1], 32)),
         ("gqa smollm-135m", 4, 24, 9, 3, 64, 16, 128, 8,
-         [0, 17, 64, 128], [24, 5, 1, 20])]
+         [0, 17, 64, 128], [24, 5, 1, 20]),
+        ("g3 two row tiles d64", 3, 40, 6, 2, 64, 16, 64, 9,
+         [70, 0, 130], [40, 17, 33]),
+        ("s 100 d32 bt8", 3, 100, 2, 2, 32, 8, 64, 8,
+         [9, 64, 0], [100, 65, 7])]
     for dtype in (torch.float32, torch.bfloat16):
         torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
         torch.backends.cudnn.allow_tf32 = False         # in the plain path
@@ -305,55 +321,54 @@ def kernel_checks(torch, ops, ref):
 
 
 def poison_checks(torch, ops, gen):
-    """Poisoning pages outside a row's table, its own slots past its
-    length, and (prefill) suffix keys past suffix_len must not change
-    the row's output."""
+    """Poisoning pages outside a row's table (its pad entries' included),
+    its own slots past its length, and (prefill) suffix keys past
+    suffix_len must not change the row's output at all, in f32 and
+    bf16."""
     f = dict(device="cuda", generator=gen)
-    # decode: bt 16, Hq 4, Hkv 2, D 32, lengths (23, 40)
-    q = torch.randn(2, 4, 32, **f)
-    kp = torch.randn(6, 16, 2, 32, **f)
-    vp = torch.randn(6, 16, 2, 32, **f)
-    tables = torch.tensor([[1, 2, 0], [3, 4, 5]], dtype=torch.int32,
-                          device="cuda")
-    lens = torch.tensor([23, 40], dtype=torch.int32, device="cuda")
-    out1 = ops.paged_decode_attention(q, kp, vp, tables, lens)
-    kp2, vp2 = kp.clone(), vp.clone()
-    for t in (kp2, vp2):
-        t[0] = 1e4
-        t[2, 7:] = float("nan")
-        t[3:] = -1e4
-    out2 = ops.paged_decode_attention(q, kp2, vp2, tables, lens)
-    err = (out1[0] - out2[0]).abs().max().item()
-    log(f"kernel paged_decode_attention poison: max_abs_change {err:.3e}")
-    check(err <= 1e-5, f"decode poison changed the output by {err}")
-    # prefill: bt 8, Hq 4, Hkv 2, D 32, S 8, plens (12, 20), slens (8, 5)
-    q = torch.randn(2, 8, 4, 32, **f)
-    ks = torch.randn(2, 8, 2, 32, **f)
-    vs = torch.randn(2, 8, 2, 32, **f)
-    kp = torch.randn(7, 8, 2, 32, **f)
-    vp = torch.randn(7, 8, 2, 32, **f)
-    tables = torch.tensor([[1, 2, 0], [3, 4, 5]], dtype=torch.int32,
-                          device="cuda")
-    pl = torch.tensor([12, 20], dtype=torch.int32, device="cuda")
-    sl = torch.tensor([8, 5], dtype=torch.int32, device="cuda")
-    out1 = ops.paged_prefix_prefill_attention(q, ks, vs, kp, vp, tables, pl,
-                                              sl)
-    kp2, vp2, ks2, vs2 = kp.clone(), vp.clone(), ks.clone(), vs.clone()
-    for t in (kp2, vp2):
-        t[0] = 1e4                     # the pad entry of row 0's table
-        t[2, 4:] = float("nan")        # row 0's own slots past plen 12
-        t[3] = 1e4                     # row 1's page
-    for t in (ks2, vs2):
-        t[1, 5:] = float("nan")        # row 1's suffix keys past slen 5
-    out2 = ops.paged_prefix_prefill_attention(q, ks, vs, kp2, vp2, tables,
-                                              pl, sl)
-    out3 = ops.paged_prefix_prefill_attention(q, ks2, vs2, kp, vp, tables,
-                                              pl, sl)
-    err = max((out1[0] - out2[0]).abs().max().item(),
-              (out1[1] - out3[1]).abs().max().item())
-    log(f"kernel paged_prefix_prefill_attention poison: max_abs_change "
-        f"{err:.3e}")
-    check(err <= 1e-5, f"prefill poison changed the output by {err}")
+    for dtype in (torch.float32, torch.bfloat16):
+        rnd = lambda *shape: torch.randn(*shape, **f).to(dtype)
+        # decode: bt 16, Hq 4, Hkv 2, D 32, lengths (23, 40)
+        q, kp, vp = rnd(2, 4, 32), rnd(6, 16, 2, 32), rnd(6, 16, 2, 32)
+        tables = torch.tensor([[1, 2, 0], [3, 4, 5]], dtype=torch.int32,
+                              device="cuda")
+        lens = torch.tensor([23, 40], dtype=torch.int32, device="cuda")
+        out1 = ops.paged_decode_attention(q, kp, vp, tables, lens)
+        kp2, vp2 = kp.clone(), vp.clone()
+        for t in (kp2, vp2):
+            t[0] = float("nan")            # the pad entry of row 0's table
+            t[2, 7:] = float("nan")        # row 0's own slots past 23
+            t[3:] = -1e4                   # row 1's pages
+        out2 = ops.paged_decode_attention(q, kp2, vp2, tables, lens)
+        err = (out1[0] - out2[0]).abs().max().item()
+        log(f"kernel paged_decode_attention poison {dtype}: "
+            f"max_abs_change {err:.3e}")
+        check(err == 0.0, f"decode poison changed the output by {err}")
+        # prefill: bt 8, Hq 4, Hkv 2, D 32, S 8, plens (12, 20), slens (8, 5)
+        q, ks, vs = rnd(2, 8, 4, 32), rnd(2, 8, 2, 32), rnd(2, 8, 2, 32)
+        kp, vp = rnd(7, 8, 2, 32), rnd(7, 8, 2, 32)
+        tables = torch.tensor([[1, 2, 0], [3, 4, 5]], dtype=torch.int32,
+                              device="cuda")
+        pl = torch.tensor([12, 20], dtype=torch.int32, device="cuda")
+        sl = torch.tensor([8, 5], dtype=torch.int32, device="cuda")
+        out1 = ops.paged_prefix_prefill_attention(q, ks, vs, kp, vp, tables,
+                                                  pl, sl)
+        kp2, vp2, ks2, vs2 = kp.clone(), vp.clone(), ks.clone(), vs.clone()
+        for t in (kp2, vp2):
+            t[0] = float("nan")            # the pad entry of row 0's table
+            t[2, 4:] = float("nan")        # row 0's own slots past plen 12
+            t[3] = 1e4                     # row 1's page
+        for t in (ks2, vs2):
+            t[1, 5:] = float("nan")        # row 1's suffix keys past slen 5
+        out2 = ops.paged_prefix_prefill_attention(q, ks, vs, kp2, vp2,
+                                                  tables, pl, sl)
+        out3 = ops.paged_prefix_prefill_attention(q, ks2, vs2, kp, vp,
+                                                  tables, pl, sl)
+        err = max((out1[0] - out2[0]).abs().max().item(),
+                  (out1[1] - out3[1]).abs().max().item())
+        log(f"kernel paged_prefix_prefill_attention poison {dtype}: "
+            f"max_abs_change {err:.3e}")
+        check(err == 0.0, f"prefill poison changed the output by {err}")
 
 
 def dense_kernel_checks(torch, fops, fref, dops, dref):

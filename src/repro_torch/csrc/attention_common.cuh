@@ -19,6 +19,7 @@ constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 
 constexpr int kThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);

@@ -8,442 +8,33 @@
 // `decode_attention_int8_kernel` (body `_kernel_i8`) in
 // src/repro/kernels/decode_attention/kernel.py.
 //
-// What bounds it: bytes.  Each request's valid K/V (lengths[b] rows of
-// Hkv * D values, twice) is read once and every value feeds G = Hq / Hkv
-// multiply-adds per score and per output: the score and output products
-// are GEMVs, far below the ~295 operations per byte the card needs before
-// arithmetic matters, so there is no tensor-core work to find.  The design
-// is a split-KV streaming kernel (flash-decoding):
-//
-// * Grid (splits, Hkv * head chunks, B).  The host picks the number of
-//   splits from shapes alone (B, S, Hkv and the SM count; kernel.py's
-//   `plan_splits`) so that small batches still fill the 132 SMs; it never
-//   reads `lengths`.  Each split finds its slice of [0, lengths[b]) on the
-//   device, in whole warp tiles; an empty slice leaves m = -inf, l = 0.
-//   With one split the block writes the output; with more, each writes
-//   its f32 partial (m, l and the unnormalised [D] output per query head)
-//   and counts itself done on an atomic counter: the last split block of
-//   a (row, KV head) merges the partials and resets the counter, so the
-//   merge costs no second launch.
-// * Each of the block's 4 warps streams its own tiles of 2 KB of K rows
-//   (and as many V rows) through a 3-stage ring of shared memory by
-//   cp.async, 16-byte vectors, two tiles ahead of the one it computes, so
-//   a block keeps ~16 KB in flight with no block-wide barrier in the loop
-//   (only __syncwarp).  Rows at or past the slice are zero-filled without
-//   a read.
-// * A cache row of D values is read by D / 8 lanes, 8 values a lane; the
-//   dot product is reduced by __shfl_xor_sync inside the lane group, and
-//   each group keeps its online softmax (running max, sum and its 8
-//   output columns per query head) in registers, the G <= 8 query heads
-//   of the KV head in a loop over registers (G > 8 is cut into chunks of
-//   8 across the grid).  The groups and warps are merged once, at the end,
-//   by shuffles and then through shared memory.
-// * Scores live in the log2 domain (q is scaled by D**-0.5 * log2(e) in
-//   f32) and use exp2f.
-//
-// int8: the cache moves half the bf16 cache's bytes (one byte a value,
-// plus a 2-byte scale per D values).  Each (token, head) scale is read
-// once per lane group, a tile ahead, and folded into the score (s_k q.k)
-// and into p (p s_v) instead of dequantising every value: the same
-// arithmetic up to f32 rounding.  Rows at or past the length, and their
-// scales, are never read, so NaN, inf or int8 extremes there cannot reach
-// the output.
-#include <cmath>
-#include <cstdint>
-#include <type_traits>
-
-#include "attention_common.cuh"
-#include "hopper_mma.cuh"
+// What bounds it: bytes (each request's valid K/V, lengths[b] rows of
+// Hkv * D values twice, read once; G = Hq / Hkv multiply-adds a value).
+// The design is decode_split.cuh's split-KV streaming kernel, with token
+// t of request b at row b * S + t.  int8 moves half the bf16 cache's bytes
+// (one byte a value, plus a 2-byte scale per D values); rows at or past
+// the length, and their scales, are never read, so NaN, inf or int8
+// extremes there cannot reach the output.
+#include "decode_split.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kSplitThreads = kWarps * 32;
-constexpr int kStages = 3;              // per-warp ring depth
-constexpr int kWarpTileBytes = 2048;    // K bytes per warp tile (V alike)
-constexpr int kMaxHeads = 8;            // query heads a block keeps
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFull = 0xffffffffu;
-
-// 8 consecutive cache values from shared memory as f32
-template <typename KV>
-__device__ __forceinline__ void load8(const KV* p, float (&f)[8]);
-template <>
-__device__ __forceinline__ void load8<float>(const float* p, float (&f)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-template <>
-__device__ __forceinline__ void load8<__nv_bfloat16>(const __nv_bfloat16* p,
-                                                     float (&f)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    __nv_bfloat162 h;
-    *reinterpret_cast<unsigned*>(&h) = w[i];
-    const float2 x = __bfloat1622float2(h);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
+// A contiguous cache [B, S, Hkv, D]: token t of request b is slot b * S + t.
+struct DenseRows {
+  static constexpr bool kGather = false;
+  int S;
+  __device__ int capacity() const { return S; }
+  __device__ size_t slot(int b, int t, int) const {
+    return (size_t)b * S + t;
   }
-}
-template <>
-__device__ __forceinline__ void load8<int8_t>(const int8_t* p,
-                                              float (&f)[8]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[i] = static_cast<float>(static_cast<int8_t>((u.x >> (8 * i)) & 0xff));
-    f[4 + i] =
-        static_cast<float>(static_cast<int8_t>((u.y >> (8 * i)) & 0xff));
-  }
-}
-
-// Combine two online-softmax states (max in the log2 domain): returns the
-// rescale factors of each side; a side that saw no key (m = -inf) gets 0.
-__device__ __forceinline__ void merge_weights(float m_a, float m_b,
-                                              float& m, float& wa,
-                                              float& wb) {
-  m = fmaxf(m_a, m_b);
-  wa = m_a == -CUDART_INF_F ? 0.f : exp2f(m_a - m);
-  wb = m_b == -CUDART_INF_F ? 0.f : exp2f(m_b - m);
-}
-
-// T: the query's and output's type; KV: the cache's (T, or int8 with
-// bf16 scales k_scale / v_scale [B, S, Hkv]; null for a T cache).
-// D: head size; GM: query heads held in registers (>= the block's).
-template <typename T, typename KV, int D, int GM>
-__global__ void __launch_bounds__(kSplitThreads)
-decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k_cache,
-                    const KV* __restrict__ v_cache,
-                    const __nv_bfloat16* __restrict__ k_scale,
-                    const __nv_bfloat16* __restrict__ v_scale,
-                    const int* __restrict__ lengths, T* __restrict__ out,
-                    float* __restrict__ part_o, float* __restrict__ part_ml,
-                    int* __restrict__ counters, int S, int Hq, int Hkv,
-                    int splits, float qscale) {
-  constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
-  constexpr int LPR = D / 8;                     // lanes per cache row
-  constexpr int RPW = 32 / LPR;                  // rows a warp takes a step
-  constexpr int TW = kWarpTileBytes / (D * (int)sizeof(KV));  // tile rows
-  constexpr int VPC = 16 / (int)sizeof(KV);      // values per 16-B chunk
-  constexpr int CPR = D / VPC;                   // chunks per row
-  constexpr int CPL = TW * CPR / 32;             // chunks per lane
-  constexpr int SC = (TW + 31) / 32;             // scale rows per lane
-  static_assert(TW % RPW == 0 && (TW * CPR) % 32 == 0, "tile shape");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int grp = lane / LPR, sub = lane % LPR;
-  const int G = Hq / Hkv;
-  const int chunks = (G + GM - 1) / GM;
-  const int sp = blockIdx.x, b = blockIdx.z;
-  const int h = blockIdx.y / chunks, g0 = (blockIdx.y % chunks) * GM;
-  const int gc = min(GM, G - g0);
-  const int len = min(max(lengths[b], 0), S);
-  // this split's slice [t0, t0 + n) of [0, len), in whole warp tiles
-  const int per = ((len + splits - 1) / splits + TW - 1) / TW * TW;
-  const int t0 = min(len, sp * per);
-  const int n = min(len, t0 + per) - t0;
-
-  const size_t hq0 = (size_t)h * G + g0;
-  float qf[GM][8], acc[GM][8], m[GM], l[GM];
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    const T* qrow = q + ((size_t)b * Hq + hq0 + g) * D + sub * 8;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      qf[g][i] = g < gc ? to_f32(qrow[i]) * qscale : 0.f;
-      acc[g][i] = 0.f;
-    }
-    m[g] = -CUDART_INF_F;
-    l[g] = 0.f;
-  }
-
-  const size_t row_stride = (size_t)Hkv * D;  // between consecutive tokens
-  const size_t base = ((size_t)b * S + t0) * row_stride + (size_t)h * D;
-  KV* ring = reinterpret_cast<KV*>(smem) + (size_t)warp * kStages * 2 * TW * D;
-  const int ntile = (n + TW - 1) / TW;  // the split's warp tiles, dealt
-  const int mine =                      // to the warps round robin
-      warp < ntile ? (ntile - warp + kWarps - 1) / kWarps : 0;
-
-  auto issue = [&](int i) {  // this warp's i-th tile into stage i % kStages
-    const int r0 = (warp + i * kWarps) * TW;
-    KV* ks = ring + (i % kStages) * 2 * TW * D;
-    KV* vs = ks + TW * D;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      const int chunk = lane + 32 * c, row = chunk / CPR;
-      const int col = (chunk % CPR) * VPC;
-      const bool ok = r0 + row < n;
-      const size_t off = ok ? base + (size_t)(r0 + row) * row_stride + col : 0;
-      cp_async16(ks + row * D + col, k_cache + off, ok);
-      cp_async16(vs + row * D + col, v_cache + off, ok);
-    }
-  };
-  // int8: lane r of the warp holds the scales of rows r, r + 32, ... of
-  // its i-th tile (0 past the slice, which is never read)
-  auto load_scales = [&](int i, float (&ks)[SC], float (&vs)[SC]) {
-    const int r0 = (warp + i * kWarps) * TW;
-#pragma unroll
-    for (int c = 0; c < SC; ++c) {
-      const int row = r0 + lane + 32 * c;
-      const bool ok = lane + 32 * c < TW && row < n;
-      const size_t idx = ((size_t)b * S + t0 + row) * Hkv + h;
-      ks[c] = ok ? __bfloat162float(k_scale[idx]) : 0.f;
-      vs[c] = ok ? __bfloat162float(v_scale[idx]) : 0.f;
-    }
-  };
-
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < mine) issue(i);
-    cp_async_commit();
-  }
-  float ksc[SC], vsc[SC], ksn[SC], vsn[SC];
-#pragma unroll
-  for (int c = 0; c < SC; ++c) ksc[c] = vsc[c] = ksn[c] = vsn[c] = 1.f;
-  if constexpr (kInt8) {
-    if (mine > 0) load_scales(0, ksc, vsc);
-  }
-  for (int i = 0; i < mine; ++i) {
-    __syncwarp();  // every lane is done with stage (i - 1) % kStages
-    if (i + kStages - 1 < mine) issue(i + kStages - 1);
-    cp_async_commit();
-    if constexpr (kInt8) {
-      if (i + 1 < mine) load_scales(i + 1, ksn, vsn);
-    }
-    cp_async_wait<kStages - 1>();  // this lane's copies of tile i landed
-    __syncwarp();                  // and every lane's
-    const KV* ks = ring + (i % kStages) * 2 * TW * D;
-    const KV* vs = ks + TW * D;
-    const int r0 = (warp + i * kWarps) * TW;
-#pragma unroll
-    for (int rr0 = 0; rr0 < TW; rr0 += RPW) {
-      const int rr = rr0 + grp;
-      float kf[8];
-      load8(ks + rr * D + sub * 8, kf);
-      float s[GM];
-#pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        float a = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) a = fmaf(qf[g][j], kf[j], a);
-        s[g] = a;
-      }
-#pragma unroll
-      for (int o = LPR / 2; o > 0; o /= 2)
-#pragma unroll
-        for (int g = 0; g < GM; ++g) s[g] += __shfl_xor_sync(kFull, s[g], o);
-      float kscale = 1.f, vscale = 1.f;
-      if constexpr (kInt8) {
-        kscale = __shfl_sync(kFull, ksc[rr0 / 32], rr % 32);
-        vscale = __shfl_sync(kFull, vsc[rr0 / 32], rr % 32);
-      }
-      if (r0 + rr < n) {
-        float vf[8];
-        load8(vs + rr * D + sub * 8, vf);
-#pragma unroll
-        for (int g = 0; g < GM; ++g) {
-          if (g < gc) {
-            const float sg = s[g] * kscale;
-            const float mn = fmaxf(m[g], sg);
-            const float a = exp2f(m[g] - mn);  // 0 while m = -inf
-            const float p = exp2f(sg - mn);
-            l[g] = fmaf(l[g], a, p);
-            const float pv = p * vscale;
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              acc[g][j] = fmaf(pv, vf[j], acc[g][j] * a);
-            m[g] = mn;
-          }
-        }
-      }
-    }
-    if constexpr (kInt8) {
-#pragma unroll
-      for (int c = 0; c < SC; ++c) {
-        ksc[c] = ksn[c];
-        vsc[c] = vsn[c];
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // merge the lane groups of each warp by shuffles ...
-#pragma unroll
-  for (int o = LPR; o < 32; o *= 2) {
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      const float mo = __shfl_xor_sync(kFull, m[g], o);
-      const float lo = __shfl_xor_sync(kFull, l[g], o);
-      float mn, wa, wb;
-      merge_weights(m[g], mo, mn, wa, wb);
-      l[g] = l[g] * wa + lo * wb;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float ao = __shfl_xor_sync(kFull, acc[g][j], o);
-        acc[g][j] = acc[g][j] * wa + ao * wb;
-      }
-      m[g] = mn;
-    }
-  }
-  // ... then the warps, once, through shared memory (the ring's bytes)
-  __syncthreads();
-  float* red_o = reinterpret_cast<float*>(smem);  // [kWarps][GM][D]
-  float* red_m = red_o + kWarps * GM * D;         // [kWarps][GM]
-  float* red_l = red_m + kWarps * GM;             // [kWarps][GM]
-  if (grp == 0) {
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        red_o[(warp * GM + g) * D + sub * 8 + j] = acc[g][j];
-      if (sub == 0) {
-        red_m[warp * GM + g] = m[g];
-        red_l[warp * GM + g] = l[g];
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < gc * D; e += blockDim.x) {
-    const int g = e / D, d = e - g * D;
-    float M = -CUDART_INF_F;
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, red_m[w * GM + g]);
-    float O = 0.f, L = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float mw = red_m[w * GM + g];
-      if (mw != -CUDART_INF_F) {
-        const float f = exp2f(mw - M);
-        O = fmaf(red_o[(w * GM + g) * D + d], f, O);
-        L = fmaf(red_l[w * GM + g], f, L);
-      }
-    }
-    const size_t row = (size_t)b * Hq + hq0 + g;
-    if (splits == 1) {
-      out[row * D + d] = from_f32<T>(O / fmaxf(L, 1e-30f));
-    } else {
-      const size_t pi = row * splits + sp;
-      part_o[pi * D + d] = O;
-      if (d == 0) {
-        part_ml[2 * pi] = M;
-        part_ml[2 * pi + 1] = L;
-      }
-    }
-  }
-  if (splits == 1) return;
-
-  // The last split block of this (row, KV head, head chunk) to finish
-  // merges every split's partials; its counter goes back to 0 for the
-  // next launch.
-  int* last = reinterpret_cast<int*>(red_l + kWarps * GM);  // in smem
-  __threadfence();  // this block's partials are visible device-wide
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int* count = counters + (size_t)b * gridDim.y + blockIdx.y;
-    *last = atomicAdd(count, 1) == splits - 1;
-    if (*last) *count = 0;
-  }
-  __syncthreads();
-  if (!*last) return;
-  __threadfence();
-  for (int e = threadIdx.x; e < gc * D; e += blockDim.x) {
-    const int g = e / D, d = e - g * D;
-    const size_t row = (size_t)b * Hq + hq0 + g;
-    const float* ml = part_ml + row * splits * 2;
-    float M = -CUDART_INF_F;
-    for (int s = 0; s < splits; ++s) M = fmaxf(M, __ldcg(ml + 2 * s));
-    float O = 0.f, L = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const float mw = __ldcg(ml + 2 * s);
-      if (mw != -CUDART_INF_F) {
-        const float f = exp2f(mw - M);
-        O = fmaf(__ldcg(part_o + (row * splits + s) * D + d), f, O);
-        L = fmaf(__ldcg(ml + 2 * s + 1), f, L);
-      }
-    }
-    out[row * D + d] = from_f32<T>(O / fmaxf(L, 1e-30f));
-  }
-}
-
-template <typename T, typename KV, int D, int GM>
-cudaError_t launch_split(const void* q, const void* k_cache,
-                         const void* v_cache, const void* k_scale,
-                         const void* v_scale, const void* lengths, void* out,
-                         int B, int S, int Hq, int Hkv, int splits,
-                         void* part_o, void* part_ml, void* counters,
-                         cudaStream_t stream) {
-  const size_t ring = (size_t)kWarps * kStages * 2 * kWarpTileBytes;
-  const size_t red = sizeof(float) * ((size_t)kWarps * GM * (D + 2) + 1);
-  const size_t smem = ring > red ? ring : red;
-  cudaError_t err = set_smem(decode_split_kernel<T, KV, D, GM>, smem);
-  if (err != cudaSuccess) return err;
-  const int G = Hq / Hkv, chunks = (G + GM - 1) / GM;
-  const float qscale = static_cast<float>(
-      1.0 / std::sqrt(static_cast<double>(D)) * kLog2e);
-  decode_split_kernel<T, KV, D, GM>
-      <<<dim3(splits, Hkv * chunks, B), kSplitThreads, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const KV*>(k_cache),
-          static_cast<const KV*>(v_cache),
-          static_cast<const __nv_bfloat16*>(k_scale),
-          static_cast<const __nv_bfloat16*>(v_scale),
-          static_cast<const int*>(lengths), static_cast<T*>(out),
-          static_cast<float*>(part_o), static_cast<float*>(part_ml),
-          static_cast<int*>(counters), S, Hq, Hkv, splits, qscale);
-  return cudaGetLastError();
-}
-
-template <typename T, typename KV, int D>
-cudaError_t launch_d(const void* q, const void* k_cache, const void* v_cache,
-                     const void* k_scale, const void* v_scale,
-                     const void* lengths, void* out, int B, int S, int Hq,
-                     int Hkv, int splits, void* part_o, void* part_ml,
-                     void* counters, cudaStream_t stream) {
-  const int G = Hq / Hkv;
-#define REPRO_LAUNCH(GM)                                                    \
-  return launch_split<T, KV, D, GM>(q, k_cache, v_cache, k_scale, v_scale, \
-                                    lengths, out, B, S, Hq, Hkv, splits,    \
-                                    part_o, part_ml, counters, stream)
-  if (G == 1) REPRO_LAUNCH(1);
-  if (G == 2) REPRO_LAUNCH(2);
-  if (G <= 4) REPRO_LAUNCH(4);
-  REPRO_LAUNCH(kMaxHeads);
-#undef REPRO_LAUNCH
-}
+};
 
 template <typename T, typename KV>
-cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
-                   const void* k_scale, const void* v_scale,
-                   const void* lengths, void* out, int B, int S, int Hq,
-                   int Hkv, int D, int splits, void* part_o, void* part_ml,
-                   void* counters, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch_d<T, KV, 32>(q, k_cache, v_cache, k_scale, v_scale,
-                                 lengths, out, B, S, Hq, Hkv, splits,
-                                 part_o, part_ml, counters, stream);
-    case 64:
-      return launch_d<T, KV, 64>(q, k_cache, v_cache, k_scale, v_scale,
-                                 lengths, out, B, S, Hq, Hkv, splits,
-                                 part_o, part_ml, counters, stream);
-    case 128:
-      return launch_d<T, KV, 128>(q, k_cache, v_cache, k_scale, v_scale,
-                                  lengths, out, B, S, Hq, Hkv, splits,
-                                  part_o, part_ml, counters, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-inline bool bad_args(int B, int S, int Hq, int Hkv, int splits,
-                     const void* part_o, const void* part_ml,
-                     const void* counters) {
-  return B < 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || splits < 1 ||
-         (splits > 1 &&
-          (part_o == nullptr || part_ml == nullptr || counters == nullptr));
+int launch_dense(const SplitArgs& a, int S, int D, cudaStream_t stream) {
+  if (a.B == 0) return cudaSuccess;
+  if (bad_split_args(a, S)) return cudaErrorInvalidValue;
+  return launch_split_any<T, KV>(a, D, DenseRows{S}, stream);
 }
 
 }  // namespace
@@ -465,19 +56,14 @@ extern "C" int repro_decode_attention(const void* q, const void* k_cache,
                                       int dtype, void* stream, int splits,
                                       void* part_o, void* part_ml,
                                       void* counters) {
-  if (B == 0) return cudaSuccess;
-  if (repro::bad_args(B, S, Hq, Hkv, splits, part_o, part_ml, counters))
-    return cudaErrorInvalidValue;
+  const repro::SplitArgs a{q, k_cache, v_cache, nullptr, nullptr,
+                           lengths, out, B, Hq, Hkv, splits, part_o,
+                           part_ml, counters};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return repro::launch<float, float>(q, k_cache, v_cache, nullptr,
-                                       nullptr, lengths, out, B, S, Hq, Hkv,
-                                       D, splits, part_o, part_ml, counters,
-                                       s);
+    return repro::launch_dense<float, float>(a, S, D, s);
   if (dtype == repro::kBFloat16)
-    return repro::launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k_cache, v_cache, nullptr, nullptr, lengths, out, B, S, Hq, Hkv,
-        D, splits, part_o, part_ml, counters, s);
+    return repro::launch_dense<__nv_bfloat16, __nv_bfloat16>(a, S, D, s);
   return cudaErrorInvalidValue;
 }
 
@@ -490,18 +76,13 @@ extern "C" int repro_decode_attention_int8(
     void* out, int B, int S, int Hq, int Hkv, int D, int dtype,
     void* stream, int splits, void* part_o, void* part_ml,
     void* counters) {
-  if (B == 0) return cudaSuccess;
-  if (repro::bad_args(B, S, Hq, Hkv, splits, part_o, part_ml, counters))
-    return cudaErrorInvalidValue;
+  const repro::SplitArgs a{q, k_cache, v_cache, k_scale, v_scale,
+                           lengths, out, B, Hq, Hkv, splits, part_o,
+                           part_ml, counters};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return repro::launch<float, int8_t>(q, k_cache, v_cache, k_scale,
-                                        v_scale, lengths, out, B, S, Hq,
-                                        Hkv, D, splits, part_o, part_ml,
-                                        counters, s);
+    return repro::launch_dense<float, int8_t>(a, S, D, s);
   if (dtype == repro::kBFloat16)
-    return repro::launch<__nv_bfloat16, int8_t>(
-        q, k_cache, v_cache, k_scale, v_scale, lengths, out, B, S, Hq, Hkv,
-        D, splits, part_o, part_ml, counters, s);
+    return repro::launch_dense<__nv_bfloat16, int8_t>(a, S, D, s);
   return cudaErrorInvalidValue;
 }

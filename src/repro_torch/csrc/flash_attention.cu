@@ -32,7 +32,8 @@
 // window-edge and ragged tiles), convert P to bf16 in registers as the A
 // operand of O += P.V (wgmma m64nDk16, V the MN-major B operand from
 // shared memory), and write O from registers to device memory once.
-// Head sizes 32, 64 and 128.
+// That consumer step is attention_tc.cuh's, shared with the paged prefix
+// prefill kernel.  Head sizes 32, 64 and 128.
 //
 // f32: `flash_kernel`, the scalar kernel of the first port, unchanged.
 // Its callers hold it to 2e-4 of the plain f32 version, which needs true
@@ -45,6 +46,7 @@
 #include <cmath>
 
 #include "attention_common.cuh"
+#include "attention_tc.cuh"
 #include "hopper_mma.cuh"
 
 namespace repro {
@@ -141,27 +143,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kTcRows = 64;                 // packed query rows per block
-constexpr int kTcKeys = 64;                 // keys per K/V tile
 constexpr int kTcStages = 2;                // K/V ring depth
 constexpr int kTcThreads = 128 + 32;        // consumer warpgroup + producer
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-struct TcShape {
-  static constexpr int RB = D * 2 < 128 ? D * 2 : 128;  // bytes a row
-  static constexpr int REGIONS = D * 2 / RB;             // of RB bytes
-  static constexpr int SWIZZLE = RB == 128 ? 1 : 2;      // 128 B / 64 B
-  static constexpr int Q_BYTES = kTcRows * D * 2;
-  static constexpr int TILE_BYTES = kTcKeys * D * 2;     // one K or V tile
+struct TcShape : TcTile<D> {  // Q, then the K and V rings, then barriers
   static constexpr int SMEM =
-      1024 + Q_BYTES + 2 * kTcStages * TILE_BYTES + 2 * kTcStages * 8;
+      1024 + TcTile<D>::BYTES * (1 + 2 * kTcStages) + 2 * kTcStages * 8;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kTcThreads)
@@ -175,10 +164,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmap_k,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* qs = base;                          // [REGIONS][64][RB]
-  unsigned char* ks = qs + Sh::Q_BYTES;              // [NS][REGIONS][BN][RB]
-  unsigned char* vs = ks + NS * Sh::TILE_BYTES;      // [NS][REGIONS][BN][RB]
-  uint64_t* full = reinterpret_cast<uint64_t*>(vs + NS * Sh::TILE_BYTES);
+  unsigned char* qs = base;                  // [REGIONS][64][RB]
+  unsigned char* ks = qs + Sh::BYTES;        // [NS][REGIONS][BN][RB]
+  unsigned char* vs = ks + NS * Sh::BYTES;   // [NS][REGIONS][BN][RB]
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + NS * Sh::BYTES);
   uint64_t* empty = full + NS;
 
   const int h = blockIdx.y, b = blockIdx.z;
@@ -205,9 +194,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmap_k,
       for (int j = 0; j < ntiles; ++j) {
         const int s = j % NS;
         if (j >= NS) mbar_wait(&empty[s], ((j / NS) - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * Sh::TILE_BYTES);
+        mbar_expect_tx(&full[s], 2 * Sh::BYTES);
         for (int kr = 0; kr < Sh::REGIONS; ++kr) {
-          const int off = s * Sh::TILE_BYTES + kr * BN * RB;
+          const int off = s * Sh::BYTES + kr * BN * RB;
           tma_load_4d(ks + off, &tmap_k, &full[s], kr * (RB / 2), h,
                       k_lo + j * BN, b);
           tma_load_4d(vs + off, &tmap_v, &full[s], kr * (RB / 2), h,
@@ -221,145 +210,47 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmap_k,
   // consumers: the Q tile into shared memory by cp.async, all of it in
   // flight at once, in the swizzled layout that TMA would give it (rows
   // past the last are zero-filled)
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x;
   auto qoff = [&](int r) {  // element offset of packed row r in q / out
     return (((size_t)b * S + r / G) * Hq + (size_t)h * G + r % G) * D;
   };
   constexpr int CPRow = D / 8;  // 16-byte chunks a row
   for (int e = tid; e < kTcRows * CPRow; e += 128) {
     const int row = e / CPRow, cc = e % CPRow;
-    const int kr = cc * 16 / RB, c16 = cc % (RB / 16);
-    uint32_t o = kr * kTcRows * RB + row * RB + c16 * 16;
-    o ^= (o >> 3) & (Sh::SWIZZLE == 1 ? 0x70 : 0x30);
     const bool ok = row < R;
-    cp_async16(qs + o, q + (ok ? qoff(r0 + row) + cc * 8 : 0), ok);
+    cp_async16(qs + tc_chunk<D>(row, cc),
+               q + (ok ? qoff(r0 + row) + cc * 8 : 0), ok);
   }
   cp_async_wait_all();
   fence_proxy_async();
   asm volatile("bar.sync 1, 128;\n" ::: "memory");
 
-  // this thread's rows of the tile: lr[0] and lr[0] + 8
-  const int lr0 = warp * 16 + lane / 4, c2 = (lane % 4) * 2;
-  int qp[2];
-  for (int hr = 0; hr < 2; ++hr) qp[hr] = (r0 + lr0 + 8 * hr) / G;
+  int qp[2];  // query positions of this thread's two rows
+  for (int hr = 0; hr < 2; ++hr) qp[hr] = (r0 + tc_row(hr)) / G;
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-  constexpr uint32_t SBO = 8 * RB;
 
   for (int j = 0; j < ntiles; ++j) {
     const int s = j % NS;
     mbar_wait(&full[s], (j / NS) & 1);
     __syncwarp();  // the warp converges before the .aligned wgmma
-    const unsigned char* kt = ks + s * Sh::TILE_BYTES;
-    const unsigned char* vt = vs + s * Sh::TILE_BYTES;
-
-    float sc[BN / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
-    fence_operands(sc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int kr = kk * 32 / RB, kb = (kk * 32) % RB;
-      wgmma_ss_n64(sc,
-                   gmma_desc(qs + kr * kTcRows * RB + kb, 16, SBO,
-                             Sh::SWIZZLE),
-                   gmma_desc(kt + kr * BN * RB + kb, 16, SBO, Sh::SWIZZLE),
-                   kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_operands(sc);
-
     // masks, only where some key of the tile is hidden from some row
     const int c0 = k_lo + j * BN;
     const bool edge = c0 + BN > k_hi || (causal && c0 + BN - 1 > p_lo) ||
                       (window > 0 && p_hi - c0 >= window);
-    if (edge) {
-#pragma unroll
-      for (int nb = 0; nb < BN / 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kp = c0 + nb * 8 + c2 + (e & 1), p = qp[e >> 1];
-          const bool ok = kp < k_hi && (!causal || kp <= p) &&
-                          (window <= 0 || p - kp < window);
-          if (!ok) sc[nb * 4 + e] = -CUDART_INF_F;
-        }
-    }
-
-    // online softmax in registers, rows lr0 (hr 0) and lr0 + 8 (hr 1)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int nb = 0; nb < BN / 8; ++nb)
-        mx = fmaxf(mx, fmaxf(sc[nb * 4 + 2 * hr], sc[nb * 4 + 2 * hr + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m[hr], mx);
-      const float mu = mn == -CUDART_INF_F ? 0.f : mn * scale_log2;
-      const float alpha = exp2f(m[hr] * scale_log2 - mu);  // 0 at -inf
-      float sum = 0.f;
-#pragma unroll
-      for (int nb = 0; nb < BN / 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = sc[nb * 4 + 2 * hr + e];
-          x = exp2f(fmaf(x, scale_log2, -mu));
-          sum += x;
-        }
-      l[hr] = fmaf(l[hr], alpha, sum);  // this thread's share of the row
-      m[hr] = mn;
-#pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb) {
-        o[nb * 4 + 2 * hr] *= alpha;
-        o[nb * 4 + 2 * hr + 1] *= alpha;
-      }
-    }
-
-    // P to bf16 in the A-operand layout, then O += P.V
-    uint32_t pa[BN / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const float* lo = sc + 8 * kk;  // n8 blocks 2kk and 2kk + 1
-      pa[kk][0] = pack_bf16(lo[0], lo[1]);
-      pa[kk][1] = pack_bf16(lo[2], lo[3]);
-      pa[kk][2] = pack_bf16(lo[4], lo[5]);
-      pa[kk][3] = pack_bf16(lo[6], lo[7]);
-    }
-    fence_operands(o);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint64_t dv = gmma_desc(vt + kk * 16 * RB, BN * RB, SBO,
-                                    Sh::SWIZZLE);
-      if constexpr (D == 32) wgmma_rs_n32(o, pa[kk], dv);
-      else if constexpr (D == 64) wgmma_rs_n64(o, pa[kk], dv);
-      else wgmma_rs_n128(o, pa[kk], dv);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_operands(o);
+    tc_attend_tile<D>(
+        qs, ks + s * Sh::BYTES, vs + s * Sh::BYTES, edge,
+        [&](int col, int hr) {
+          const int kp = c0 + col, p = qp[hr];
+          return !(kp < k_hi && (!causal || kp <= p) &&
+                   (window <= 0 || p - kp < window));
+        },
+        scale_log2, o, m, l);
     mbar_arrive(&empty[s]);  // this thread is done with stage s
   }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    float sum = l[hr];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float inv = 1.f / fmaxf(sum, 1e-30f);
-    const int lr = lr0 + 8 * hr;
-    if (lr < R) {
-      __nv_bfloat16* orow = out + qoff(r0 + lr);
-#pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb)
-        *reinterpret_cast<uint32_t*>(orow + nb * 8 + c2) = pack_bf16(
-            o[nb * 4 + 2 * hr] * inv, o[nb * 4 + 2 * hr + 1] * inv);
-    }
-  }
+  tc_store<D>(o, l, R, [&](int lr) { return out + qoff(r0 + lr); });
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

@@ -1,5 +1,6 @@
 // Paged decode attention for Hopper (sm_90a): one query token per request
-// against a shared page pool, gathered through per-request block tables.
+// against a shared page pool [num_blocks, bt, Hkv, D], gathered through
+// per-request block tables [B, max_blocks], masked at lengths[b].
 //
 // Replaces the TPU kernel `paged_decode_attention_kernel` (body
 // `_paged_kernel`) in src/repro/kernels/decode_attention/kernel.py.
@@ -7,97 +8,51 @@
 // What bounds it: bytes.  Each request's valid K/V (lengths[b] tokens of
 // Hkv * D values, twice) is read once and every value feeds G = Hq / Hkv
 // multiply-adds per score and per output, far below the ~295 operations
-// per byte the card needs before arithmetic matters.  The design therefore
-// reads only the pages a row needs: one block per (request, KV head) walks
-// ceil(lengths[b] / bt) pages of its own table and never touches a pad
-// table entry, where the TPU grid stepped over all max_blocks entries and
-// skipped the dead ones with pl.when.  All G query heads of the KV head
-// share each staged page, so a page is read once per KV head.  Softmax is
-// online in f32 (running max, sum and [G, D] accumulator in shared
-// memory), as on the TPU; q is scaled by D**-0.5 in f32 before the dot.
+// per byte the card needs before arithmetic matters.  The bound counts a
+// page that several requests share (a radix-cached prefix) once; the
+// kernel reads it once per request that attends it, from L2 after the
+// first.  Reading it once for all of them would need cascade attention
+// (the shared prefix attended once for the whole group, then merged),
+// which the reference does not have either, so where most of a batch's
+// context is a shared prefix half the bound is out of reach.
 //
-// Simple first: scalar loads, f32 FMAs, no tensor cores and no split over
-// the KV axis; B * Hkv blocks fill the card only at large batch.
-#include <cmath>
-
-#include "attention_common.cuh"
+// The design is decode_split.cuh's split-KV streaming kernel with token t
+// of request b at row table[b][t / bt] * bt + t % bt of the pool: any bt,
+// a warp tile's rows may span pages, and each lane reads its rows' table
+// entries a tile ahead of the copies.  Only the first ceil(lengths[b] /
+// bt) entries of a table are read, and only the rows below the length of
+// their pages: pad entries may name any page (a foreign request's, or
+// garbage) and the rows past the length in the last page may hold
+// anything, NaN included; neither reaches the output.  The TPU grid
+// stepped over all max_blocks entries and skipped the dead ones with
+// pl.when.
+#include "decode_split.cuh"
 
 namespace repro {
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                    const T* __restrict__ v_pages,
-                    const int* __restrict__ block_tables,
-                    const int* __restrict__ lengths, T* __restrict__ out,
-                    int Hq, int Hkv, int D, int bt, int max_blocks,
-                    float scale) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int G = Hq / Hkv, ld = D + 1;
-  float* qs = smem;              // [G][ld]   scaled queries
-  float* ks = qs + G * ld;       // [bt][ld]  staged K page
-  float* vs = ks + bt * ld;      // [bt][ld]  staged V page
-  float* sc = vs + bt * ld;      // [G][bt]   scores, then probabilities
-  float* acc = sc + G * bt;      // [G][D]    f32 accumulator
-  float* m = acc + G * D;        // [G]       running max
-  float* l = m + G;              // [G]       running sum
-  float* alpha = l + G;          // [G]       per-step rescale
-
-  const int len = lengths[b];
-  const T* qrow = q + ((size_t)b * Hq + (size_t)h * G) * D;
-  for (int e = threadIdx.x; e < G * D; e += blockDim.x) {
-    const int g = e / D, d = e - g * D;
-    qs[g * ld + d] = to_f32(qrow[e]) * scale;
-    acc[e] = 0.f;
+// A page pool [num_blocks, bt, Hkv, D] and block tables [B, max_blocks].
+struct PagedRows {
+  static constexpr bool kGather = true;
+  const int* tables;
+  int bt, max_blocks;
+  __device__ int capacity() const { return bt * max_blocks; }
+  __device__ int entry(int b, int t) const {
+    return __ldg(tables + (size_t)b * max_blocks + t / bt);
   }
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    m[g] = -CUDART_INF_F;
-    l[g] = 0.f;
+  __device__ size_t slot(int, int t, int page) const {
+    return (size_t)page * bt + t % bt;
   }
-  const int n_pages = min((len + bt - 1) / bt, max_blocks);
-  const int* table = block_tables + (size_t)b * max_blocks;
-  for (int j = 0; j < n_pages; ++j) {
-    __syncthreads();  // the previous page's tiles are consumed
-    const size_t page = (size_t)table[j] * bt;
-    const int base = j * bt;
-    auto row_off = [&](int t) { return ((page + t) * Hkv + h) * D; };
-    auto ok = [&](int t) { return base + t < len; };
-    stage_rows(ks, ld, k_pages, bt, D, row_off, ok);
-    stage_rows(vs, ld, v_pages, bt, D, row_off, ok);
-    __syncthreads();
-    tile_scores(sc, qs, ks, ld, G, bt, D,
-                [&](int, int t) { return base + t < len; });
-    __syncthreads();
-    softmax_step(sc, G, bt, m, l, alpha);
-    __syncthreads();
-    tile_pv(acc, sc, vs, alpha, ld, G, bt, D);
-  }
-  __syncthreads();
-  T* orow = out + ((size_t)b * Hq + (size_t)h * G) * D;
-  for (int e = threadIdx.x; e < G * D; e += blockDim.x) {
-    orow[e] = from_f32<T>(acc[e] / fmaxf(l[e / D], 1e-30f));
-  }
-}
+};
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const void* block_tables, const void* lengths, void* out,
-                   int B, int Hq, int Hkv, int D, int bt, int max_blocks,
-                   cudaStream_t stream) {
-  const int G = Hq / Hkv, ld = D + 1;
-  const size_t smem =
-      sizeof(float) * ((size_t)G * ld + 2 * (size_t)bt * ld + G * bt +
-                       (size_t)G * D + 3 * G);
-  cudaError_t err = set_smem(paged_decode_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  paged_decode_kernel<T><<<dim3(Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(block_tables),
-      static_cast<const int*>(lengths), static_cast<T*>(out), Hq, Hkv, D, bt,
-      max_blocks, static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
-  return cudaGetLastError();
+int launch_paged(const SplitArgs& a, int D, PagedRows rows,
+                 cudaStream_t stream) {
+  if (a.B == 0) return cudaSuccess;
+  if (rows.bt <= 0 || rows.max_blocks <= 0 ||
+      bad_split_args(a, rows.bt * rows.max_blocks))
+    return cudaErrorInvalidValue;
+  return launch_split_any<T, T>(a, D, rows, stream);
 }
 
 }  // namespace
@@ -105,23 +60,24 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 
 // q [B, Hq, D]; k_pages, v_pages [num_blocks, bt, Hkv, D]; block_tables
 // [B, max_blocks] int32; lengths [B] int32; out [B, Hq, D].  All
-// contiguous, q / pages / out of one dtype (0 = f32, 1 = bf16).  Launches
-// on `stream` and returns cudaGetLastError() after the launch.
+// contiguous, q / pages / out of one dtype (0 = f32, 1 = bf16); D in
+// {32, 64, 128}.  splits, part_o, part_ml and counters as for
+// repro_decode_attention, with max_blocks * bt slots a request.
+// Launches on `stream` and returns cudaGetLastError() after the launches.
 extern "C" int repro_paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* lengths, void* out, int B, int Hq,
-    int Hkv, int D, int bt, int max_blocks, int dtype, void* stream) {
-  if (B == 0) return cudaSuccess;
-  if (B < 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || bt <= 0 ||
-      max_blocks <= 0)
-    return cudaErrorInvalidValue;
+    int Hkv, int D, int bt, int max_blocks, int dtype, void* stream,
+    int splits, void* part_o, void* part_ml, void* counters) {
+  const repro::SplitArgs a{q, k_pages, v_pages, nullptr, nullptr,
+                           lengths, out, B, Hq, Hkv, splits, part_o,
+                           part_ml, counters};
+  const repro::PagedRows rows{static_cast<const int*>(block_tables), bt,
+                              max_blocks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return repro::launch<float>(q, k_pages, v_pages, block_tables, lengths,
-                                out, B, Hq, Hkv, D, bt, max_blocks, s);
+    return repro::launch_paged<float>(a, D, rows, s);
   if (dtype == repro::kBFloat16)
-    return repro::launch<__nv_bfloat16>(q, k_pages, v_pages, block_tables,
-                                        lengths, out, B, Hq, Hkv, D, bt,
-                                        max_blocks, s);
+    return repro::launch_paged<__nv_bfloat16>(a, D, rows, s);
   return cudaErrorInvalidValue;
 }

@@ -96,7 +96,8 @@ def load_library() -> ctypes.CDLL:
     ``c_int``; every entry point returns a ``cudaError_t``)."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_paged_decode_attention.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.repro_paged_decode_attention.argtypes = \
+        [p] * 6 + [i] * 7 + [p, i, p, p, p]
     lib.repro_paged_decode_attention.restype = i
     lib.repro_paged_prefix_prefill_attention.argtypes = \
         [p] * 9 + [i] * 8 + [p]

@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels for decode and paged attention, launched
-through ctypes (sources: ``repro_torch/csrc/decode_attention.cu``, which
-holds both dense decode kernels,
-``repro_torch/csrc/paged_decode_attention.cu`` and
+through ctypes (sources: ``repro_torch/csrc/decode_split.cuh``, the
+split-KV decode kernel, included by ``decode_attention.cu`` for the dense
+and int8 caches and by ``paged_decode_attention.cu`` for the page pool;
 ``repro_torch/csrc/paged_prefix_prefill_attention.cu``).
 
 Each replaces the TPU kernel of the same name in
@@ -15,15 +15,24 @@ each block walks only the cache rows or pages its row's length covers, so
 the bytes follow the real context, not the cache or table width (the
 sources say more).
 
-The two dense decode kernels are one split-KV streaming kernel
-(flash-decoding): :func:`plan_splits` cuts the KV axis into enough
-splits, from shapes alone, that B x Hkv x splits blocks fill the card;
-each split finds its slice of ``[0, lengths[b])`` on the device, and
-when there is more than one, the last split block of each (row, KV head)
-to finish merges the splits' f32 partials (an atomic counter per pair,
-left at zero by every launch, says which block is last).  The host
-never reads ``lengths`` (a device tensor: reading it would be a host
-sync on the hot path).  Head sizes 32, 64 and 128.
+The three decode kernels are one split-KV streaming kernel
+(flash-decoding), templated on where a token's row lives (a contiguous
+cache, or a page named by the block table): :func:`plan_splits` cuts the
+KV axis into enough splits, from shapes alone, that B x Hkv x splits
+blocks fill the card; each split finds its slice of ``[0, lengths[b])``
+on the device, and when there is more than one, the last split block of
+each (row, KV head) to finish merges the splits' f32 partials (an atomic
+counter per pair, left at zero by every launch, says which block is
+last).  The host never reads ``lengths`` or a block table (device
+tensors: reading one would be a host sync on the hot path).  The split
+counters are one buffer per device, shared by every decode launch:
+launches that follow one another on a stream may share it, launches that
+run at once (two streams) may not.  Head sizes 32, 64 and 128.
+
+Prefix prefill in bf16 runs on the tensor cores (wgmma over 64-key K/V
+tiles gathered through the block table; head sizes 32, 64 and 128); in
+f32 it is a scalar kernel that keeps true f32 products.  The route is the
+dtype's, never a fallback.
 
 These functions take CUDA tensors only; they validate device, dtype,
 shape and contiguity, allocate the output (and the split scratch),
@@ -41,6 +50,7 @@ from repro_torch.kernels import check_cuda, dtype_code, raise_on
 from repro_torch.kernels.build import load_library
 
 DECODE_HEAD_SIZES = (32, 64, 128)   # the split kernel's D template values
+#                                     (and the bf16 prefix prefill's)
 MAX_HEADS_PER_BLOCK = 8             # query heads one block keeps (G > 8:
 #                                     chunks of 8 across the grid)
 MIN_SPLIT_ROWS = 32                 # fewer cache rows a split is not worth
@@ -79,6 +89,26 @@ def _split_counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
+def _split_plan(q, slots: int, hkv: int, sms: int
+                ) -> Tuple[int, torch.Tensor, Optional[torch.Tensor],
+                           Optional[torch.Tensor], Optional[torch.Tensor]]:
+    b, hq, d = q.shape
+    if d not in DECODE_HEAD_SIZES:
+        raise ValueError(f"decode head size {d} not in "
+                         f"{DECODE_HEAD_SIZES}")
+    chunks = -(-(hq // hkv) // MAX_HEADS_PER_BLOCK)
+    splits = plan_splits(b, slots, hkv * chunks, sms)
+    out = torch.empty_like(q)
+    if splits == 1:
+        return splits, out, None, None, None
+    part_o = torch.empty((b, hq, splits, d), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((b, hq, splits, 2), dtype=torch.float32,
+                          device=q.device)
+    return (splits, out, part_o, part_ml,
+            _split_counters(q.device, b * hkv * chunks))
+
+
 def decode_plan(q, k_cache, lengths, sms: int
                 ) -> Tuple[int, torch.Tensor, Optional[torch.Tensor],
                            Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -94,20 +124,26 @@ def decode_plan(q, k_cache, lengths, sms: int
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, cache "
             f"{tuple(k_cache.shape)}, lengths {tuple(lengths.shape)}")
-    if d not in DECODE_HEAD_SIZES:
-        raise ValueError(f"decode head size {d} not in "
-                         f"{DECODE_HEAD_SIZES}")
-    chunks = -(-(hq // hkv) // MAX_HEADS_PER_BLOCK)
-    splits = plan_splits(b, s, hkv * chunks, sms)
-    out = torch.empty_like(q)
-    if splits == 1:
-        return splits, out, None, None, None
-    part_o = torch.empty((b, hq, splits, d), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((b, hq, splits, 2), dtype=torch.float32,
-                          device=q.device)
-    return (splits, out, part_o, part_ml,
-            _split_counters(q.device, b * hkv * chunks))
+    return _split_plan(q, s, hkv, sms)
+
+
+def paged_decode_plan(q, k_pages, block_tables, lengths, sms: int
+                      ) -> Tuple[int, torch.Tensor, Optional[torch.Tensor],
+                                 Optional[torch.Tensor],
+                                 Optional[torch.Tensor]]:
+    """As :func:`decode_plan`, for a page pool [num_blocks, bt, Hkv, D]
+    and block tables [B, max_blocks]: a request has max_blocks * bt
+    slots.  Reads no tensor's values (neither the tables nor the
+    lengths)."""
+    b, hq, d = q.shape
+    _, bt, hkv, dk = k_pages.shape
+    if dk != d or hq % hkv or block_tables.dim() != 2 \
+            or block_tables.shape[0] != b or lengths.shape != (b,):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, pages "
+            f"{tuple(k_pages.shape)}, tables {tuple(block_tables.shape)}, "
+            f"lengths {tuple(lengths.shape)}")
+    return _split_plan(q, block_tables.shape[1] * bt, hkv, sms)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -173,6 +209,13 @@ def decode_attention_int8_kernel(q, k_cache, v_cache, k_scale, v_scale,
     return out
 
 
+def _check_aligned(**tensors) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             f"(16-byte cp.async loads)")
+
+
 def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
                                   lengths) -> torch.Tensor:
     """q: [B, Hq, D]; pages: [num_blocks, bt, Hkv, D]; block_tables:
@@ -183,21 +226,21 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
     check_cuda("v_pages", v_pages, dtype=q.dtype, dim=4)
     check_cuda("block_tables", block_tables, dtype=torch.int32, dim=2)
     check_cuda("lengths", lengths, dtype=torch.int32, dim=1)
+    if v_pages.shape != k_pages.shape:
+        raise ValueError(f"shape mismatch: pages {tuple(k_pages.shape)}/"
+                         f"{tuple(v_pages.shape)}")
+    _check_aligned(k_pages=k_pages, v_pages=v_pages)
     b, hq, d = q.shape
-    _, bt, hkv, dk = k_pages.shape
-    if v_pages.shape != k_pages.shape or dk != d or hq % hkv \
-            or block_tables.shape[0] != b or lengths.shape[0] != b:
-        raise ValueError(
-            f"shape mismatch: q {tuple(q.shape)}, pages "
-            f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, tables "
-            f"{tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
-    out = torch.empty_like(q)
+    _, bt, hkv, _ = k_pages.shape
+    splits, out, part_o, part_ml, counters = paged_decode_plan(
+        q, k_pages, block_tables, lengths, _sm_count(q.device.index))
     with torch.cuda.device(q.device):
         rc = load_library().repro_paged_decode_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             b, hq, hkv, d, bt, block_tables.shape[1], code,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream, splits,
+            _ptr(part_o), _ptr(part_ml), _ptr(counters))
     raise_on(rc, "paged_decode_attention")
     return out
 
@@ -209,6 +252,9 @@ def paged_prefix_prefill_attention_kernel(q, k_suf, v_suf, k_pages, v_pages,
     [num_blocks, bt, Hkv, D]; block_tables: [B, M] int32; prefix_lens,
     suffix_lens: [B] int32 -> [B, S, Hq, D]."""
     code = dtype_code(q)
+    if q.dtype == torch.bfloat16 and q.shape[-1] not in DECODE_HEAD_SIZES:
+        raise ValueError(f"bf16 prefix prefill head size {q.shape[-1]} not "
+                         f"in {DECODE_HEAD_SIZES}")
     check_cuda("q", q, dim=4)
     check_cuda("k_suf", k_suf, dtype=q.dtype, dim=4)
     check_cuda("v_suf", v_suf, dtype=q.dtype, dim=4)
@@ -227,6 +273,9 @@ def paged_prefix_prefill_attention_kernel(q, k_suf, v_suf, k_pages, v_pages,
             f"shape mismatch: q {tuple(q.shape)}, k_suf "
             f"{tuple(k_suf.shape)}, pages {tuple(k_pages.shape)}, tables "
             f"{tuple(block_tables.shape)}")
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q=q, k_suf=k_suf, v_suf=v_suf, k_pages=k_pages,
+                       v_pages=v_pages)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = load_library().repro_paged_prefix_prefill_attention(

@@ -57,8 +57,9 @@ decode_attention_int8.plain_calls = 0
 @hot_path
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
     """q: [B, Hq, D]; pages: [num_blocks, bt, Hkv, D]; block_tables:
-    [B, max_blocks] (pad entries must be valid ids; they are never read
-    past ``lengths``); lengths: [B] -> [B, Hq, D]."""
+    [B, max_blocks] (pad entries must be valid ids for the plain version,
+    which gathers them; the kernel never reads an entry or a page past
+    ``lengths``); lengths: [B] -> [B, Hq, D]."""
     if device_route(q) == "cpu":
         paged_decode_attention.plain_calls += 1
         return ref.paged_decode_attention_ref(q, k_pages, v_pages,

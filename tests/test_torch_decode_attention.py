@@ -72,11 +72,17 @@ def _j(arrays):
 DECODE_SHAPES = [(16, 4, 4, 64, (48, 17, 5)),      # non-multiples
                  (16, 4, 2, 64, (64, 33, 16)),
                  (8, 8, 1, 32, (40, 23, 9)),
-                 (32, 6, 2, 64, (96, 1, 50))]
+                 (32, 6, 2, 64, (96, 1, 50)),
+                 (16, 4, 2, 64, (15, 16, 17)),      # around a page
+                 (32, 4, 1, 32, (31, 32, 33, 15))]  # bt 32
 
+# (bt, hq, hkv, d, s, plens, slens)
 PREFILL_SHAPES = [(8, 4, 2, 32, 16, (16, 8, 0), (16, 5, 12)),
                   (16, 4, 4, 64, 24, (32, 16, 16), (24, 24, 1)),
-                  (8, 8, 1, 32, 8, (24, 0), (8, 3))]
+                  (8, 8, 1, 32, 8, (24, 0), (8, 3)),
+                  # G = 3 packing, S * G = 120 (two 64-row tiles), prefix
+                  # lengths off the 64-key tile (two prefix tiles at 130)
+                  (16, 6, 2, 32, 40, (70, 0, 130), (40, 17, 33))]
 
 
 @pytest.mark.parametrize("bt,hq,hkv,d,lengths", DECODE_SHAPES)
@@ -356,6 +362,62 @@ def test_decode_plan_refuses_other_head_sizes():
                            H100_SMS)
 
 
+def test_paged_decode_plan_reads_no_device_value():
+    """The paged wrapper's host side reads neither the lengths nor the
+    block tables (on the card either would be a host sync a decode step),
+    and plans its splits from the tables' capacity, max_blocks x bt."""
+    from repro_torch.analysis.sanitizer import count_host_reads
+    from repro_torch.kernels.decode_attention import kernel
+    for b, hq, hkv, bt, mb in ((1, 32, 32, 16, 40), (32, 32, 32, 16, 40),
+                               (2, 40, 8, 8, 100), (3, 24, 2, 32, 20)):
+        q = torch.zeros(b, hq, 128, dtype=torch.bfloat16)
+        pages = torch.zeros(64, bt, hkv, 128, dtype=torch.bfloat16)
+        tables = torch.zeros(b, mb, dtype=torch.int32)
+        lens = torch.full((b,), 300, dtype=torch.int32)
+        with count_host_reads() as counts:
+            splits, out, part_o, part_ml, counters = \
+                kernel.paged_decode_plan(q, pages, tables, lens, H100_SMS)
+        assert counts["reads"] == 0
+        assert out.shape == q.shape and out.dtype == q.dtype
+        chunks = -(-(hq // hkv) // kernel.MAX_HEADS_PER_BLOCK)
+        assert splits == kernel.plan_splits(b, mb * bt, hkv * chunks,
+                                            H100_SMS)
+        if splits > 1:
+            assert part_o.shape == (b, hq, splits, 128)
+            assert part_ml.shape == (b, hq, splits, 2)
+            assert counters.numel() >= b * hkv * chunks
+            assert not counters.any()
+        else:
+            assert part_o is None and part_ml is None and counters is None
+        meta = [t.to("meta") for t in (q, pages, tables, lens)]
+        assert kernel.paged_decode_plan(*meta, H100_SMS)[0] == splits
+
+
+def test_paged_kernels_refuse_other_head_sizes():
+    """Paged decode (f32 and bf16) and bf16 prefix prefill take D in
+    {32, 64, 128} and refuse any other before a launch; f32 prefix
+    prefill, the scalar kernel, takes any D."""
+    from repro_torch.kernels.decode_attention import kernel
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="head size"):
+            kernel.paged_decode_plan(
+                torch.zeros(2, 4, 96, dtype=dt),
+                torch.zeros(8, 16, 2, 96, dtype=dt),
+                torch.zeros(2, 3, dtype=torch.int32),
+                torch.zeros(2, dtype=torch.int32), H100_SMS)
+    args = [torch.zeros(2, 8, 4, 96), torch.zeros(2, 8, 2, 96),
+            torch.zeros(2, 8, 2, 96), torch.zeros(8, 16, 2, 96),
+            torch.zeros(8, 16, 2, 96), torch.zeros(2, 1, dtype=torch.int32),
+            torch.zeros(2, dtype=torch.int32),
+            torch.full((2,), 8, dtype=torch.int32)]
+    bf16 = [a.to(torch.bfloat16) if a.is_floating_point() else a
+            for a in args]
+    with pytest.raises(ValueError, match="head size"):
+        kernel.paged_prefix_prefill_attention_kernel(*bf16)
+    with pytest.raises(ValueError, match="CUDA tensor"):   # past the D check
+        kernel.paged_prefix_prefill_attention_kernel(*args)
+
+
 # (name, s, hq, hkv, d, lengths): B = len(lengths)
 SPLIT_CASES = [
     ("b1 many splits", 512, 8, 1, 128, (300,)),
@@ -411,3 +473,108 @@ def test_cuda_split_decode_edges(case, dtype):
     torch.testing.assert_close(
         ops.decode_attention_int8(q, kq, vq, ks, vs, lens), out8, atol=0,
         rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the paged kernels' edges on the card
+# ---------------------------------------------------------------------------
+
+# (name, bt, hq, hkv, d, lengths): B = len(lengths)
+PAGED_SPLIT_CASES = [
+    ("b1 splits g8 d128", 16, 8, 1, 128, (700,)),
+    ("b2 splits g2 d64 bt8", 8, 4, 2, 64, (641, 900)),
+    ("b1 splits mha d32 bt32", 32, 4, 4, 32, (1000,)),
+    ("g12 chunks d32 bt32", 32, 24, 2, 32, (15, 16, 17, 33, 64, 1)),
+    ("page edges mha d128", 16, 32, 32, 128, (15, 16, 17, 31, 32, 33)),
+    ("len 0 g3 d64", 16, 6, 2, 64, (0, 5, 48)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", PAGED_SPLIT_CASES,
+                         ids=[c[0] for c in PAGED_SPLIT_CASES])
+def test_cuda_paged_decode_edges(case, dtype):
+    """The split-KV paged decode kernel with splits > 1 (B 1-2, lengths
+    640+), G > 8 in head chunks, D 32/64/128 and bt 8/16/32, against its
+    plain version; then NaN in the pad page every short table points at,
+    in the last page past each length and in a page no table names must
+    change the output by exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.decode_attention import kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, bt, hq, hkv, d, lengths = case
+    tdt, _, tol = DTYPES[dtype]
+    q, kp, vp, tables, lens = [torch.from_numpy(a).to("cuda") for a in
+                               _decode_setup(bt, hq, hkv, d, lengths,
+                                             seed=4)]
+    kp = torch.cat([kp, torch.zeros_like(kp[:1])])      # a page of no table
+    vp = torch.cat([vp, torch.zeros_like(vp[:1])])
+    q, kp, vp = q.to(tdt), kp.to(tdt), vp.to(tdt)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = kernel.paged_decode_plan(q, kp, tables, lens, sms)[0]
+    if max(lengths) >= 640:
+        assert splits > 1
+    n0 = ops.paged_decode_attention.launches
+    out = ops.paged_decode_attention(q, kp, vp, tables, lens)
+    assert ops.paged_decode_attention.launches == n0 + 1
+    want = ref.paged_decode_attention_ref(q, kp, vp, tables, lens)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
+    for pool in (kp, vp):
+        pool[0] = float("nan")
+        pool[-1] = float("nan")
+        for i, n in enumerate(lengths):
+            if n % bt:
+                pool[tables[i, (n - 1) // bt], n % bt:] = float("nan")
+    torch.testing.assert_close(
+        ops.paged_decode_attention(q, kp, vp, tables, lens), out, atol=0,
+        rtol=0)
+
+
+# (name, bt, hq, hkv, d, s, plens, slens)
+PREFILL_EDGE_CASES = [
+    ("radix miss null table d128", 16, 4, 4, 128, 40, (0, 0, 0),
+     (40, 13, 1)),
+    ("g3 two row tiles d64", 16, 6, 2, 64, 40, (70, 0, 130), (40, 17, 33)),
+    ("s 100 ragged d32 bt8", 8, 2, 2, 32, 100, (9, 64, 0), (100, 65, 7)),
+    ("served mha d128", 16, 32, 32, 128, 8, (48, 48, 0, 49), (8, 1, 8, 7)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", PREFILL_EDGE_CASES,
+                         ids=[c[0] for c in PREFILL_EDGE_CASES])
+def test_cuda_prefix_prefill_edges(case, dtype):
+    """Prefix prefill (bf16 on the tensor cores, f32 scalar) at a radix
+    miss with a width-1 null table, ragged suffixes, S > 64 and two row
+    tiles of G = 3, against its plain version; then NaN in the pad page,
+    in each row's last prefix page past prefix_lens and in the suffix K/V
+    past suffix_lens must change the output by exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, bt, hq, hkv, d, s, plens, slens = case
+    tdt, _, tol = DTYPES[dtype]
+    args = [torch.from_numpy(a).to("cuda") for a in
+            _prefill_setup(bt, hq, hkv, d, s, plens, slens, seed=5)]
+    args[:5] = [a.to(tdt) for a in args[:5]]
+    n0 = ops.paged_prefix_prefill_attention.launches
+    out = ops.paged_prefix_prefill_attention(*args)
+    assert ops.paged_prefix_prefill_attention.launches == n0 + 1
+    want = ref.paged_prefix_prefill_attention_ref(*args)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
+    _, ks, vs, kp, vp, tables, _, _ = args
+    for pool in (kp, vp):
+        pool[0] = float("nan")
+        for i, p in enumerate(plens):
+            if p % bt:
+                pool[tables[i, (p - 1) // bt], p % bt:] = float("nan")
+    for x in (ks, vs):
+        for i, n in enumerate(slens):
+            x[i, n:] = float("nan")
+    torch.testing.assert_close(ops.paged_prefix_prefill_attention(*args),
+                               out, atol=0, rtol=0)
