@@ -12,7 +12,8 @@ CUDA toolkit.  Phases, each fatal on failure:
    shared memory and spills from the ``-Xptxas -v`` log, and its
    tensor-core instructions (HGMMA, HMMA) from ``cuobjdump -sass`` where
    the toolkit has it; fails if the bf16 flash or bf16 prefix-prefill
-   kernel has none;
+   kernel, or either SSD scan kernel (C.B^T and the scan, every
+   instance), has none;
 3. kernels: each hand-written kernel against its plain PyTorch version
    on the card, on chatglm-6b's shapes, GQA shapes and edge shapes, in
    f32 (TF32 off, tolerance 2e-4) and bf16 (5e-2): paged decode with
@@ -61,7 +62,9 @@ CUDA toolkit.  Phases, each fatal on failure:
 9. SSD scan and int8 decode kernels against their plain versions: the
    scan at mamba2-780m's shapes (H 48, P 64, N 128, chunk 128; B 1 and 8;
    S 256 and 200) in f32, against the chunked version at 2e-4 of the
-   output's scale and the per-token recurrence at the reference's 5e-3;
+   output's scale and the per-token recurrence at the reference's 5e-3,
+   through the wrapper and again at each P slice (32 and 64), and its
+   C.B^T scratch against c @ b^T on the lower triangle;
    the int8 decode at chatglm-6b's and a 40/8 GQA shape, f32 and bf16
    queries, mixed lengths, then again with int8 extremes and NaN and inf
    scales written past the lengths, which must change nothing;
@@ -89,9 +92,11 @@ CUDA toolkit.  Phases, each fatal on failure:
    8 (yardsticks: none for the scan, which no single PyTorch call
    computes; SDPA with a length mask on the dequantised bf16 cache, the
    dequantisation pass it needs, timed apart, and the bf16 dense decode
-   kernel on it, for int8).  Every bound takes
-   operations at 989 TFLOP/s; the scan's at the f32 CUDA cores' 67
-   TFLOP/s, where it now computes, is logged beside it.
+   kernel on it, for int8).  Every bound takes operations at 989
+   TFLOP/s; the scan logs each kept shape's time beside its B and the
+   time at the other P slice, and its mean bound at the 3xTF32 rate
+   (495 / 3 TFLOP/s), where it computes, and at the f32 CUDA cores' 67
+   TFLOP/s, beside it.
 
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves.  The line before the last is a
@@ -113,6 +118,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12              # H100 SXM f32 peak outside the tensor cores
+TF32_FLOPS = 495e12            # H100 SXM dense tf32 tensor-core peak
 
 # serve-phase geometry (bf16 pool of 2048 blocks x 16 tokens x 458,752 B)
 SERVE = dict(num_blocks=2048, block_tokens=16, max_concurrency=32,
@@ -203,8 +209,10 @@ def build_report(build, lib):
     """Each kernel's registers, static shared memory and spills from the
     build's ``-Xptxas -v`` log, and its tensor-core instructions (HGMMA,
     HMMA) in the library's SASS where the toolkit has ``cuobjdump``.
-    Fails if the bf16 flash or bf16 prefix-prefill kernel has no
-    tensor-core instruction."""
+    Fails if the bf16 flash or bf16 prefix-prefill kernel, or an
+    instance of either SSD scan kernel (``ssd_cb_kernel``,
+    ``ssd_scan_kernel``: 3xTF32 mma.sync), has no tensor-core
+    instruction."""
     import re
     kern = {}
     name = None
@@ -252,10 +260,11 @@ def build_report(build, lib):
             f"{k.get('smem', '?')} smem, spills {k.get('spill', '?')}, "
             f"HGMMA {hg}, HMMA {hm}")
     if tc:
-        for kind in ("flash_tc_kernel", "prefix_prefill_tc_kernel"):
+        for kind in ("flash_tc_kernel", "prefix_prefill_tc_kernel",
+                     "ssd_cb_kernel", "ssd_scan_kernel"):
             fns = [n for n in tc if kind in n]
             check(fns and all(tc[n][0] + tc[n][1] > 0 for n in fns),
-                  f"a bf16 {kind} has no tensor-core instruction: "
+                  f"a {kind} has no tensor-core instruction: "
                   f"{ {n: tc[n] for n in fns} }")
 
 
@@ -995,36 +1004,54 @@ def scan_err(got, want):
 
 def ssm_int8_kernel_checks(torch, sops, sref, dops, dref, quant):
     """The scan at mamba2-780m's shapes against both plain versions: the
-    chunked one at 2e-4 of the output's scale (f32; the kernel sums the
-    cumulative log-decay and the dot products in another order), the
-    per-token recurrence at the reference's 5e-3.  The int8 decode at
-    chatglm-6b's heads (32/32, D 128) and a GQA shape (40/8), f32 and
-    bf16 queries, caches quantised with the model's ``_quant_i8``; then
-    int8 extremes and NaN and inf scales past every row's length, which
-    must change nothing."""
+    chunked one at 2e-4 of the output's scale (f32 in 3xTF32 on the
+    tensor cores; the kernel sums the cumulative log-decay and the dot
+    products in another order), the per-token recurrence at the
+    reference's 5e-3; through the wrapper, then at each P slice, with the
+    C.B^T scratch held against c @ b^T on its lower triangle at 2e-4 of
+    its scale.  The int8 decode at chatglm-6b's heads (32/32, D 128) and
+    a GQA shape (40/8), f32 and bf16 queries, caches quantised with the
+    model's ``_quant_i8``; then int8 extremes and NaN and inf scales past
+    every row's length, which must change nothing."""
+    from repro_torch.kernels.ssd_scan import kernel as skernel
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(4)
     for b, s in ((1, 256), (8, 256), (1, 200), (8, 200)):
         args = scan_inputs(torch, b, s, 48, 64, 128, gen)
         n0 = sops.ssd_scan.launches
-        out = sops.ssd_scan(*args, 128)
+        outs = {"wrapper": sops.ssd_scan(*args, 128)}
         check(sops.ssd_scan.launches == n0 + 1, "ssd_scan did not launch")
+        scratch = torch.full(skernel.scratch_shape(b, s, 128), float("nan"),
+                             device="cuda")
+        for pt in skernel.P_TILES:
+            outs[f"P slice {pt}"] = skernel.ssd_scan_kernel(
+                *args, chunk=128, p_tile=pt, scratch=scratch)
         chunked = sref.ssd_chunked_ref(*args, 128)
         naive = sref.ssd_scan_ref(*args)
         torch.cuda.synchronize()
-        check(all(torch.isfinite(t).all().item() for t in out),
-              f"ssd_scan B={b} S={s}: non-finite output")
-        err, scale = scan_err(out, chunked)
-        err_naive, _ = scan_err(out, naive)
-        log(f"kernel ssd_scan mamba2-780m B={b} S={s}: max_abs_err {err:.3e}"
-            f" against the chunked version at scale {scale:.1f} (tol "
-            f"{SCAN_TOL} of scale), {err_naive:.3e} against the recurrence "
-            f"(tol 5e-3)")
-        check(err <= SCAN_TOL * max(1.0, scale), f"ssd_scan B={b} S={s}: "
-              f"err {err} at scale {scale}")
-        check(err_naive <= 5e-3, f"ssd_scan B={b} S={s}: err {err_naive} "
-              f"against the recurrence")
+        for how, out in outs.items():
+            check(all(torch.isfinite(t).all().item() for t in out),
+                  f"ssd_scan B={b} S={s} {how}: non-finite output")
+            err, scale = scan_err(out, chunked)
+            err_naive, _ = scan_err(out, naive)
+            log(f"kernel ssd_scan mamba2-780m B={b} S={s} {how}: max_abs_err"
+                f" {err:.3e} against the chunked version at scale "
+                f"{scale:.1f} (tol {SCAN_TOL} of scale), {err_naive:.3e} "
+                f"against the recurrence (tol 5e-3)")
+            check(err <= SCAN_TOL * max(1.0, scale), f"ssd_scan B={b} S={s} "
+                  f"{how}: err {err} at scale {scale}")
+            check(err_naive <= 5e-3, f"ssd_scan B={b} S={s} {how}: err "
+                  f"{err_naive} against the recurrence")
+        bb, cc = args[3], args[4]
+        for z in range(-(-s // 128)):
+            m = min(128, s - z * 128)
+            rows = slice(z * 128, z * 128 + m)
+            want = torch.tril(cc[:, rows] @ bb[:, rows].transpose(1, 2))
+            err = (torch.tril(scratch[:, z, :m, :m]) - want).abs().max().item()
+            scale = want.abs().max().item()
+            check(err <= SCAN_TOL * max(1.0, scale), f"ssd_scan B={b} S={s}: "
+                  f"C.B^T scratch of chunk {z} err {err} at scale {scale}")
     tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
     shapes = [("chatglm-6b", 16, 512, 32, 32, 128,       # b, s, hq, hkv, d
                cycle([1, 17, 31, 32, 33, 200, 511, 512], 16)),
@@ -1390,11 +1417,15 @@ def time_scan(torch, sops, sref, calls, spin):
     algorithm's operations: per row and chunk of n rows C.B^T over the
     lower triangle once (n (n + 1) N), per head the weighted sum over x
     (n (n + 1) P), the carried-state term and the state update (2 n P N
-    each), at the 989 TFLOP/s of every bound here (the three products are
-    tensor-core work); the log shows the bound at the f32 rate of the
-    CUDA cores, where the kernel now computes, beside it."""
+    each), at the 989 TFLOP/s of every bound here.  The log gives each
+    shape's time beside its B, its time at the P slice the wrapper did not
+    pick, and the mean bound at the rate where the kernel computes (3xTF32:
+    three tf32 products each, 495 / 3 TFLOP/s) and at the f32 CUDA cores'
+    67 TFLOP/s."""
+    from repro_torch.kernels.ssd_scan import kernel as skernel
     per = {k: [] for k in ("ms", "plain_ms", "library_ms", "bound")}
-    errs, f32 = [], []
+    errs, tf32x3, f32 = [], [], []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for x, dt, a, b, c, chunk in calls:
         bsz, s, h, p = x.shape
         n = b.shape[-1]
@@ -1408,6 +1439,12 @@ def time_scan(torch, sops, sref, calls, spin):
         errs.append((err, scale))
         per["ms"].append(median_ms(torch, kern, PREFILL_REPS, spin))
         per["plain_ms"].append(median_ms(torch, plain, PREFILL_REPS, spin))
+        pt = skernel.p_tile_for(bsz, h, p, sms)
+        other = 32 if pt == 64 else 64
+        other_ms = median_ms(
+            torch, lambda r: skernel.ssd_scan_kernel(
+                x, dt, a, b, c, chunk=chunk, p_tile=other),
+            PREFILL_REPS, spin)
         lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
         flops = bsz * sum(m * (m + 1) * n + h * (m * (m + 1) * p
                                                  + 4 * m * p * n)
@@ -1415,9 +1452,17 @@ def time_scan(torch, sops, sref, calls, spin):
         nbytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + b.numel()
                       + c.numel() + bsz * h * p * n)
         per["bound"].append(bound(nbytes, flops))
+        tf32x3.append(max(nbytes / HBM_BYTES_PER_S,
+                          3 * flops / TF32_FLOPS) * 1e3)
         f32.append(max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3)
-    log(f"ssd_scan bound at the f32 rate of the CUDA cores (67 TFLOP/s) "
-        f"instead of 989: {sum(f32) / len(f32):.4f} ms (mean over shapes)")
+        log(f"time ssd_scan B={bsz} S={s}: kernel {per['ms'][-1]:.4f} ms "
+            f"(P slice {pt}; slice {other}: {other_ms:.4f}), plain "
+            f"{per['plain_ms'][-1]:.4f}, bound {per['bound'][-1][0]:.4f} "
+            f"({per['bound'][-1][1]}), 3xTF32 bound {tf32x3[-1]:.4f}")
+    mean = lambda xs: sum(xs) / len(xs)
+    log(f"ssd_scan mean bound at the 3xTF32 rate (495 / 3 TFLOP/s) "
+        f"{mean(tf32x3):.4f} ms, at the f32 rate of the CUDA cores (67 "
+        f"TFLOP/s) {mean(f32):.4f} ms, instead of 989 TFLOP/s")
     return per, errs
 
 

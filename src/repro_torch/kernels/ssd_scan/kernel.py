@@ -1,28 +1,83 @@
-"""Hand-written Hopper kernel for the Mamba2 SSD chunked scan, launched
+"""Hand-written Hopper kernels for the Mamba2 SSD chunked scan, launched
 through ctypes (source: ``repro_torch/csrc/ssd_scan.cu``).
 
 ``ssd_scan_kernel`` replaces the TPU kernel of the same name in
-``src/repro/kernels/ssd_scan/kernel.py`` (body ``_kernel``): one block per
-(row, head) loops over the chunks with the f32 state in shared memory
-(the source says more).
+``src/repro/kernels/ssd_scan/kernel.py`` (body ``_kernel``).  One call
+runs two CUDA kernels: the first forms C_z . B_z^T once per (row,
+chunk) into an f32 scratch; the second runs one block per (head, slice
+of ``p_tile`` of the P columns, row), walks the chunks with the state in
+registers and does its three products on the tensor cores in 3xTF32
+(hi/lo split of every f32 operand, mma.sync m16n8k8).  The source says
+more.
 
-Takes CUDA tensors only; validates device, dtype, shape and contiguity,
-allocates the outputs, launches on the current stream and raises if the
-launch is refused.  It does not synchronise."""
+Takes CUDA tensors only; validates device, dtype, shape, contiguity and
+the widths the tensor-core tiles take (P <= 64, N <= 128, chunk <= 128
+once cut to S), allocates the outputs and the scratch, launches on the
+current stream and raises if the launch is refused.  It does not
+synchronise."""
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import check_cuda, raise_on
 from repro_torch.kernels.build import load_library
 
+MAX_P = 64          # head size: one or two slices of the P tile
+MAX_N = 128         # state size, padded to 32, 64 or 128 in the kernel
+MAX_CHUNK = 128     # rows of a chunk (after cutting it to S)
+P_TILES = (32, 64)
 
-def ssd_scan_kernel(x, dt, a, b, c, *, chunk: int
+
+def check_widths(p: int, n: int, s: int, chunk: int) -> int:
+    """The chunk length C = min(chunk, S) the kernel runs; raises a
+    ValueError for a width the tensor-core tiles do not take."""
+    if chunk < 1 or s < 1:
+        raise ValueError(f"chunk and S must be >= 1, got {chunk}, {s}")
+    if not 1 <= p <= MAX_P:
+        raise ValueError(f"scan head size P {p} not in [1, {MAX_P}]")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"scan state size N {n} not in [1, {MAX_N}]")
+    c = min(chunk, s)
+    if c > MAX_CHUNK:
+        raise ValueError(f"scan chunk {c} (chunk {chunk}, S {s}) above "
+                         f"{MAX_CHUNK}")
+    return c
+
+
+def scratch_shape(bsz: int, s: int, chunk: int) -> Tuple[int, int, int, int]:
+    """Shape of the f32 C.B^T scratch: [B, chunks, Cp, Cp], Cp = the
+    chunk length C = min(chunk, S) rounded up to 16."""
+    c = min(chunk, s)
+    cp = -(-c // 16) * 16
+    return bsz, -(-s // c), cp, cp
+
+
+def p_tile_for(bsz: int, h: int, p: int, sms: int) -> int:
+    """The P slice of a scan block: 32 where P fits one, or where even
+    32-wide slices leave the card at most one block per SM (B 1 at
+    mamba2-780m's 48 heads); else 64, which reads each chunk's C.B^T, b
+    and c once per head instead of twice, and was faster from B 2 on an
+    H100 (PERF.md)."""
+    return 32 if p <= 32 or 2 * bsz * h <= sms else 64
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def ssd_scan_kernel(x, dt, a, b, c, *, chunk: int,
+                    p_tile: Optional[int] = None,
+                    scratch: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, H, P]; dt: [B, S, H]; a: [H]; b, c: [B, S, N], all f32
-    -> (y [B, S, H, P], final state [B, H, P, N]), f32."""
+    -> (y [B, S, H, P], final state [B, H, P, N]), f32.  ``p_tile`` (32
+    or 64) overrides :func:`p_tile_for`; ``scratch``, if given, is the
+    f32 CUDA tensor of :func:`scratch_shape` that receives C.B^T (else
+    one is allocated)."""
     f32 = torch.float32
     check_cuda("x", x, dtype=f32, dim=4)
     check_cuda("dt", dt, dtype=f32, dim=3)
@@ -36,14 +91,26 @@ def ssd_scan_kernel(x, dt, a, b, c, *, chunk: int
         raise ValueError(
             f"shape mismatch: x {tuple(x.shape)}, dt {tuple(dt.shape)}, a "
             f"{tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}")
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    check_widths(p, n, s, chunk)
+    if p_tile is None:
+        p_tile = p_tile_for(bsz, h, p, _sm_count(x.device.index))
+    if p_tile not in P_TILES:
+        raise ValueError(f"p_tile {p_tile} not in {P_TILES}")
+    shape = scratch_shape(bsz, s, chunk)
+    if scratch is None:
+        scratch = torch.empty(shape, dtype=f32, device=x.device)
+    else:
+        check_cuda("scratch", scratch, dtype=f32, dim=4)
+        if scratch.shape != shape:
+            raise ValueError(f"scratch must be {shape}, got "
+                             f"{tuple(scratch.shape)}")
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=f32, device=x.device)
     with torch.cuda.device(x.device):
         rc = load_library().repro_ssd_scan(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, s, h, p, n,
-            chunk, torch.cuda.current_stream(x.device).cuda_stream)
+            c.data_ptr(), y.data_ptr(), state.data_ptr(),
+            scratch.data_ptr(), bsz, s, h, p, n, chunk, p_tile,
+            torch.cuda.current_stream(x.device).cuda_stream)
     raise_on(rc, "ssd_scan")
     return y, state

@@ -6,7 +6,9 @@ There is no fallback: a CUDA tensor launches the kernel or raises, and a
 tensor on any other device raises.  The wrapper counts its kernel
 launches in ``.launches`` (and its plain-version calls in
 ``.plain_calls``), plain ints a run can reset and read to show that its
-main path went through the kernel."""
+main path went through the kernel.  A launch is one call of the kernel
+wrapper, which runs two CUDA kernels (C.B^T once per row and chunk, then
+the scan on the tensor cores in 3xTF32) and counts once."""
 from __future__ import annotations
 
 from repro_torch.analysis.sanitizer import hot_path

@@ -11,6 +11,9 @@ outputs reach ~100, so the relative part carries the large values).  The
 hand-written CUDA kernel is compared with the plain versions by the
 ``cuda``-marked test, which runs only where a card is present
 (``chip_smoke.py`` makes the same comparison at mamba2-780m's shapes).
+The kernel computes its products on the tensor cores in 3xTF32; a CPU
+emulation of that split at mamba2-780m's widths records why: 3xTF32
+meets the chunked tolerance, one tf32 product does not.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -99,23 +102,142 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         kernel.ssd_scan_kernel(*args, chunk=8)
 
 
+def _tf32(t):
+    """Round f32 to tf32 (10-bit mantissa) to nearest, ties away from
+    zero, as cvt.rna.tf32.f32 does: add half of the dropped 13 bits' unit
+    to the magnitude and clear them."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b with tf32 operands: one product (``passes`` 1), or 3xTF32
+    (``passes`` 3) as the kernel sums it, lo.hi + hi.lo + hi.hi in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _chunked_tf32(x, dt, a, b, c, chunk, passes):
+    """The kernel's chunked algorithm with every product's operands in
+    tf32 (``passes`` 1 or 3): G = C.B^T per (row, chunk), y = exp(cum)
+    (C.state^T) + (G o decay o dt) . X and state = exp(tot) state +
+    (X o dt exp(tot - cum))^T . B per head.  S must be a multiple of
+    ``chunk``."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = s // chunk
+    xc = x.reshape(bsz, nc, chunk, h, p).permute(0, 1, 3, 2, 4)
+    dtc = dt.reshape(bsz, nc, chunk, h).permute(0, 1, 3, 2)  # [B,Nc,H,L]
+    bc = b.reshape(bsz, nc, chunk, n)
+    cc = c.reshape(bsz, nc, chunk, n)
+    cum = torch.cumsum(dtc * a[:, None], dim=-1)
+    tot = cum[..., -1:]
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    diff = cum[..., :, None] - cum[..., None, :]
+    decay = torch.exp(torch.where(mask, diff, torch.full_like(diff, -1e30)))
+    g = _mm_tf32(cc, bc.transpose(-1, -2), passes)        # [B,Nc,L,L]
+    w = g[:, :, None] * decay * dtc[..., None, :]         # [B,Nc,H,L,L]
+    y_intra = _mm_tf32(w, xc, passes)                     # [B,Nc,H,L,P]
+    xdt = xc * (dtc * torch.exp(tot - cum))[..., None]
+    state = torch.zeros((bsz, h, p, n))
+    ys = []
+    for z in range(nc):
+        inter = _mm_tf32(cc[:, z, None], state.transpose(-1, -2), passes)
+        ys.append(y_intra[:, z] + inter * torch.exp(cum[:, z])[..., None])
+        state = (state * torch.exp(tot[:, z])[..., None]
+                 + _mm_tf32(xdt[:, z].transpose(-1, -2), bc[:, z, None],
+                            passes))
+    y = torch.stack(ys, 1).permute(0, 1, 3, 2, 4).reshape(bsz, s, h, p)
+    return y, state
+
+
+@pytest.mark.parametrize("passes,meets", [(3, True), (1, False)])
+def test_tf32_split_precision_at_mamba2_widths(passes, meets):
+    """Why the kernel splits every operand: at mamba2-780m's widths (H 48,
+    P 64, N 128, chunk 128; B 1, S 256) the chunked algorithm with 3xTF32
+    products stays within CHUNKED_TOL of the output's scale of the f32
+    chunked version, and with one tf32 product does not."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [torch.from_numpy(a) for a in _inputs(1, 256, 48, 64, 128,
+                                                 seed=3)]
+    want = ref.ssd_chunked_ref(*args, 128)
+    got = _chunked_tf32(*args, 128, passes)
+    scale = max(w.abs().max().item() for w in want)
+    err = max(_max_err(g, w) for g, w in zip(got, want))
+    assert (err < CHUNKED_TOL * scale) == meets, (err, scale)
+
+
+def test_widths_the_tensor_core_tiles_take():
+    """Every config's widths (P 64, N 128, chunk 128), the reduced
+    model's (P 32, N 16, chunk 32) and the test shapes are taken; wider
+    ones raise before any launch."""
+    for p, n, s, chunk in [(64, 128, 256, 128), (32, 16, 8, 32),
+                           (64, 32, 192, 64), (64, 128, 1, 128),
+                           (48, 100, 300, 50), (64, 128, 64, 4096)]:
+        assert kernel.check_widths(p, n, s, chunk) == min(chunk, s)
+    for p, n, s, chunk in [(128, 128, 256, 128), (64, 256, 256, 128),
+                           (64, 128, 256, 256), (64, 128, 0, 128),
+                           (64, 128, 256, 0)]:
+        with pytest.raises(ValueError):
+            kernel.check_widths(p, n, s, chunk)
+    assert kernel.scratch_shape(20, 256, 128) == (20, 2, 128, 128)
+    assert kernel.scratch_shape(2, 200, 128) == (2, 2, 128, 128)
+    assert kernel.scratch_shape(3, 8, 32) == (3, 1, 16, 16)
+
+
+def test_p_tile_splits_p_only_where_blocks_are_few():
+    """On 132 SMs mamba2-780m's 48 heads take 32-wide P slices at B 1
+    (96 blocks) and 64-wide from B 2; P 32 is one slice."""
+    assert [kernel.p_tile_for(b, 48, 64, 132) for b in (1, 2, 3, 4, 20)
+            ] == [32, 64, 64, 64, 64]
+    assert kernel.p_tile_for(20, 48, 32, 132) == 32
+
+
+# the cuda test's shapes (B, S, H, P, N, chunk, p_tile): the reference's,
+# S below the chunk, then mamba2-780m's widths at B 1 and 8 with S 256,
+# 200 and 1, each P tile, and P slices with a ragged edge (P 48, 40)
+CUDA_SHAPES = ([(2,) + sh + (None,) for sh in SHAPES + [(8, 4, 32, 16, 32)]]
+               + [(b, s, 48, 64, 128, 128, pt) for b in (1, 8)
+                  for s in (256, 200, 1) for pt in (32, 64)]
+               + [(2, 200, 3, 48, 128, 128, 32), (2, 72, 2, 40, 24, 64, 32),
+                  (1, 40, 2, 33, 18, 16, 64)])
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_versions():
     """The hand-written scan against both plain versions on the card, on
-    the reference's shapes, a ragged S and S below the chunk: against
-    the chunked one at 2e-4 of the output's scale (f32; the cumulative
+    the reference's shapes, a ragged S, S below the chunk, mamba2-780m's
+    widths and ragged P slices: against the chunked one at 2e-4 of the
+    output's scale (3xTF32 on the tensor cores; the cumulative
     log-decay and the dot products are summed in another order), against
-    the recurrence at the reference's 5e-3."""
+    the recurrence at the reference's 5e-3.  The C.B^T scratch is held
+    against c @ b^T on its lower triangle at 2e-4 of its scale."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    for s, h, p, n, chunk in SHAPES + [(8, 4, 32, 16, 32)]:
-        args = [torch.from_numpy(a).cuda() for a in _inputs(2, s, h, p, n)]
+    for bsz, s, h, p, n, chunk, pt in CUDA_SHAPES:
+        args = [torch.from_numpy(a).cuda()
+                for a in _inputs(bsz, s, h, p, n)]
         n0 = ops.ssd_scan.launches
         y, st = ops.ssd_scan(*args, chunk)
         assert ops.ssd_scan.launches == n0 + 1
+        scratch = torch.full(kernel.scratch_shape(bsz, s, chunk),
+                             float("nan"), device="cuda")
+        ky, kst = kernel.ssd_scan_kernel(*args, chunk=chunk, p_tile=pt,
+                                         scratch=scratch)
         for (wy, ws), tol in ((ref.ssd_chunked_ref(*args, chunk), None),
                               (ref.ssd_scan_ref(*args), ORACLE_TOL)):
-            for got, want in ((y, wy), (st, ws)):
+            for got, want in ((y, wy), (st, ws), (ky, wy), (kst, ws)):
                 lim = tol or CHUNKED_TOL * max(1.0, want.abs().max().item())
-                assert (got - want).abs().max().item() < lim
+                assert (got - want).abs().max().item() < lim, (bsz, s, p)
+        c = min(chunk, s)
+        bb, cc = args[3], args[4]
+        for z in range(-(-s // c)):
+            m = min(c, s - z * c)
+            rows = slice(z * c, z * c + m)
+            want = torch.tril(cc[:, rows] @ bb[:, rows].transpose(1, 2))
+            got = torch.tril(scratch[:, z, :m, :m])
+            lim = CHUNKED_TOL * max(1.0, want.abs().max().item())
+            assert (got - want).abs().max().item() < lim, (bsz, s, z)
