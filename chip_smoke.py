@@ -34,11 +34,16 @@ CUDA toolkit.  Phases, each fatal on failure:
    ``magnus-paged`` with the prefix cache, on shared-instruction
    traffic.  Kernel launch counts are zeroed just before and read just
    after; every request must finish, the pool must drain, the prefix
-   cache must hit and both paged kernels must have launched.  The inputs
-   of each decode step's and each admission wave's layer-0 attention
-   call are kept.  Then one decode window of a fresh full wave is timed
-   and profiled (device busy time, idle share, the kernels that take the
-   time);
+   cache must hit and both paged kernels must have launched, the decode
+   kernel once per layer and step and prefix prefill once per layer and
+   wave, with one readback per decode window.  The engine captures its
+   decode step as a CUDA graph at its first window (once), and every
+   later step is a replay, whose launches the wrappers count.  The
+   inputs of each decode step's and each admission wave's layer-0
+   attention call are kept (a replayed step's from the tensors the
+   graph captured).  Then one decode window of a fresh full wave is
+   timed and profiled (device busy time, idle share, the kernels that
+   take the time);
 6. paged timings at the serve's own shapes: each kept decode step and
    wave is replayed through the kernel (held against its plain version),
    the plain version and a PyTorch library yardstick; each gets the
@@ -96,10 +101,23 @@ CUDA toolkit.  Phases, each fatal on failure:
    TFLOP/s; the scan logs each kept shape's time beside its B and the
    time at the other P slice, and its mean bound at the 3xTF32 rate
    (495 / 3 TFLOP/s), where it computes, and at the f32 CUDA cores' 67
-   TFLOP/s, beside it.
+   TFLOP/s, beside it;
+14. warmed serve: phase 5's serve again on a fresh engine built with
+   ``warmup=True`` (every admission-wave shape run once, the decode
+   step captured), set up as the launcher sets it up, so with the same
+   schedule.  Counts are zeroed after the warmup and just before the
+   serve, and read just after: no capture during the serve, streams,
+   decode steps, windows, host syncs and launches equal to phase 5's,
+   no plain call.  Then a full wave's 8-step decode window through the
+   captured graph is held bit for bit (tokens, logits, positions)
+   against ``decode_multi_paged`` run eagerly on a copy of the state,
+   and both are timed and profiled: host ms a step, device ms a step
+   and the idle share, graphed against eager, beside the host time the
+   warmed serve took to enqueue a replayed step.
 
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
-a model stops the run before the serves.  The line before the last is a
+a model stops the run before the serves; phase 14 runs right after
+phase 5.  The line before the last is a
 JSON object with one entry per kernel (six); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is missing or the port's sources are not beside
@@ -552,6 +570,11 @@ def _to(torch, tree, dev):
 # phase 5: what the serve gave the kernels
 # ---------------------------------------------------------------------------
 
+def _capturing():
+    import torch
+    return torch.cuda.is_current_stream_capturing()
+
+
 class Recorder:
     """Inside the ``with`` block, ``module.<name>`` is wrapped: every call
     passes straight through to it (its ``ops`` wrapper counts its launch
@@ -559,29 +582,53 @@ class Recorder:
     consecutive calls, one per layer.  On every ``every``-th step the
     layer-0 call's inputs go through ``keep``, and what it returns is
     kept (None keeps nothing).  ``steps`` counts the steps; ``restart()``
-    makes the next step the first of a new sample, as at a new batch."""
+    makes the next step the first of a new sample, as at a new batch.
+
+    Calls made while a CUDA graph is being captured are no steps (the
+    capture runs nothing): the layer-0 call's input tensors, the graph's
+    own, are held instead, and :meth:`replayed` takes them, cloned, as
+    the inputs of a step after each replay of the graph (see
+    :class:`replays`)."""
 
     def __init__(self, module, name, layers, keep=lambda *a: a, every=1):
         self.module, self.name, self.layers = module, name, layers
         self.keep, self.every = keep, every
         self.kept, self.steps = [], 0
-        self._calls = self._step = 0
+        self._calls = self._step = self._captured_calls = 0
+        self.captured = None
 
     def restart(self):
         self._step = 0
+
+    def _take(self, args, kw, clone=False):
+        if self._step % self.every == 0:
+            item = self.keep(*args, **kw)
+            if item is not None:
+                # a replayed step's tensors are the graph's, overwritten
+                # by the next replay: keep copies of what ``keep`` chose
+                self.kept.append(tuple(t.clone() for t in item) if clone
+                                 else item)
+        self._step += 1
+        self.steps += 1
+
+    def replayed(self):
+        """One replay of the captured graph ran: a step, whose layer-0
+        inputs are the captured tensors' contents now."""
+        if self.captured is not None:
+            self._take(*self.captured, clone=True)
 
     def __enter__(self):
         self.orig = orig = getattr(self.module, self.name)
 
         def call(*args, **kw):
-            if self._calls % self.layers == 0:
-                if self._step % self.every == 0:
-                    item = self.keep(*args, **kw)
-                    if item is not None:
-                        self.kept.append(item)
-                self._step += 1
-                self.steps += 1
-            self._calls += 1
+            if _capturing():
+                if self._captured_calls % self.layers == 0:
+                    self.captured = (args, kw)
+                self._captured_calls += 1
+            else:
+                if self._calls % self.layers == 0:
+                    self._take(args, kw)
+                self._calls += 1
             return orig(*args, **kw)
 
         setattr(self.module, self.name, call)
@@ -589,6 +636,54 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+class replays:
+    """Inside the ``with`` block every replay of a paged engine's captured
+    decode step (``DecodeGraph.replay``) is followed by each recorder's
+    :meth:`Recorder.replayed`, and every decode window that ran steps is
+    counted in ``windows``.  ``replayed_steps`` and ``enqueue_s`` sum the
+    steps that ``DecodeGraph.window`` replayed and the host time it took
+    to enqueue them (it does not wait for the card)."""
+
+    def __init__(self, *recorders):
+        self.recorders, self.windows = recorders, 0
+        self.replayed_steps, self.enqueue_s = 0, 0.0
+
+    def __enter__(self):
+        from repro_torch.serving.engine import PagedContinuousEngine
+        from repro_torch.serving.graphs import DecodeGraph
+        self.targets = ((DecodeGraph, "replay", DecodeGraph.replay),
+                        (DecodeGraph, "window", DecodeGraph.window),
+                        (PagedContinuousEngine, "step_window",
+                         PagedContinuousEngine.step_window))
+        replay, window, step_window = (t[2] for t in self.targets)
+
+        def replay_and_record(graph):
+            replay(graph)
+            for r in self.recorders:
+                r.replayed()
+
+        def timed_window(graph, k, start=0):
+            t0 = time.perf_counter()
+            out = window(graph, k, start)
+            self.enqueue_s += time.perf_counter() - t0
+            self.replayed_steps += k - start
+            return out
+
+        def counted_window(engine, *a, **kw):
+            out = step_window(engine, *a, **kw)
+            self.windows += out[2] > 0
+            return out
+
+        DecodeGraph.replay = replay_and_record
+        DecodeGraph.window = timed_window
+        PagedContinuousEngine.step_window = counted_window
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in self.targets:
+            setattr(cls, name, orig)
 
 
 def paged_recorders(transformer, layers):
@@ -612,37 +707,174 @@ def _device_us(prof):
                for e in prof.key_averages())
 
 
-def profile_window(torch, engine, reqs):
-    """Where a decode step's time goes on the card: admit one full wave
-    into the served engine, run one decode window unprofiled (wall time)
-    and one under the profiler (device busy time and the kernels that
-    take it), then drain."""
+def window_profile(torch, run, label):
+    """Time one decode window ``run()`` (which returns its steps, its one
+    readback included) on the host clock, then profile a second one:
+    device busy time (every kernel, copy and fill the profiler records),
+    the window's span between CUDA events (busy time plus the card's
+    gaps), the idle share (1 - busy / host time) and the kernels that
+    take the time.  Kernels replayed from a CUDA graph count only if the
+    profiler attributes them: the phase fails unless the paged decode
+    kernel is among the profile's events."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving.engine import drive_paged
-    check(engine.join_many(reqs) == len(reqs), "profile wave refused")
-    engine.step_window(max_steps=4)            # first window after a wave
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, _, k = engine.step_window(max_steps=8)
+    k = run()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / k
+    host = (time.perf_counter() - t0) * 1e3 / k
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, k2 = engine.step_window(max_steps=8)
+        a.record()
+        k2 = run()
+        z.record()
         torch.cuda.synchronize()
     busy = _device_us(prof) / 1e3 / k2
+    span = a.elapsed_time(z) / k2
     check(busy > 0, "the profiler recorded no device time")
     dev = lambda e: (getattr(e, "self_device_time_total", None)
                      or getattr(e, "self_cuda_time_total", 0))
-    top = sorted(prof.key_averages(), key=dev, reverse=True)[:6]
-    log(f"decode window at {engine.num_active} rows: {wall:.2f} ms per "
-        f"step on the host clock, device busy {busy:.2f} ms per step "
-        f"(idle share {max(0.0, 1 - busy / wall):.2f}); top device time "
-        f"per step: " + "; ".join(
+    events = prof.key_averages()
+    check(any("decode_split_kernel" in e.key and dev(e) > 0
+              for e in events),
+          f"{label}: the profiler attributed no paged decode kernel")
+    top = sorted(events, key=dev, reverse=True)[:6]
+    idle = max(0.0, 1 - busy / host)
+    log(f"{label}: {host:.2f} ms per step on the host clock, device busy "
+        f"{busy:.2f} ms per step (event span {span:.2f}; idle share "
+        f"{idle:.2f}); top device time per step: " + "; ".join(
             f"{e.key[:60]} {dev(e) / 1e3 / k2:.3f} ms" for e in top))
+    return {"host_ms": host, "busy_ms": busy, "span_ms": span,
+            "idle": idle}
+
+
+def profile_window(torch, engine, reqs, eager=False):
+    """Where a decode step's time goes on the card: admit one full wave
+    into the served engine, settle it with one short window, then time
+    and profile decode windows of 8 steps through the engine (replays of
+    its captured step, its readback and bookkeeping).  With ``eager``,
+    also the same windows run eagerly by ``decode_multi_paged`` on a
+    copy of the state (the launches one by one from Python, and the
+    readback), after holding its first window to the graphed one bit for
+    bit.  Then drain."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import drive_paged
+    check(engine.join_many(reqs) == len(reqs), "profile wave refused")
+    engine.step_window(max_steps=4)            # first window after a wave
+    out = {}
+    if eager:
+        pages = {key: v.clone() for key, v in engine.pages.items()}
+        batch = {"logits": engine.logits.clone(),
+                 "positions": engine.positions.clone(),
+                 "block_tables": engine.tables.clone(),
+                 "active": engine.active_mask.clone()}
+        before = [a and len(a["generated"]) for a in engine.active]
+        _, _, k = engine.step_window(max_steps=8)
+        logits, _, positions, toks = M.decode_multi_paged(
+            engine.params, engine.cfg, pages, dict(batch), num_steps=k,
+            act_dtype=engine.dtype)
+        toks = toks.cpu()
+        for slot, a in enumerate(engine.active):
+            check(a is None or a["generated"][before[slot]:]
+                  == toks[slot].tolist(),
+                  f"slot {slot}: graphed and eager windows differ")
+        live = engine.active_mask             # finished rows are reset
+        check(torch.equal(logits, engine.logits)
+              and torch.equal(positions[live], engine.positions[live]),
+              "graphed and eager windows differ in logits or positions")
+        log(f"graphed and eager {k}-step windows at {engine.num_active} "
+            f"rows: tokens, logits and positions bit-equal")
+
+        def run_eager():
+            toks = M.decode_multi_paged(
+                engine.params, engine.cfg, pages, dict(batch), num_steps=8,
+                act_dtype=engine.dtype)[3]
+            toks.cpu()
+            return 8
+
+        out["eager"] = window_profile(
+            torch, run_eager, f"eager decode window at "
+            f"{engine.num_active} rows")
+        del pages, batch
+    out["graphed"] = window_profile(
+        torch, lambda: engine.step_window(max_steps=8)[2],
+        f"graphed decode window at {engine.num_active} rows")
     st = drive_paged(engine, [])
     check(not engine.num_active and not st["unserved"],
           "profile wave did not drain")
     engine.assert_drained()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: phase 5's serve on an engine warmed up ahead of time
+# ---------------------------------------------------------------------------
+
+def warmed_serve(torch, reqs, reset_counts, counts):
+    """Phase 5's serve again, set up as ``run_paged_engine_backend`` sets
+    it up (the same service, predictor, pool and weights, so the same
+    schedule) but with ``warmup=True``, which the launcher does not
+    expose: the engine runs every wave shape and captures its decode
+    step before the counts are zeroed.  Returns the serve's launches,
+    plain calls, streams, host syncs, windows and steps, and the engine's
+    captures before and after the serve."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.magnus import MagnusConfig, MagnusService
+    from repro_torch.core.predictor import GenerationLengthPredictor
+    from repro_torch.core.wma import MemoryModel
+    from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
+    from repro_torch.serving.paged_cache import (BlockAllocator,
+                                                 MispredictionEWMA)
+    from repro_torch.workload.apps import make_dataset
+    cfg = get_config("chatglm-6b")
+    memory = MemoryModel(cfg, hbm_bytes=2 * 2 ** 30,
+                         max_len=SERVE["max_len"], max_gen=SERVE["max_gen"])
+    allocator = BlockAllocator(SERVE["num_blocks"], SERVE["block_tokens"])
+    svc = MagnusService(
+        memory, MagnusConfig(strategy="magnus-paged", prefix_sharing=True),
+        predictor=GenerationLengthPredictor(seed=0).fit(
+            make_dataset(60, seed=1)),
+        allocator=allocator)
+    ewma = MispredictionEWMA()
+    svc.memory.headroom = ewma
+    t0 = time.perf_counter()
+    engine = PagedContinuousEngine(
+        cfg, seed=0, max_concurrency=SERVE["max_concurrency"],
+        max_len=SERVE["max_len"], max_gen=SERVE["max_gen"],
+        dtype=torch.bfloat16, allocator=allocator,
+        prefix_cache=svc.prefix_cache or False, mispredict=ewma,
+        device="cuda",
+        warmup=True)
+    torch.cuda.synchronize()
+    captures0 = engine.graph_captures
+    log(f"warmed engine: weights and warmup {time.perf_counter() - t0:.1f}"
+        f" s, {captures0} capture(s)")
+    for r in reqs:
+        svc.on_request(r, r.arrival_time)
+
+    def refill(steps):
+        nb = svc.next_batch(now=float(steps))
+        return nb.requests if nb is not None else None
+
+    t0 = time.perf_counter()
+    with replays() as rep:
+        reset_counts()
+        st = drive_paged(engine, [], max_steps=100_000, refill=refill,
+                         backlog=lambda: len(svc.batcher.queue) > 0)
+        torch.cuda.synchronize()
+        launches = counts("launches")
+    wall = time.perf_counter() - t0
+    tokens = sum(len(g) for g in engine.generated.values())
+    log(f"warmed serve: {wall:.2f} s, {tokens / wall:.1f} tokens/s, "
+        f"{st['served']} requests, {engine.decode_steps} steps in "
+        f"{rep.windows} windows, {st['host_syncs']} host syncs, "
+        f"launches {launches}; the host enqueued a replayed step (replay "
+        f"and token copy) in {rep.enqueue_s * 1e3 / max(1, rep.replayed_steps):.4f}"
+        f" ms on average over {rep.replayed_steps} steps")
+    return {"engine": engine, "launches": launches,
+            "plain_calls": counts("plain_calls"), "stats": st,
+            "windows": rep.windows, "replayed_steps": rep.replayed_steps,
+            "captures": (captures0, engine.graph_captures)}
 
 
 # ---------------------------------------------------------------------------
@@ -1598,7 +1830,7 @@ def main() -> int:
                                         gen_length=GEN_LENGTH, seed=0)
         t0 = time.perf_counter()
         decoded, waves = paged_recorders(transformer, 28)
-        with decoded, waves:
+        with decoded, waves, replays(decoded) as windows:
             reset_counts()
             res = run_paged_engine_backend(
                 "chatglm-6b", 0.0, 0.0, "magnus-paged", seed=0,
@@ -1610,7 +1842,9 @@ def main() -> int:
         log(f"serve chatglm-6b full width bf16: "
             f"{time.perf_counter() - t0:.1f} s with set-up; "
             + json.dumps(res))
-        log(f"serve kernel launches {launches}, plain calls {plain_calls}")
+        log(f"serve kernel launches {launches}, plain calls {plain_calls}, "
+            f"{windows.windows} decode windows, {engine.graph_captures} "
+            f"capture(s) of the decode step")
         cfg = engine.cfg
         check(cfg.num_layers == 28 and cfg.d_model == 4096,
               "serve did not run chatglm-6b at full width")
@@ -1624,6 +1858,21 @@ def main() -> int:
               f"a paged kernel never launched: {launches}")
         check(not any(plain_calls.values()),
               f"plain versions ran on the main path: {plain_calls}")
+        check(engine.graph_captures == 1
+              and windows.replayed_steps == engine.decode_steps - 1,
+              f"{engine.graph_captures} captures of the decode step and "
+              f"{windows.replayed_steps} replayed steps of "
+              f"{engine.decode_steps}: not one capture, whose warm-up step "
+              f"is the first step, and replays for the rest")
+        check(launches["paged_decode_attention"]
+              == cfg.num_layers * engine.decode_steps
+              and launches["paged_prefix_prefill_attention"]
+              == cfg.num_layers * engine.prefill_dispatches,
+              f"launches {launches} against {engine.decode_steps} steps "
+              f"and {engine.prefill_dispatches} waves")
+        check(res["host_syncs"] == windows.windows,
+              f"{res['host_syncs']} host syncs in {windows.windows} "
+              f"windows: not one readback a window")
         for r in reqs:
             toks = engine.generated[r.req_id]
             check(len(toks) == min(r.gen_length, SERVE["max_gen"]),
@@ -1642,11 +1891,55 @@ def main() -> int:
             "suffix_lens): " + "; ".join(
                 f"{tuple(q.shape[:2])} {t.shape[1]} {pl.tolist()} "
                 f"{sl.tolist()}" for q, _, _, t, pl, sl in waves.kept))
+        served = {"streams": [engine.generated[r.req_id] for r in reqs],
+                  "launches": launches, "windows": windows.windows,
+                  "host_syncs": res["host_syncs"],
+                  "steps": engine.decode_steps}
         profile_window(torch, engine, make_shared_head_dataset(
             SERVE["max_concurrency"], n_apps=3, gen_length=GEN_LENGTH,
             seed=1))
         pages = engine.pages
         del engine, res
+        torch.cuda.empty_cache()
+
+        # 14. phase 5's serve on an engine warmed up ahead of time
+        wreqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
+                                         gen_length=GEN_LENGTH, seed=0)
+        w = warmed_serve(torch, wreqs, reset_counts, counts)
+        wengine = w.pop("engine")
+        check(w["captures"] == (1, 1),
+              f"captures before and after the warmed serve: "
+              f"{w['captures']}, not (1, 1)")
+        check(w["stats"]["served"] == N_REQUESTS,
+              f"warmed serve finished {w['stats']['served']} requests")
+        check([wengine.generated.get(r.req_id) for r in wreqs]
+              == served["streams"],
+              "the warmed serve's streams differ from phase 5's")
+        check(w["launches"] == served["launches"]
+              and not any(w["plain_calls"].values()),
+              f"warmed serve launches {w['launches']}, plain calls "
+              f"{w['plain_calls']}; phase 5: {served['launches']}")
+        check(wengine.decode_steps == served["steps"]
+              == w["replayed_steps"]
+              and w["launches"]["paged_decode_attention"]
+              == 28 * served["steps"],
+              f"warmed serve: {wengine.decode_steps} steps, "
+              f"{w['replayed_steps']} replayed; phase 5: {served['steps']}")
+        check(w["stats"]["host_syncs"] == w["windows"]
+              == served["host_syncs"],
+              f"warmed serve: {w['stats']['host_syncs']} host syncs in "
+              f"{w['windows']} windows; phase 5: {served['host_syncs']}")
+        wengine.assert_drained()
+        log("warmed serve: streams, steps, windows, host syncs and "
+            "launches equal phase 5's, no capture during the serve")
+        graphed = profile_window(torch, wengine, make_shared_head_dataset(
+            SERVE["max_concurrency"], n_apps=3, gen_length=GEN_LENGTH,
+            seed=1), eager=True)
+        log("decode step at 32 rows, graphed against eager: " + json.dumps(
+            {mode: {key: round(v, 4) if isinstance(v, float) else v
+                    for key, v in m.items()}
+             for mode, m in graphed.items()}))
+        del wengine, w, served
         torch.cuda.empty_cache()
 
         # 6. paged timings at the serve's shapes

@@ -25,9 +25,13 @@ each (row, KV head) to finish merges the splits' f32 partials (an atomic
 counter per pair, left at zero by every launch, says which block is
 last).  The host never reads ``lengths`` or a block table (device
 tensors: reading one would be a host sync on the hot path).  The split
-counters are one buffer per device, shared by every decode launch:
-launches that follow one another on a stream may share it, launches that
-run at once (two streams) may not.  Head sizes 32, 64 and 128.
+counters of eager launches are one buffer per device: launches that
+follow one another on a stream share it, and it is replaced by a larger
+one (the old one freed) when a launch needs more.  So launches that can
+run at once (two streams), or that a CUDA graph has captured, must not
+share a buffer that may be freed: a capture takes a buffer of its own
+from :func:`private_split_counters` and keeps it alive with the graph.
+Head sizes 32, 64 and 128.
 
 Prefix prefill in bf16 runs on the tensor cores (wgmma over 64-key K/V
 tiles gathered through the block table; head sizes 32, 64 and 128); in
@@ -41,8 +45,9 @@ do not synchronise.  ``ops.py`` picks between them and the plain
 versions in ``ref.py``."""
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 
@@ -76,12 +81,40 @@ def _sm_count(index: int) -> int:
 
 
 _COUNTERS = {}   # device -> int32 zeros; every launch leaves them zero
+_PRIVATE: List[torch.Tensor] = []   # innermost private_split_counters
+
+
+@contextlib.contextmanager
+def private_split_counters(device: torch.device, n: int
+                           ) -> Iterator[torch.Tensor]:
+    """Inside the block, every decode launch takes its split counters
+    from one buffer of its own, at least ``n`` zeroed int32 counters on
+    ``device``, allocated here (before any capture begins, so that its
+    zeros are real) and never replaced: a launch that needs more raises.
+    A CUDA graph captured inside the block keeps the yielded buffer
+    alive as long as the graph lives."""
+    buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    _PRIVATE.append(buf)
+    try:
+        yield buf
+    finally:
+        _PRIVATE.pop()
 
 
 def _split_counters(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 split counters on ``device``, kept for
-    the process (the kernel resets each counter it uses, so launches
-    that follow one another on a stream share them)."""
+    """At least ``n`` zeroed int32 split counters on ``device``: the
+    private buffer of the enclosing :func:`private_split_counters`, else
+    the device's shared buffer, kept for the process (the kernel resets
+    each counter it uses, so launches that follow one another on a
+    stream share them)."""
+    if _PRIVATE:
+        buf = _PRIVATE[-1]
+        if buf.device != device or buf.numel() < n:
+            raise ValueError(
+                f"the private split counters ({buf.numel()} on "
+                f"{buf.device}) do not cover a launch that needs {n} on "
+                f"{device}")
+        return buf
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)

@@ -15,7 +15,11 @@
 - Decode runs in fused multi-step windows (§9): ``k`` greedy steps on the
   device with the argmax feeding the next step, and one ``[B, k]`` token
   readback per window, counted in ``host_syncs`` (``ContinuousEngine``
-  reads its tokens back every step, as in the reference).
+  reads its tokens back every step, as in the reference).  On the card
+  the paged engine replays its decode step as a captured CUDA graph
+  (``serving/graphs.py``), captured at its first window or ahead of time
+  in ``warmup()``: the port's counterpart of the reference's one
+  compiled program per window.
 - Admission is a single-dispatch variable-prefix wave (§12): radix hits
   and misses ride one ``prefill_wave`` call per suffix-length bucket.
 
@@ -23,8 +27,8 @@ Generation is length-scripted replay (DESIGN.md §7): logits come from the
 real model, and a request stops at its ground-truth generation length.
 
 Not in this module yet: fault injection, deadlines and the NaN guard
-(§14), the host swap tier (§15), speculative decoding (§16),
-snapshot/restore (§17) and warm-up.  The padded engines serve the dense
+(§14), the host swap tier (§15), speculative decoding (§16) and
+snapshot/restore (§17).  The padded engines serve the dense
 and SSM (mamba2) families with a float cache; the paged engine serves
 the dense family.
 """
@@ -50,6 +54,7 @@ from repro_torch.models.transformer import cast_params, supports_dense
 from repro_torch.serving.paged_cache import (BlockAllocator,
                                              MispredictionEWMA, NULL_SEQ,
                                              PrefixMatch, RadixPrefixCache)
+from repro_torch.serving.graphs import DecodeGraph
 from repro_torch.workload.tokenizer import encode
 
 
@@ -352,6 +357,15 @@ class PagedContinuousEngine:
     its whole prompt at block boundaries (§12), deferred off the
     admission hot path to ``_flush_publishes``.
 
+    Decode runs in fused windows (``step_window``): ``k`` is the minimum
+    over active slots of steps-to-finish and steps-to-block-boundary,
+    rounded down to a power of two.  ``fuse=False`` pins ``k = 1`` (the
+    per-token baseline: the same streams and steps, one readback a
+    step).  On a CUDA engine each step of a window is one replay of the
+    captured decode graph (``serving/graphs.py``); a CPU engine runs
+    ``decode_multi_paged`` eagerly through the plain versions.
+    ``warmup=True`` calls :meth:`warmup` at construction.
+
     ``device`` defaults to the CUDA card and raises without one; tests
     pass ``device="cpu"``.  ``params`` defaults to random weights from
     ``seed``; given weights are cast once to ``dtype``.
@@ -364,7 +378,7 @@ class PagedContinuousEngine:
                  allocator: Optional[BlockAllocator] = None,
                  prefix_cache=False,
                  mispredict: Optional[MispredictionEWMA] = None,
-                 device=None):
+                 device=None, fuse: bool = True, warmup: bool = False):
         ok, why = M.supports_paged(cfg)
         if not ok:
             raise NotImplementedError(f"{cfg.name}: {why}")
@@ -373,6 +387,7 @@ class PagedContinuousEngine:
         self.max_len = max_len
         self.max_gen = max_gen
         self.dtype = dtype
+        self.fuse = fuse
         self.allocator = allocator if allocator is not None else \
             BlockAllocator(num_blocks, block_tokens)
         if isinstance(prefix_cache, RadixPrefixCache):
@@ -430,6 +445,12 @@ class PagedContinuousEngine:
         self._publish_queue: List[Tuple[Tuple[int, ...], List[int]]] = []
         # chains published earlier in the CURRENT admission wave
         self._wave_pending: List[Dict[str, object]] = []
+        # the captured decode step (CUDA engines) and how often one was
+        # captured: the torch side of the reference's compile audit
+        self._decode_graph: Optional[DecodeGraph] = None
+        self.graph_captures = 0
+        if warmup:
+            self.warmup()
 
     _NULL_SEQ = NULL_SEQ   # allocator seq_id owning the null block
     # eviction-retry budget (§14): a request evicted this many times
@@ -859,7 +880,7 @@ class PagedContinuousEngine:
         if max_steps is not None:
             k = max(1, min(k, max_steps))
         # power-of-two windows: O(log max_gen) distinct window lengths
-        k = _pow2_floor(k)
+        k = _pow2_floor(k) if self.fuse else 1
         # post-grow/evict snapshot: lets drivers reconstruct the
         # per-iteration utilization ramp
         self.window_stats = {
@@ -869,11 +890,7 @@ class PagedContinuousEngine:
             "active": self.num_active,
             "used_tokens": self.allocator.used_blocks * self.bt,
         }
-        self.logits, self.pages, self.positions, toks = M.decode_multi_paged(
-            self.params, self.cfg, self.pages,
-            {"logits": self.logits, "positions": self.positions,
-             "block_tables": self.tables, "active": self.active_mask},
-            num_steps=k, act_dtype=self.dtype)
+        toks = self._decode(k)
         # the one window token readback (§9 fused decode)
         toks = toks.cpu().numpy()
         self.host_syncs += count_sync()
@@ -894,6 +911,118 @@ class PagedContinuousEngine:
                 self.allocator.free_seq(slot)
                 self._release(slot)
         return finished, evicted, k
+
+    def _decode(self, k: int) -> torch.Tensor:
+        """``k`` greedy decode steps over every slot, written into the
+        engine's tensors in place; returns the tokens ``[B, k]`` on the
+        device.  A CUDA engine replays its captured step, capturing it
+        first if no window or ``warmup()`` has (that window's first step
+        is then the capture's warm-up step, so each step still runs
+        once); a CPU engine runs ``decode_multi_paged``."""
+        if self.device.type == "cpu":
+            logits, _, positions, toks = M.decode_multi_paged(
+                self.params, self.cfg, self.pages,
+                {"logits": self.logits, "positions": self.positions,
+                 "block_tables": self.tables, "active": self.active_mask},
+                num_steps=k, act_dtype=self.dtype)
+            self.logits.copy_(logits)
+            self.positions.copy_(positions)
+            return toks
+        start = 0
+        if self._decode_graph is None:
+            self._decode_graph = DecodeGraph(self, live=True)
+            self.graph_captures += 1
+            start = 1
+        return self._decode_graph.window(k, start)
+
+    # -- warmup ---------------------------------------------------------------
+
+    def warmup(self, *, suffix_buckets: Optional[List[int]] = None,
+               batch_sizes: Optional[List[int]] = None,
+               windows: Optional[List[int]] = None) -> None:
+        """Run the serve path's shapes once before serving (the
+        reference's ``warmup``, which pre-compiles them): the
+        variable-prefix wave at every (batch bucket x suffix bucket x
+        gather-table width) shape, the grow path's copy-on-write copy at
+        every power of two up to ``slots`` (with the prefix cache), and
+        the decode.  On a CUDA engine the decode step is captured here
+        (once per engine; a second call captures nothing), so that a
+        serve after ``warmup()`` captures nothing; a CPU engine runs the
+        fused decode at every window in ``windows``.
+
+        Nothing is written that a live request could read: the waves
+        have ``write_lens == 0`` and null-to-null copy-on-write pairs,
+        and update sacrificial copies of the slot state; the decode runs
+        on an idle state (null tables, position 0, no slot active), so
+        its junk lands in the null block only.  The defaults are the
+        reference's."""
+        if suffix_buckets is None:
+            top = _bucket(self.max_len)
+            suffix_buckets = [b for b in _BUCKETS if b <= top]
+            nxt = _BUCKETS[-1] * 2          # pow2 tail for max_len > table
+            while nxt <= top:
+                suffix_buckets.append(nxt)
+                nxt *= 2
+            suffix_buckets = suffix_buckets or [top]
+        if batch_sizes is None:
+            batch_sizes, n = [], 1
+            while n < self.slots:
+                batch_sizes.append(n)
+                n <<= 1
+            batch_sizes.append(n)
+        if windows is None:
+            windows, k = [], 1
+            while k <= max(self.max_gen, 1):
+                windows.append(k)
+                k <<= 1
+        widths = [1] + ([self.max_blocks]
+                        if self.prefix_cache is not None else [])
+        for nb in batch_sizes:
+            zeros = np.zeros(nb, np.int32)
+            nulls = np.full(nb, self.null_block, np.int32)
+            for sb in suffix_buckets:
+                for w in widths:
+                    (tokens, lengths, plens, attn, rows, wlens, src, dst,
+                     slots, sel, pos) = self._upload(
+                        np.zeros((nb, sb), np.int32), np.ones(nb, np.int32),
+                        zeros, np.full((nb, w), self.null_block, np.int32),
+                        np.full((nb, self.max_blocks), self.null_block,
+                                np.int32), zeros, nulls, nulls, zeros, zeros,
+                        zeros)
+                    state = {"tables": self.tables.clone(),
+                             "positions": self.positions.clone(),
+                             "active": self.active_mask.clone(),
+                             "logits": self.logits.clone()}
+                    M.prefill_wave(
+                        self.params, self.cfg, self.pages, state,
+                        {"tokens": tokens, "lengths": lengths,
+                         "prefix_lens": plens, "attn_tables": attn,
+                         "tables": rows, "write_lens": wlens,
+                         "cow_src": src, "cow_dst": dst, "slots": slots,
+                         "row_sel": sel, "positions": pos},
+                        null_block=self.null_block, act_dtype=self.dtype)
+        if self.prefix_cache is not None:
+            # grow-path copy-on-write copies pad to a power of two <=
+            # slots; null -> null clones leave the pool unchanged
+            k = 1
+            while k <= _pow2_ceil(self.slots):
+                nulls = np.full(k, self.null_block, np.int32)
+                M.copy_pages(self.pages, *self._upload(nulls, nulls))
+                k <<= 1
+        if self.device.type == "cuda":
+            if self._decode_graph is None:
+                self._decode_graph = DecodeGraph(self, live=False)
+                self.graph_captures += 1
+            return
+        b = self.slots
+        for k in windows:
+            M.decode_multi_paged(
+                self.params, self.cfg, self.pages,
+                {"logits": self.logits.clone(),
+                 "positions": torch.zeros_like(self.positions),
+                 "block_tables": self._null_row[None, :].repeat(b, 1),
+                 "active": torch.zeros_like(self.active_mask)},
+                num_steps=k, act_dtype=self.dtype)
 
     def utilization(self) -> float:
         """1 - internal fragmentation over live tokens (null block counts

@@ -7,14 +7,20 @@ follow the reference's engine tests: scripted lengths, a prediction
 undershoot that forces evict-and-requeue, shared-instruction traffic
 with the radix cache on and off (partial-tail copy-on-write), and a
 radix-aware admission wave with byte-identical retries.  Also: the
-launcher serves the same requests as the reference's, and the fused
-window property test."""
+launcher serves the same requests as the reference's, the fused window
+property test, the per-token baseline (``fuse=False``) against the fused
+engine and JAX's, and ``warmup()``: it writes nothing a request can
+read, a second call changes nothing, and a warmed engine serves what an
+unwarmed one and JAX's serve.  (A CPU engine runs its decode eagerly;
+the captured CUDA graph is tested on the card, in
+``test_torch_graphs.py``.)"""
 import copy
 import functools
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 try:
     from hypothesis import given, settings
@@ -198,3 +204,119 @@ def test_fusion_windows_never_skip_events(n, gens, seed):
         assert len(eng.generated[r.req_id]) == min(r.gen_length, 16)
     assert eng.allocator.used_blocks == 1
     eng.assert_drained()
+
+
+FUSE_KW = dict(max_concurrency=4, num_blocks=48, block_tokens=8,
+               max_len=128, max_gen=16)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_fuse_flag_matches_jax(fuse):
+    """``fuse`` has the reference's meaning: the port's engine with
+    ``fuse`` serves the streams, and counts the steps and host syncs, of
+    the JAX engine with the same ``fuse``."""
+    jp, tp = _params()
+    jreqs, treqs = (_scripted(m, 4, seed=2, short=True)
+                    for m in (jax_apps, apps))
+    je = JaxEngine(JCFG, params=jp, fuse=fuse, **FUSE_KW)
+    te = PagedContinuousEngine(CFG, params=tp, device="cpu", fuse=fuse,
+                               **FUSE_KW)
+    js, ts = jax_drive(je, jreqs), drive_paged(te, treqs)
+    assert ts["served"] == js["served"] == len(treqs)
+    assert [te.generated[r.req_id] for r in treqs] == \
+        [je.generated[r.req_id] for r in jreqs]
+    for name in COUNTERS:
+        assert getattr(te, name) == getattr(je, name), name
+    assert (ts["steps"], ts["host_syncs"]) == (js["steps"], js["host_syncs"])
+    te.assert_drained()
+
+
+def test_fused_engine_matches_per_token_engine():
+    """The port of the reference's ``test_fused_decode`` engine test:
+    ``fuse=True`` and ``fuse=False`` give identical streams in the same
+    steps, and fusion cuts the host syncs."""
+    _, tp = _params()
+    out, syncs, steps = {}, {}, {}
+    for fuse in (False, True):
+        eng = PagedContinuousEngine(CFG, params=tp, device="cpu", fuse=fuse,
+                                    **FUSE_KW)
+        reqs = _scripted(apps, 4, seed=2, short=True)
+        stats = drive_paged(eng, reqs)
+        assert stats["served"] == len(reqs)
+        out[fuse] = [eng.generated[r.req_id] for r in reqs]
+        syncs[fuse], steps[fuse] = stats["host_syncs"], stats["steps"]
+    assert out[True] == out[False]
+    assert steps[True] == steps[False]
+    assert syncs[True] < syncs[False] == steps[False]
+
+
+def _engine_state(eng):
+    """Everything a request can read: the pool outside the null block,
+    the tables, positions, active mask and carried logits."""
+    keep = torch.ones(eng.allocator.num_blocks, dtype=torch.bool)
+    keep[eng.null_block] = False
+    return ([eng.pages[key][:, keep].clone() for key in ("k", "v")]
+            + [t.clone() for t in (eng.tables, eng.positions,
+                                   eng.active_mask, eng.logits)])
+
+
+def _assert_same(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+WARM_KW = dict(max_concurrency=4, num_blocks=96, block_tokens=4,
+               max_len=64, max_gen=8, prefix_cache=True)
+
+
+def test_warmup_writes_nothing_and_is_idempotent():
+    """``warmup()`` in the middle of a serve (requests admitted, pages
+    written, a window decoded, stale logits in idle slots) leaves every
+    tensor a request can read bit-equal, and so does a second call (the
+    null block is the write sink: duplicate pad writes leave it junk in
+    no fixed order); the serve then goes on exactly as on an engine that
+    was never warmed, which equals JAX's."""
+    jp, tp = _params()
+    streams = {}
+    for warm in (True, False, "jax"):
+        reqs = _shared(jax_apps if warm == "jax" else apps)
+        eng = (JaxEngine(JCFG, params=jp, **WARM_KW) if warm == "jax" else
+               PagedContinuousEngine(CFG, params=tp, device="cpu",
+                                     **WARM_KW))
+        n = eng.join_many(reqs[:3])
+        assert n == 3
+        eng.step_window(max_steps=2)
+        if warm is True:
+            before = _engine_state(eng)
+            eng.warmup()
+            once = _engine_state(eng)
+            eng.warmup()
+            _assert_same(before, once)
+            _assert_same(once, _engine_state(eng))
+        (jax_drive if warm == "jax" else drive_paged)(eng, reqs[3:])
+        assert all(r.req_id in eng.generated for r in reqs)
+        streams[warm] = [eng.generated[r.req_id] for r in reqs]
+        eng.assert_drained()
+    assert streams[True] == streams[False] == streams["jax"]
+
+
+@pytest.mark.parametrize("case", ["evict_requeue", "prefix_on"])
+def test_warmed_engine_matches_jax(case):
+    """``warmup=True`` at construction, as in the reference: the warmed
+    engine serves JAX's streams and counts (the waves' sacrificial state
+    updates and the decode's idle window leave no trace)."""
+    make, kw = CASES[case]
+    jp, tp = _params()
+    jreqs, treqs = make(jax_apps), make(apps)
+    je = JaxEngine(JCFG, params=jp, **kw)
+    te = PagedContinuousEngine(CFG, params=tp, device="cpu", warmup=True,
+                               **kw)
+    assert te.graph_captures == 0         # a CPU engine captures nothing
+    js, ts = jax_drive(je, jreqs), drive_paged(te, treqs)
+    assert ts["served"] == js["served"] == len(treqs)
+    assert [te.generated[r.req_id] for r in treqs] == \
+        [je.generated[r.req_id] for r in jreqs]
+    for name in COUNTERS:
+        assert getattr(te, name) == getattr(je, name), name
+    te.assert_drained()
