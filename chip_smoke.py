@@ -58,9 +58,18 @@ CUDA toolkit.  Phases, each fatal on failure:
    length, every batch must run G(B) iterations with one readback per
    power-of-two window, the flash kernel must launch once per layer and
    batch, the dense decode kernel once per layer and decode step, and no
-   plain version may run.  The layer-0 attention inputs of every batch's
-   prefill and of a sample of decode steps are kept; one decode window
-   is profiled;
+   plain version may run.  Each batch of at least ``MIN_GRAPH_STEPS``
+   steps captures its decode step once, after its prefill, and replays
+   it for every step but the first (the capture's warm-up step); the
+   captures' host ms and the host ms to enqueue a replayed step are
+   logged.  The layer-0 attention inputs of every batch's prefill and of
+   a sample of decode steps (replayed ones included) are kept.  Then a
+   batch of the serve's largest shape is prefilled again, its decode
+   step captured and a copy of its state decoded eagerly by
+   ``decode_multi``; the two 8-step windows are held bit for bit
+   (tokens, logits, positions, cache), and both are timed and profiled:
+   host ms a step, device ms a step and the idle share, graphed against
+   eager;
 8. padded timings: as phase 6, for the flash and dense decode kernels at
    the kept inputs (yardsticks: SDPA with ``is_causal`` for prefill, SDPA
    with a length mask on the cache cut to its longest row for decode);
@@ -82,8 +91,10 @@ CUDA toolkit.  Phases, each fatal on failure:
    are zeroed just before and read just after: every request gets its
    generation length, one readback per power-of-two window, the scan
    launches once per layer and batch, and nothing else and no plain
-   version runs.  The layer-0 scan input of every batch is kept; one
-   decode window is profiled;
+   version runs.  Captures and replays as in phase 7; the captures'
+   reserved memory shows the private pool of a step on the f32 state.
+   The layer-0 scan input of every batch is kept; the decode step is
+   profiled graphed against eager, as in phase 7;
 12. int8 decode window: chatglm-6b at full width in bf16, 16 rows of
    2,048-token prompts, a dense prefill (cache 2,112) quantised into an
    int8 cache, then a 64-step fused decode on the bf16 cache and on the
@@ -581,18 +592,23 @@ class Recorder:
     as always), and the calls are taken as steps of ``layers``
     consecutive calls, one per layer.  On every ``every``-th step the
     layer-0 call's inputs go through ``keep``, and what it returns is
-    kept (None keeps nothing).  ``steps`` counts the steps; ``restart()``
+    kept (None keeps nothing); ``keep`` copies every tensor of a step
+    that may be replayed.  ``steps`` counts the steps; ``restart()``
     makes the next step the first of a new sample, as at a new batch.
 
     Calls made while a CUDA graph is being captured are no steps (the
-    capture runs nothing): the layer-0 call's input tensors, the graph's
-    own, are held instead, and :meth:`replayed` takes them, cloned, as
-    the inputs of a step after each replay of the graph (see
-    :class:`replays`)."""
+    capture runs nothing): the layer-0 call's input tensors are held
+    instead, and :meth:`replayed` takes them as the inputs of a step
+    after each replay of the graph (see :class:`replays`).  The inputs at
+    the positions ``snap`` are temporaries of the step, whose memory a
+    later layer of the same replay may reuse: they are copied inside the
+    capture, so each replay leaves that step's layer-0 values in the
+    copies; the others (the cache, the tables) are the engine's own."""
 
-    def __init__(self, module, name, layers, keep=lambda *a: a, every=1):
+    def __init__(self, module, name, layers, keep=lambda *a: a, every=1,
+                 snap=()):
         self.module, self.name, self.layers = module, name, layers
-        self.keep, self.every = keep, every
+        self.keep, self.every, self.snap = keep, every, snap
         self.kept, self.steps = [], 0
         self._calls = self._step = self._captured_calls = 0
         self.captured = None
@@ -600,14 +616,11 @@ class Recorder:
     def restart(self):
         self._step = 0
 
-    def _take(self, args, kw, clone=False):
+    def _take(self, args, kw):
         if self._step % self.every == 0:
             item = self.keep(*args, **kw)
             if item is not None:
-                # a replayed step's tensors are the graph's, overwritten
-                # by the next replay: keep copies of what ``keep`` chose
-                self.kept.append(tuple(t.clone() for t in item) if clone
-                                 else item)
+                self.kept.append(item)
         self._step += 1
         self.steps += 1
 
@@ -615,7 +628,7 @@ class Recorder:
         """One replay of the captured graph ran: a step, whose layer-0
         inputs are the captured tensors' contents now."""
         if self.captured is not None:
-            self._take(*self.captured, clone=True)
+            self._take(*self.captured)
 
     def __enter__(self):
         self.orig = orig = getattr(self.module, self.name)
@@ -623,7 +636,9 @@ class Recorder:
         def call(*args, **kw):
             if _capturing():
                 if self._captured_calls % self.layers == 0:
-                    self.captured = (args, kw)
+                    self.captured = (tuple(
+                        a.clone() if i in self.snap else a
+                        for i, a in enumerate(args)), kw)
                 self._captured_calls += 1
             else:
                 if self._calls % self.layers == 0:
@@ -639,25 +654,38 @@ class Recorder:
 
 
 class replays:
-    """Inside the ``with`` block every replay of a paged engine's captured
-    decode step (``DecodeGraph.replay``) is followed by each recorder's
-    :meth:`Recorder.replayed`, and every decode window that ran steps is
-    counted in ``windows``.  ``replayed_steps`` and ``enqueue_s`` sum the
-    steps that ``DecodeGraph.window`` replayed and the host time it took
-    to enqueue them (it does not wait for the card)."""
+    """Inside the ``with`` block every replay of an engine's captured
+    decode step (``DecodeGraph.replay``, paged or padded) is followed by
+    each recorder's :meth:`Recorder.replayed`, and every paged decode
+    window that ran steps is counted in ``windows``.  ``replayed_steps``
+    and ``enqueue_s`` sum the steps that ``DecodeGraph.window`` replayed
+    and the host time it took to enqueue them (it does not wait for the
+    card).  ``captures`` holds, for each capture, its host seconds
+    (``DecodeGraph.capture_s``) and the bytes the allocator reserved
+    anew while the graph was made (its private pool, and the warm-up
+    step's first blocks on a new capture stream)."""
 
     def __init__(self, *recorders):
         self.recorders, self.windows = recorders, 0
         self.replayed_steps, self.enqueue_s = 0, 0.0
+        self.captures = []
 
     def __enter__(self):
+        import torch
         from repro_torch.serving.engine import PagedContinuousEngine
         from repro_torch.serving.graphs import DecodeGraph
         self.targets = ((DecodeGraph, "replay", DecodeGraph.replay),
                         (DecodeGraph, "window", DecodeGraph.window),
+                        (DecodeGraph, "__init__", DecodeGraph.__init__),
                         (PagedContinuousEngine, "step_window",
                          PagedContinuousEngine.step_window))
-        replay, window, step_window = (t[2] for t in self.targets)
+        replay, window, init, step_window = (t[2] for t in self.targets)
+
+        def measured_init(graph, *a, **kw):
+            r0 = torch.cuda.memory_reserved()
+            init(graph, *a, **kw)
+            self.captures.append((graph.capture_s,
+                                  torch.cuda.memory_reserved() - r0))
 
         def replay_and_record(graph):
             replay(graph)
@@ -678,8 +706,22 @@ class replays:
 
         DecodeGraph.replay = replay_and_record
         DecodeGraph.window = timed_window
+        DecodeGraph.__init__ = measured_init
         PagedContinuousEngine.step_window = counted_window
         return self
+
+    def log(self, label, steps):
+        """Log the captures' host ms and reserved MiB and the host ms to
+        enqueue a replayed step; returns the mean capture ms."""
+        ms = [c * 1e3 for c, _ in self.captures]
+        log(f"{label}: {len(ms)} capture(s), host ms each "
+            f"{[round(m, 2) for m in ms]}, MiB reserved anew each "
+            f"{[round(b / 2 ** 20, 1) for _, b in self.captures]}; "
+            f"{self.replayed_steps} of {steps} steps replayed, the host "
+            f"enqueued a replayed step (replay and token copy) in "
+            f"{self.enqueue_s * 1e3 / max(1, self.replayed_steps):.4f} ms "
+            f"on average")
+        return sum(ms) / max(1, len(ms))
 
     def __exit__(self, *exc):
         for cls, name, orig in self.targets:
@@ -692,7 +734,8 @@ def paged_recorders(transformer, layers):
     q/K/V, tables, prefix and suffix lengths)."""
     decode = Recorder(transformer, "paged_decode_attention", layers,
                       lambda q, kp, vp, tables, lengths:
-                      (q, tables.clone(), lengths.clone()))
+                      (q.clone(), tables.clone(), lengths.clone()),
+                      snap=(0, 4))
     prefill = Recorder(transformer, "paged_prefix_prefill_attention", layers,
                        lambda q, ks, vs, kp, vp, tables, plens, slens:
                        (q, ks, vs, tables.clone(), plens.clone(),
@@ -707,15 +750,16 @@ def _device_us(prof):
                for e in prof.key_averages())
 
 
-def window_profile(torch, run, label):
+def window_profile(torch, run, label, kernel="decode_split_kernel"):
     """Time one decode window ``run()`` (which returns its steps, its one
     readback included) on the host clock, then profile a second one:
     device busy time (every kernel, copy and fill the profiler records),
     the window's span between CUDA events (busy time plus the card's
     gaps), the idle share (1 - busy / host time) and the kernels that
     take the time.  Kernels replayed from a CUDA graph count only if the
-    profiler attributes them: the phase fails unless the paged decode
-    kernel is among the profile's events."""
+    profiler attributes them: the phase fails unless ``kernel`` (the
+    decode kernel's name; None for a model that launches none) is among
+    the profile's events."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -735,9 +779,9 @@ def window_profile(torch, run, label):
     dev = lambda e: (getattr(e, "self_device_time_total", None)
                      or getattr(e, "self_cuda_time_total", 0))
     events = prof.key_averages()
-    check(any("decode_split_kernel" in e.key and dev(e) > 0
-              for e in events),
-          f"{label}: the profiler attributed no paged decode kernel")
+    check(kernel is None or any(kernel in e.key and dev(e) > 0
+                                for e in events),
+          f"{label}: the profiler attributed no {kernel}")
     top = sorted(events, key=dev, reverse=True)[:6]
     idle = max(0.0, 1 - busy / host)
     log(f"{label}: {host:.2f} ms per step on the host clock, device busy "
@@ -1075,53 +1119,88 @@ def dense_recorders(transformer, layers):
     prefill = Recorder(transformer, "gqa_prefill_attention", layers,
                        keep_prefill)
     decode = Recorder(transformer, "gqa_decode_attention", layers,
-                      keep_decode, every=DECODE_SAMPLE)
+                      keep_decode, every=DECODE_SAMPLE, snap=(0, 3))
     return prefill, decode
 
 
+def check_captures(label, engine, results, rep, steps):
+    """A padded serve captured its decode step once per batch of at least
+    ``MIN_GRAPH_STEPS`` steps, and replayed every step of those batches
+    but the first (the capture's warm-up step, run eagerly)."""
+    from repro_torch.serving.engine import MIN_GRAPH_STEPS
+    graphed = [r for r in results if r.iterations >= MIN_GRAPH_STEPS]
+    check(engine.graph_captures == len(rep.captures) == len(graphed),
+          f"{label}: {engine.graph_captures} captures for {len(graphed)} "
+          f"batches of at least {MIN_GRAPH_STEPS} steps")
+    check(rep.replayed_steps == sum(r.iterations - 1 for r in graphed),
+          f"{label}: {rep.replayed_steps} replayed steps")
+    rep.log(label, steps)
+
+
 def profile_dense_window(torch, engine, reqs, bl, cache_len, steps=8,
-                         label="padded"):
+                         label="padded", kernel="decode_split_kernel"):
     """Where a padded decode step's time goes on the card: prefill one
-    batch of the serve's shape (its rows and lengths, random prompt ids),
-    then time one fused decode window of ``steps`` steps unprofiled
-    (wall time) and one under the profiler (device busy time and the
-    kernels that take it)."""
-    from torch.profiler import ProfilerActivity, profile
+    batch of the serve's shape (its rows and lengths, random prompt ids)
+    and copy its state; capture the decode step on the batch's state as
+    ``serve_batch`` does (the warm-up step is the first step), and decode
+    the copy eagerly with ``decode_multi``; hold the first ``steps``-step
+    windows bit for bit (tokens, logits, positions, cache); then time and
+    profile windows of ``steps`` steps through each (:func:`window_profile`:
+    host ms, device busy ms and idle share a step, the readback
+    included).  Returns {"graphed": ..., "eager": ...}."""
     from repro_torch.models import model as M
-    cfg = engine.cfg
+    from repro_torch.serving.graphs import DecodeGraph
+    cfg, params, dtype = engine.cfg, engine.params, engine.dtype
     gen = torch.Generator(device="cuda").manual_seed(3)
     lengths = torch.tensor([min(r.length, bl) for r in reqs],
                            dtype=torch.int32, device="cuda")
     tokens = torch.randint(3, cfg.vocab_size, (len(reqs), bl), generator=gen,
                            device="cuda", dtype=torch.int32)
-    logits, cache = M.prefill(engine.params, cfg, {"tokens": tokens,
-                                                   "lengths": lengths},
-                              act_dtype=engine.dtype, cache_len=cache_len)
-    batch = lambda lg, pos: {"logits": lg, "positions": pos}
-    logits, cache, pos, _ = M.decode_multi(
-        engine.params, cfg, cache, batch(logits, lengths), num_steps=2,
-        act_dtype=engine.dtype)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, cache, pos, _ = M.decode_multi(
-        engine.params, cfg, cache, batch(logits, pos), num_steps=steps,
-        act_dtype=engine.dtype)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        M.decode_multi(engine.params, cfg, cache, batch(logits, pos),
-                       num_steps=steps, act_dtype=engine.dtype)
-        torch.cuda.synchronize()
-    busy = _device_us(prof) / 1e3 / steps
-    check(busy > 0, "the profiler recorded no device time")
-    dev = lambda e: (getattr(e, "self_device_time_total", None)
-                     or getattr(e, "self_cuda_time_total", 0))
-    top = sorted(prof.key_averages(), key=dev, reverse=True)[:6]
-    log(f"{label} decode window at {len(reqs)} rows, cache {cache_len}: "
-        f"{wall:.2f} ms per step on the host clock, device busy "
-        f"{busy:.2f} ms per step (idle share {max(0.0, 1 - busy / wall):.2f});"
-        f" top device time per step: " + "; ".join(
-            f"{e.key[:60]} {dev(e) / 1e3 / steps:.3f} ms" for e in top))
+    logits, cache = M.prefill(params, cfg, {"tokens": tokens,
+                                            "lengths": lengths},
+                              act_dtype=dtype, cache_len=cache_len)
+    eager = {"cache": {key: tuple(t.clone() for t in leaves)
+                       for key, leaves in cache.items()},
+             "logits": logits.clone(), "positions": lengths.clone()}
+
+    def run_eager():
+        e = eager
+        e["logits"], e["cache"], e["positions"], toks = M.decode_multi(
+            params, cfg, e["cache"], {"logits": e["logits"],
+                                      "positions": e["positions"]},
+            num_steps=steps, act_dtype=dtype)
+        e["toks"] = toks.cpu()
+        return steps
+
+    graph = DecodeGraph.padded(params, cfg, cache, logits, lengths,
+                               act_dtype=dtype, max_steps=steps,
+                               stream=torch.cuda.Stream())
+    toks = graph.window(steps, 1).cpu()
+    run_eager()
+    same = (torch.equal(toks, eager["toks"])
+            and torch.equal(graph.state["logits"], eager["logits"])
+            and torch.equal(graph.state["positions"], eager["positions"])
+            and all(torch.equal(a, b) for key, leaves in cache.items()
+                    for a, b in zip(leaves, eager["cache"][key])))
+    check(same, f"{label}: graphed and eager windows differ")
+    log(f"{label}: graphed and eager {steps}-step windows at {len(reqs)} "
+        f"rows: tokens, logits, positions and cache bit-equal")
+
+    def run_graphed():
+        graph.window(steps).cpu()
+        return steps
+
+    where = f"decode window at {len(reqs)} rows, cache {cache_len}"
+    return {"eager": window_profile(torch, run_eager,
+                                    f"{label} eager {where}", kernel),
+            "graphed": window_profile(torch, run_graphed,
+                                      f"{label} graphed {where}", kernel)}
+
+
+def log_profiles(label, profiles):
+    log(f"{label}, graphed against eager: " + json.dumps(
+        {mode: {key: round(v, 4) for key, v in m.items()}
+         for mode, m in profiles.items()}))
 
 
 def time_flash(torch, fops, fref, calls, spin):
@@ -1411,7 +1490,7 @@ def ssm_serve(torch, ssm_module, hbm, reset_counts, counts):
                             max_gen=DENSE_MAX_GEN)[:DENSE_N_REQUESTS]
     targets = {r.req_id: min(r.gen_length, DENSE_MAX_GEN) for r in reqs}
     t0 = time.perf_counter()
-    with Recorder(ssm_module, "ssd_scan", 48) as scans:
+    with Recorder(ssm_module, "ssd_scan", 48) as scans, replays() as rep:
         reset_counts()
         res = run_engine_backend(
             "mamba2-780m", 0.0, 0.0, "magnus", seed=0, reduced=False,
@@ -1457,11 +1536,15 @@ def ssm_serve(torch, ssm_module, hbm, reset_counts, counts):
           f"{plain}")
     check(len(scans.kept) == len(results),
           f"kept {len(scans.kept)} scans for {len(results)} batches")
+    check_captures("SSM padded serve", engine, results, rep,
+                   sum(r.iterations for r in results))
     big = max(results, key=lambda r: r.batch_size)
-    profile_dense_window(
-        torch, engine, [r for r in reqs if r.req_id in big.generated],
-        big.batch_length, big.batch_length + big.iterations,
-        label="SSM padded")
+    log_profiles(f"SSM padded decode step at {big.batch_size} rows",
+                 profile_dense_window(
+                     torch, engine,
+                     [r for r in reqs if r.req_id in big.generated],
+                     big.batch_length, big.batch_length + big.iterations,
+                     label="SSM padded", kernel=None))
     return launches, scans.kept
 
 
@@ -1845,6 +1928,7 @@ def main() -> int:
         log(f"serve kernel launches {launches}, plain calls {plain_calls}, "
             f"{windows.windows} decode windows, {engine.graph_captures} "
             f"capture(s) of the decode step")
+        windows.log("paged serve", engine.decode_steps)
         cfg = engine.cfg
         check(cfg.num_layers == 28 and cfg.d_model == 4096,
               "serve did not run chatglm-6b at full width")
@@ -1935,10 +2019,7 @@ def main() -> int:
         graphed = profile_window(torch, wengine, make_shared_head_dataset(
             SERVE["max_concurrency"], n_apps=3, gen_length=GEN_LENGTH,
             seed=1), eager=True)
-        log("decode step at 32 rows, graphed against eager: " + json.dumps(
-            {mode: {key: round(v, 4) if isinstance(v, float) else v
-                    for key, v in m.items()}
-             for mode, m in graphed.items()}))
+        log_profiles("decode step at 32 rows", graphed)
         del wengine, w, served
         torch.cuda.empty_cache()
 
@@ -1965,7 +2046,7 @@ def main() -> int:
         hbm = torch.cuda.get_device_properties(0).total_memory
         t0 = time.perf_counter()
         dprefill, ddecode = dense_recorders(transformer, 28)
-        with dprefill, ddecode:
+        with dprefill, ddecode, replays(ddecode) as drep:
             reset_counts()
             dres = run_engine_backend(
                 "chatglm-6b", 0.0, 0.0, "magnus", seed=0, reduced=False,
@@ -2012,16 +2093,20 @@ def main() -> int:
               f"{steps} decode steps")
         check(ddecode.steps == steps,
               f"recorded {ddecode.steps} decode steps, not {steps}")
+        check_captures("padded serve", dengine, results, drep, steps)
         check(not any(dplain.values()),
               f"plain versions ran on the padded path: {dplain}")
         kept = sum(t.nbytes for c in dprefill.kept + ddecode.kept for t in c)
         log(f"padded serve kept {len(dprefill.kept)} prefills and "
             f"{len(ddecode.kept)} decode steps ({kept / 2 ** 30:.2f} GiB)")
         big = max(results, key=lambda r: r.batch_size)
-        profile_dense_window(
-            torch, dengine, [r for r in dreqs if r.req_id in big.generated],
-            big.batch_length,
-            1 << (big.batch_length + big.iterations - 1).bit_length())
+        log_profiles(f"padded decode step at {big.batch_size} rows",
+                     profile_dense_window(
+                         torch, dengine,
+                         [r for r in dreqs if r.req_id in big.generated],
+                         big.batch_length, 1 << (big.batch_length
+                                                 + big.iterations
+                                                 - 1).bit_length()))
         del dengine, dres, results
         torch.cuda.empty_cache()
 

@@ -8,12 +8,14 @@ reference package's ``models/model.py``).  Batches are dicts of tensors:
                        scales [L, B, S, Hkv] (``cfg.cache_int8``); or
                        {"ssm": (state, conv)} (the SSM family)
   decode_multi       : {"logits": [B, padded_vocab], "positions": [B]}
+                       (``decode_step_into``: one of its steps in place)
   prefill_wave       : {"tokens": [B, S], "lengths": [B], "prefix_lens",
                         "attn_tables", "tables", "write_lens", "cow_src",
                         "cow_dst", "slots", "row_sel", "positions"}
   decode_step_paged  : {"tokens": [B], "positions": [B], "block_tables"}
   decode_multi_paged : {"logits": [B, padded_vocab], "positions": [B],
                         "block_tables": [B, M], "active": [B] bool}
+                       (``decode_step_paged_into``: one step in place)
 
 The functions run where their tensors live; the constructors
 (:func:`init_params`, :func:`init_cache`, :func:`init_paged_cache`)
@@ -93,6 +95,27 @@ def decode_multi(params, cfg: ModelConfig, cache, batch: Dict[str, Any], *,
     return logits, cache, positions, torch.stack(toks, dim=1)
 
 
+@hot_path
+def decode_step_into(params, cfg: ModelConfig, cache,
+                     state: Dict[str, torch.Tensor], tok_out: torch.Tensor,
+                     *, act_dtype: torch.dtype = torch.bfloat16) -> None:
+    """One step of :func:`decode_multi` written in place, so that a CUDA
+    graph can replay it: argmax the carried ``state["logits"]``, run
+    :func:`decode_step` at ``state["positions"]`` (the dense cache or the
+    SSM state is written in place), copy the new logits into
+    ``state["logits"]``, advance every row's position (the padded batch
+    has no idle row) and write the step's token into ``tok_out`` [B].
+    ``k`` calls equal ``decode_multi(num_steps=k)``."""
+    logits, positions = state["logits"], state["positions"]
+    tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1).to(torch.int32)
+    new_logits, _ = decode_step(params, cfg, cache,
+                                {"tokens": tok, "positions": positions},
+                                act_dtype=act_dtype)
+    logits.copy_(new_logits)
+    positions.add_(1)
+    tok_out.copy_(tok)
+
+
 def supports_paged(cfg: ModelConfig) -> Tuple[bool, str]:
     if cfg.family == "audio":
         return False, "enc-dec cross-KV caches are not paged"
@@ -167,6 +190,27 @@ def decode_multi_paged(params, cfg: ModelConfig, pages,
         params, cfg, pages, batch["logits"], batch["positions"],
         batch["block_tables"], batch["active"], num_steps=num_steps,
         act_dtype=act_dtype)
+
+
+@hot_path
+def decode_step_paged_into(params, cfg: ModelConfig, pages,
+                           state: Dict[str, torch.Tensor],
+                           tok_out: torch.Tensor, *,
+                           act_dtype: torch.dtype = torch.bfloat16) -> None:
+    """One step of :func:`decode_multi_paged` written in place: argmax
+    the carried ``state["logits"]``, run :func:`decode_step_paged` on
+    ``state["positions"]`` and ``state["tables"]``, write the new logits
+    into ``state["logits"]``, advance ``state["positions"]`` where
+    ``state["active"]``, and write the step's token into ``tok_out``."""
+    logits, positions = state["logits"], state["positions"]
+    tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1).to(torch.int32)
+    new_logits, _ = decode_step_paged(
+        params, cfg, pages, {"tokens": tok, "positions": positions,
+                             "block_tables": state["tables"]},
+        act_dtype=act_dtype)
+    logits.copy_(new_logits)
+    positions.add_(state["active"].to(positions.dtype))
+    tok_out.copy_(tok)
 
 
 def write_suffix_pages_batched(pages, kv, block_tables, starts, lengths, *,

@@ -16,10 +16,12 @@
   device with the argmax feeding the next step, and one ``[B, k]`` token
   readback per window, counted in ``host_syncs`` (``ContinuousEngine``
   reads its tokens back every step, as in the reference).  On the card
-  the paged engine replays its decode step as a captured CUDA graph
-  (``serving/graphs.py``), captured at its first window or ahead of time
-  in ``warmup()``: the port's counterpart of the reference's one
-  compiled program per window.
+  the paged engine and ``BatchEngine`` replay their decode step as a
+  captured CUDA graph (``serving/graphs.py``): the paged engine captures
+  once, at its first window or ahead of time in ``warmup()``, and
+  ``BatchEngine`` once per batch, on the batch's own cache.  This is the
+  port's counterpart of the reference's one compiled program per
+  window.
 - Admission is a single-dispatch variable-prefix wave (§12): radix hits
   and misses ride one ``prefill_wave`` call per suffix-length bucket.
 
@@ -178,15 +180,38 @@ class ServeResult:
     decode_time: float = 0.0          # decode loop only (prefill excluded)
 
 
+# A CUDA ``BatchEngine`` captures a batch's decode step when the batch
+# runs at least this many steps (G(B)); a batch of fewer decodes eagerly.
+# The measured break-even (scripts/padded_graph_breakeven.py: 20 rows at
+# full width in bf16, NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): a
+# capture costs ~40-50 ms of host time beside an eager step of ~25-45 ms
+# and a replayed one of ~10 ms, and the captured batch's decode time is
+# the lower from G(B) = 4 for chatglm-6b and mamba2-780m alike; at
+# G(B) = 3 it ties or loses.
+MIN_GRAPH_STEPS = 4
+
+
 class BatchEngine(_DenseEngine):
     """Padded batch serving with the real model (vanilla / Magnus
-    runtime)."""
+    runtime).
+
+    On the card, each batch of at least ``MIN_GRAPH_STEPS`` decode steps
+    captures its decode step as a CUDA graph after its prefill (the
+    first step, run eagerly on the batch's state, is the capture's
+    warm-up), and every later step of every window is one replay; the
+    graph is dropped with the batch.  ``graph_captures`` counts the
+    captures and ``capture_time`` sums their host seconds, which
+    ``decode_time`` includes, as the reference's includes the jit
+    compile at a shape's first call.  A CPU engine decodes eagerly."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, seed: int = 0,
                  max_gen: int = 64, dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__(cfg, params, seed, dtype, device)
         self.max_gen = max_gen
+        self.graph_captures = 0
+        self.capture_time = 0.0
+        self._capture_stream: Optional[torch.cuda.Stream] = None
 
     def _tokens(self, reqs: List[Request], pad_to: int) -> np.ndarray:
         out = np.zeros((len(reqs), pad_to), np.int32)
@@ -217,14 +242,28 @@ class BatchEngine(_DenseEngine):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t_dec = time.perf_counter()
+        graph, start = None, 0
+        if self.device.type == "cuda" and bg >= MIN_GRAPH_STEPS:
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(device=self.device)
+            # the warm-up step is the first window's first step
+            graph, start = DecodeGraph.padded(
+                self.params, self.cfg, cache, logits, positions,
+                act_dtype=self.dtype, max_steps=_pow2_floor(bg),
+                stream=self._capture_stream), 1
+            self.graph_captures += 1
+            self.capture_time += graph.capture_s
         chunks: List[np.ndarray] = []
         remaining = bg
         while remaining > 0:
             k = _pow2_floor(remaining)
-            logits, cache, positions, toks = M.decode_multi(
-                self.params, self.cfg, cache,
-                {"logits": logits, "positions": positions}, num_steps=k,
-                act_dtype=self.dtype)
+            if graph is None:
+                logits, cache, positions, toks = M.decode_multi(
+                    self.params, self.cfg, cache,
+                    {"logits": logits, "positions": positions},
+                    num_steps=k, act_dtype=self.dtype)
+            else:
+                toks, start = graph.window(k, start), 0
             # the window token readback: one sync per window
             chunks.append(toks.cpu().numpy())
             self.host_syncs += count_sync()
@@ -930,7 +969,7 @@ class PagedContinuousEngine:
             return toks
         start = 0
         if self._decode_graph is None:
-            self._decode_graph = DecodeGraph(self, live=True)
+            self._decode_graph = DecodeGraph.paged(self, live=True)
             self.graph_captures += 1
             start = 1
         return self._decode_graph.window(k, start)
@@ -1011,7 +1050,7 @@ class PagedContinuousEngine:
                 k <<= 1
         if self.device.type == "cuda":
             if self._decode_graph is None:
-                self._decode_graph = DecodeGraph(self, live=False)
+                self._decode_graph = DecodeGraph.paged(self, live=False)
                 self.graph_captures += 1
             return
         b = self.slots

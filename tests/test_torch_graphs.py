@@ -2,8 +2,8 @@
 (``repro_torch/serving/graphs.py``), the port's counterpart of the
 reference's compiled decode window.
 
-On the CPU: the captured unit, ``decode_step_into`` (one greedy step
-written in place), repeated ``k`` times equals ``decode_multi_paged(k)``
+On the CPU: the captured unit, ``decode_step_paged_into`` (one greedy
+step written in place), repeated ``k`` times equals ``decode_multi_paged(k)``
 bit for bit and the JAX ``decode_multi_paged`` at f32 on the same
 weights; and a private split-counter buffer is what a capture's
 launches get, and outlives the shared buffer's growth.
@@ -33,7 +33,6 @@ from repro_torch.kernels.decode_attention import ops, ref
 from repro_torch.models import model as M
 from repro_torch.params import params_from_numpy
 from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
-from repro_torch.serving.graphs import decode_step_into
 from repro_torch.workload.apps import make_dataset
 
 TOL = 2e-4          # f32, of the reference's largest magnitude
@@ -82,8 +81,8 @@ def test_decode_step_into_matches_fused_decode_and_jax():
     tok = torch.zeros(4, dtype=torch.int32)
     toks = []
     for _ in range(k):
-        decode_step_into(tp, CFG, pages, state, tok,
-                         act_dtype=torch.float32)
+        M.decode_step_paged_into(tp, CFG, pages, state, tok,
+                                 act_dtype=torch.float32)
         toks.append(tok.clone())
     toks = torch.stack(toks, 1)
     flog, fpages, fpos, ftoks = M.decode_multi_paged(
