@@ -124,11 +124,44 @@ CUDA toolkit.  Phases, each fatal on failure:
    against ``decode_multi_paged`` run eagerly on a copy of the state,
    and both are timed and profiled: host ms a step, device ms a step
    and the idle share, graphed against eager, beside the host time the
-   warmed serve took to enqueue a replayed step.
+   warmed serve took to enqueue a replayed step;
+15. chaos serve (the lifecycle and the host swap tier): phase 5's 48
+   requests and weights through ``drive_paged`` on an engine with a
+   128-block pool, a 128-block pinned host tier (allocated when the
+   engine is built), a deadline and a ``FaultInjector`` plan of every
+   fault kind but the crash (``chaos_plan``).  Counts are zeroed just
+   before and read just after.  Check 1, the contract: nothing
+   unserved, every request served or shed with a known reason,
+   swap-outs, resumes, a quarantine, deadline misses, evictions and
+   stall ticks all seen, both tiers drained, one capture, both paged
+   kernels launched once per layer and step or wave, no plain call,
+   and the host syncs exactly one per decode window, one per NaN-guard
+   readback (the engine counts them) and two per swap-out.  The
+   layer-0 inputs of every decode step and admission wave of the serve
+   (re-admissions and resumed slots' tables included) go through each
+   paged kernel and its plain version on the chaos engine's pools, held
+   as in phase 6.  Check 2: of two engines admitted identically, one
+   has a slot poisoned; after the window it quarantines exactly that
+   request, and every other slot's tokens and logits equal the other
+   engine's bit for bit.  Check 3: one of two such engines suspends a
+   slot and resumes it; its pages, logits row and position equal the
+   other's bit for bit, nothing is re-prefilled, and the next window is
+   bit-equal.  Check 4: each finished stream against phase 5's; one
+   that differs must have been restarted or have another KV lineage
+   than in phase 5 (a wave of another shape wrote its KV or its cached
+   prefix: bf16 GEMMs of another M may round otherwise); and the
+   witness, in f32 (TF32 off) on one f32 weight set: phase 5's serve
+   through its launcher (its steps, waves and host syncs equal phase
+   5's; its waves' lineages stand for phase 5's), then the chaos serve
+   (its counters and sheds equal the bf16 one's), whose every finished
+   stream must equal the f32 serve's.  Logged: tokens/s beside phase
+   5's, the host-sync split, host ms and GB/s a swap-out and a resume,
+   the pinned tier's size and the engine's build time, the NaN guard's
+   host ms.
 
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves; phase 14 runs right after
-phase 5.  The line before the last is a
+phase 5, and phase 15 last.  The line before the last is a
 JSON object with one entry per kernel (six); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is missing or the port's sources are not beside
@@ -919,6 +952,492 @@ def warmed_serve(torch, reqs, reset_counts, counts):
             "plain_calls": counts("plain_calls"), "stats": st,
             "windows": rep.windows, "replayed_steps": rep.replayed_steps,
             "captures": (captures0, engine.graph_captures)}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the chaos serve (the §14 lifecycle and the §15 host swap tier)
+# ---------------------------------------------------------------------------
+
+# a pool of 128 blocks (30 of phase 5's requests fit at once, with their
+# shared heads) and a host tier of as many (0.94 GB pinned at chatglm-6b's
+# 7.3 MB a block); the deadline lets the first wave finish and sheds the
+# requests that a suspension or a restart plus the stall hold past it
+CHAOS = dict(num_blocks=128, block_tokens=16, max_concurrency=32,
+             max_len=512, max_gen=128)
+CHAOS_SWAP_BLOCKS = 128
+CHAOS_TTL = 60                 # scheduler-clock ticks from admission
+TWIN = dict(num_blocks=512, block_tokens=16, max_concurrency=32,
+            max_len=512, max_gen=128)
+POISON_SLOT, SWAP_SLOT = 5, 9  # the twin checks' victims
+GUARD_REPS = 20
+
+
+def chaos_plan(FaultEvent):
+    """Every fault kind of the lifecycle and the tier, in one serve of 7
+    decode windows: an under-prediction storm on one app (x0.25 from the
+    first admission), a poisoned slot, a pool shrink (suspensions), a
+    host tier squeezed to 8 blocks (so later victims are destroyed), two
+    stalled resumes, a stall, then both restores."""
+    return [FaultEvent(window=0, kind="predict_skew", app="head1",
+                       factor=0.25),
+            FaultEvent(window=2, kind="poison_logits"),
+            FaultEvent(window=3, kind="pool_shrink", blocks=40),
+            FaultEvent(window=4, kind="host_pressure", blocks=120),
+            FaultEvent(window=4, kind="swap_stall", ticks=2),
+            FaultEvent(window=6, kind="stall", ticks=24),
+            FaultEvent(window=7, kind="host_pressure", blocks=0),
+            FaultEvent(window=7, kind="pool_restore")]
+
+
+class wave_shapes:
+    """Inside the ``with`` block every admission wave of a paged engine
+    records, for each request it prefills, the KV's lineage: the wave's
+    shape (its rows, the power-of-two batch, and its suffix bucket), the
+    request's cached prefix tokens, and the lineage of every block its
+    cached prefix shares (or clones), as recorded when that block was
+    written.  A bf16 prefill in a wave of another shape (another GEMM M)
+    may round differently, and so may everything computed on its KV.
+    ``by_req`` maps a req_id to the lineages of its admissions (a
+    restarted request has more than one)."""
+
+    def __init__(self):
+        self.by_req = {}
+        self.written = {}      # block -> the lineage of its writer
+
+    def __enter__(self):
+        from repro_torch.serving import engine as E
+        self.orig = orig = E.PagedContinuousEngine._dispatch_wave
+
+        def record(engine, plans):
+            nb = E._pow2_ceil(len(plans))
+            sb = E._bucket(max(len(p["ids"]) - p["cached"] for p in plans))
+            lines = []
+            for p in plans:
+                full = p["cached"] // engine.bt
+                src = list(p["table"][:full]) + (
+                    [p["cow"][0]] if p["cow"] is not None else [])
+                line = (nb, sb, p["cached"],
+                        tuple(self.written.get(b) for b in src))
+                self.by_req.setdefault(p["req"].req_id, []).append(line)
+                lines.append(line)
+            out = orig(engine, plans)
+            for p, line in zip(plans, lines):
+                for b in p["table"][p["cached"] // engine.bt:]:
+                    self.written[b] = line
+            return out
+
+        E.PagedContinuousEngine._dispatch_wave = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import engine as E
+        E.PagedContinuousEngine._dispatch_wave = self.orig
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def block_bytes(engine) -> int:
+    """Bytes of one block across the pools (every layer, K and V)."""
+    return sum(p[:, 0].numel() * p.element_size()
+               for p in engine.pages.values())
+
+
+def chaos_serve(torch, cfg, params, device, dtype, reset_counts, counts,
+                plan=None):
+    """Phase 5's 48 requests (predictions exact, but for the skewed app)
+    straight through ``drive_paged`` on a faulted engine with a host
+    tier and deadlines.  Counts are zeroed just before and read just
+    after.  Each swap-out is timed on the host (it waits for its
+    copies); every wave's KV lineage is recorded, and so are the layer-0
+    inputs of every decode step and admission wave (as in phase 5), for
+    :func:`hold_chaos`.  Returns what the checks and the log need."""
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
+    from repro_torch.serving.faults import FaultEvent, FaultInjector
+    from repro_torch.workload.apps import make_shared_head_dataset
+    reqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
+                                    gen_length=GEN_LENGTH, seed=0)
+    inj = FaultInjector(plan if plan is not None else chaos_plan(FaultEvent))
+    t0 = time.perf_counter()
+    engine = PagedContinuousEngine(
+        cfg, params, device=device, dtype=dtype, faults=inj,
+        default_ttl=CHAOS_TTL, swap_blocks=CHAOS_SWAP_BLOCKS,
+        prefix_cache=True, **CHAOS)
+    build_s = time.perf_counter() - t0
+    swap_out, outs, queued = engine._swap_out, [], []
+
+    def timed_swap_out(slot):
+        # whether device work was still queued (the swap-out's wait for
+        # its copies waits for that work too); asks, does not wait
+        busy = (torch.device(device).type == "cuda"
+                and not torch.cuda.current_stream().query())
+        t0, s0 = time.perf_counter(), engine.host_syncs
+        b0 = engine.swapped_blocks
+        ok = swap_out(slot)
+        if ok:
+            outs.append((time.perf_counter() - t0, engine.host_syncs - s0,
+                         engine.swapped_blocks - b0))
+            queued.append(busy)
+        return ok
+
+    engine._swap_out = timed_swap_out
+    decoded, waves = paged_recorders(transformer, cfg.num_layers)
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    with decoded, waves, replays(decoded) as rep, wave_shapes() as shapes:
+        reset_counts()
+        st = drive_paged(engine, list(reqs), max_steps=100_000)
+        _sync(torch, device)
+        launches = counts("launches")
+    wall = time.perf_counter() - t0
+    inj.release(engine.allocator)
+    return {"engine": engine, "reqs": reqs, "stats": st, "inj": inj,
+            "launches": launches, "plain_calls": counts("plain_calls"),
+            "wall": wall, "windows": rep.windows, "outs": outs,
+            "build_s": build_s, "queued": queued,
+            "shapes": shapes.by_req, "decoded": decoded, "waves": waves}
+
+
+def hold_chaos(torch, ops, ref, r):
+    """Phase 15: every decode step and admission wave of the chaos serve
+    (its row counts, suffix buckets, re-admissions with their radix
+    hits, resumed slots' scattered tables), recorded at layer 0, through
+    each paged kernel and its plain version on the chaos engine's
+    pools, held as phase 6 holds phase 5's (``hold``).  The recorders
+    must have seen every step and wave.  Returns the largest error of
+    each kernel."""
+    eng, decoded, waves = r["engine"], r["decoded"], r["waves"]
+    check(len(decoded.kept) == eng.decode_steps
+          and len(waves.kept) == eng.prefill_dispatches,
+          f"recorded {len(decoded.kept)} decode steps and "
+          f"{len(waves.kept)} waves of {eng.decode_steps} and "
+          f"{eng.prefill_dispatches}")
+    K, V = eng.pages["k"][0], eng.pages["v"][0]
+    errs = {"paged_decode_attention": [],
+            "paged_prefix_prefill_attention": []}
+    for q, tables, lens in decoded.kept:
+        errs["paged_decode_attention"].append(hold(
+            torch, "paged_decode_attention",
+            ops.paged_decode_attention(q, K, V, tables, lens),
+            ref.paged_decode_attention_ref(q, K, V, tables, lens)))
+    for q, ks, vs, tables, pl, sl in waves.kept:
+        errs["paged_prefix_prefill_attention"].append(hold(
+            torch, "paged_prefix_prefill_attention",
+            ops.paged_prefix_prefill_attention(q, ks, vs, K, V, tables,
+                                               pl, sl),
+            ref.paged_prefix_prefill_attention_ref(q, ks, vs, K, V, tables,
+                                                   pl, sl)))
+    log("chaos holds (layer-0 inputs, the chaos engine's layer-0 pools): "
+        + "; ".join(f"{name} at {len(e)} served shapes, max abs err "
+                    f"{max(x for x, _ in e):.3e} at output scale up to "
+                    f"{max(sc for _, sc in e):.1f}"
+                    for name, e in errs.items()))
+    return {name: max(x for x, _ in e) for name, e in errs.items()}
+
+
+def check_chaos(torch, r, layers):
+    """Phase 15's check 1, the contract: nothing unserved, every request
+    served or shed with a known reason, every fault kind seen, both
+    tiers drained, one capture (on the card), the kernels launched once
+    per layer and step or wave and no plain version ran, and the host
+    syncs exactly one per decode window, one per NaN-guard readback (the
+    engine counts them, at most one a window) and two per swap-out (one
+    if it had no page to copy)."""
+    from repro_torch.core.types import SHED_REASONS
+    eng, st = r["engine"], r["stats"]
+    check(not st["unserved"], f"{len(st['unserved'])} requests unserved")
+    check(st["served"] + len(st["shed"]) == N_REQUESTS,
+          f"{st['served']} served + {len(st['shed'])} shed != {N_REQUESTS}")
+    check(all(s.reason in SHED_REASONS for s in st["shed"]),
+          "a shed without a known reason")
+    seen = {name: getattr(eng, name) for name in (
+        "swap_outs", "swap_ins", "quarantined", "deadline_misses",
+        "evictions", "stall_ticks")}
+    check(all(seen.values()), f"a fault path never ran: {seen}")
+    eng.assert_drained()
+    check(eng.swap.empty, "the host tier is not empty")
+    if eng.device.type == "cuda":
+        check(eng.graph_captures == 1,
+              f"{eng.graph_captures} captures of the decode step")
+    check(r["launches"]["paged_decode_attention"]
+          == layers * eng.decode_steps
+          and r["launches"]["paged_prefix_prefill_attention"]
+          == layers * eng.prefill_dispatches,
+          f"chaos launches {r['launches']} against {eng.decode_steps} "
+          f"steps and {eng.prefill_dispatches} waves")
+    check(not any(r["plain_calls"].values()),
+          f"plain versions ran in the chaos serve: {r['plain_calls']}")
+    swap_syncs = sum(s for _, s, _ in r["outs"])
+    check(len(r["outs"]) == eng.swap_outs
+          and all(s == (2 if b else 1) for _, s, b in r["outs"]),
+          f"swap-outs (host s, syncs, fresh blocks) {r['outs']}: not one "
+          f"readback for the logits row and one for the pages, if any")
+    guard = eng.guard_readbacks
+    check(r["windows"] <= guard <= eng.windows
+          and st["host_syncs"] == r["windows"] + guard + swap_syncs,
+          f"host syncs {st['host_syncs']}: not {r['windows']} decode "
+          f"windows + {guard} guard readbacks (in {eng.windows} windows) "
+          f"+ {swap_syncs} swap-out readbacks")
+    for rid, toks in eng.generated.items():
+        check(len(toks) == GEN_LENGTH
+              and all(0 <= t < eng.cfg.vocab_size for t in toks),
+              f"request {rid}: {len(toks)} tokens or one out of range")
+    return guard
+
+
+def compare_streams(reqs, generated, shapes, reqs5, streams5, shapes5):
+    """Phase 15's check 4: each finished stream (``generated``) against
+    the unfaulted serve's for the same request; each that differs is put
+    down to a restart (re-prefilled), to its one admission's KV lineage
+    differing from the unfaulted serve's (``wave_shapes``), or to
+    neither.  Returns (equal count, restarted, other lineage, same
+    lineage) as request indices."""
+    same, restarted, other, unexplained = 0, [], [], []
+    for i, req in enumerate(reqs):
+        toks = generated.get(req.req_id)
+        if toks is None:
+            continue
+        if toks == streams5[i]:
+            same += 1
+            continue
+        lines = shapes.get(req.req_id, [])
+        if len(lines) > 1:
+            restarted.append(i)
+        elif lines != shapes5.get(reqs5[i].req_id, []):
+            other.append(i)
+        else:
+            unexplained.append(i)
+    return same, restarted, other, unexplained
+
+
+def shed_list(r):
+    """The chaos serve's sheds in order, as (request index, reason)."""
+    index = {q.req_id: i for i, q in enumerate(r["reqs"])}
+    return [(index[x.req.req_id], x.reason) for x in r["stats"]["shed"]]
+
+
+def f32_witness(torch, cfg, reset_counts, counts, served5, chaos16):
+    """Phase 15's witness for check 4, in f32 (TF32 off) on one weight
+    set: phase 5's serve (its launcher, geometry, requests and seed, so
+    its schedule: steps, waves, windows and host syncs must equal phase
+    5's), whose admission waves' KV lineages stand for phase 5's, then
+    the chaos serve.  The chaos serve's schedule is length-scripted, so
+    its counters and sheds must equal the bf16 chaos serve's; its
+    streams are compared with the f32 serve's by ``compare_streams``,
+    as the bf16 ones with phase 5's.  Returns phase 5's lineages, that
+    comparison and the f32 chaos serve's wall time."""
+    from repro_torch.launch.serve import run_paged_engine_backend
+    from repro_torch.models import model as M
+    from repro_torch.workload.apps import make_shared_head_dataset
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on for f32 GEMMs")
+    log(f"f32 witness: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"allocated before its weights")
+    params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    reqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
+                                    gen_length=GEN_LENGTH, seed=0)
+    with wave_shapes() as shapes5:
+        res = run_paged_engine_backend(
+            "chatglm-6b", 0.0, 0.0, "magnus-paged", seed=0, reduced=False,
+            device="cuda", dtype=torch.float32, prefix_cache=True,
+            requests=reqs, params=params, **SERVE)
+    eng = res.pop("engine")
+    sched = (eng.decode_steps, eng.prefill_dispatches, res["host_syncs"])
+    check(sched == (served5["steps"], served5["waves"],
+                    served5["host_syncs"]),
+          f"the f32 serve's steps, waves and host syncs {sched}: not "
+          f"phase 5's {served5['steps'], served5['waves']}, "
+          f"{served5['host_syncs']}")
+    eng.assert_drained()
+    streams = [eng.generated[r.req_id] for r in reqs]
+    del eng, res
+    torch.cuda.empty_cache()
+    r = chaos_serve(torch, cfg, params, "cuda", torch.float32,
+                    reset_counts, counts)
+    del params
+    eng = r["engine"]
+    names = ("decode_steps", "prefill_dispatches", "evictions",
+             "quarantined", "deadline_misses", "stall_ticks", "swap_outs",
+             "swap_ins", "swapped_blocks", "host_syncs")
+    mine = {n: getattr(eng, n) for n in names}
+    check(mine == chaos16["counters"]
+          and shed_list(r) == chaos16["sheds"],
+          f"the f32 chaos serve's counters {mine} or sheds differ from "
+          f"the bf16 one's {chaos16['counters']}")
+    eng.assert_drained()
+    cmp = compare_streams(r["reqs"], eng.generated, r["shapes"], reqs,
+                          streams, shapes5.by_req)
+    wall = r["wall"]
+    del r, eng
+    torch.cuda.empty_cache()
+    return shapes5.by_req, cmp, wall
+
+
+def _twins(torch, cfg, params, device, dtype, plans, **kw):
+    """Two engines admitted identically (the first 32 of phase 5's
+    requests in one wave) and run one 2-step window (the capture);
+    ``plans`` gives each its fault plan."""
+    import copy
+    from repro_torch.serving.engine import PagedContinuousEngine
+    from repro_torch.serving.faults import FaultInjector
+    from repro_torch.workload.apps import make_shared_head_dataset
+    reqs = make_shared_head_dataset(TWIN["max_concurrency"], n_apps=3,
+                                    gen_length=GEN_LENGTH, seed=0)
+    out = []
+    for plan in plans:
+        eng = PagedContinuousEngine(
+            cfg, params, device=device, dtype=dtype, prefix_cache=True,
+            faults=FaultInjector(plan), **TWIN, **kw)
+        check(eng.join_many(copy.deepcopy(reqs)) == len(reqs),
+              "a twin engine refused its wave")
+        eng.step_window(max_steps=2)
+        out.append(eng)
+    a, b = out
+    check(all(x["generated"] == y["generated"]
+              for x, y in zip(a.active, b.active)),
+          "the twin engines' first windows differ")
+    return a, b
+
+
+def _same_window(torch, a, b, skip=()):
+    """One 4-step window on both twins: the same steps, and bit-equal
+    tokens and logits on every slot not in ``skip``."""
+    _, ea, ka = a.step_window(max_steps=4)
+    _, eb, kb = b.step_window(max_steps=4)
+    check(ka == kb == 4, f"twin windows of {ka} and {kb} steps")
+    keep = [s for s in range(a.slots) if s not in skip]
+    for s in keep:
+        check(a.active[s]["generated"] == b.active[s]["generated"],
+              f"slot {s}: the twins' tokens differ")
+    check(torch.equal(a.logits[keep], b.logits[keep]),
+          "the twins' logits differ")
+    return ea, eb
+
+
+def quarantine_check(torch, cfg, params, device, dtype):
+    """Phase 15's check 2: poison slot ``POISON_SLOT`` of twin A in its
+    second window; A quarantines exactly that slot's request, and every
+    other slot's tokens and logits after the window equal twin B's, bit
+    for bit.  Then the guard's readback, timed alone on B's logits."""
+    from repro_torch.serving.faults import FaultEvent
+    a, b = _twins(torch, cfg, params, device, dtype,
+                  [[FaultEvent(window=2, kind="poison_logits",
+                               slot=POISON_SLOT)], []])
+    victim = a.active[POISON_SLOT]["req"].req_id
+    ea, eb = _same_window(torch, a, b, skip=(POISON_SLOT,))
+    check(a.quarantined == 1 and [r.req_id for r in ea] == [victim]
+          and b.quarantined == 0 and not eb,
+          f"quarantine: A {a.quarantined} ({[r.req_id for r in ea]}), "
+          f"B {b.quarantined}")
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    for _ in range(GUARD_REPS):
+        torch.isfinite(b.logits).all(dim=1).cpu()
+    guard_ms = (time.perf_counter() - t0) * 1e3 / GUARD_REPS
+    log(f"quarantine: slot {POISON_SLOT} poisoned, request {victim} "
+        f"quarantined; the other {a.slots - 1} slots' tokens and logits "
+        f"bit-equal to the unpoisoned twin's; the guard's readback of "
+        f"{tuple(b.logits.shape)} {b.logits.dtype} logits as {a.slots} "
+        f"flags: {guard_ms:.4f} host ms")
+    return guard_ms
+
+
+def swap_roundtrip_check(torch, cfg, params, device, dtype):
+    """Phase 15's check 3: twin A suspends slot ``SWAP_SLOT`` and resumes
+    it with no admission between; its pages through its new table, its
+    logits row and position equal twin B's bit for bit, its prefill
+    tokens do not move, and the next window equals B's on every slot.
+    The suspension (gather and two synchronous copies to pinned memory)
+    and the resume (scatter, restore, synchronised) are timed."""
+    from repro_torch.models import model as M
+    a, b = _twins(torch, cfg, params, device, dtype, [[], []],
+                  swap_blocks=CHAOS_SWAP_BLOCKS)
+    pt0, s = a.prefill_tokens, SWAP_SLOT
+    rid = a.active[s]["req"].req_id
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    check(a._swap_out(s) and a.active[s] is None,
+          "the twin's suspension was refused")
+    t_out = time.perf_counter() - t0
+    image = a.swapped_blocks * block_bytes(a)
+    back = len(a.swap.split_resident(rid)[1]) * block_bytes(a)
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    check(a._resume_swapped() == 1 and a.active[s] is not None,
+          "the suspended slot did not resume into its slot")
+    _sync(torch, device)
+    t_in = time.perf_counter() - t0
+    check(a.prefill_tokens == pt0, "the resume re-prefilled tokens")
+    pages = [M.gather_pages(e.pages, torch.tensor(
+        e.allocator.tables[s], device=e.device)) for e in (a, b)]
+    check(torch.equal(*pages), "the resumed pages differ from the twin's")
+    check(torch.equal(a.logits[s], b.logits[s])
+          and torch.equal(a.positions, b.positions)
+          and int(a.pos_host[s]) == int(b.pos_host[s]),
+          "the resumed logits row or position differs")
+    _same_window(torch, a, b)
+    log(f"swap round trip: slot {s}, {a.swapped_blocks} blocks "
+        f"({image / 2 ** 20:.1f} MiB) suspended in {t_out * 1e3:.2f} host "
+        f"ms ({image / t_out / 1e9:.2f} GB/s); {back / 2 ** 20:.1f} MiB "
+        f"of it scattered back (the rest still device-resident under the "
+        f"tier's holds) in a resume of {t_in * 1e3:.2f} ms synchronised "
+        f"({back / t_in / 1e9:.2f} GB/s); pages, logits and positions "
+        f"bit-equal to the twin's, no token re-prefilled, the next window "
+        f"bit-equal on every slot")
+
+
+def log_chaos(r, guard, res5_wall, res5_tp):
+    """Phase 15's numbers, beside phase 5's serve of the same requests."""
+    eng, st = r["engine"], r["stats"]
+    tokens = sum(len(g) for g in eng.generated.values())
+    outs = r["outs"]
+    out_ms = [t * 1e3 for t, _, _ in outs]
+    bb = block_bytes(eng)
+    reasons = {}
+    for sh in st["shed"]:
+        reasons[sh.reason] = reasons.get(sh.reason, 0) + 1
+    log(f"chaos serve: {r['wall']:.2f} s, {tokens / r['wall']:.1f} tokens/s"
+        f" ({st['served']} served, shed {reasons}; phase 5: "
+        f"{res5_wall} s, {res5_tp} tokens/s); {eng.decode_steps} steps in "
+        f"{r['windows']} decode windows of {eng.windows}; fired "
+        f"{r['inj'].fired}")
+    log(f"chaos counters: " + json.dumps({n: getattr(eng, n) for n in (
+        "evictions", "quarantined", "deadline_misses", "stall_ticks",
+        "swap_outs", "swap_ins", "swapped_blocks", "swap_reused_blocks",
+        "swapped_ctx_tokens", "reprefilled_swapped_tokens",
+        "requeue_prefix_hits", "prefill_dispatches", "prefill_tokens",
+        "graph_captures")}) + f", injector {r['inj'].counters()}")
+    log(f"chaos host syncs {st['host_syncs']} = {r['windows']} decode "
+        f"windows + {guard} NaN-guard readbacks + "
+        f"{sum(s for _, s, _ in outs)} swap-out readbacks "
+        f"({len(outs)} swap-outs)")
+    if outs:
+        blocks = sum(b for _, _, b in outs)
+        log(f"chaos swap-outs: host ms each {[round(m, 2) for m in out_ms]}"
+            f" (device work queued ahead of each: {r['queued']}), mean {statistics.mean(out_ms):.2f} ms for "
+            f"{blocks / len(outs) * bb / 2 ** 20:.1f} MiB an image "
+            f"({blocks * bb / 1e9 / (sum(out_ms) / 1e3):.2f} GB/s); "
+            f"resumes: {eng.swap_in_s * 1e3 / max(1, eng.swap_ins):.2f} host "
+            f"ms each to enqueue; pinned tier "
+            f"{eng.swap._store.nbytes / 2 ** 30:.2f} GiB "
+            f"({CHAOS_SWAP_BLOCKS} blocks of {bb / 2 ** 20:.2f} MiB), "
+            f"pinned when the engine was built, which took "
+            f"{r['build_s']:.2f} s")
+
+
+def log_streams(cmps):
+    """Phase 15's check 4, each comparison of ``compare_streams``."""
+    for label, (same, restarted, other, unexplained) in cmps:
+        log(f"chaos streams against the unfaulted serve's, {label}: "
+            f"{same} equal; differ: {len(restarted)} restarted "
+            f"(re-prefilled; requests {restarted}), {len(other)} with "
+            f"another KV lineage than unfaulted (the wave's rows or "
+            f"suffix bucket, or the waves that wrote its cached prefix; "
+            f"requests {other}), {len(unexplained)} with the same lineage "
+            f"(requests {unexplained})")
 
 
 # ---------------------------------------------------------------------------
@@ -1978,12 +2497,14 @@ def main() -> int:
         served = {"streams": [engine.generated[r.req_id] for r in reqs],
                   "launches": launches, "windows": windows.windows,
                   "host_syncs": res["host_syncs"],
-                  "steps": engine.decode_steps}
+                  "steps": engine.decode_steps,
+                  "waves": engine.prefill_dispatches}
         profile_window(torch, engine, make_shared_head_dataset(
             SERVE["max_concurrency"], n_apps=3, gen_length=GEN_LENGTH,
             seed=1))
         pages = engine.pages
-        del engine, res
+        res5 = {k: res[k] for k in ("wall_s", "token_tp")}
+        del engine, res, windows   # the recorder holds the pools' views
         torch.cuda.empty_cache()
 
         # 14. phase 5's serve on an engine warmed up ahead of time
@@ -2020,6 +2541,8 @@ def main() -> int:
             SERVE["max_concurrency"], n_apps=3, gen_length=GEN_LENGTH,
             seed=1), eager=True)
         log_profiles("decode step at 32 rows", graphed)
+        streams5 = served["streams"]
+        sched5 = {k: served[k] for k in ("steps", "waves", "host_syncs")}
         del wengine, w, served
         torch.cuda.empty_cache()
 
@@ -2107,7 +2630,7 @@ def main() -> int:
                          big.batch_length, 1 << (big.batch_length
                                                  + big.iterations
                                                  - 1).bit_length()))
-        del dengine, dres, results
+        del dengine, dres, results, drep   # drep: the last batch's cache
         torch.cuda.empty_cache()
 
         # 8. padded timings at the serve's shapes
@@ -2137,6 +2660,51 @@ def main() -> int:
         t["decode_attention_int8"] = summarize(
             "decode_attention_int8", *time_int8(torch, ops, ref, i8calls,
                                                 spin))
+        del scans, i8calls
+        torch.cuda.empty_cache()
+
+        # 15. the chaos serve: the lifecycle and the host swap tier
+        from repro_torch.models import model as M
+        cparams = M.init_params(cfg, seed=0, device="cuda",
+                                dtype=torch.bfloat16)   # phase 5's weights
+        t0 = time.perf_counter()
+        chaos = chaos_serve(torch, cfg, cparams, "cuda", torch.bfloat16,
+                            reset_counts, counts)
+        log(f"chaos serve chatglm-6b full width bf16: "
+            f"{time.perf_counter() - t0:.1f} s; launches "
+            f"{chaos['launches']}, plain calls {chaos['plain_calls']}")
+        guard = check_chaos(torch, chaos, cfg.num_layers)
+        hold_chaos(torch, ops, ref, chaos)
+        ceng = chaos["engine"]
+        chaos16 = {"reqs": chaos["reqs"], "generated": ceng.generated,
+                   "shapes": chaos["shapes"], "sheds": shed_list(chaos),
+                   "counters": {n: getattr(ceng, n) for n in (
+                       "decode_steps", "prefill_dispatches", "evictions",
+                       "quarantined", "deadline_misses", "stall_ticks",
+                       "swap_outs", "swap_ins", "swapped_blocks",
+                       "host_syncs")}}
+        log_chaos(chaos, guard, res5["wall_s"], res5["token_tp"])
+        del chaos, ceng
+        torch.cuda.empty_cache()
+        quarantine_check(torch, cfg, cparams, "cuda", torch.bfloat16)
+        torch.cuda.empty_cache()
+        swap_roundtrip_check(torch, cfg, cparams, "cuda", torch.bfloat16)
+        del cparams
+        torch.cuda.empty_cache()
+        shapes5, cmp32, wall32 = f32_witness(torch, cfg, reset_counts,
+                                             counts, sched5, chaos16)
+        cmp16 = compare_streams(chaos16["reqs"], chaos16["generated"],
+                                chaos16["shapes"], reqs, streams5, shapes5)
+        log_streams([("bf16 (phase 5's)", cmp16),
+                     ("f32 (the witness)", cmp32)])
+        log(f"f32 witness: chaos serve {wall32:.2f} s, counters and sheds "
+            f"equal the bf16 chaos serve's")
+        check(not cmp16[3], f"streams {cmp16[3]} differ from phase 5's "
+              f"though their KV has phase 5's lineage")
+        check(cmp32[0] == len(chaos16["generated"]),
+              f"in f32, chaos streams {cmp32[1] + cmp32[2] + cmp32[3]} "
+              f"differ from the unfaulted serve's")
+
         source = {"paged_decode_attention":
                   ("src/repro_torch/csrc/paged_decode_attention.cu",
                    "src/repro/kernels/decode_attention/kernel.py:298",

@@ -110,6 +110,8 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
                              num_blocks: int = 128, block_tokens: int = 16,
                              max_concurrency: int = 16,
                              prefix_cache: bool = False,
+                             ttl_steps: Optional[int] = None,
+                             swap_blocks: int = 0,
                              reduced: bool = True, device=None,
                              dtype: torch.dtype = torch.float32,
                              max_len: int = 200, max_gen: int = 32,
@@ -123,7 +125,11 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
     With ``prefix_cache`` the service's LCP-aware footprints and the
     engine's radix-shared pages use ONE RadixPrefixCache (§10-§11); one
     MispredictionEWMA is shared by the batcher's footprints and the
-    engine's reservations (§14).
+    engine's reservations (§14).  ``ttl_steps`` sets a default
+    per-request deadline in scheduler-clock ticks (§14); ``swap_blocks``
+    > 0 enables the host-memory KV swap tier (§15), so pool pressure
+    suspends victims to host pages (pinned on the card) instead of
+    destroying their KV.
 
     ``reduced`` serves ``cfg.reduced()`` (the reference launcher always
     does); ``max_len``, ``max_gen`` and ``num_blocks`` size the engine
@@ -161,7 +167,8 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
                                    max_len=max_len, max_gen=max_gen,
                                    dtype=dtype, allocator=allocator,
                                    prefix_cache=svc.prefix_cache or False,
-                                   mispredict=ewma, device=dev)
+                                   mispredict=ewma, default_ttl=ttl_steps,
+                                   swap_blocks=swap_blocks, device=dev)
     wl = requests if requests is not None else poisson_workload(
         rate, duration, seed=seed, max_len=max_len, max_gen=max_gen)
     for r in wl:
@@ -201,9 +208,19 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
                 engine.host_syncs / max(total_tokens, 1), 4),
             "mean_block_utilization": round(
                 sum(util) / max(len(util), 1), 3),
+            # robustness counters (DESIGN.md §14)
             "retries_max": st["retries_max"],
+            "deadline_misses": st["deadline_misses"],
+            "quarantined": st["quarantined"],
             "shed": len(st["shed"]),
             "requeue_prefix_hits": st["requeue_prefix_hits"],
+            # host swap tier (DESIGN.md §15)
+            "swap_outs": st["swap_outs"],
+            "swap_ins": st["swap_ins"],
+            "swapped_blocks": engine.swapped_blocks,
+            "swap_reused_blocks": engine.swap_reused_blocks,
+            "reprefilled_swapped_tokens": st["reprefilled_swapped_tokens"],
+            "swap_in_s": round(engine.swap_in_s, 4),
             "headroom": ewma.snapshot(),
             "device": str(dev), "engine": engine}
 
@@ -222,16 +239,30 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--block-tokens", type=int, default=16,
                     help="paged engine block size; matches shorter than "
                          "one block are misses")
+    ap.add_argument("--ttl-steps", type=int, default=None,
+                    help="paged engine: default per-request deadline in "
+                         "scheduler-clock ticks from admission; expired "
+                         "requests are shed and counted (DESIGN.md §14)")
+    ap.add_argument("--swap-blocks", type=int, default=0,
+                    help="paged engine: host-memory KV swap tier capacity "
+                         "in blocks (0 disables); under pool pressure live "
+                         "victims suspend to pinned host pages and resume "
+                         "without re-prefilling (DESIGN.md §15)")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (raises without one)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.prefix_cache and args.strategy not in PAGED_STRATEGIES:
-        ap.error("--prefix-cache needs a -paged strategy")
+    paged_only = {"--prefix-cache": args.prefix_cache,
+                  "--ttl-steps": args.ttl_steps is not None,
+                  "--swap-blocks": args.swap_blocks > 0}
+    for flag, given in paged_only.items():
+        if given and args.strategy not in PAGED_STRATEGIES:
+            ap.error(f"{flag} needs a -paged strategy")
     if args.strategy in PAGED_STRATEGIES:
         out = run_paged_engine_backend(
             args.arch, args.rate, args.duration, args.strategy, args.seed,
             block_tokens=args.block_tokens, prefix_cache=args.prefix_cache,
+            ttl_steps=args.ttl_steps, swap_blocks=args.swap_blocks,
             device=args.device)
     else:
         out = run_engine_backend(args.arch, args.rate, args.duration,

@@ -225,3 +225,15 @@ def write_suffix_pages_batched(pages, kv, block_tables, starts, lengths, *,
 def copy_pages(pages, src, dst):
     """Copy-on-write block clone: pages[:, dst[i]] = pages[:, src[i]]."""
     return transformer.copy_pages(pages, src, dst)
+
+
+@hot_path
+def gather_pages(pages, blocks):
+    """Stack pool pages at ``blocks`` for a host swap-out (§15)."""
+    return transformer.gather_pages(pages, blocks)
+
+
+@hot_path
+def scatter_pages(pages, blocks, values):
+    """Scatter swapped-in host pages back into the pools, in place (§15)."""
+    return transformer.scatter_pages(pages, blocks, values)

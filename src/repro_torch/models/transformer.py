@@ -566,3 +566,28 @@ def copy_pages(pages: Dict, src, dst) -> Dict:
         pool = pages[key]
         pool[:, dst] = pool[:, src]
     return pages
+
+
+def gather_pages(pages: Dict, blocks) -> torch.Tensor:
+    """Stack the pools' pages at ``blocks`` for a host swap-out
+    (DESIGN.md §15): one ``[P, L, N, bt, Hkv, D]`` tensor with the pool
+    axis in sorted key order ("k", "v"), so a single device-to-host copy
+    of the result is the whole swap transfer.  ``blocks`` is int
+    ``[N]``."""
+    blocks = blocks.long()
+    return torch.stack([pages[key].index_select(1, blocks)
+                        for key in sorted(pages)])
+
+
+def scatter_pages(pages: Dict, blocks, values) -> Dict:
+    """Write swapped-in host pages back into the pools, in place — the
+    inverse of :func:`gather_pages`, one indexed copy per pool, so the
+    pools keep their addresses (a captured decode graph reads them).
+    ``values`` is ``[P, L, N, bt, Hkv, D]`` aligned with ``blocks``, on
+    the pools' device; an entry that targets the null block writes junk
+    where junk is by design."""
+    blocks = blocks.long()
+    for i, key in enumerate(sorted(pages)):
+        pool = pages[key]
+        pool.index_copy_(1, blocks, values[i].to(pool.dtype))
+    return pages

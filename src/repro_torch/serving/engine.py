@@ -24,15 +24,21 @@
   window.
 - Admission is a single-dispatch variable-prefix wave (§12): radix hits
   and misses ride one ``prefill_wave`` call per suffix-length bucket.
+- The paged engine's lifecycle (§14): scripted faults
+  (``serving/faults.py``), deadlines, the misprediction guard rails
+  (EWMA headroom, retry-budget escalation) and the NaN/Inf quarantine;
+  and its host swap tier (§15): pool pressure suspends a victim's pages
+  to host memory (pinned on the card) and resumes it later with zero
+  re-prefilled tokens.  Every write these paths make into the tensors a
+  captured decode graph reads (logits, positions, tables, active mask,
+  pools) is in place, so the graph never decodes from a stale tensor.
 
 Generation is length-scripted replay (DESIGN.md §7): logits come from the
 real model, and a request stops at its ground-truth generation length.
 
-Not in this module yet: fault injection, deadlines and the NaN guard
-(§14), the host swap tier (§15), speculative decoding (§16) and
-snapshot/restore (§17).  The padded engines serve the dense
-and SSM (mamba2) families with a float cache; the paged engine serves
-the dense family.
+Not in this module yet: speculative decoding (§16) and snapshot/restore
+(§17).  The padded engines serve the dense and SSM (mamba2) families
+with a float cache; the paged engine serves the dense family.
 """
 from __future__ import annotations
 
@@ -48,12 +54,13 @@ import torch
 from repro_torch.analysis import sanitizer as _san
 from repro_torch.analysis.sanitizer import count_sync, hot_path
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.types import SHED_REASONS, Batch, Request
+from repro_torch.core.types import Batch, Request
 from repro_torch.core.wma import batch_wma
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.transformer import cast_params, supports_dense
-from repro_torch.serving.paged_cache import (BlockAllocator,
+from repro_torch.serving.faults import FaultInjector, Shed
+from repro_torch.serving.paged_cache import (BlockAllocator, HostSwapTier,
                                              MispredictionEWMA, NULL_SEQ,
                                              PrefixMatch, RadixPrefixCache)
 from repro_torch.serving.graphs import DecodeGraph
@@ -87,20 +94,6 @@ class PoolExhausted(MemoryError, EngineFull):
         self.culprit = culprit
 
 
-@dataclasses.dataclass
-class Shed:
-    """A request dropped instead of served.  ``clock`` is the engine's
-    scheduler clock at the moment of the drop."""
-    req: object
-    reason: str
-    clock: int = 0
-
-    def __post_init__(self):
-        if self.reason not in SHED_REASONS:
-            raise ValueError(f"unknown shed reason {self.reason!r}; "
-                             f"one of {SHED_REASONS}")
-
-
 _BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 
 
@@ -120,6 +113,22 @@ def _pow2_ceil(n: int) -> int:
     """Smallest power of two >= n (n >= 1)."""
     n = max(n, 1)
     return 1 << (n - 1).bit_length() if n & (n - 1) else n
+
+
+def _restore_slot(tables: torch.Tensor, positions: torch.Tensor,
+                  active: torch.Tensor, logits: torch.Tensor, slot: int,
+                  row: torch.Tensor, pos: torch.Tensor,
+                  logits_row: torch.Tensor) -> None:
+    """§15 resume: restore a suspended slot's four engine tensors, in
+    place (the reference's compiled ``_restore_slot`` returns four new
+    arrays; a captured decode graph reads these very tensors).  ``row``
+    [M] and ``pos`` [1] are on the engine's device; ``logits_row`` is the
+    host copy of the slot's logits in their own dtype, copied back bit
+    for bit, asynchronously from pinned memory on the card."""
+    tables[slot].copy_(row)
+    positions[slot:slot + 1].copy_(pos)
+    active[slot] = True
+    logits[slot].copy_(logits_row, non_blocking=True)
 
 
 def _upload(device: torch.device, *arrays: np.ndarray
@@ -405,6 +414,19 @@ class PagedContinuousEngine:
     ``decode_multi_paged`` eagerly through the plain versions.
     ``warmup=True`` calls :meth:`warmup` at construction.
 
+    Lifecycle (§14): ``faults`` replays a scripted
+    :class:`~repro_torch.serving.faults.FaultInjector` plan at window
+    boundaries; ``default_ttl`` gives every request without its own
+    ``ttl_steps`` a deadline in scheduler-clock ticks (an expired request
+    is a typed shed); a request evicted ``retry_budget`` times reserves
+    past its observed progress on readmission; ``nan_guard`` (default:
+    on exactly when ``faults`` is given) reads back one finite flag per
+    slot each window and quarantines a slot whose logits are not finite.
+    Host swap tier (§15): ``swap_blocks`` > 0 host page slots let pool
+    pressure suspend a victim instead of destroying it; it resumes with
+    zero re-prefilled tokens.  The swap paths run eagerly between
+    windows, never inside the captured graph.
+
     ``device`` defaults to the CUDA card and raises without one; tests
     pass ``device="cpu"``.  ``params`` defaults to random weights from
     ``seed``; given weights are cast once to ``dtype``.
@@ -416,7 +438,12 @@ class PagedContinuousEngine:
                  max_gen: int = 64, dtype: torch.dtype = torch.float32,
                  allocator: Optional[BlockAllocator] = None,
                  prefix_cache=False,
+                 faults: Optional[FaultInjector] = None,
+                 retry_budget: int = 3,
+                 default_ttl: Optional[int] = None,
                  mispredict: Optional[MispredictionEWMA] = None,
+                 nan_guard: Optional[bool] = None,
+                 swap_blocks: int = 0,
                  device=None, fuse: bool = True, warmup: bool = False):
         ok, why = M.supports_paged(cfg)
         if not ok:
@@ -439,6 +466,7 @@ class PagedContinuousEngine:
                                  if prefix_cache else None)
         self.bt = self.allocator.block_tokens
         self.slots = max_concurrency
+        # §16 widens the tables by draft_k here (ROADMAP §1 item 3)
         self.max_blocks = -(-(max_len + max_gen) // self.bt)
         # the null block: every pad/idle table entry points here
         self.null_block = self.allocator.allocate(self._NULL_SEQ, 1)[0]
@@ -467,14 +495,53 @@ class PagedContinuousEngine:
         self.prefill_tokens = 0   # tokens actually run through a prefill
         self.prefill_dispatches = 0  # variable-prefix wave dispatches
         self.cow_copies = 0       # copy-on-write block clones performed
+        # -- fault lifecycle (DESIGN.md §14) ------------------------------
+        self.faults = faults
+        self.retry_budget = retry_budget
+        self.default_ttl = default_ttl
         self.mispredict = (mispredict if mispredict is not None
                            else MispredictionEWMA())
-        self.clock = 0            # scheduler clock: decode iterations
+        # NaN/Inf logits quarantine: on when faults are injected unless
+        # forced either way (its per-window readback must not tax
+        # fault-free serving)
+        self._nan_guard = (nan_guard if nan_guard is not None
+                           else faults is not None)
+        self.clock = 0            # scheduler clock: decode iters + stalls
+        self.windows = 0          # step_window calls (fault-plan time base)
+        self.stall_ticks = 0
+        self.deadline_misses = 0
+        self.quarantined = 0      # NaN/Inf-poisoned slots removed
+        self.guard_readbacks = 0  # NaN-guard readbacks (in host_syncs)
         self.requeue_prefix_hits = 0  # evicted requests readmitted via radix
         self.shed_log: List[Shed] = []
         self.retries: Dict[int, int] = {}        # req_id -> eviction count
         self._observed_gen: Dict[int, int] = {}  # req_id -> max progress
         self._requeued: Set[int] = set()         # req_ids evicted at least once
+        # -- host swap tier (DESIGN.md §15) --------------------------------
+        # its store is allocated here, not at the first swap-out, so no
+        # suspension pays for it; page-locked on the card, so the copies
+        # between the pools and the store are asynchronous on the
+        # engine's stream; plain CPU tensors otherwise
+        pool = self.pages[sorted(self.pages)[0]]
+        self.swap: Optional[HostSwapTier] = (
+            HostSwapTier(swap_blocks,
+                         (len(self.pages), pool.shape[0]) + pool.shape[2:],
+                         pool.dtype, pin_memory=self.device.type == "cuda")
+            if swap_blocks > 0 else None)
+        self._swapped: Dict[int, Dict[str, object]] = {}  # req_id -> image
+        # req_ids suspended and not yet resumed: an admission of one
+        # through the prefill path is a re-prefill §15 forbids, counted
+        self._swap_debt: Set[int] = set()
+        self.swap_outs = 0
+        self.swap_ins = 0
+        self.swapped_blocks = 0        # host page copies performed
+        self.swap_reused_blocks = 0    # dedup/device-shared: no copy
+        self.reprefilled_swapped_tokens = 0
+        self.swapped_ctx_tokens = 0    # context length at each suspension
+        self.swap_in_s = 0.0           # host time inside _swap_in
+        # §17 (snapshot and recovery, ROADMAP §1 item 3) adds its journal
+        # hook and its restored-id tripwire here; §16 (speculative
+        # decoding) its draft pool
         self.window_stats: Optional[Dict[str, int]] = None
         self.generated: Dict[int, List[int]] = {}   # finished req -> tokens
         # admission hot-path memo: encoded prompt ids per (instruction,
@@ -492,9 +559,6 @@ class PagedContinuousEngine:
             self.warmup()
 
     _NULL_SEQ = NULL_SEQ   # allocator seq_id owning the null block
-    # eviction-retry budget (§14): a request evicted this many times
-    # reserves past its observed progress on readmission
-    retry_budget = 3
 
     # -- host <-> device -----------------------------------------------------
 
@@ -558,6 +622,9 @@ class PagedContinuousEngine:
         reads the tree or can free blocks)."""
         if self.prefix_cache is None or not self._publish_queue:
             return
+        if self.faults is not None:
+            # §17 crash seam: mid-publish, queued spans not yet in the tree
+            self.faults.crash_due("publish", self.windows)
         queue, self._publish_queue = self._publish_queue, []
         for ids, table in queue:
             self.prefix_cache.insert(ids, table)
@@ -571,6 +638,8 @@ class PagedContinuousEngine:
             n_prompt = len(self._prompt_ids(req))
         g = (req.predicted_gen_length
              if req.predicted_gen_length is not None else self.max_gen)
+        if self.faults is not None:
+            g = self.faults.corrupt_prediction(req, g, self.windows)
         h = self.mispredict.factor(req.app)
         if h > 1.0:
             g = int(math.ceil(g * h))
@@ -647,11 +716,16 @@ class PagedContinuousEngine:
             self._publish_queue.append((tuple(share_ids), list(table)))
             self._wave_pending.append(
                 {"ids": share_ids, "table": list(table), "gen": gen})
+        # §16 allocates the slot's draft pool here (ROADMAP §1 item 3)
         if cached and req.req_id in self._requeued:
             self.requeue_prefix_hits += 1
+        ttl = (req.ttl_steps if req.ttl_steps is not None
+               else self.default_ttl)
         self.active[slot] = {"req": req, "generated": [],
                              "target": min(req.gen_length, self.max_gen),
                              "prefix": m.node if m is not None else None,
+                             "deadline": (self.clock + ttl
+                                          if ttl is not None else None),
                              "reserve_tokens": want,
                              "reserve_g": want - len(ids)}
         return {"slot": slot, "ids": ids, "table": table, "cached": cached,
@@ -693,6 +767,11 @@ class PagedContinuousEngine:
                 src[i], dst[i] = p["cow"]
                 self.cow_copies += 1
             self.prefill_tokens += len(sfx)
+            if p["req"].req_id in self._swap_debt:
+                # a suspended request came back through the prefill path
+                # instead of _swap_in: count the wasted tokens exactly
+                self.reprefilled_swapped_tokens += len(sfx)
+            # §17's restored-id tripwire counts here (ROADMAP §1 item 3)
         # pad rows repeat row 0's slot/table/position (identical duplicate
         # writes) and keep plens[0] for a valid attention gather
         plens[n:] = plens[0]
@@ -701,6 +780,13 @@ class PagedContinuousEngine:
         pos_vals[n:] = pos_vals[0]
         attn = (rows[:, :width] if width > 1
                 else np.full((nb, 1), self.null_block, np.int32))
+        shadow = self.allocator._shadow
+        if shadow is not None:
+            # every block this wave's KV write lands in (suffix +
+            # predicted-generation tail) must be privately owned
+            for p in plans:
+                shadow.check_write(p["slot"],
+                                   p["table"][p["cached"] // self.bt:])
         (tokens_t, lengths_t, plens_t, attn_t, rows_t, wlens_t, src_t, dst_t,
          slots_t, sel_t, pos_t) = self._upload(
             tokens, lengths, plens, attn, rows, wlens, src, dst, slots, sel,
@@ -718,6 +804,11 @@ class PagedContinuousEngine:
         self.prefill_dispatches += 1
         for p in plans:
             self.pos_host[p["slot"]] = len(p["ids"])
+            if shadow is not None:
+                # the dispatch wrote this slot's KV: a same-wave sharer
+                # writing into its pages is a violation from here on
+                shadow.mark_materialized(p["slot"])
+        # §16 seeds the wave's draft pools here (ROADMAP §1 item 3)
 
     def _prefill_admitted(self, admitted: List[Dict[str, object]]) -> None:
         """Order the wave radix-aware and dispatch it with the minimum
@@ -739,6 +830,7 @@ class PagedContinuousEngine:
     @hot_path
     def join(self, req: Request) -> int:
         self._flush_publishes()
+        self._resume_swapped()   # suspended requests outrank admissions
         self._wave_pending = []
         plan = self._reserve(req)
         self._prefill_admitted([plan])
@@ -750,6 +842,7 @@ class PagedContinuousEngine:
         admission wave; returns how many were admitted (the caller pops
         that many).  Stops at the first request that does not fit."""
         self._flush_publishes()
+        self._resume_swapped()   # suspended requests outrank admissions
         self._wave_pending = []
         admitted = []
         for req in reqs:
@@ -758,13 +851,19 @@ class PagedContinuousEngine:
             except EngineFull:
                 break
         if admitted:
+            if self.faults is not None:
+                # §17 crash seam: mid-wave, reservations made, prefill
+                # not yet dispatched
+                self.faults.crash_due("wave", self.windows)
             self._prefill_admitted(admitted)
         return len(admitted)
 
     # -- eviction ------------------------------------------------------------
 
     def _release(self, slot: int) -> None:
-        """Reset a slot's device/host state to idle (null table, pos 0)."""
+        """Reset a slot's device/host state to idle (null table, pos 0),
+        in place.  §16 frees the slot's draft pool here (ROADMAP §1 item
+        3)."""
         self.tables[slot] = self._null_row
         self.positions[slot] = 0
         self.active_mask[slot] = False
@@ -784,6 +883,7 @@ class PagedContinuousEngine:
         if len(a["generated"]) > self._observed_gen.get(req.req_id, 0):
             self._observed_gen[req.req_id] = len(a["generated"])
         self._requeued.add(req.req_id)
+        # §17 clears its restored-id tripwire here (ROADMAP §1 item 3)
         self._unpin_prefix(slot)
         self.allocator.free_seq(slot)     # shared prefix pages survive:
         self._release(slot)               # the cache still holds a reference
@@ -801,13 +901,230 @@ class PagedContinuousEngine:
                 best, best_prog = slot, prog
         return best
 
+    # -- host swap tier: suspend / resume (DESIGN.md §15) --------------------
+
+    @property
+    def num_suspended(self) -> int:
+        """Requests suspended on the host tier (images awaiting resume)."""
+        return len(self._swapped)
+
+    def _pick_swap_victim(self, exclude: int) -> Optional[int]:
+        """Victim policy for *suspension*: largest EWMA-inflated predicted
+        remaining work first (the request expected to occupy the pool
+        longest frees the most), ties broken toward least progress (the
+        smallest image to transfer)."""
+        best, best_key = None, None
+        for slot, a in enumerate(self.active):
+            if a is None or slot == exclude:
+                continue
+            prog = len(a["generated"])
+            remaining = (max(a["reserve_g"] - prog, 1)
+                         * self.mispredict.factor(a["req"].app))
+            key = (remaining, -prog)
+            if best is None or key > best_key:
+                best, best_key = slot, key
+        return best
+
+    @hot_path
+    def _swap_out(self, slot: int) -> bool:
+        """Suspend ``slot``'s request to the host tier: copy its logits
+        row (one counted device-to-host copy) and its pages (one gather
+        into a device snapshot, copied straight into the tier's slots
+        and waited for: one more) to host memory, free the slot and its
+        device blocks, and register the image with the tier.  The gather
+        is enqueued before ``free_seq`` lets the blocks be reused, and
+        the copies have landed before the engine enqueues anything else.
+        Shared blocks swap once (the tier deduplicates; copied blocks
+        that outlive the ``free_seq`` stay device-resident under a
+        ``SWAP_HOLDER`` reference).  Returns False (nothing changed) when
+        the tier cannot hold the image's fresh pages."""
+        a = self.active[slot]
+        req = a["req"]
+        self._flush_publishes()   # queued spans reference live tables only
+        table = list(self.allocator.tables[slot])
+        fresh = self.swap.fresh_blocks(table)
+        if not self.swap.can_hold(len(fresh)):
+            return False
+        if self.faults is not None:
+            # §17 crash seam: mid-swap, tier committed to, image not yet
+            # read back
+            self.faults.crash_due("swap", self.windows)
+        vals = None
+        if fresh:
+            vals = M.gather_pages(
+                self.pages, self._upload(np.array(fresh, np.int32))[0])
+        # the logits-row copy, in the logits' dtype, for a bit-exact resume
+        logits_row = self.swap.host_empty(self.logits.shape[1:],
+                                          self.logits.dtype)
+        logits_row.copy_(self.logits[slot])
+        self.host_syncs += count_sync()
+        image = {"req": req, "generated": a["generated"],
+                 "target": a["target"], "deadline": a["deadline"],
+                 "reserve_tokens": a["reserve_tokens"],
+                 "reserve_g": a["reserve_g"],
+                 "pos": int(self.pos_host[slot]),
+                 "blocks": len(table), "logits": logits_row}
+        self._unpin_prefix(slot)
+        self.allocator.free_seq(slot)
+        self._release(slot)
+        self.swap.swap_out(req.req_id, table, fresh, vals, self.allocator)
+        if fresh:
+            # the swap-out page copy: ONE readback per suspension
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            self.host_syncs += count_sync()
+        self._swapped[req.req_id] = image
+        self._swap_debt.add(req.req_id)
+        self.swap_outs += 1
+        self.swapped_blocks += len(fresh)
+        self.swap_reused_blocks += len(table) - len(fresh)
+        self.swapped_ctx_tokens += int(image["pos"])
+        shadow = self.allocator._shadow
+        if shadow is not None:
+            shadow.on_swap_out(req.req_id)
+        # §17 journals the suspension here (ROADMAP §1 item 3)
+        return True
+
+    def _swap_out_victim(self, exclude: int) -> bool:
+        """Suspend the policy's victim; True only when device blocks
+        actually freed (a fully-shared image frees nothing, and the
+        caller falls through to the next pressure valve)."""
+        victim = self._pick_swap_victim(exclude)
+        if victim is None:
+            return False
+        before = len(self.allocator.free)
+        if not self._swap_out(victim):
+            return False
+        return len(self.allocator.free) > before
+
+    @hot_path
+    def _swap_in(self, rid: int, image: Dict[str, object],
+                 shared: List[int], host_slots: List[int]) -> None:
+        """Resume a suspended image into a free slot: re-``share`` the
+        device-resident prefix the tier still holds, allocate fresh blocks
+        for the rest, copy the host pages back and scatter them into the
+        pools, and restore the slot's tensors (table row, position, active
+        flag, the pre-suspension logits row) in place, so the next window
+        continues the stream with zero re-prefilled tokens.  Nothing is
+        read back: the copies are enqueued on the engine's stream, ahead
+        of the next window's decode."""
+        t0 = time.perf_counter()
+        slot = self.active.index(None)
+        if shared:
+            self.allocator.share(slot, shared)
+        table = self.allocator.allocate(slot, int(image["blocks"]) * self.bt)
+        fresh = table[len(shared):]
+        shadow = self.allocator._shadow
+        if shadow is not None and fresh:
+            shadow.check_write(slot, fresh)
+        row = np.full(self.max_blocks, self.null_block, np.int32)
+        row[:len(table)] = table
+        pos = int(image["pos"])
+        blk, row_t, pos_t = self._upload(np.array(fresh, np.int32), row,
+                                         np.array([pos], np.int32))
+        if fresh:
+            vals = self.swap.read(host_slots, self.device)
+            M.scatter_pages(self.pages, blk, vals)
+        _restore_slot(self.tables, self.positions, self.active_mask,
+                      self.logits, slot, row_t, pos_t, image["logits"])
+        self.pos_host[slot] = pos
+        self.active[slot] = {"req": image["req"],
+                             "generated": image["generated"],
+                             "target": image["target"], "prefix": None,
+                             "deadline": image["deadline"],
+                             "reserve_tokens": image["reserve_tokens"],
+                             "reserve_g": image["reserve_g"]}
+        # §16 rebuilds the slot's draft pool here (ROADMAP §1 item 3)
+        self.swap.drop(rid, self.allocator)
+        del self._swapped[rid]
+        self._swap_debt.discard(rid)
+        self.swap_ins += 1
+        if shadow is not None:
+            shadow.mark_materialized(slot)
+            shadow.on_swap_in(rid)
+        # §17 journals the resume here (ROADMAP §1 item 3)
+        self.swap_in_s += time.perf_counter() - t0
+
+    def _try_resume(self, rid: int) -> bool:
+        """Resume ``rid`` if device blocks can be found: escalate through
+        the same non-destructive pressure valves as ``_grow`` (cold radix
+        leaves, then the tier's own device holds) before giving up."""
+        image = self._swapped[rid]
+        while True:
+            shared, host_slots = self.swap.split_resident(rid)
+            need = len(host_slots)   # §16 adds the draft rebuild's blocks
+            if need <= len(self.allocator.free):
+                self._swap_in(rid, image, shared, host_slots)
+                return True
+            if self.prefix_cache is not None \
+                    and self.prefix_cache.evict_until(need):
+                continue
+            if self.swap.release_device_holds(self.allocator):
+                continue   # holds freed; re-split (shared prefix shrank)
+            return False
+
+    def _resume_swapped(self) -> int:
+        """Swap suspended requests back in, oldest first, while slots and
+        blocks allow: called at the admission seams (``join`` /
+        ``join_many``) and the window prologue, so resumes outrank fresh
+        admissions.  FIFO is strict: if the oldest image cannot resume,
+        younger ones wait.  A ``swap_stall`` fault refuses attempts."""
+        if self.swap is None or not self._swapped:
+            return 0
+        self._flush_publishes()   # resume may evict radix leaves below
+        n = 0
+        for rid in list(self._swapped):
+            if None not in self.active:
+                break
+            if self.faults is not None and self.faults.swap_stalled():
+                break
+            if not self._try_resume(rid):
+                break
+            n += 1
+        return n
+
+    def _drop_swapped(self, rid: int, reason: str) -> Request:
+        """Give up on a suspended image: typed shed, host slots freed."""
+        image = self._swapped.pop(rid)
+        self._flush_publishes()   # drop may free tier-held device blocks
+        self.swap.drop(rid, self.allocator)
+        shadow = self.allocator._shadow
+        if shadow is not None:
+            shadow.on_swap_in(rid)
+        self.shed_log.append(Shed(image["req"], reason, self.clock))
+        return image["req"]
+
+    def shed_oldest_swapped(self) -> Optional[Request]:
+        """The serve loop's stall escape: shed the oldest suspended image
+        with reason ``swapped_timeout`` (a wedged pool degrades into a
+        typed shed, never a hang)."""
+        if not self._swapped:
+            return None
+        return self._drop_swapped(next(iter(self._swapped)),
+                                  "swapped_timeout")
+
+    def _expire_swapped(self) -> None:
+        """Deadline sweep for suspended images: an image past its
+        deadline sheds with ``swapped_timeout``."""
+        if self.swap is None or not self._swapped:
+            return
+        for rid in list(self._swapped):
+            image = self._swapped[rid]
+            if image["deadline"] is None or self.clock < image["deadline"]:
+                continue
+            self._drop_swapped(rid, "swapped_timeout")
+            self.deadline_misses += 1
+
     def _grow(self, slot: int,
               evicted: List[Request]) -> List[Tuple[int, int]]:
         """Ensure the slot can hold pos_host[slot] + 1 tokens AND
-        privately owns every block the coming window writes into; evict
-        on demand (cold radix leaves first, then the least-progress
-        request).  Returns the (src, dst) copy-on-write pairs the caller
-        applies on the device before decoding."""
+        privately owns every block the coming window writes into; free
+        blocks on demand through the §15 valves, cheapest first: the swap
+        tier's own device holds, cold radix leaves, suspending a live
+        request to the host tier, and last the destructive
+        evict-and-requeue of the least-progress request.  Returns the
+        (src, dst) copy-on-write pairs the caller applies on the device
+        before decoding."""
         need = int(self.pos_host[slot]) + 1
         if self.allocator.blocks_needed(need) > self.max_blocks:
             raise MemoryError(
@@ -823,8 +1140,13 @@ class PagedContinuousEngine:
         while not self.allocator.can_allocate(slot, need):
             missing = (self.allocator.blocks_needed(need)
                        - len(self.allocator.tables.get(slot, ())))
+            if self.swap is not None \
+                    and self.swap.release_device_holds(self.allocator):
+                continue
             if self.prefix_cache is not None \
                     and self.prefix_cache.evict_until(missing):
+                continue
+            if self.swap is not None and self._swap_out_victim(exclude=slot):
                 continue
             victim = self._pick_victim(exclude=slot)
             if victim is None:
@@ -845,8 +1167,16 @@ class PagedContinuousEngine:
         for idx in range(start, len(table)):
             while self.allocator.refcount.get(table[idx], 0) > 1 \
                     and not self.allocator.free:
+                # the same valve order; dropping a tier hold on THIS
+                # block can also make the clone unnecessary
+                if self.swap is not None \
+                        and self.swap.release_device_holds(self.allocator):
+                    continue
                 if self.prefix_cache is not None \
                         and self.prefix_cache.evict_until(1):
+                    continue
+                if self.swap is not None \
+                        and self._swap_out_victim(exclude=slot):
                     continue
                 victim = self._pick_victim(exclude=slot)
                 if victim is None:
@@ -880,22 +1210,95 @@ class PagedContinuousEngine:
             k = min(k, to_finish, to_boundary)
         return max(k, 1)
 
+    def _expire_deadlines(self) -> None:
+        """Free every active slot past its deadline (checked between
+        windows on the scheduler clock): a typed shed, not an eviction;
+        its blocks are freed, the miss is counted, and it is NOT
+        requeued (§14)."""
+        for slot, a in enumerate(self.active):
+            if a is None or a["deadline"] is None \
+                    or self.clock < a["deadline"]:
+                continue
+            self.shed_log.append(Shed(a["req"], "deadline", self.clock))
+            self.deadline_misses += 1
+            self._unpin_prefix(slot)
+            self.allocator.free_seq(slot)
+            self._release(slot)
+
     def step_window(self, max_steps: Optional[int] = None
                     ) -> Tuple[List[Request], List[Request], int]:
         """Run one fused decode window over all active requests.
         Returns (finished, evicted, steps_run); evicted requests must be
-        requeued by the caller (they restart from scratch on readmit)."""
+        requeued by the caller (they restart from scratch on readmit).
+
+        Window prologue, on the host between windows (DESIGN.md §14):
+        fault events due this window fire first (pool shrink/restore,
+        logits poisoning, stalls), suspended images expire or resume
+        (§15), deadlines are swept, then the NaN/Inf guard quarantines
+        any poisoned slot — all before the grow loop, so surviving slots
+        decode the window a fault-free engine would run.  A stalled
+        window burns scheduler-clock ticks and returns ``steps_run == 0``
+        without decoding."""
+        self.windows += 1
+        stalled = 0
         evicted: List[Request] = []
+        if self.faults is not None:
+            # the fault seam fires even with nothing active: a restore
+            # must be able to un-wedge an engine whose whole active set
+            # was evicted by the matching shrink
+            self._flush_publishes()
+            stalled = self.faults.before_window(self)
+            if stalled:
+                self.clock += stalled
+                self.stall_ticks += stalled
+        if self.swap is not None and self._swapped:
+            # suspended images first, BEFORE the idle check, or an engine
+            # whose whole active set is suspended could never wake up
+            self._expire_swapped()
+            self._resume_swapped()
         if not any(a is not None for a in self.active):
             return [], [], 0
         # deferred radix publishes land here, before any grow/evict/finish
         # could free a queued span's blocks
         self._flush_publishes()
+        self._expire_deadlines()
+        if self._nan_guard and any(a is not None for a in self.active):
+            # the guard's readback: one finite flag per slot, reduced on
+            # the device (the reference reads the whole [B, V] logits)
+            finite = torch.isfinite(self.logits).all(dim=1).cpu().numpy()
+            self.host_syncs += count_sync()
+            self.guard_readbacks += 1
+            for slot, a in enumerate(self.active):
+                if a is not None and not finite[slot]:
+                    # quarantine: clear the poisoned row in place (idle
+                    # rows feed the fused argmax, masked) and evict for
+                    # readmission, which re-prefills from the prompt
+                    self.logits[slot] = 0.0
+                    evicted.append(self._evict(slot))
+                    self.quarantined += 1
+        # §16's draft-health guard joins here (ROADMAP §1 item 3)
+        if stalled or not any(a is not None for a in self.active):
+            self.window_stats = None
+            return [], evicted, 0
+        if self.faults is not None:
+            # §17 crash seam: mid-window, prologue done, decode not yet
+            # dispatched
+            self.faults.crash_due("window", self.windows)
         try:
             for slot, a in enumerate(self.active):
                 if a is None:
                     continue
-                pairs = self._grow(slot, evicted)
+                try:
+                    pairs = self._grow(slot, evicted)
+                except MemoryError:
+                    if self.faults is not None and self.faults.held_blocks:
+                        # a transient fault-held pool: evict the growing
+                        # request itself (requeued by the caller) instead
+                        # of failing the window; a later pool_restore
+                        # lets it finish
+                        evicted.append(self._evict(slot))
+                        continue
+                    raise
                 # apply this slot's COW copies IMMEDIATELY: a later slot's
                 # _grow may evict this one and recycle its clone block
                 if pairs:
@@ -905,6 +1308,7 @@ class PagedContinuousEngine:
                     for i, (s, d) in enumerate(pairs):
                         src[i], dst[i] = s, d
                     M.copy_pages(self.pages, *self._upload(src, dst))
+                # §16 grows the slot's draft pool here (ROADMAP §1 item 3)
         except MemoryError as e:
             # the culprit slot is freed (and attached) so the engine stays
             # serviceable and drainable after the raise
@@ -915,6 +1319,17 @@ class PagedContinuousEngine:
         if not any(a is not None for a in self.active):
             self.window_stats = None
             return [], evicted, 0
+        shadow = self.allocator._shadow
+        if shadow is not None:
+            # the window appends from each slot's write cursor: every
+            # block at or past it must be privately owned (post-_grow COW)
+            for slot, a in enumerate(self.active):
+                if a is not None:
+                    t = self.allocator.tables[slot]
+                    shadow.check_write(
+                        slot, t[int(self.pos_host[slot]) // self.bt:])
+        # §16's speculative window replaces the decode below (ROADMAP §1
+        # item 3)
         k = self._window_steps()
         if max_steps is not None:
             k = max(1, min(k, max_steps))
@@ -1081,6 +1496,8 @@ class PagedContinuousEngine:
 
 def drive_paged(engine: PagedContinuousEngine, requests: List[Request], *,
                 max_steps: int = 2_000, refill=None, backlog=None,
+                queue_cap: Optional[int] = None,
+                max_retries: Optional[int] = None,
                 stall_limit: int = 64) -> Dict[str, object]:
     """The canonical paged serve loop: batched admission until the engine
     refuses, fused decode windows, evictions requeued at the queue front.
@@ -1088,11 +1505,19 @@ def drive_paged(engine: PagedContinuousEngine, requests: List[Request], *,
     ``refill(steps)`` (optional) is called whenever the local queue
     drains and may return more requests (an external scheduler's next
     admission wave); ``backlog()`` (optional) reports whether that
-    scheduler still holds work, keeping the loop alive.  A
-    ``PoolExhausted`` window sheds the culprit with reason ``oom`` and
-    requeues the rest; ``stall_limit`` consecutive idle iterations with
-    no progress shed the queue head (``admission_stalled``) instead of
-    hanging.
+    scheduler still holds work, keeping the loop alive.
+
+    Robustness knobs (DESIGN.md §14), all off by default: ``queue_cap``
+    bounds the local admission queue (overflow is shed with reason
+    ``queue_full``); ``max_retries`` bounds evict/requeue cycles per
+    request (exhaustion sheds with ``retry_budget``; with ``None`` the
+    engine escalates the reservation through its retry budget and serves
+    the request); ``stall_limit`` consecutive no-progress iterations
+    shed the queue head (``admission_stalled``), or with an empty queue
+    the oldest suspended image (``swapped_timeout``), instead of
+    hanging.  A ``PoolExhausted`` window sheds the culprit with reason
+    ``oom`` and requeues the rest.  The reference's ``recovery`` (§17)
+    joins here once ported (ROADMAP §1 item 3).
 
     ``steps`` counts decode iterations, not windows; ``util`` holds one
     sample per decode iteration; ``host_syncs`` is the device-to-host
@@ -1105,10 +1530,14 @@ def drive_paged(engine: PagedContinuousEngine, requests: List[Request], *,
     def _shed(req: Request, reason: str) -> None:
         engine.shed_log.append(Shed(req, reason, engine.clock))
 
+    if queue_cap is not None:
+        while len(pending) > queue_cap:
+            _shed(pending.pop(), "queue_full")
     util: List[float] = []
-    while (pending or engine.num_active
+    while (pending or engine.num_active or engine.num_suspended
            or (backlog() if backlog is not None else False)) \
             and steps < max_steps:
+        swap_ins0 = engine.swap_ins
         admitted = 0
         while True:
             n = engine.join_many(pending)
@@ -1121,7 +1550,10 @@ def drive_paged(engine: PagedContinuousEngine, requests: List[Request], *,
             if not more:
                 break
             pending.extend(more)
-        if not (pending or engine.num_active
+            if queue_cap is not None:
+                while len(pending) > queue_cap:
+                    _shed(pending.pop(), "queue_full")
+        if not (pending or engine.num_active or engine.num_suspended
                 or (backlog() if backlog is not None else False)):
             break
         peak = max(peak, engine.num_active)
@@ -1140,7 +1572,11 @@ def drive_paged(engine: PagedContinuousEngine, requests: List[Request], *,
         served += len(finished)
         evictions += len(evicted)
         for r in reversed(evicted):
-            pending.appendleft(r)
+            if max_retries is not None \
+                    and engine.retries.get(r.req_id, 0) > max_retries:
+                _shed(r, "retry_budget")
+            else:
+                pending.appendleft(r)
         # reconstruct the per-iteration utilization ramp from the
         # window's post-grow snapshot
         ws = engine.window_stats
@@ -1149,17 +1585,30 @@ def drive_paged(engine: PagedContinuousEngine, requests: List[Request], *,
                         for i in range(1, k))
         util.append(engine.utilization())
         steps += max(k, 1)
-        if admitted or finished:
+        # progress = admissions, finishes or swap-ins; eviction churn and
+        # stalled windows are not progress
+        if admitted or finished or engine.swap_ins > swap_ins0:
             no_progress = 0
         elif not engine.num_active:
             no_progress += 1
-            if no_progress >= stall_limit and pending:
-                _shed(pending.popleft(), "admission_stalled")
-                no_progress = 0
+            if no_progress >= stall_limit:
+                if pending:
+                    _shed(pending.popleft(), "admission_stalled")
+                    no_progress = 0
+                elif engine.num_suspended:
+                    # a wedged pool with only suspended images left
+                    # degrades into a typed shed, never a hang (§15)
+                    engine.shed_oldest_swapped()
+                    no_progress = 0
     return {"served": served, "steps": steps, "peak": peak,
             "evictions": evictions, "util": util,
             "host_syncs": engine.host_syncs - syncs0,
             "unserved": list(pending),
             "shed": list(engine.shed_log[shed0:]),
+            "deadline_misses": engine.deadline_misses,
+            "quarantined": engine.quarantined,
             "requeue_prefix_hits": engine.requeue_prefix_hits,
-            "retries_max": max(engine.retries.values(), default=0)}
+            "retries_max": max(engine.retries.values(), default=0),
+            "swap_outs": engine.swap_outs,
+            "swap_ins": engine.swap_ins,
+            "reprefilled_swapped_tokens": engine.reprefilled_swapped_tokens}

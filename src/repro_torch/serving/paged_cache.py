@@ -28,8 +28,12 @@ from __future__ import annotations
 import dataclasses
 import heapq
 import math
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Dict, Iterator, List, Optional, Sequence, Tuple,
+                    Union)
 
+import torch
+
+from repro_torch.analysis import sanitizer as _san
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import Batch, Request
 from repro_torch.core.wma import MemoryModel
@@ -77,6 +81,9 @@ class BlockAllocator:
         self.free: List[int] = list(range(num_blocks))
         self.tables: Dict[int, List[int]] = {}      # seq_id -> block ids
         self.refcount: Dict[int, int] = {}          # block id -> references
+        # holder-identity mirror, None unless REPRO_SANITIZE=1; hooks run
+        # AFTER the real mutation so ValueError paths keep their types
+        self._shadow = _san.maybe_shadow(self)
 
     def free_blocks(self) -> List[int]:
         """The free list (sanitizer/drain-check accessor)."""
@@ -114,6 +121,8 @@ class BlockAllocator:
             self.refcount[b] = 1
             table.append(b)
             fresh.append(b)
+        if self._shadow is not None and fresh:
+            self._shadow.on_allocate(seq_id, fresh)
         return table
 
     def share(self, seq_id: int, blocks: Sequence[int]) -> List[int]:
@@ -125,19 +134,23 @@ class BlockAllocator:
         if self.tables.get(seq_id):
             raise ValueError(f"seq {seq_id} already has a table; shared "
                              f"prefix blocks must be its first entries")
-        self.retain(blocks)
+        self.retain(blocks, holder=seq_id)
         table = self.tables.setdefault(seq_id, [])
         table.extend(blocks)
         return table
 
-    def retain(self, blocks: Sequence[int]) -> None:
-        """Add one reference to each of ``blocks`` (all must be live)."""
+    def retain(self, blocks: Sequence[int], holder=None) -> None:
+        """Add one reference to each of ``blocks`` (all must be live).
+        ``holder`` tags the reference's owner for the sanitizer's shadow
+        bookkeeping (a seq id, the cache, or None)."""
         for b in blocks:
             if self.refcount.get(b, 0) <= 0:
                 raise ValueError(f"block {b} is free; cannot retain")
             self.refcount[b] += 1
+        if self._shadow is not None:
+            self._shadow.on_retain(blocks, holder)
 
-    def release(self, blocks: Sequence[int]) -> None:
+    def release(self, blocks: Sequence[int], holder=None) -> None:
         """Drop one reference from each of ``blocks``; refcount 0 frees."""
         for b in blocks:
             n = self.refcount.get(b, 0)
@@ -148,6 +161,8 @@ class BlockAllocator:
                 self.free.append(b)
             else:
                 self.refcount[b] = n - 1
+        if self._shadow is not None:
+            self._shadow.on_release(blocks, holder)
 
     def cow_if_not_appendable(self, seq_id: int,
                               idx: int) -> Optional[Tuple[int, int]]:
@@ -175,12 +190,18 @@ class BlockAllocator:
         self.refcount[dst] = 1
         self.refcount[src] = n - 1
         table[idx] = dst
+        if self._shadow is not None:
+            # the seq's one reference moves src -> dst
+            self._shadow.on_release([src], seq_id)
+            self._shadow.on_allocate(seq_id, [dst])
         return (src, dst)
 
     def free_seq(self, seq_id: int) -> None:
         """Drop the sequence's table, releasing one reference per entry
         (shared pages survive as long as any other holder remains)."""
-        self.release(self.tables.pop(seq_id, []))
+        self.release(self.tables.pop(seq_id, []), holder=seq_id)
+        if self._shadow is not None:
+            self._shadow.on_free_seq(seq_id)
 
     @property
     def used_blocks(self) -> int:
@@ -382,7 +403,7 @@ class RadixPrefixCache:
             child = node.children.get(tup)
             if child is None:
                 block = table[pos // bt]
-                self.allocator.retain([block])
+                self.allocator.retain([block], holder=_san.CACHE_HOLDER)
                 child = RadixNode(tup, block, node)
                 node.children[tup] = child
                 created += 1
@@ -392,7 +413,7 @@ class RadixPrefixCache:
             tup = tuple(token_ids[pos:n])
             if tup not in node.partials:
                 block = table[pos // bt]
-                self.allocator.retain([block])
+                self.allocator.retain([block], holder=_san.CACHE_HOLDER)
                 node.partials[tup] = RadixNode(tup, block, node)
                 created += 1
         if created:
@@ -472,7 +493,7 @@ class RadixPrefixCache:
             del parent.children[key]
         else:
             del parent.partials[key]
-        self.allocator.release([victim.block])
+        self.allocator.release([victim.block], holder=_san.CACHE_HOLDER)
         self.evicted += 1
 
     def evict_until(self, free_blocks: int) -> bool:
@@ -688,3 +709,228 @@ def make_paged_memory(cfg: ModelConfig, hbm_bytes: int = 16 * 2 ** 30,
                       block_tokens: int = 16, **kw) -> PagedMemoryModel:
     return PagedMemoryModel(MemoryModel(cfg, hbm_bytes=hbm_bytes, **kw),
                             block_tokens=block_tokens)
+
+
+class HostSwapTier:
+    """Host-memory page store backing non-destructive preemption
+    (DESIGN.md §15).
+
+    The device pool is tier 0; this is tier 1: a CPU tensor of page
+    slots, allocated once when the tier is built, slot-major
+    (``[slots, P, L, block_tokens, Hkv, D]``: ``page_shape`` is one
+    block's ``(P, L, block_tokens, Hkv, D)`` across the pools, P =
+    len(pools) in sorted key order, in the pools' ``dtype``), so the
+    pages of consecutive slots are one contiguous run.  With
+    ``pin_memory`` (an engine on the CUDA card) the store is
+    page-locked, and a swap-out's device-to-host copy and a resume's
+    host-to-device copy go straight between the device and the store's
+    slots, asynchronously on the engine's stream (the engine waits for
+    the swap-out's).  When the engine suspends a request it copies the
+    request's pages here, frees its device blocks, and records a
+    **per-sequence swap map** (host slot per table position) so the
+    request can later resume bit for bit with zero re-prefilled tokens.
+
+    Refcount/COW awareness — shared radix blocks swap **once**:
+
+    * ``by_block`` deduplicates: a device block whose contents are
+      already host-resident (published prefix shared by two suspended
+      requests) gets no second copy, only a slot reference.
+    * For every copied block that is *still live* after the owner's
+      ``free_seq`` (the radix cache or a sibling holds it), the tier
+      retains one allocator reference under ``SWAP_HOLDER``.  The hold
+      certifies the device copy immutable (refcount ≥ 2 means
+      ``cow_if_not_appendable`` clones before any append), so a resume
+      may ``share`` it instead of scattering from host — and the
+      sanitizer raises on any write into it.  Under pool pressure
+      :meth:`release_device_holds` drops every hold (the host copies
+      remain authoritative), trading resume bandwidth for free blocks.
+
+    ``host_pressure`` faults :meth:`shrink` the soft ``capacity`` below
+    ``num_slots``; :meth:`can_hold` then refuses new swap-outs (the
+    engine falls back to destructive eviction) without ever touching
+    resident images.
+
+    >>> a = BlockAllocator(num_blocks=4, block_tokens=2)
+    >>> tier = HostSwapTier(4, (2, 1, 2, 1, 1), torch.float32)
+    >>> table = list(a.allocate(0, 4))
+    >>> fresh = tier.fresh_blocks(table); fresh == table
+    True
+    >>> vals = torch.arange(8, dtype=torch.float32).reshape(2, 1, 2, 2, 1, 1)
+    >>> a.free_seq(0)
+    >>> tier.swap_out(7, table, fresh, vals, a)
+    >>> tier.split_resident(7)          # nothing shareable on device
+    ([], [0, 1])
+    >>> torch.equal(tier.read([0, 1]), vals)
+    True
+    >>> tier.drop(7, a); tier.empty
+    True
+    """
+
+    def __init__(self, num_slots: int, page_shape: Sequence[int],
+                 dtype: torch.dtype, *, pin_memory: bool = False):
+        self.num_slots = num_slots
+        self.capacity = num_slots            # soft cap (host_pressure)
+        self.pin_memory = pin_memory
+        # pop() yields ascending slot ids — deterministic placement
+        self.free: List[int] = list(range(num_slots - 1, -1, -1))
+        # uninitialised: a slot is written before any map points at it
+        self._store = self.host_empty((num_slots,) + tuple(page_shape),
+                                      dtype)
+        self.slot_ref: Dict[int, int] = {}   # host slot -> #maps using it
+        self.by_block: Dict[int, int] = {}   # held device block -> slot
+        self.slot_block: Dict[int, int] = {} # inverse of by_block
+        self.maps: Dict[object, List[int]] = {}  # key -> slot per position
+        self.copied_slots = 0
+        self.deduped_blocks = 0
+
+    # -- capacity ------------------------------------------------------------
+
+    @property
+    def used_slots(self) -> int:
+        return self.num_slots - len(self.free)
+
+    def can_hold(self, n_fresh: int) -> bool:
+        """Room for ``n_fresh`` new page copies under the soft capacity?"""
+        return (n_fresh <= len(self.free)
+                and self.used_slots + n_fresh <= self.capacity)
+
+    def shrink(self, n_slots: int) -> None:
+        """Lower the soft capacity (``host_pressure`` fault): future
+        swap-outs see a smaller tier; resident images are untouched."""
+        self.capacity = max(0, self.capacity - n_slots)
+
+    def restore(self) -> None:
+        self.capacity = self.num_slots
+
+    @property
+    def empty(self) -> bool:
+        return (not self.maps and not self.slot_ref and not self.by_block
+                and self.used_slots == 0)
+
+    def device_holds(self) -> List[int]:
+        """Device blocks the tier keeps alive under ``SWAP_HOLDER`` (the
+        drain check's second 'legitimate survivor' set)."""
+        return list(self.by_block)
+
+    # -- swap-out ------------------------------------------------------------
+
+    def fresh_blocks(self, table: Sequence[int]) -> List[int]:
+        """The subset of ``table`` needing a host copy — blocks already
+        host-resident (``by_block``) are deduplicated to a reference."""
+        return [b for b in table if b not in self.by_block]
+
+    def host_empty(self, shape, dtype: torch.dtype) -> torch.Tensor:
+        """An uninitialised host tensor, page-locked with ``pin_memory``:
+        the store, and the engine's copy of a suspended logits row."""
+        return torch.empty(shape, dtype=dtype, pin_memory=self.pin_memory)
+
+    @staticmethod
+    def _runs(slots: Sequence[int]) -> List[Tuple[int, int, int]]:
+        """``(i, slot, n)`` for each run of ``n`` consecutive slots
+        starting at position ``i`` of ``slots``: one contiguous piece of
+        the store each."""
+        runs: List[Tuple[int, int, int]] = []
+        for i, s in enumerate(slots):
+            if runs and runs[-1][1] + runs[-1][2] == s:
+                runs[-1] = (runs[-1][0], runs[-1][1], runs[-1][2] + 1)
+            else:
+                runs.append((i, s, 1))
+        return runs
+
+    def swap_out(self, key, table: Sequence[int], fresh: Sequence[int],
+                 values: Optional[torch.Tensor], allocator) -> None:
+        """Suspend ``key``'s pages: ``values[:, :, i]`` is the page of
+        ``fresh[i]`` (``[P, L, len(fresh), ...]``, the caller's gather,
+        taken **before** freeing the seq, on the engine's device); dedup
+        hits take slot references only.  The pages are copied straight
+        into their slots, one copy a run of consecutive slots, without
+        waiting for a device copy to land (the caller synchronises).
+        Must run *after* the engine's ``free_seq`` so still-live fresh
+        blocks (cache/sibling holders survive the free) can be
+        identified and retained under ``SWAP_HOLDER``."""
+        if key in self.maps:
+            raise ValueError(f"key {key!r} is already swapped out")
+        slots = [self.free.pop() for _ in fresh]
+        if fresh:
+            pages = values.movedim(2, 0)
+            for i, s, n in self._runs(slots):
+                self._store[s:s + n].copy_(pages[i:i + n],
+                                           non_blocking=self.pin_memory)
+        fresh_slot: Dict[int, int] = {}
+        for b, s in zip(fresh, slots):
+            fresh_slot[b] = s
+            self.copied_slots += 1
+            if allocator.refcount.get(b, 0) > 0:
+                allocator.retain([b], holder=_san.SWAP_HOLDER)
+                self.by_block[b] = s
+                self.slot_block[s] = b
+        seq_map: List[int] = []
+        for b in table:
+            if b in fresh_slot:
+                s = fresh_slot[b]
+            else:                        # dedup: already host-resident
+                s = self.by_block[b]
+                self.deduped_blocks += 1
+            self.slot_ref[s] = self.slot_ref.get(s, 0) + 1
+            seq_map.append(s)
+        self.maps[key] = seq_map
+
+    # -- swap-in -------------------------------------------------------------
+
+    def split_resident(self, key) -> Tuple[List[int], List[int]]:
+        """Partition ``key``'s map into a device-shareable prefix (blocks
+        the tier still holds — immutable, so a resume can ``share`` them)
+        and the host slots whose pages must be scattered back."""
+        seq_map = self.maps[key]
+        shared: List[int] = []
+        for s in seq_map:
+            b = self.slot_block.get(s)
+            if b is None:
+                break
+            shared.append(b)
+        return shared, seq_map[len(shared):]
+
+    def read(self, slots: Sequence[int],
+             device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+        """Page contents for ``slots`` (``[P, L, len(slots), ...]``), a new
+        tensor on ``device``, copied straight from the store's runs (on
+        the card asynchronously on the current stream, from page-locked
+        memory)."""
+        out = torch.empty((len(slots),) + tuple(self._store.shape[1:]),
+                          dtype=self._store.dtype, device=device)
+        for i, s, n in self._runs(list(slots)):
+            out[i:i + n].copy_(self._store[s:s + n],
+                               non_blocking=self.pin_memory)
+        return out.movedim(0, 2)
+
+    def drop(self, key, allocator) -> None:
+        """Forget ``key``'s image (resumed or shed): slot references are
+        released; a slot with no remaining references frees, and its
+        device hold (if any) is released back to the allocator."""
+        for s in self.maps.pop(key):
+            n = self.slot_ref[s] - 1
+            if n > 0:
+                self.slot_ref[s] = n
+                continue
+            del self.slot_ref[s]
+            self.free.append(s)
+            b = self.slot_block.pop(s, None)
+            if b is not None:
+                del self.by_block[b]
+                allocator.release([b], holder=_san.SWAP_HOLDER)
+
+    # -- pressure escape hatch -----------------------------------------------
+
+    def release_device_holds(self, allocator) -> bool:
+        """Drop every ``SWAP_HOLDER`` reference (the cheapest pressure
+        valve: nothing is lost — host copies remain authoritative and
+        resumes fall back to scattering).  Returns whether any device
+        block actually freed."""
+        if not self.slot_block:
+            return False
+        before = len(allocator.free)
+        for s, b in list(self.slot_block.items()):
+            allocator.release([b], holder=_san.SWAP_HOLDER)
+        self.slot_block.clear()
+        self.by_block.clear()
+        return len(allocator.free) > before
