@@ -157,11 +157,39 @@ CUDA toolkit.  Phases, each fatal on failure:
    stream must equal the f32 serve's.  Logged: tokens/s beside phase
    5's, the host-sync split, host ms and GB/s a swap-out and a resume,
    the pinned tier's size and the engine's build time, the NaN guard's
-   host ms.
+   host ms;
+16. speculative decoding (§16), the draft-and-verify window captured as
+   one graph per engine.  (a) Phase 5's serve through its launcher with
+   ``spec_decode=True`` (a self-draft sharing the target's weights,
+   draft_k ``DRAFT_K``); counts zeroed just before and read just after:
+   every request served, the pool drained, one capture (the window's,
+   never the plain decode step's), host syncs exactly one a spec
+   window, the paged decode kernel launched W = draft_k + 1 times a
+   window per draft layer, the prefix-prefill kernel once a verify, a
+   target wave (target layers) and a draft wave (draft layers), no
+   plain call.  Every draft step, verify (S = W) and wave of the serve,
+   recorded at layer 0 (a replayed window's from the tensors the graph
+   captured), is held against the plain kernels on its own pool, as
+   phase 6 holds; the streams are compared with phase 5's by cause
+   (``compare_streams``); the verify's prefix prefill and the draft's
+   decode are timed at a sample of their own inputs as phase 6 times;
+   one 32-row window is profiled graphed, and the draft's steps and the
+   verify apart, eagerly.  (b) A rejecting draft (chatglm-6b cut to
+   ``SMALL_DRAFT``, head size 64, seed 1) through ``PagedContinuousEngine``
+   and ``drive_paged``: the same count checks, its acceptance below 1,
+   the holds, both pools drained.  (c) The f32 witness (TF32 off, phase
+   15's f32 weights, ``SPEC_F32_BLOCKS`` blocks a pool) in the
+   batch-invariant arithmetic (``model.batch_invariant``, in which a
+   token's bits do not depend on its batch, wave or window): a spec-off
+   serve, then a self-draft spec serve, whose every stream must equal
+   the spec-off serve's, with the self-draft's acceptance 1.0; each
+   differing stream and each rejected proposal is logged before the
+   verdict.  Each engine is dropped before the next is built; the
+   phase's peak allocation is logged.
 
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves; phase 14 runs right after
-phase 5, and phase 15 last.  The line before the last is a
+phase 5, then phase 15 and phase 16 last.  The line before the last is a
 JSON object with one entry per kernel (six); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is missing or the port's sources are not beside
@@ -202,6 +230,15 @@ KEEP_BYTES = 4 << 30           # cap on the kept layer-0 inputs
 INT8_ROWS, INT8_PROMPT, INT8_STEPS = 16, 2048, 64
 SCAN_TOL = 2e-4                # f32 scan vs its chunked plain version,
 #                                of the output's scale
+
+# phase 16, speculative decoding: draft_k, the rejecting draft's cut of
+# chatglm-6b (the same vocab, head size 64), and the f32 witness's pool
+# (two f32 pools of 1,024 blocks, 15.0 GB each, beside 28 GB of f32
+# weights)
+DRAFT_K = 4
+SMALL_DRAFT = dict(num_layers=4, d_model=1024)
+SPEC_F32_BLOCKS = 1024
+SPEC_TIMED = 24                # kept verifies / draft steps timed, evenly
 
 
 class SmokeFailure(RuntimeError):
@@ -766,7 +803,7 @@ def paged_recorders(transformer, layers):
     decode step (q, tables, lengths) and every admission wave (suffix
     q/K/V, tables, prefix and suffix lengths)."""
     decode = Recorder(transformer, "paged_decode_attention", layers,
-                      lambda q, kp, vp, tables, lengths:
+                      lambda q, kp, vp, tables, lengths, **_:
                       (q.clone(), tables.clone(), lengths.clone()),
                       snap=(0, 4))
     prefill = Recorder(transformer, "paged_prefix_prefill_attention", layers,
@@ -1046,14 +1083,15 @@ def block_bytes(engine) -> int:
 
 
 def chaos_serve(torch, cfg, params, device, dtype, reset_counts, counts,
-                plan=None):
+                plan=None, warmup=False):
     """Phase 5's 48 requests (predictions exact, but for the skewed app)
     straight through ``drive_paged`` on a faulted engine with a host
-    tier and deadlines.  Counts are zeroed just before and read just
-    after.  Each swap-out is timed on the host (it waits for its
-    copies); every wave's KV lineage is recorded, and so are the layer-0
-    inputs of every decode step and admission wave (as in phase 5), for
-    :func:`hold_chaos`.  Returns what the checks and the log need."""
+    tier and deadlines (built with ``warmup``).  Counts are zeroed just
+    before and read just after.  Each swap-out is timed on the host (it
+    waits for its copies); every wave's KV lineage is recorded, and
+    so are the layer-0 inputs of every decode step and admission wave
+    (as in phase 5), for :func:`hold_chaos`.  Returns what the checks
+    and the log need."""
     from repro_torch.models import transformer
     from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
     from repro_torch.serving.faults import FaultEvent, FaultInjector
@@ -1065,7 +1103,7 @@ def chaos_serve(torch, cfg, params, device, dtype, reset_counts, counts,
     engine = PagedContinuousEngine(
         cfg, params, device=device, dtype=dtype, faults=inj,
         default_ttl=CHAOS_TTL, swap_blocks=CHAOS_SWAP_BLOCKS,
-        prefix_cache=True, **CHAOS)
+        prefix_cache=True, warmup=warmup, **CHAOS)
     build_s = time.perf_counter() - t0
     swap_out, outs, queued = engine._swap_out, [], []
 
@@ -1094,6 +1132,9 @@ def chaos_serve(torch, cfg, params, device, dtype, reset_counts, counts,
         launches = counts("launches")
     wall = time.perf_counter() - t0
     inj.release(engine.allocator)
+    # the timer closes over the engine: leaving it in place would keep
+    # the engine, its pools and its weights alive until a collection
+    del engine._swap_out
     return {"engine": engine, "reqs": reqs, "stats": st, "inj": inj,
             "launches": launches, "plain_calls": counts("plain_calls"),
             "wall": wall, "windows": rep.windows, "outs": outs,
@@ -1228,7 +1269,9 @@ def f32_witness(torch, cfg, reset_counts, counts, served5, chaos16):
     its counters and sheds must equal the bf16 chaos serve's; its
     streams are compared with the f32 serve's by ``compare_streams``,
     as the bf16 ones with phase 5's.  Returns phase 5's lineages, that
-    comparison and the f32 chaos serve's wall time."""
+    comparison, the f32 chaos serve's wall time and the f32 serve's
+    streams (in request order: phase 16's f32 witness compares with
+    them)."""
     from repro_torch.launch.serve import run_paged_engine_backend
     from repro_torch.models import model as M
     from repro_torch.workload.apps import make_shared_head_dataset
@@ -1273,7 +1316,7 @@ def f32_witness(torch, cfg, reset_counts, counts, served5, chaos16):
     wall = r["wall"]
     del r, eng
     torch.cuda.empty_cache()
-    return shapes5.by_req, cmp, wall
+    return shapes5.by_req, cmp, wall, streams
 
 
 def _twins(torch, cfg, params, device, dtype, plans, **kw):
@@ -1438,6 +1481,511 @@ def log_streams(cmps):
             f"suffix bucket, or the waves that wrote its cached prefix; "
             f"requests {other}), {len(unexplained)} with the same lineage "
             f"(requests {unexplained})")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: speculative decoding (§16), the window as one captured graph
+# ---------------------------------------------------------------------------
+
+class LayerZero:
+    """Inside the ``with`` block, the layer-0 attention calls of a
+    speculative serve are kept, by kind ("decode" or "prefill") and
+    pool: a call of ``paged_decode_attention`` or
+    ``paged_prefix_prefill_attention`` whose K pages are layer 0 of one
+    of ``pools`` ({name: K pool [L, ...]}) keeps a copy of its inputs
+    but the pools.  A call made while a graph is captured runs nothing:
+    its inputs are cloned inside the capture (so each replay leaves that
+    replay's values in the clones), and after every replay of a captured
+    step (``CapturedStep.replay``, the engine's speculative window) they
+    are kept as that replay's calls."""
+
+    POOL_ARGS = {"decode": (1, 2), "prefill": (3, 4)}
+
+    def __init__(self, transformer, pools):
+        self.transformer = transformer
+        self.layer0 = {k[0].data_ptr(): name for name, k in pools.items()}
+        self.kept, self.captured = {}, []
+
+    def calls(self, kind, pool):
+        return self.kept.get((kind, pool), [])
+
+    def _copy(self, kind, args):
+        keep = self.POOL_ARGS[kind]
+        return tuple(a if i in keep else a.clone() for i, a in enumerate(args))
+
+    def __enter__(self):
+        from repro_torch.serving.graphs import CapturedStep
+        t = self.transformer
+        self.orig = {kind: getattr(t, name) for kind, name in (
+            ("decode", "paged_decode_attention"),
+            ("prefill", "paged_prefix_prefill_attention"))}
+        self.orig_replay = replay = CapturedStep.replay
+
+        def wrap(kind):
+            fn = self.orig[kind]
+
+            def call(*args, **kw):
+                name = self.layer0.get(args[self.POOL_ARGS[kind][0]]
+                                       .data_ptr())
+                if name is not None:
+                    item = ((kind, name), self._copy(kind, args))
+                    if _capturing():
+                        self.captured.append(item)
+                    else:
+                        self.kept.setdefault(item[0], []).append(item[1])
+                return fn(*args, **kw)
+            return call
+
+        def replay_and_keep(graph):
+            replay(graph)
+            for key, args in self.captured:
+                self.kept.setdefault(key, []).append(
+                    self._copy(key[0], args))
+
+        t.paged_decode_attention = wrap("decode")
+        t.paged_prefix_prefill_attention = wrap("prefill")
+        CapturedStep.replay = replay_and_keep
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving.graphs import CapturedStep
+        self.transformer.paged_decode_attention = self.orig["decode"]
+        self.transformer.paged_prefix_prefill_attention = self.orig["prefill"]
+        CapturedStep.replay = self.orig_replay
+
+
+def hold_spec(torch, ops, ref, label, eng, rec, w):
+    """Every kept layer-0 call of a speculative serve through its kernel
+    and plain version (phase 6's ``hold``) on its own pool's layer 0:
+    the draft's decode steps, the target's verifies (S = W) and waves,
+    the draft's waves.  Checks that the recorder saw every call: W draft
+    steps and one verify a window, one target and one draft wave per
+    admission wave, no decode on the target pool.  Returns the verifies
+    and the draft steps, and the largest error of each kernel."""
+    pools = {"target": eng.pages, "draft": eng.draft_pages}
+    verifies = [c for c in rec.calls("prefill", "target")
+                if c[0].shape[1] == w]
+    waves = [c for c in rec.calls("prefill", "target")
+             if c[0].shape[1] != w]
+    steps = rec.calls("decode", "draft")
+    check(len(steps) == w * eng.spec_windows
+          and len(verifies) == eng.spec_windows
+          and len(waves) == eng.prefill_dispatches
+          == len(rec.calls("prefill", "draft"))
+          and not rec.calls("decode", "target"),
+          f"{label}: recorded {len(steps)} draft steps, {len(verifies)} "
+          f"verifies, {len(waves)} and {len(rec.calls('prefill', 'draft'))}"
+          f" waves, {len(rec.calls('decode', 'target'))} target decodes for"
+          f" {eng.spec_windows} windows and {eng.prefill_dispatches} waves")
+    errs = {"paged_decode_attention": [],
+            "paged_prefix_prefill_attention": []}
+    for (kind, pool), calls in rec.kept.items():
+        K, V = pools[pool]["k"][0], pools[pool]["v"][0]
+        for args in calls:
+            if kind == "decode":
+                q, _, _, tables, lens = args
+                errs["paged_decode_attention"].append(hold(
+                    torch, "paged_decode_attention",
+                    ops.paged_decode_attention(q, K, V, tables, lens),
+                    ref.paged_decode_attention_ref(q, K, V, tables, lens)))
+            else:
+                q, ks, vs, _, _, tables, pl, sl = args
+                errs["paged_prefix_prefill_attention"].append(hold(
+                    torch, "paged_prefix_prefill_attention",
+                    ops.paged_prefix_prefill_attention(
+                        q, ks, vs, K, V, tables, pl, sl),
+                    ref.paged_prefix_prefill_attention_ref(
+                        q, ks, vs, K, V, tables, pl, sl)))
+    log(f"{label} holds (layer-0 inputs on their own pools): " + "; ".join(
+        f"{name} at {len(e)} calls, max abs err {max(x for x, _ in e):.3e} "
+        f"at output scale up to {max(sc for _, sc in e):.1f}"
+        for name, e in errs.items()))
+    return ([(q, ks, vs, t, pl, sl) for q, ks, vs, _, _, t, pl, sl
+             in verifies],
+            [(q, t, lens) for q, _, _, t, lens in steps],
+            {name: max(x for x, _ in e) for name, e in errs.items()})
+
+
+def spec_counts(label, eng, launches, plain, stats):
+    """The phase's exact count checks: one capture (the first window's),
+    host syncs = spec windows (no guard without faults), the kernels
+    launched W times a window per draft layer and once a verify, target
+    wave and draft wave per target layer (draft layer for the draft's
+    waves), no plain call, no plain decode graph."""
+    w, lt, ld = eng.spec_w, eng.cfg.num_layers, eng.draft_cfg.num_layers
+    windows, waves = eng.spec_windows, eng.prefill_dispatches
+    want = {"paged_decode_attention": ld * w * windows,
+            "paged_prefix_prefill_attention":
+                lt * (waves + windows) + ld * waves}
+    got = {name: launches[name] for name in want}
+    check(got == want, f"{label}: launches {got}, predicted {want} from "
+          f"{windows} windows and {waves} waves")
+    check(not any(plain.values()), f"{label}: plain calls {plain}")
+    check(eng.graph_captures == 1 and eng._decode_graph is None,
+          f"{label}: {eng.graph_captures} captures")
+    check(stats["host_syncs"] == windows,
+          f"{label}: {stats['host_syncs']} host syncs in {windows} windows")
+    log(f"{label}: {windows} spec windows, {waves} waves, "
+        f"{eng.decode_steps} decode steps, {stats['host_syncs']} host "
+        f"syncs, 1 capture; launches {got} as predicted; acceptance "
+        f"{stats['acceptance_rate']:.4f}, {stats['accepted_per_dispatch']:.4f}"
+        f" tokens a verify row; draft prefill tokens "
+        f"{eng.draft_prefill_tokens}")
+
+
+def spec_profile(torch, engine, reqs):
+    """Where a speculative window's time goes: admit one full wave into
+    the served engine, settle it with one window, then time and profile
+    windows through the engine (replays of the captured window, its
+    readback and bookkeeping), and the draft's W steps and the verify
+    apart, each run eagerly on a copy of the window's state (their
+    device busy time; their writes land where the next window writes
+    anyway).  Then drain."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import drive_paged
+    check(engine.join_many(reqs) == len(reqs), "profile wave refused")
+    engine.step_window()
+    out = {"graphed": window_profile(
+        torch, lambda: (engine.step_window(), 1)[1],
+        f"graphed spec window at {engine.num_active} rows")}
+    g = engine._spec_graph
+    st = {k: t.clone() for k, t in g.state.items()}
+    st["max_emit"].fill_(engine.spec_w)
+    proposed, packed = g.proposed.clone(), g.packed.clone()
+
+    def draft():
+        M.draft_window_into(
+            engine.draft_params, engine.draft_cfg, engine.draft_pages,
+            {"target_logits": st["logits"], "logits": st["draft_logits"],
+             "positions": st["positions"], "tables": st["draft_tables"],
+             "active": st["active"]},
+            proposed, target_vocab=engine.cfg.vocab_size,
+            act_dtype=engine.dtype)
+        return 1
+
+    def verify():
+        s = {k: st[k].clone() for k in ("logits", "positions")}
+        M.verify_window_into(
+            engine.params, engine.cfg, engine.pages,
+            {**s, "tables": st["tables"], "active": st["active"],
+             "max_emit": st["max_emit"]},
+            proposed, packed, null_block=engine.null_block,
+            act_dtype=engine.dtype)
+        return 1
+
+    out["eager draft"] = window_profile(
+        torch, draft, f"eager draft steps (W = {engine.spec_w})")
+    out["eager verify"] = window_profile(
+        torch, verify, "eager verify", kernel="prefix_prefill_tc_kernel")
+    # the margin a greedy pick has against rounding: the gap between the
+    # two largest logits of each active row's carry
+    live = st["active"]
+    top = torch.topk(st["logits"][live, :engine.cfg.vocab_size].float(),
+                     2).values
+    gap = top[:, 0] - top[:, 1]
+    log(f"spec window: the target's top-2 logit gap over {gap.numel()} "
+        f"rows: median {gap.median().item():.3f}, under 0.25 in "
+        f"{(gap < 0.25).float().mean().item():.2f} of the rows, largest "
+        f"logit up to {top[:, 0].max().item():.1f}")
+    del st
+    s = drive_paged(engine, [])
+    check(not engine.num_active and not s["unserved"],
+          "spec profile wave did not drain")
+    engine.assert_drained()
+    return out
+
+
+def spec_serve(torch, reqs, reset_counts, counts):
+    """Phase 16 (a): phase 5's serve through the launcher with
+    ``spec_decode=True``, a self-draft, recording every layer-0 call and
+    every wave's KV lineage."""
+    from repro_torch.launch.serve import run_paged_engine_backend
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine as E
+    made = []
+    build = E.PagedContinuousEngine.__init__
+
+    def record(engine, *a, **kw):
+        build(engine, *a, **kw)
+        made.append(engine)
+        rec.layer0.update({engine.pages["k"][0].data_ptr(): "target",
+                           engine.draft_pages["k"][0].data_ptr(): "draft"})
+
+    rec = LayerZero(transformer, {})
+    E.PagedContinuousEngine.__init__ = record
+    try:
+        with rec, wave_shapes() as shapes:
+            reset_counts()
+            res = run_paged_engine_backend(
+                "chatglm-6b", 0.0, 0.0, "magnus-paged", seed=0,
+                reduced=False, device="cuda", dtype=torch.bfloat16,
+                prefix_cache=True, requests=reqs, spec_decode=True,
+                draft_k=DRAFT_K, **SERVE)
+            launches = counts("launches")
+    finally:
+        E.PagedContinuousEngine.__init__ = build
+    eng = res.pop("engine")
+    check(made == [eng], "the launcher built another engine")
+    return eng, res, rec, shapes.by_req, launches, counts("plain_calls")
+
+
+def small_draft_serve(torch, cfg, params, reqs, reset_counts, counts):
+    """Phase 16 (b): the rejecting draft (chatglm-6b cut to
+    ``SMALL_DRAFT``, seed 1) through ``PagedContinuousEngine`` and
+    ``drive_paged`` at phase 5's geometry, as phase 15 drives its
+    engine."""
+    import dataclasses
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
+    # reduced() also cuts the vocab; the draft keeps the target's
+    dcfg = dataclasses.replace(cfg.reduced(**SMALL_DRAFT),
+                               vocab_size=cfg.vocab_size)
+    eng = PagedContinuousEngine(
+        cfg, params, device="cuda", dtype=torch.bfloat16, prefix_cache=True,
+        spec_decode=True, draft_k=DRAFT_K, draft_cfg=dcfg, draft_seed=1,
+        **SERVE)
+    check(dcfg.vocab_size == cfg.vocab_size and dcfg.head_dim == 64,
+          f"the small draft: vocab {dcfg.vocab_size}, head {dcfg.head_dim}")
+    rec = LayerZero(transformer, {"target": eng.pages["k"],
+                                  "draft": eng.draft_pages["k"]})
+    t0 = time.perf_counter()
+    with rec:
+        reset_counts()
+        st = drive_paged(eng, list(reqs), max_steps=100_000)
+        torch.cuda.synchronize()
+        launches = counts("launches")
+    wall = time.perf_counter() - t0
+    return eng, st, rec, launches, counts("plain_calls"), wall
+
+
+def spec_f32_witness(torch, cfg, reqs, streams32):
+    """Phase 16 (c): phase 5's requests through the launcher in f32
+    (TF32 off) on phase 15's f32 weights (seed 0), at a pool of
+    ``SPEC_F32_BLOCKS``, inside ``batch_invariant()``: spec off, then
+    spec on with a self-draft.  Every spec-on stream must equal the
+    spec-off serve's, and the self-draft must have every proposal
+    accepted (acceptance 1.0).
+
+    The batch-invariant arithmetic is what makes "equal" a test of the
+    speculative logic: with the default arithmetic a verify (products
+    of B x W rows, the prefix-prefill kernel) and a decode step
+    (products of B rows, the decode kernel) round differently even in
+    f32, and at a near tie of two logits the greedy pick flips
+    (``scripts/f32_invariance.py`` measures both).  Before the verdict
+    it logs what a failure is made of: each differing stream's first
+    differing token, and each rejected proposal (the draft's token
+    against the verify's pick) with the gap between the two in the
+    verify's own carried logits, read back after the window on the card.
+    The spec-off streams are also compared, for the log only, with phase
+    15's f32 serve (``streams32``, the default arithmetic): that count
+    measures how often rounding alone changes a stream."""
+    from repro_torch.launch.serve import run_paged_engine_backend
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on for f32 GEMMs")
+    params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    serve = dict(SERVE, num_blocks=SPEC_F32_BLOCKS)
+    rejections, speculate = [], E.PagedContinuousEngine._speculate
+
+    def watched(engine, max_emit):
+        packed = speculate(engine, max_emit)
+        # more readbacks a window, not counted by the engine
+        rows = packed.cpu().numpy()
+        carry = engine.logits[:, :cfg.vocab_size].cpu()
+        w = engine.spec_w
+        for slot, a in enumerate(engine.active):
+            e = int(rows[slot, w])
+            if a is not None and e < max_emit[slot]:
+                x, mine = carry[slot].double(), int(rows[slot, e])
+                pick = int(x.argmax())
+                rejections.append((a["req"].req_id, len(a["generated"]) + e,
+                                   mine, pick, (x[pick] - x[mine]).item(),
+                                   x.abs().max().item()))
+        return packed
+
+    with M.batch_invariant():
+        t0 = time.perf_counter()
+        res = run_paged_engine_backend(
+            "chatglm-6b", 0.0, 0.0, "magnus-paged", seed=0, reduced=False,
+            device="cuda", dtype=torch.float32, prefix_cache=True,
+            requests=reqs, params=params, **serve)
+        off_wall = time.perf_counter() - t0
+        eng = res.pop("engine")
+        eng.assert_drained()
+        check(res["requests"] == len(reqs),
+              "the f32 spec-off serve left requests")
+        streams_off = [eng.generated[r.req_id] for r in reqs]
+        del eng, res
+        torch.cuda.empty_cache()
+        E.PagedContinuousEngine._speculate = watched
+        try:
+            t0 = time.perf_counter()
+            res = run_paged_engine_backend(
+                "chatglm-6b", 0.0, 0.0, "magnus-paged", seed=0,
+                reduced=False, device="cuda", dtype=torch.float32,
+                prefix_cache=True, requests=reqs, params=params,
+                spec_decode=True, draft_k=DRAFT_K, **serve)
+            on_wall = time.perf_counter() - t0
+        finally:
+            E.PagedContinuousEngine._speculate = speculate
+    eng = res.pop("engine")
+    eng.assert_drained()
+    out = {k: res[k] for k in ("requests", "spec_windows", "host_syncs",
+                               "acceptance_rate", "accepted_per_dispatch",
+                               "prefill_dispatches", "decode_steps",
+                               "wall_s", "token_tp")}
+    flips = []
+    for i, r in enumerate(reqs):
+        mine, want = eng.generated.get(r.req_id), streams_off[i]
+        if mine != want:
+            at = next((j for j, (x, y) in enumerate(zip(mine or [], want))
+                       if x != y), None)
+            flips.append({"request": i, "token": at,
+                          "spec_off": None if at is None else want[at],
+                          "spec_on": None if at is None else mine[at]})
+    index = {r.req_id: i for i, r in enumerate(reqs)}
+    accepted, drafted = eng.spec_accepted, eng.spec_drafted
+    rounding = sum(a == b for a, b in zip(streams_off, streams32))
+    log(f"spec f32 witness, batch-invariant (self-draft, "
+        f"{SPEC_F32_BLOCKS} f32 blocks a pool, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+        f"allocated): spec off {off_wall:.1f} s, spec on {on_wall:.1f} s "
+        f"with set-up; " + json.dumps(out) + f"; {len(reqs) - len(flips)} "
+        f"of {len(reqs)} streams equal the spec-off serve's; {accepted} of "
+        f"{drafted} proposals accepted; differing streams at their first "
+        f"differing token: {json.dumps(flips)}; rejected proposals "
+        f"(request, generated token, the draft's token, the verify's, the "
+        f"verify's logit gap between them, the verify's largest logit): "
+        + json.dumps([(index[r], t, d, v, round(g, 7), round(sc, 3))
+                      for r, t, d, v, g, sc in rejections])
+        + f"; for the log only: {rounding} of {len(reqs)} batch-invariant "
+        f"spec-off streams equal phase 15's f32 serve's (the default "
+        f"arithmetic)")
+    check(eng.graph_captures == 1 and res["host_syncs"] == eng.spec_windows,
+          "the f32 spec serve's captures or host syncs")
+    check(out["requests"] == len(reqs), "the f32 spec serve left requests")
+    check(not flips, f"in f32, spec streams "
+          f"{[f['request'] for f in flips]} differ from spec off")
+    check(accepted == drafted, f"the f32 self-draft had {drafted - accepted}"
+          f" of {drafted} proposals rejected (acceptance "
+          f"{out['acceptance_rate']})")
+    del eng, res, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_phase(torch, ops, ref, cfg, reqs, streams5, shapes5, streams32,
+               res5, spin, reset_counts, counts):
+    """Phase 16: speculative decoding at full width, the draft-and-verify
+    window as one captured graph per engine.  (a) Phase 5's serve
+    through the launcher with a self-draft: exact counts, every layer-0
+    draft step, verify and wave held against the plain kernels, the
+    streams against phase 5's (``reqs``, ``streams5``, ``shapes5``) by
+    cause, the verify's and the draft's kernel timed at their own
+    inputs, the window profiled; (b) a rejecting draft through
+    ``drive_paged``: counts, holds, both pools drained; (c) the f32
+    witness, spec on against spec off in the batch-invariant arithmetic
+    (phase 15's f32 streams ``streams32`` for the log).  Each engine
+    is dropped, its pools freed, before the next is built."""
+    import gc
+    from repro_torch.models import model as M
+    from repro_torch.workload.apps import make_shared_head_dataset
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"phase 16: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"allocated before it")
+    sreqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
+                                     gen_length=GEN_LENGTH, seed=0)
+    t0 = time.perf_counter()
+    seng, sres, srec, sshapes, slaunch, splain = spec_serve(
+        torch, sreqs, reset_counts, counts)
+    log(f"spec serve chatglm-6b full width bf16 (self-draft, draft_k "
+        f"{DRAFT_K}): {time.perf_counter() - t0:.1f} s with set-up; "
+        + json.dumps(sres))
+    check(sres["requests"] == N_REQUESTS and seng.draft_params is
+          seng.params, f"spec serve: {sres['requests']} requests, or "
+          f"not a self-draft")
+    seng.assert_drained()
+    spec_counts("spec serve", seng, slaunch, splain, sres)
+    for r in sreqs:
+        toks = seng.generated[r.req_id]
+        check(len(toks) == min(r.gen_length, SERVE["max_gen"])
+              and all(0 <= x < cfg.vocab_size for x in toks),
+              f"spec request {r.req_id}: {len(toks)} tokens or one out "
+              f"of range")
+    verifies, dsteps, _ = hold_spec(torch, ops, ref, "spec serve", seng,
+                                    srec, seng.spec_w)
+    same, restarted, other, unexplained = compare_streams(
+        sreqs, seng.generated, sshapes, reqs, streams5, shapes5)
+    log(f"spec serve streams against phase 5's, bf16: {same} equal; "
+        f"differ: {len(restarted)} restarted, {len(other)} with another KV "
+        f"lineage than phase 5 (requests {other}), {len(unexplained)} with "
+        f"phase 5's lineage, so by the verify's and the draft's own "
+        f"rounding (requests {unexplained}); each must equal the f32 "
+        f"witness's spec-off stream in f32 (c)")
+    log(f"spec serve: {sres['token_tp']} tokens/s in {sres['wall_s']} "
+        f"s (phase 5: {res5['token_tp']} in {res5['wall_s']} s); "
+        f"{sres['accepted_per_dispatch']} tokens a verify row, "
+        f"acceptance {sres['acceptance_rate']}")
+    spec16 = {"windows": seng.spec_windows, "launches": slaunch}
+    pick = lambda xs: xs[::max(1, -(-len(xs) // SPEC_TIMED))]
+    t16 = {"verify": summarize(
+               "paged_prefix_prefill_attention at the verify (S = W)",
+               *time_prefill(torch, ops, ref, pick(verifies),
+                             seng.pages["k"], seng.pages["v"], spin)),
+           "draft": summarize(
+               "paged_decode_attention on the self-draft's pool",
+               *time_decode(torch, ops, ref, pick(dsteps),
+                            seng.draft_pages["k"],
+                            seng.draft_pages["v"], spin))}
+    log_profiles("spec window at 32 rows", spec_profile(
+        torch, seng, make_shared_head_dataset(
+            SERVE["max_concurrency"], n_apps=3, gen_length=GEN_LENGTH,
+            seed=1)))
+    del seng, sres, srec, verifies, dsteps
+    torch.cuda.empty_cache()
+
+    bparams = M.init_params(cfg, seed=0, device="cuda",
+                            dtype=torch.bfloat16)   # phase 5's weights
+    breqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
+                                     gen_length=GEN_LENGTH, seed=0)
+    beng, bst, brec, blaunch, bplain, bwall = small_draft_serve(
+        torch, cfg, bparams, breqs, reset_counts, counts)
+    check(not bst["unserved"] and bst["served"] == N_REQUESTS,
+          f"rejecting-draft serve: {bst['served']} served")
+    beng.assert_drained()
+    spec_counts("rejecting-draft serve", beng, blaunch, bplain, bst)
+    check(bst["acceptance_rate"] < 1.0,
+          f"the rejecting draft accepted {bst['acceptance_rate']}")
+    _, bsteps, _ = hold_spec(torch, ops, ref, "rejecting-draft serve",
+                             beng, brec, beng.spec_w)
+    t16["small draft"] = summarize(
+        "paged_decode_attention on the small draft's pool (D 64)",
+        *time_decode(torch, ops, ref, pick(bsteps),
+                     beng.draft_pages["k"], beng.draft_pages["v"],
+                     spin))
+    same = sum(beng.generated[r.req_id] == streams5[i]
+               for i, r in enumerate(breqs))
+    tokens = sum(len(g) for g in beng.generated.values())
+    log(f"rejecting-draft serve ({beng.draft_cfg.num_layers} layers, "
+        f"d_model {beng.draft_cfg.d_model}, head {beng.draft_cfg.head_dim}"
+        f"): {bwall:.2f} s, {tokens / bwall:.1f} tokens/s; "
+        f"{same} of {N_REQUESTS} streams equal phase 5's; both pools "
+        f"drained")
+    del beng, brec, bsteps, bparams
+    torch.cuda.empty_cache()
+
+    log("phase 16 kernels (mean of per-shape medians, CUDA events, ms): "
+        + json.dumps({"spec_launches": spec16["launches"],
+                      "spec_windows": spec16["windows"],
+                      **{k: {key: (round(v, 4) if isinstance(v, float)
+                                   else v) for key, v in row.items()}
+                         for k, row in t16.items()}}))
+    spec_f32_witness(torch, cfg, reqs, streams32)
+    log(f"phase 16 peak: {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        f" GiB allocated")
 
 
 # ---------------------------------------------------------------------------
@@ -2691,8 +3239,8 @@ def main() -> int:
         swap_roundtrip_check(torch, cfg, cparams, "cuda", torch.bfloat16)
         del cparams
         torch.cuda.empty_cache()
-        shapes5, cmp32, wall32 = f32_witness(torch, cfg, reset_counts,
-                                             counts, sched5, chaos16)
+        shapes5, cmp32, wall32, streams32 = f32_witness(
+            torch, cfg, reset_counts, counts, sched5, chaos16)
         cmp16 = compare_streams(chaos16["reqs"], chaos16["generated"],
                                 chaos16["shapes"], reqs, streams5, shapes5)
         log_streams([("bf16 (phase 5's)", cmp16),
@@ -2704,6 +3252,13 @@ def main() -> int:
         check(cmp32[0] == len(chaos16["generated"]),
               f"in f32, chaos streams {cmp32[1] + cmp32[2] + cmp32[3]} "
               f"differ from the unfaulted serve's")
+        del chaos16
+        torch.cuda.empty_cache()
+
+        # 16. speculative decoding: the draft-and-verify window as one
+        # captured graph
+        spec_phase(torch, ops, ref, cfg, reqs, streams5, shapes5, streams32,
+                   res5, spin, reset_counts, counts)
 
         source = {"paged_decode_attention":
                   ("src/repro_torch/csrc/paged_decode_attention.cu",

@@ -122,7 +122,8 @@ def _split_counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _split_plan(q, slots: int, hkv: int, sms: int
+def _split_plan(q, slots: int, hkv: int, sms: int,
+                splits: Optional[int] = None
                 ) -> Tuple[int, torch.Tensor, Optional[torch.Tensor],
                            Optional[torch.Tensor], Optional[torch.Tensor]]:
     b, hq, d = q.shape
@@ -130,7 +131,10 @@ def _split_plan(q, slots: int, hkv: int, sms: int
         raise ValueError(f"decode head size {d} not in "
                          f"{DECODE_HEAD_SIZES}")
     chunks = -(-(hq // hkv) // MAX_HEADS_PER_BLOCK)
-    splits = plan_splits(b, slots, hkv * chunks, sms)
+    if splits is None:
+        splits = plan_splits(b, slots, hkv * chunks, sms)
+    elif not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits {splits} not in [1, {MAX_SPLITS}]")
     out = torch.empty_like(q)
     if splits == 1:
         return splits, out, None, None, None
@@ -160,14 +164,15 @@ def decode_plan(q, k_cache, lengths, sms: int
     return _split_plan(q, s, hkv, sms)
 
 
-def paged_decode_plan(q, k_pages, block_tables, lengths, sms: int
+def paged_decode_plan(q, k_pages, block_tables, lengths, sms: int,
+                      splits: Optional[int] = None
                       ) -> Tuple[int, torch.Tensor, Optional[torch.Tensor],
                                  Optional[torch.Tensor],
                                  Optional[torch.Tensor]]:
     """As :func:`decode_plan`, for a page pool [num_blocks, bt, Hkv, D]
     and block tables [B, max_blocks]: a request has max_blocks * bt
-    slots.  Reads no tensor's values (neither the tables nor the
-    lengths)."""
+    slots; ``splits``, when given, replaces the planned count.  Reads no
+    tensor's values (neither the tables nor the lengths)."""
     b, hq, d = q.shape
     _, bt, hkv, dk = k_pages.shape
     if dk != d or hq % hkv or block_tables.dim() != 2 \
@@ -176,7 +181,7 @@ def paged_decode_plan(q, k_pages, block_tables, lengths, sms: int
             f"shape mismatch: q {tuple(q.shape)}, pages "
             f"{tuple(k_pages.shape)}, tables {tuple(block_tables.shape)}, "
             f"lengths {tuple(lengths.shape)}")
-    return _split_plan(q, block_tables.shape[1] * bt, hkv, sms)
+    return _split_plan(q, block_tables.shape[1] * bt, hkv, sms, splits)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -250,9 +255,12 @@ def _check_aligned(**tensors) -> None:
 
 
 def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
-                                  lengths) -> torch.Tensor:
+                                  lengths, *, splits: Optional[int] = None
+                                  ) -> torch.Tensor:
     """q: [B, Hq, D]; pages: [num_blocks, bt, Hkv, D]; block_tables:
-    [B, max_blocks] int32; lengths: [B] int32 -> [B, Hq, D]."""
+    [B, max_blocks] int32; lengths: [B] int32 -> [B, Hq, D].  ``splits``:
+    the KV axis's split count, planned from the shapes when None (one
+    split gives a row the same arithmetic whatever the batch)."""
     code = dtype_code(q)
     check_cuda("q", q, dim=3)
     check_cuda("k_pages", k_pages, dtype=q.dtype, dim=4)
@@ -266,7 +274,8 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
     b, hq, d = q.shape
     _, bt, hkv, _ = k_pages.shape
     splits, out, part_o, part_ml, counters = paged_decode_plan(
-        q, k_pages, block_tables, lengths, _sm_count(q.device.index))
+        q, k_pages, block_tables, lengths, _sm_count(q.device.index),
+        splits)
     with torch.cuda.device(q.device):
         rc = load_library().repro_paged_decode_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

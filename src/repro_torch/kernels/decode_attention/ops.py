@@ -55,11 +55,14 @@ decode_attention_int8.plain_calls = 0
 
 
 @hot_path
-def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                           splits=None):
     """q: [B, Hq, D]; pages: [num_blocks, bt, Hkv, D]; block_tables:
     [B, max_blocks] (pad entries must be valid ids for the plain version,
     which gathers them; the kernel never reads an entry or a page past
-    ``lengths``); lengths: [B] -> [B, Hq, D]."""
+    ``lengths``); lengths: [B] -> [B, Hq, D].  ``splits`` fixes the
+    kernel's split count (else planned from the shapes); the plain
+    version has none."""
     if device_route(q) == "cpu":
         paged_decode_attention.plain_calls += 1
         return ref.paged_decode_attention_ref(q, k_pages, v_pages,
@@ -67,7 +70,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
     out = kernel.paged_decode_attention_kernel(
         q.contiguous(), k_pages, v_pages,
         block_tables.to(torch.int32).contiguous(),
-        lengths.to(torch.int32).contiguous())
+        lengths.to(torch.int32).contiguous(), splits=splits)
     paged_decode_attention.launches += 1
     return out
 

@@ -112,6 +112,7 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
                              prefix_cache: bool = False,
                              ttl_steps: Optional[int] = None,
                              swap_blocks: int = 0,
+                             spec_decode: bool = False, draft_k: int = 4,
                              reduced: bool = True, device=None,
                              dtype: torch.dtype = torch.float32,
                              max_len: int = 200, max_gen: int = 32,
@@ -129,7 +130,9 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
     per-request deadline in scheduler-clock ticks (§14); ``swap_blocks``
     > 0 enables the host-memory KV swap tier (§15), so pool pressure
     suspends victims to host pages (pinned on the card) instead of
-    destroying their KV.
+    destroying their KV.  ``spec_decode`` turns on speculative decoding
+    (§16) with a self-draft proposing ``draft_k`` tokens a window, as
+    in the reference; greedy output is unchanged.
 
     ``reduced`` serves ``cfg.reduced()`` (the reference launcher always
     does); ``max_len``, ``max_gen`` and ``num_blocks`` size the engine
@@ -168,7 +171,9 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
                                    dtype=dtype, allocator=allocator,
                                    prefix_cache=svc.prefix_cache or False,
                                    mispredict=ewma, default_ttl=ttl_steps,
-                                   swap_blocks=swap_blocks, device=dev)
+                                   swap_blocks=swap_blocks,
+                                   spec_decode=spec_decode, draft_k=draft_k,
+                                   device=dev)
     wl = requests if requests is not None else poisson_workload(
         rate, duration, seed=seed, max_len=max_len, max_gen=max_gen)
     for r in wl:
@@ -221,6 +226,12 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
             "swap_reused_blocks": engine.swap_reused_blocks,
             "reprefilled_swapped_tokens": st["reprefilled_swapped_tokens"],
             "swap_in_s": round(engine.swap_in_s, 4),
+            # speculative decoding (DESIGN.md §16)
+            "spec_windows": st["spec_windows"],
+            "accepted_per_dispatch": round(st["accepted_per_dispatch"], 3),
+            "acceptance_rate": round(st["acceptance_rate"], 3),
+            "draft_quarantined": st["draft_quarantined"],
+            "draft_prefill_tokens": st["draft_prefill_tokens"],
             "headroom": ewma.snapshot(),
             "device": str(dev), "engine": engine}
 
@@ -248,13 +259,23 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "in blocks (0 disables); under pool pressure live "
                          "victims suspend to pinned host pages and resume "
                          "without re-prefilling (DESIGN.md §15)")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="paged engine: speculative decoding (DESIGN.md "
+                         "§16): a self-draft proposes draft-k tokens a "
+                         "window, one batched target pass verifies them, "
+                         "rollback is block-table truncation; greedy "
+                         "output is unchanged")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="speculative tokens proposed a window (the verify "
+                         "covers draft-k + 1 positions)")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (raises without one)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     paged_only = {"--prefix-cache": args.prefix_cache,
                   "--ttl-steps": args.ttl_steps is not None,
-                  "--swap-blocks": args.swap_blocks > 0}
+                  "--swap-blocks": args.swap_blocks > 0,
+                  "--spec-decode": args.spec_decode}
     for flag, given in paged_only.items():
         if given and args.strategy not in PAGED_STRATEGIES:
             ap.error(f"{flag} needs a -paged strategy")
@@ -263,6 +284,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             args.arch, args.rate, args.duration, args.strategy, args.seed,
             block_tokens=args.block_tokens, prefix_cache=args.prefix_cache,
             ttl_steps=args.ttl_steps, swap_blocks=args.swap_blocks,
+            spec_decode=args.spec_decode, draft_k=args.draft_k,
             device=args.device)
     else:
         out = run_engine_backend(args.arch, args.rate, args.duration,

@@ -16,6 +16,12 @@ reference package's ``models/model.py``).  Batches are dicts of tensors:
   decode_multi_paged : {"logits": [B, padded_vocab], "positions": [B],
                         "block_tables": [B, M], "active": [B] bool}
                        (``decode_step_paged_into``: one step in place)
+  draft_window       : {"target_logits", "logits": [B, padded_vocab] draft
+                        carry, "positions", "block_tables", "active"}
+  verify_window      : {"proposed": [B, W], "logits", "positions",
+                        "block_tables", "active", "max_emit": [B]}
+                       (``draft_window_into``, ``verify_window_into``: in
+                       place, the speculative window of §16)
 
 The functions run where their tensors live; the constructors
 (:func:`init_params`, :func:`init_cache`, :func:`init_paged_cache`)
@@ -23,7 +29,8 @@ take a ``device`` that defaults to the CUDA card and raise without one.
 The dense and SSM families have a dense cache in the port; the others
 raise ``NotImplementedError`` (``transformer.supports_dense`` says why).
 The paged entry points serve the dense family only
-(:func:`supports_paged`).
+(:func:`supports_paged`).  :func:`batch_invariant` makes their
+arithmetic of a token independent of its batch, wave or window.
 """
 from __future__ import annotations
 
@@ -36,6 +43,8 @@ from repro_torch.analysis.sanitizer import hot_path
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+
+batch_invariant = transformer.batch_invariant
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
@@ -211,6 +220,73 @@ def decode_step_paged_into(params, cfg: ModelConfig, pages,
     logits.copy_(new_logits)
     positions.add_(state["active"].to(positions.dtype))
     tok_out.copy_(tok)
+
+
+@hot_path
+def draft_window(params, cfg: ModelConfig, pages, batch: Dict[str, Any], *,
+                 num_steps: int, target_vocab: int,
+                 act_dtype: torch.dtype = torch.bfloat16):
+    """Draft ``num_steps`` speculative tokens with the draft model
+    (``params``, ``cfg`` and ``pages`` are the DRAFT's; DESIGN.md §16).
+    batch: {"target_logits": [B, target padded_vocab], "logits": [B,
+    padded_vocab] draft carry, "positions": [B], "block_tables": [B, M]
+    draft tables, "active": [B] bool}.  Returns (draft logits, pages,
+    proposed [B, num_steps])."""
+    return transformer.draft_window(
+        params, cfg, pages, batch["target_logits"], batch["logits"],
+        batch["positions"], batch["block_tables"], batch["active"],
+        num_steps=num_steps, target_vocab=target_vocab, act_dtype=act_dtype)
+
+
+@hot_path
+def verify_window(params, cfg: ModelConfig, pages, batch: Dict[str, Any], *,
+                  null_block: int, act_dtype: torch.dtype = torch.bfloat16):
+    """Verify a drafted window in one batched target pass (DESIGN.md
+    §16).  batch: {"proposed": [B, W], "logits": [B, padded_vocab] target
+    carry, "positions": [B], "block_tables": [B, M] target tables,
+    "active": [B] bool, "max_emit": [B] per-slot emit budget}.  Returns
+    (logits, pages, positions, packed [B, W+1])."""
+    return transformer.verify_window(
+        params, cfg, pages, batch["proposed"], batch["logits"],
+        batch["positions"], batch["block_tables"], batch["active"],
+        batch["max_emit"], null_block=null_block, act_dtype=act_dtype)
+
+
+@hot_path
+def draft_window_into(params, cfg: ModelConfig, pages,
+                      state: Dict[str, torch.Tensor],
+                      proposed_out: torch.Tensor, *, target_vocab: int,
+                      act_dtype: torch.dtype = torch.bfloat16) -> None:
+    """:func:`draft_window` written in place, so that a CUDA graph can
+    replay it: ``state`` = {"target_logits", "logits" (the draft carry,
+    overwritten), "positions" (read, not advanced), "tables" (the draft
+    tables), "active"}; the proposals go into ``proposed_out`` [B, W],
+    whose width is the window's."""
+    logits, _, proposed = transformer.draft_window(
+        params, cfg, pages, state["target_logits"], state["logits"],
+        state["positions"], state["tables"], state["active"],
+        num_steps=proposed_out.shape[1], target_vocab=target_vocab,
+        act_dtype=act_dtype)
+    state["logits"].copy_(logits)
+    proposed_out.copy_(proposed)
+
+
+@hot_path
+def verify_window_into(params, cfg: ModelConfig, pages,
+                       state: Dict[str, torch.Tensor],
+                       proposed: torch.Tensor, packed_out: torch.Tensor, *,
+                       null_block: int,
+                       act_dtype: torch.dtype = torch.bfloat16) -> None:
+    """:func:`verify_window` written in place: ``state`` = {"logits",
+    "positions" (both overwritten), "tables", "active", "max_emit"};
+    ``packed_out`` [B, W+1] receives the packed tokens and counts."""
+    logits, _, positions, packed = transformer.verify_window(
+        params, cfg, pages, proposed, state["logits"], state["positions"],
+        state["tables"], state["active"], state["max_emit"],
+        null_block=null_block, act_dtype=act_dtype)
+    state["logits"].copy_(logits)
+    state["positions"].copy_(positions)
+    packed_out.copy_(packed)
 
 
 def write_suffix_pages_batched(pages, kv, block_tables, starts, lengths, *,

@@ -11,7 +11,15 @@ package's ``models/transformer.py``), in two halves:
   in f32;
 - paged (DESIGN.md §8-§12): KV lives in one K and one V pool per layer,
   ``[L, num_blocks, bt, Hkv, D]``, shared by every request and addressed
-  through per-request block tables.
+  through per-request block tables; speculative decoding (§16) drafts
+  with ``draft_window`` (fused paged decode of a draft model) and checks
+  the draft with ``verify_window`` (one prefix-prefill pass of the
+  target over the whole window).
+
+Inside :func:`batch_invariant` the paged half's arithmetic of a token
+does not depend on the batch, wave or window that computes it (at the
+cost of speed), so that greedy streams can be compared bit for bit
+across serves that batch the same requests differently.
 
 Attention and the SSD scan go through the kernels' ops: the hand-written
 CUDA kernels on the card, their plain versions on the CPU.  The dense and
@@ -26,7 +34,8 @@ weights, the reference's ``lax.scan``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import contextlib
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -66,16 +75,78 @@ def _layer(blocks: Dict, i: int) -> Dict:
             for k, v in blocks.items()}
 
 
+# ---------------------------------------------------------------------------
+# Batch-invariant arithmetic
+# ---------------------------------------------------------------------------
+
+INVARIANT_ROWS = 32     # rows of every product, norm and MLP in the mode
+_INVARIANT = [False]
+
+
+@contextlib.contextmanager
+def batch_invariant() -> Iterator[None]:
+    """Inside the block, the paged path computes each token with the
+    same arithmetic whatever batch, admission wave or speculative window
+    it is in, so equal inputs give equal bits:
+
+    - every matrix product, RMS norm and MLP runs on chunks of exactly
+      ``INVARIANT_ROWS`` rows, the last one zero-padded.  cuBLAS picks
+      its algorithm by shape, and rows of an f32 product with 32 rows and
+      of one with 160 differ in their last bits (on an H100;
+      ``scripts/f32_invariance.py``), while a 32-row product gives a row
+      the same bits whatever the other rows hold;
+    - the attention of an admission wave or a verify window runs through
+      the paged decode kernel, one split: each query row at its own
+      length, after the rows' K/V is written into the pool.  A token's
+      attention then has the decode step's arithmetic, and the same
+      arithmetic whatever cached prefix its wave started from.
+
+    So a speculative serve's greedy streams equal the plain serve's bit
+    for bit, which the default arithmetic does not give on the card even
+    in f32 (``chip_smoke.py`` phase 16 (c)).  It is slower: each chunk
+    reads the weights again, and a wave's attention reads each row's
+    history once per query.  A CUDA graph keeps the arithmetic it was
+    captured with, so an engine is built and warmed inside the block."""
+    prev = _INVARIANT[0]
+    _INVARIANT[0] = True
+    try:
+        yield
+    finally:
+        _INVARIANT[0] = prev
+
+
+def _by_rows(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` over the rows of ``x`` [..., K]: one call, or inside
+    :func:`batch_invariant` one call per ``INVARIANT_ROWS`` rows."""
+    if not _INVARIANT[0]:
+        return fn(x)
+    lead, c = x.shape[:-1], INVARIANT_ROWS
+    x2 = x.reshape(-1, x.shape[-1])
+    m = x2.shape[0]
+    if m % c:
+        x2 = torch.cat([x2, x2.new_zeros(c - m % c, x2.shape[1])])
+    y = torch.cat([fn(x2[i:i + c]) for i in range(0, x2.shape[0], c)])
+    return y[:m].reshape(*lead, y.shape[-1])
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return _by_rows(lambda r: r @ w, x)
+
+
+def _norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    return _by_rows(lambda r: rms_norm(r, w, eps), x)
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul."""
     b, s, d = x.shape
-    return (x @ w.reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
+    return _mm(x, w.reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matmul."""
     b, s, h, k = o.shape
-    return o.reshape(b, s, h * k) @ wo.reshape(h * k, -1)
+    return _mm(o.reshape(b, s, h * k), wo.reshape(h * k, -1))
 
 
 def _qkv(ap: Dict, x: torch.Tensor, cfg: ModelConfig):
@@ -88,9 +159,10 @@ def _qkv(ap: Dict, x: torch.Tensor, cfg: ModelConfig):
 def _ffn(bp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.moe is not None:
         raise NotImplementedError("the MoE FFN is not ported yet")
-    h = rms_norm(x, bp["norm2"], cfg.norm_eps)
-    return x + swiglu(h, bp["mlp"]["gate"], bp["mlp"]["up"],
-                      bp["mlp"]["down"])
+    h = _norm(x, bp["norm2"], cfg.norm_eps)
+    mlp = bp["mlp"]
+    return x + _by_rows(
+        lambda r: swiglu(r, mlp["gate"], mlp["up"], mlp["down"]), h)
 
 
 def _embed_in(params: Dict, tokens: torch.Tensor,
@@ -99,9 +171,9 @@ def _embed_in(params: Dict, tokens: torch.Tensor,
 
 
 def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(x.dtype)
+    return _mm(x, head.to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +268,7 @@ def block_forward(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor, *, window: Optional[int] = None):
     """Full-sequence block.  Returns (x, the layer's cache entry): (k, v)
     for the dense family, (SSD state, conv state) for the SSM family."""
-    h = rms_norm(x, bp["norm1"], cfg.norm_eps)
+    h = _norm(x, bp["norm1"], cfg.norm_eps)
     if cfg.family == "ssm":
         y, state = mamba_forward(bp["mamba"], h, cfg.ssm, _d_inner(cfg),
                                  return_state=True)
@@ -210,7 +282,7 @@ def block_decode(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor) -> torch.Tensor:
     """One-token block; writes this layer's cache entry (the leaves of
     ``cache["kv"]`` or ``cache["ssm"]`` at this layer) in place."""
-    h = rms_norm(x, bp["norm1"], cfg.norm_eps)
+    h = _norm(x, bp["norm1"], cfg.norm_eps)
     if cfg.family == "ssm":
         y, new = mamba_decode(bp["mamba"], h, cfg.ssm, _d_inner(cfg),
                               layer_cache)
@@ -389,35 +461,76 @@ def _attention_decode_paged(ap: Dict, x: torch.Tensor, cfg: ModelConfig,
     slot = pos % bt
     k_pages[phys, slot] = k[:, 0].to(k_pages.dtype)
     v_pages[phys, slot] = v[:, 0].to(v_pages.dtype)
+    one_split = {"splits": 1} if _INVARIANT[0] else {}
     out = paged_decode_attention(q[:, 0], k_pages, v_pages, block_tables,
-                                 positions + 1)
+                                 positions + 1, **one_split)
     return _out_proj(out[:, None].to(x.dtype), ap["wo"])
+
+
+def _attention_by_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       k_pages: torch.Tensor, v_pages: torch.Tensor,
+                       starts: torch.Tensor, lens: torch.Tensor,
+                       write) -> torch.Tensor:
+    """Suffix attention with the decode step's arithmetic, for
+    :func:`batch_invariant`: the suffix K/V of the first ``write_lens[b]``
+    positions is written into the pool first (the rest into
+    ``null_block``), then each query row of q [B, S, Hq, D], at position
+    ``starts[b] + j``, is one row of the paged decode kernel over the
+    pool, one split.  A position at or past ``lens[b]`` attends as the
+    last valid one does, and every length stays within the table.
+    ``write`` = (tables [B, M] naming the prefix and suffix pages,
+    write_lens [B], null_block)."""
+    tables, write_lens, null_block = write
+    b, s, hq, d = q.shape
+    write_suffix_pages_batched({"k": k_pages[None], "v": v_pages[None]},
+                               (k[None], v[None]), tables, starts,
+                               write_lens, null_block=null_block)
+    j = torch.arange(s, device=q.device)[None, :]
+    last = torch.minimum(j, (lens[:, None].long() - 1).clamp(min=0))
+    length = (starts[:, None].long() + last + 1).clamp(
+        1, tables.shape[1] * k_pages.shape[1])
+    out = paged_decode_attention(
+        q.reshape(b * s, hq, d), k_pages, v_pages,
+        tables.repeat_interleave(s, dim=0),
+        length.reshape(-1).to(torch.int32), splits=1)
+    return out.view(b, s, hq, d)
 
 
 def _attention_prefill_suffix(ap: Dict, x: torch.Tensor, cfg: ModelConfig,
                               k_pages: torch.Tensor, v_pages: torch.Tensor,
                               block_tables: torch.Tensor,
                               prefix_lens: torch.Tensor,
-                              suffix_lens: torch.Tensor):
+                              suffix_lens: torch.Tensor, *, write=None):
     """Suffix-token GQA attention against cached prefix pages plus the
     new suffix K/V (DESIGN.md §10).  Queries sit at absolute positions
     ``prefix_lens[b] + i``.  Returns (out, (k_suf, v_suf)): the suffix
-    K/V is the request's private cache slice, written by the caller."""
+    K/V is the request's private cache slice, written by the caller.
+    Inside :func:`batch_invariant` it is written here, before the
+    attention (:func:`_attention_by_rows`), which needs ``write`` =
+    (tables, write_lens, null_block)."""
     s = x.shape[1]
     q, k, v = _qkv(ap, x, cfg)
     positions = (prefix_lens[:, None].long()
                  + torch.arange(s, device=x.device)[None, :])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = paged_prefix_prefill_attention(q, k, v, k_pages, v_pages,
-                                         block_tables, prefix_lens,
-                                         suffix_lens)
+    if _INVARIANT[0]:
+        if write is None:
+            raise ValueError("batch-invariant suffix attention writes the "
+                             "suffix K/V first: pass write=(tables, "
+                             "write_lens, null_block)")
+        out = _attention_by_rows(q, k, v, k_pages, v_pages, prefix_lens,
+                                 suffix_lens, write)
+    else:
+        out = paged_prefix_prefill_attention(q, k, v, k_pages, v_pages,
+                                             block_tables, prefix_lens,
+                                             suffix_lens)
     return _out_proj(out.to(x.dtype), ap["wo"]), (k, v)
 
 
 def prefill_suffix(params: Dict, cfg: ModelConfig, pages: Dict, tokens,
                    lengths, prefix_lens, block_tables, *,
-                   act_dtype: torch.dtype = torch.bfloat16):
+                   act_dtype: torch.dtype = torch.bfloat16, write=None):
     """Suffix-only prefill against cached prefix pages.
 
     tokens: [B, S] suffix ids (the prompt past its cached prefix,
@@ -429,17 +542,19 @@ def prefill_suffix(params: Dict, cfg: ModelConfig, pages: Dict, tokens,
 
     The logits are computed for each row's last valid position only
     (the reference computes all S and then picks one; the rows are
-    independent, so only the size of the product differs)."""
+    independent, so only the size of the product differs).  ``write``:
+    as for :func:`_attention_prefill_suffix`, needed inside
+    :func:`batch_invariant` only."""
     params = cast_params(params, act_dtype)
     x = _embed_in(params, tokens, act_dtype)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for i in range(cfg.num_layers):
         bp = _layer(params["blocks"], i)
-        h = rms_norm(x, bp["norm1"], cfg.norm_eps)
+        h = _norm(x, bp["norm1"], cfg.norm_eps)
         y, (k, v) = _attention_prefill_suffix(
             bp["attn"], h, cfg, pages["k"][i], pages["v"][i], block_tables,
-            prefix_lens, lengths)
+            prefix_lens, lengths, write=write)
         x = _ffn(bp, x + y, cfg)
         ks.append(k)
         vs.append(v)
@@ -472,7 +587,8 @@ def prefill_wave(params: Dict, cfg: ModelConfig, pages: Dict, state: Dict,
     copy_pages(pages, cow_src, cow_dst)
     logits, kv = prefill_suffix(params, cfg, pages, tokens, lengths,
                                 prefix_lens, attn_tables,
-                                act_dtype=act_dtype)
+                                act_dtype=act_dtype,
+                                write=(tables, write_lens, null_block))
     write_suffix_pages_batched(pages, kv, tables, prefix_lens, write_lens,
                                null_block=null_block)
     sl = slots.long()
@@ -493,7 +609,7 @@ def decode_step_paged(params: Dict, cfg: ModelConfig, pages: Dict, tokens,
     x = _embed_in(params, tokens[:, None], act_dtype)
     for i in range(cfg.num_layers):
         bp = _layer(params["blocks"], i)
-        h = rms_norm(x, bp["norm1"], cfg.norm_eps)
+        h = _norm(x, bp["norm1"], cfg.norm_eps)
         y = _attention_decode_paged(bp["attn"], h, cfg, pages["k"][i],
                                     pages["v"][i], block_tables, positions)
         x = _ffn(bp, x + y, cfg)
@@ -523,6 +639,98 @@ def decode_multi_paged(params: Dict, cfg: ModelConfig, pages: Dict, logits,
         positions = positions + inc
         toks.append(tok)
     return logits, pages, positions, torch.stack(toks, dim=1)
+
+
+def draft_window(params: Dict, cfg: ModelConfig, pages: Dict, target_logits,
+                 logits, positions, block_tables, active, *, num_steps: int,
+                 target_vocab: int, act_dtype: torch.dtype = torch.bfloat16):
+    """Draft ``num_steps`` speculative tokens per slot (DESIGN.md §16):
+    the *draft* model's fused paged decode over its own pools.  The first
+    token consumed is the target's greedy pick (argmax of
+    ``target_logits[:, :target_vocab]``, already verified: it is the
+    target's own next token); the other ``num_steps - 1`` come from the
+    draft's carried logits.  Inactive slots keep their positions and
+    decode into the null block, as in :func:`decode_multi_paged`.
+
+    Returns ``(draft_logits, pages, proposed [B, num_steps])``; the
+    draft's advance of ``positions`` is not returned (the verify's
+    emitted count moves both pools' shared positions)."""
+    inc = active.to(positions.dtype)
+    tok = torch.argmax(target_logits[:, :target_vocab],
+                       dim=-1).to(torch.int32)
+    toks = []
+    for i in range(num_steps):
+        if i:
+            tok = torch.argmax(logits[:, :cfg.vocab_size],
+                               dim=-1).to(torch.int32)
+        logits, pages = decode_step_paged(params, cfg, pages, tok, positions,
+                                          block_tables, act_dtype=act_dtype)
+        positions = positions + inc
+        toks.append(tok)
+    return logits, pages, torch.stack(toks, dim=1)
+
+
+def verify_window(params: Dict, cfg: ModelConfig, pages: Dict, proposed,
+                  logits, positions, block_tables, active, max_emit, *,
+                  null_block: int, act_dtype: torch.dtype = torch.bfloat16):
+    """Verify a drafted window in ONE batched target pass (DESIGN.md
+    §16).  ``proposed`` [B, W] is the verified target token followed by
+    the draft's ``W - 1`` guesses; the whole window runs through the
+    prefix-prefill path (the pages up to ``positions`` ‖ the window's
+    own causal K/V), so the logits at row ``i`` are those sequential
+    decode would give after consuming ``proposed[:, i]``.  Guess ``i``
+    is accepted iff it equals the target's greedy pick at row ``i - 1``;
+    a slot emits ``1 +`` its longest agreeing prefix, clamped to
+    ``max_emit`` [B] (the host's budget: tokens to finish, max_steps),
+    and an inactive slot emits 0.  No correction token is emitted on a
+    rejection: the carried logits at the last accepted row give it as
+    the next window's first token, so the stream equals greedy decode.
+
+    The K/V of all W positions is written (a rejected tail is reclaimed
+    by the host's table truncation and the position rewind here; stale
+    slots inside kept blocks are overwritten before they are read);
+    inactive rows write into ``null_block`` only.  Unlike
+    :func:`prefill_suffix`, the logits of all W rows are computed.
+
+    Returns ``(logits, pages, positions, packed [B, W + 1])`` with
+    ``packed = [proposed | emitted]``, the window's one readback."""
+    params = cast_params(params, act_dtype)
+    b, w = proposed.shape
+    x = _embed_in(params, proposed, act_dtype)
+    suffix_lens = torch.full((b,), w, dtype=torch.int32,
+                             device=proposed.device)
+    write_lens = torch.where(active, suffix_lens,
+                             torch.zeros_like(suffix_lens))
+    ks: List[torch.Tensor] = []
+    vs: List[torch.Tensor] = []
+    for i in range(cfg.num_layers):
+        bp = _layer(params["blocks"], i)
+        h = _norm(x, bp["norm1"], cfg.norm_eps)
+        y, (k, v) = _attention_prefill_suffix(
+            bp["attn"], h, cfg, pages["k"][i], pages["v"][i], block_tables,
+            positions, suffix_lens,
+            write=(block_tables, write_lens, null_block))
+        x = _ffn(bp, x + y, cfg)
+        ks.append(k)
+        vs.append(v)
+    all_logits = _logits(params, cfg, x)                     # [B, W, Vp]
+    write_suffix_pages_batched(
+        pages, (torch.stack(ks), torch.stack(vs)), block_tables, positions,
+        write_lens, null_block=null_block)
+    greedy = torch.argmax(all_logits[:, :, :cfg.vocab_size],
+                          dim=-1).to(torch.int32)
+    match = (proposed[:, 1:] == greedy[:, :-1]).to(torch.int32)
+    agree = torch.cumprod(match, dim=1).sum(dim=1)          # longest prefix
+    emitted = torch.minimum(agree + 1, max_emit.to(agree.dtype))
+    emitted = torch.where(active, emitted,
+                          torch.zeros_like(emitted)).to(positions.dtype)
+    idx = torch.clamp(emitted - 1, min=0).long()
+    rows = torch.arange(b, device=proposed.device)
+    carry = all_logits[rows, idx].to(logits.dtype)
+    new_logits = torch.where(active[:, None], carry, logits)
+    packed = torch.cat([proposed.to(torch.int32),
+                        emitted[:, None].to(torch.int32)], dim=1)
+    return new_logits, pages, positions + emitted, packed
 
 
 def write_suffix_pages_batched(pages: Dict, kv, block_tables, starts,

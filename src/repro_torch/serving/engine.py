@@ -32,13 +32,18 @@
   re-prefilled tokens.  Every write these paths make into the tensors a
   captured decode graph reads (logits, positions, tables, active mask,
   pools) is in place, so the graph never decodes from a stale tensor.
+- Speculative decoding on the paged engine (§16): a draft model with a
+  pool of its own in the same allocator proposes ``draft_k`` tokens a
+  window, the target verifies them in one batched pass, and rollback is
+  block-table truncation.  On the card the whole window (draft steps
+  and verify) is one captured CUDA graph per engine.
 
 Generation is length-scripted replay (DESIGN.md §7): logits come from the
 real model, and a request stops at its ground-truth generation length.
 
-Not in this module yet: speculative decoding (§16) and snapshot/restore
-(§17).  The padded engines serve the dense and SSM (mamba2) families
-with a float cache; the paged engine serves the dense family.
+Not in this module yet: snapshot/restore (§17).  The padded engines
+serve the dense and SSM (mamba2) families with a float cache; the paged
+engine serves the dense family.
 """
 from __future__ import annotations
 
@@ -63,7 +68,8 @@ from repro_torch.serving.faults import FaultInjector, Shed
 from repro_torch.serving.paged_cache import (BlockAllocator, HostSwapTier,
                                              MispredictionEWMA, NULL_SEQ,
                                              PrefixMatch, RadixPrefixCache)
-from repro_torch.serving.graphs import DecodeGraph
+from repro_torch.serving.graphs import DecodeGraph, SpecGraph, \
+    spec_window_into
 from repro_torch.workload.tokenizer import encode
 
 
@@ -102,6 +108,17 @@ def _bucket(n: int, buckets=_BUCKETS) -> int:
         if n <= b:
             return b
     return _pow2_ceil(n)
+
+
+def _bucket_list(top: int) -> List[int]:
+    """Every bucket a length up to the bucket ``top`` pads to: the table's
+    buckets up to ``top``, then its power-of-two tail."""
+    out = [b for b in _BUCKETS if b <= top]
+    nxt = _BUCKETS[-1] * 2
+    while nxt <= top:
+        out.append(nxt)
+        nxt *= 2
+    return out or [top]
 
 
 def _pow2_floor(n: int) -> int:
@@ -427,6 +444,19 @@ class PagedContinuousEngine:
     zero re-prefilled tokens.  The swap paths run eagerly between
     windows, never inside the captured graph.
 
+    Speculative decoding (§16): with ``spec_decode`` a draft model
+    (``draft_cfg``, default the target's; ``draft_params``, default the
+    target's own weight tensors for a self-draft, else random from
+    ``draft_seed``) keeps a pool of its own, carved out of the same
+    allocator, and each window proposes ``draft_k`` tokens per slot that
+    the target verifies in one batched pass: the longest agreeing prefix
+    is accepted on the device, and the host reads back one packed
+    ``[B, draft_k + 2]`` array, one sync a window.  Greedy streams equal
+    the spec-off engine's.  It needs ``fuse=True`` and a draft of the
+    target's vocab.  A CUDA spec engine captures the whole window (the
+    draft's steps and the verify) as one graph and never captures the
+    plain decode step.
+
     ``device`` defaults to the CUDA card and raises without one; tests
     pass ``device="cpu"``.  ``params`` defaults to random weights from
     ``seed``; given weights are cast once to ``dtype``.
@@ -444,6 +474,9 @@ class PagedContinuousEngine:
                  mispredict: Optional[MispredictionEWMA] = None,
                  nan_guard: Optional[bool] = None,
                  swap_blocks: int = 0,
+                 spec_decode: bool = False, draft_k: int = 4,
+                 draft_cfg: Optional[ModelConfig] = None,
+                 draft_params=None, draft_seed: int = 1,
                  device=None, fuse: bool = True, warmup: bool = False):
         ok, why = M.supports_paged(cfg)
         if not ok:
@@ -466,8 +499,11 @@ class PagedContinuousEngine:
                                  if prefix_cache else None)
         self.bt = self.allocator.block_tokens
         self.slots = max_concurrency
-        # §16 widens the tables by draft_k here (ROADMAP §1 item 3)
-        self.max_blocks = -(-(max_len + max_gen) // self.bt)
+        # §16: a speculative window writes up to draft_k lookahead KV
+        # positions past the accepted stream before rollback truncates
+        # them, so the tables cover that overshoot
+        self.max_blocks = -(-(max_len + max_gen
+                              + (draft_k if spec_decode else 0)) // self.bt)
         # the null block: every pad/idle table entry points here
         self.null_block = self.allocator.allocate(self._NULL_SEQ, 1)[0]
         self.params = (cast_params(params, dtype) if params is not None
@@ -540,8 +576,57 @@ class PagedContinuousEngine:
         self.swapped_ctx_tokens = 0    # context length at each suspension
         self.swap_in_s = 0.0           # host time inside _swap_in
         # §17 (snapshot and recovery, ROADMAP §1 item 3) adds its journal
-        # hook and its restored-id tripwire here; §16 (speculative
-        # decoding) its draft pool
+        # hook and its restored-id tripwire here
+        # -- speculative decoding (DESIGN.md §16) ------------------------
+        # the draft's pool is carved out of the SAME allocator, so
+        # admission, grow and the §13/§15 pressure valves see its
+        # footprint like the target's
+        self.spec_decode = bool(spec_decode)
+        self.draft_k = int(draft_k)
+        self.spec_w = self.draft_k + 1
+        self.draft_cfg: Optional[ModelConfig] = None
+        self.draft_params = None
+        self.draft_pages = None
+        self.draft_tables: Optional[torch.Tensor] = None
+        self.draft_logits: Optional[torch.Tensor] = None
+        self.spec_windows = 0
+        self.spec_slot_windows = 0   # verify rows: active slots x windows
+        self.spec_emitted = 0        # tokens emitted by speculative windows
+        self.spec_accepted = 0       # draft proposals accepted (emitted - 1)
+        self.spec_drafted = 0        # draft proposals offered (k per row)
+        self.draft_quarantined = 0   # drafts iced for good by the guard
+        self.draft_prefill_tokens = 0    # draft-pool admission prefills
+        self.draft_reprefill_tokens = 0  # draft rebuilds at swap resume
+        if spec_decode:
+            if draft_k < 1:
+                raise ValueError("draft_k must be >= 1")
+            if not fuse:
+                raise ValueError("spec_decode requires the fused window "
+                                 "path (fuse=True)")
+            dcfg = draft_cfg if draft_cfg is not None else cfg
+            ok, why = M.supports_paged(dcfg)
+            if not ok:
+                raise NotImplementedError(f"draft {dcfg.name}: {why}")
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    "draft vocab must match the target vocab "
+                    f"({dcfg.vocab_size} != {cfg.vocab_size}): proposals "
+                    "are consumed verbatim by the target's embedding")
+            self.draft_cfg = dcfg
+            # a self-draft (no draft config or weights given) shares the
+            # target's weight tensors: every proposal must verify
+            self.draft_params = (
+                cast_params(draft_params, dtype) if draft_params is not None
+                else self.params if draft_cfg is None
+                else M.init_params(dcfg, seed=draft_seed, device=self.device,
+                                   dtype=dtype))
+            self.draft_pages = M.init_paged_cache(
+                dcfg, self.allocator.num_blocks, self.bt,
+                dtype=torch.float32 if dtype == torch.float32
+                else torch.bfloat16, device=self.device)
+            self.draft_tables = self._null_row[None, :].repeat(b, 1)
+            self.draft_logits = torch.zeros((b, dcfg.padded_vocab),
+                                            dtype=dtype, device=self.device)
         self.window_stats: Optional[Dict[str, int]] = None
         self.generated: Dict[int, List[int]] = {}   # finished req -> tokens
         # admission hot-path memo: encoded prompt ids per (instruction,
@@ -551,14 +636,25 @@ class PagedContinuousEngine:
         self._publish_queue: List[Tuple[Tuple[int, ...], List[int]]] = []
         # chains published earlier in the CURRENT admission wave
         self._wave_pending: List[Dict[str, object]] = []
-        # the captured decode step (CUDA engines) and how often one was
-        # captured: the torch side of the reference's compile audit
+        # the captured decode step, or speculative window (CUDA engines),
+        # and how often one was captured: the torch side of the
+        # reference's compile audit
         self._decode_graph: Optional[DecodeGraph] = None
+        self._spec_graph: Optional[SpecGraph] = None
         self.graph_captures = 0
         if warmup:
             self.warmup()
 
     _NULL_SEQ = NULL_SEQ   # allocator seq_id owning the null block
+
+    # §16: the allocator seq_ids owning a slot's DRAFT pool blocks live in
+    # a negative band of their own, apart from NULL_SEQ (-1) and the
+    # fault injector's FAULT_SEQ (-2), so drain checks and shadow reports
+    # name the pool that leaked
+    _DRAFT_SEQ_BASE = -100
+
+    def _draft_seq(self, slot: int) -> int:
+        return self._DRAFT_SEQ_BASE - slot
 
     # -- host <-> device -----------------------------------------------------
 
@@ -647,13 +743,49 @@ class PagedContinuousEngine:
             g = max(g, self._observed_gen.get(req.req_id, 0) + 1)
         return n_prompt + max(1, min(g, self.max_gen))
 
+    def _reclaimable_blocks(self, keep=None) -> int:
+        """Blocks radix leaf-LRU eviction would actually free: blocks of
+        unpinned evictable nodes (``keep``'s path excluded) referenced by
+        no live table."""
+        if self.prefix_cache is None:
+            return 0
+        return self.prefix_cache.reclaimable_blocks(keep=keep)
+
+    def can_admit(self, req: Request) -> bool:
+        """Would :meth:`join` succeed right now?  Counts free blocks plus
+        what cache eviction could reclaim, minus the fully-shared blocks a
+        radix hit would not need to claim, plus a speculative engine's
+        private draft copy of the reservation.  Flushes deferred
+        publishes first, exactly like :meth:`join`, so the answer
+        reflects the tree state the join it predicts would see."""
+        self._flush_publishes()
+        if None not in self.active:
+            return False
+        ids = self._prompt_ids(req)
+        want = self.reserve_tokens(req, n_prompt=len(ids))
+        keep, full = None, 0
+        if self.prefix_cache is not None:
+            share = self._shareable_ids(req, ids)
+            if share:
+                m = self.prefix_cache.match(share, peek=True)
+                keep = m.node
+                full = m.full_blocks(self.bt) * self.bt
+        need = self.allocator.blocks_needed(want - full)
+        if self.spec_decode:
+            # the draft pool shares nothing (no radix for drafts): a full
+            # private copy of the reservation rides every admission
+            need += self.allocator.blocks_needed(want)
+        return need <= (len(self.allocator.free)
+                        + self._reclaimable_blocks(keep=keep))
+
     def _reserve(self, req: Request) -> Dict[str, object]:
         """Claim a slot + blocks for ``req`` (raises EngineFull) and mark
         the slot active; the KV pages are written by the caller's wave
         dispatch.  With the radix cache on: match (tree or same-wave
         chain), probe (evict cold leaves or refuse), share the matched
         pages, copy-on-write a partial tail, allocate, queue the
-        publish."""
+        publish.  A speculative engine also claims the slot's draft pool,
+        a private copy of the reservation, last."""
         if None not in self.active:
             raise EngineFull(f"all {self.slots} slots occupied")
         slot = self.active.index(None)
@@ -686,6 +818,10 @@ class PagedContinuousEngine:
             self.prefix_cache.pin(m.node)   # protect from LRU while admitting
         try:
             need = self.allocator.blocks_needed(want - full)
+            if self.spec_decode:
+                # §16: the slot's draft pool claims a full private copy
+                # of the reservation (drafts never share radix blocks)
+                need += self.allocator.blocks_needed(want)
             if need > len(self.allocator.free):
                 if self.prefix_cache is None \
                         or not self.prefix_cache.evict_until(need):
@@ -712,11 +848,17 @@ class PagedContinuousEngine:
                 else:
                     self.prefix_cache.misses -= 1
             raise
+        draft_table: List[int] = []
+        if self.spec_decode:
+            # allocated last, after every refusable step: an EngineFull
+            # above leaves no half-claimed draft pool to roll back.  The
+            # probe counted these blocks, so this allocate cannot fail
+            draft_table = list(self.allocator.allocate(
+                self._draft_seq(slot), want))
         if self.prefix_cache is not None and share_ids:
             self._publish_queue.append((tuple(share_ids), list(table)))
             self._wave_pending.append(
                 {"ids": share_ids, "table": list(table), "gen": gen})
-        # §16 allocates the slot's draft pool here (ROADMAP §1 item 3)
         if cached and req.req_id in self._requeued:
             self.requeue_prefix_hits += 1
         ttl = (req.ttl_steps if req.ttl_steps is not None
@@ -729,7 +871,8 @@ class PagedContinuousEngine:
                              "reserve_tokens": want,
                              "reserve_g": want - len(ids)}
         return {"slot": slot, "ids": ids, "table": table, "cached": cached,
-                "cow": cow, "gen": gen, "req": req}
+                "cow": cow, "gen": gen, "req": req,
+                "draft_table": draft_table}
 
     def _dispatch_wave(self, plans: List[Dict[str, object]]) -> None:
         """ONE ``prefill_wave`` call for a group of just-reserved
@@ -808,7 +951,70 @@ class PagedContinuousEngine:
                 # the dispatch wrote this slot's KV: a same-wave sharer
                 # writing into its pages is a violation from here on
                 shadow.mark_materialized(p["slot"])
-        # §16 seeds the wave's draft pools here (ROADMAP §1 item 3)
+        if self.spec_decode:
+            # §16: seed the wave's draft pools in one more dispatch (the
+            # draft model's weights; not counted as a target wave)
+            self._draft_prefill(
+                [(p["slot"], p["ids"], p["draft_table"]) for p in plans])
+
+    def _draft_prefill(self, items: List[Tuple[int, List[int], List[int]]],
+                       *, resume: bool = False) -> None:
+        """ONE draft-model ``prefill_wave`` building draft-pool KV for a
+        group of ``(slot, token_ids, draft_table)`` rows (§16): always a
+        full-history, prefix-0 wave, as the draft pool has no radix tree
+        to share from.  Its slot-state update writes the draft tables and
+        the draft carry logits, and rewrites positions and the active
+        mask with the values the target wave already set."""
+        n = len(items)
+        nb = _pow2_ceil(n)
+        sb = _bucket(max(len(ids) for _, ids, _ in items))
+        tokens = np.zeros((nb, sb), np.int32)
+        lengths = np.ones(nb, np.int32)
+        wlens = np.zeros(nb, np.int32)       # write validity: pads drop
+        plens = np.zeros(nb, np.int32)
+        rows = np.full((nb, self.max_blocks), self.null_block, np.int32)
+        nulls = np.full(nb, self.null_block, np.int32)
+        attn = np.full((nb, 1), self.null_block, np.int32)
+        slots = np.zeros(nb, np.int32)
+        sel = np.zeros(nb, np.int32)
+        pos_vals = np.ones(nb, np.int32)
+        shadow = self.allocator._shadow
+        for i, (slot, ids, table) in enumerate(items):
+            tokens[i, :len(ids)] = ids
+            lengths[i] = len(ids)
+            wlens[i] = len(ids)
+            rows[i, :len(table)] = table
+            slots[i] = slot
+            sel[i] = i
+            pos_vals[i] = len(ids)
+            if resume:
+                self.draft_reprefill_tokens += len(ids)
+            else:
+                self.draft_prefill_tokens += len(ids)
+            if shadow is not None:
+                # draft blocks are never shared: the whole table must be
+                # privately owned by this slot's draft seq
+                shadow.check_write(self._draft_seq(slot), table)
+        rows[n:] = rows[0]
+        slots[n:] = slots[0]
+        pos_vals[n:] = pos_vals[0]
+        (tokens_t, lengths_t, plens_t, attn_t, rows_t, wlens_t, src_t, dst_t,
+         slots_t, sel_t, pos_t) = self._upload(
+            tokens, lengths, plens, attn, rows, wlens, nulls, nulls, slots,
+            sel, pos_vals)
+        state = {"tables": self.draft_tables, "positions": self.positions,
+                 "active": self.active_mask, "logits": self.draft_logits}
+        M.prefill_wave(
+            self.draft_params, self.draft_cfg, self.draft_pages, state,
+            {"tokens": tokens_t, "lengths": lengths_t,
+             "prefix_lens": plens_t, "attn_tables": attn_t,
+             "tables": rows_t, "write_lens": wlens_t, "cow_src": src_t,
+             "cow_dst": dst_t, "slots": slots_t, "row_sel": sel_t,
+             "positions": pos_t},
+            null_block=self.null_block, act_dtype=self.dtype)
+        if shadow is not None:
+            for slot, _, _ in items:
+                shadow.mark_materialized(self._draft_seq(slot))
 
     def _prefill_admitted(self, admitted: List[Dict[str, object]]) -> None:
         """Order the wave radix-aware and dispatch it with the minimum
@@ -862,8 +1068,13 @@ class PagedContinuousEngine:
 
     def _release(self, slot: int) -> None:
         """Reset a slot's device/host state to idle (null table, pos 0),
-        in place.  §16 frees the slot's draft pool here (ROADMAP §1 item
-        3)."""
+        in place."""
+        if self.spec_decode:
+            # the slot's draft pool dies with it (finish, eviction and
+            # swap-out all land here); a quarantined draft freed its seq
+            # earlier, and free_seq of a missing seq is a no-op
+            self.allocator.free_seq(self._draft_seq(slot))
+            self.draft_tables[slot] = self._null_row
         self.tables[slot] = self._null_row
         self.positions[slot] = 0
         self.active_mask[slot] = False
@@ -1034,7 +1245,17 @@ class PagedContinuousEngine:
                              "deadline": image["deadline"],
                              "reserve_tokens": image["reserve_tokens"],
                              "reserve_g": image["reserve_g"]}
-        # §16 rebuilds the slot's draft pool here (ROADMAP §1 item 3)
+        if self.spec_decode:
+            # §16: the draft pool was dropped at suspension (draft KV is
+            # disposable: verification is the oracle), so one DRAFT
+            # prefill over the full history rebuilds it.  The target
+            # stream re-prefills nothing: the §15 invariant and its
+            # counter are untouched
+            draft_table = list(self.allocator.allocate(
+                self._draft_seq(slot), max(pos, 1)))
+            self._draft_prefill(
+                [(slot, self._prompt_ids(image["req"])
+                  + list(image["generated"]), draft_table)], resume=True)
         self.swap.drop(rid, self.allocator)
         del self._swapped[rid]
         self._swap_debt.discard(rid)
@@ -1052,7 +1273,10 @@ class PagedContinuousEngine:
         image = self._swapped[rid]
         while True:
             shared, host_slots = self.swap.split_resident(rid)
-            need = len(host_slots)   # §16 adds the draft rebuild's blocks
+            need = len(host_slots)
+            if self.spec_decode:
+                # the resume also rebuilds the slot's draft pool (§16)
+                need += self.allocator.blocks_needed(int(image["pos"]))
             if need <= len(self.allocator.free):
                 self._swap_in(rid, image, shared, host_slots)
                 return True
@@ -1124,8 +1348,11 @@ class PagedContinuousEngine:
         request to the host tier, and last the destructive
         evict-and-requeue of the least-progress request.  Returns the
         (src, dst) copy-on-write pairs the caller applies on the device
-        before decoding."""
-        need = int(self.pos_host[slot]) + 1
+        before decoding.  With speculation on, the window writes up to
+        ``spec_w`` lookahead positions before rollback truncates the
+        rejected tail (§16), so the capacity target is pos + spec_w."""
+        need = int(self.pos_host[slot]) \
+            + (self.spec_w if self.spec_decode else 1)
         if self.allocator.blocks_needed(need) > self.max_blocks:
             raise MemoryError(
                 f"request outgrew max_len+max_gen table ({self.max_blocks} "
@@ -1193,6 +1420,36 @@ class PagedContinuousEngine:
             row[:len(table)] = table
             self.tables[slot] = self._upload(row)[0]
         return pairs
+
+    def _grow_draft(self, slot: int, evicted: List[Request]) -> None:
+        """§16 counterpart of :meth:`_grow` for the slot's draft pool:
+        make it hold ``pos + spec_w`` tokens through the same valves.  No
+        copy-on-write: draft blocks are never shared, so growth is pure
+        allocation.  The draft table row is written in place."""
+        seq = self._draft_seq(slot)
+        need = int(self.pos_host[slot]) + self.spec_w
+        had = len(self.allocator.tables.get(seq, ()))
+        while not self.allocator.can_allocate(seq, need):
+            missing = (self.allocator.blocks_needed(need)
+                       - len(self.allocator.tables.get(seq, ())))
+            if self.swap is not None \
+                    and self.swap.release_device_holds(self.allocator):
+                continue
+            if self.prefix_cache is not None \
+                    and self.prefix_cache.evict_until(missing):
+                continue
+            if self.swap is not None and self._swap_out_victim(exclude=slot):
+                continue
+            victim = self._pick_victim(exclude=slot)
+            if victim is None:
+                raise MemoryError(
+                    "paged pool exhausted by sequences outside this engine")
+            evicted.append(self._evict(victim))
+        table = self.allocator.allocate(seq, need)
+        if len(table) != had:
+            row = np.full(self.max_blocks, self.null_block, np.int32)
+            row[:len(table)] = table
+            self.draft_tables[slot] = self._upload(row)[0]
 
     # -- decode --------------------------------------------------------------
 
@@ -1276,7 +1533,21 @@ class PagedContinuousEngine:
                     self.logits[slot] = 0.0
                     evicted.append(self._evict(slot))
                     self.quarantined += 1
-        # §16's draft-health guard joins here (ROADMAP §1 item 3)
+        if (self.spec_decode and self._nan_guard
+                and any(a is not None for a in self.active)):
+            # §16 draft-health guard: a poisoned DRAFT must not kill the
+            # request (verification is the oracle), so the guard ices
+            # the slot's draft for good (proposals stop, the stream goes
+            # on at one verified token a window) and evicts nothing.  One
+            # flag per slot, reduced on the device
+            dfinite = torch.isfinite(self.draft_logits).all(dim=1) \
+                .cpu().numpy()
+            self.host_syncs += count_sync()
+            self.guard_readbacks += 1
+            for slot, a in enumerate(self.active):
+                if a is not None and not a.get("draft_cold") \
+                        and not dfinite[slot]:
+                    self._quarantine_draft(slot)
         if stalled or not any(a is not None for a in self.active):
             self.window_stats = None
             return [], evicted, 0
@@ -1308,7 +1579,18 @@ class PagedContinuousEngine:
                     for i, (s, d) in enumerate(pairs):
                         src[i], dst[i] = s, d
                     M.copy_pages(self.pages, *self._upload(src, dst))
-                # §16 grows the slot's draft pool here (ROADMAP §1 item 3)
+                if self.spec_decode and not a.get("draft_cold"):
+                    # the draft pool grows to the same pos + spec_w through
+                    # the same valves (after the copies above, so that an
+                    # eviction here cannot recycle a clone's source first)
+                    try:
+                        self._grow_draft(slot, evicted)
+                    except MemoryError:
+                        if self.faults is not None \
+                                and self.faults.held_blocks:
+                            evicted.append(self._evict(slot))
+                            continue
+                        raise
         except MemoryError as e:
             # the culprit slot is freed (and attached) so the engine stays
             # serviceable and drainable after the raise
@@ -1328,8 +1610,14 @@ class PagedContinuousEngine:
                     t = self.allocator.tables[slot]
                     shadow.check_write(
                         slot, t[int(self.pos_host[slot]) // self.bt:])
-        # §16's speculative window replaces the decode below (ROADMAP §1
-        # item 3)
+                    if self.spec_decode and not a.get("draft_cold"):
+                        dseq = self._draft_seq(slot)
+                        dt = self.allocator.tables.get(dseq, [])
+                        shadow.check_write(
+                            dseq, dt[int(self.pos_host[slot]) // self.bt:])
+        if self.spec_decode:
+            finished, k = self._spec_window(max_steps)
+            return finished, evicted, k
         k = self._window_steps()
         if max_steps is not None:
             k = max(1, min(k, max_steps))
@@ -1366,6 +1654,126 @@ class PagedContinuousEngine:
                 self._release(slot)
         return finished, evicted, k
 
+    def step(self) -> Tuple[List[Request], List[Request]]:
+        """One decode iteration (a window of at most one step); returns
+        (finished, evicted).  Kept for callers that interleave
+        per-token."""
+        finished, evicted, _ = self.step_window(max_steps=1)
+        return finished, evicted
+
+    def _quarantine_draft(self, slot: int) -> None:
+        """Ice a slot's draft for good (§16): free its draft pool, null
+        its draft table row and clear the poisoned carry row, in place.
+        The slot keeps serving (every window still emits its one verified
+        token); only a fresh admission builds a new draft."""
+        self.allocator.free_seq(self._draft_seq(slot))
+        self.draft_tables[slot] = self._null_row
+        self.draft_logits[slot] = 0.0
+        self.active[slot]["draft_cold"] = True
+        self.draft_quarantined += 1
+
+    @hot_path
+    def _spec_window(self, max_steps: Optional[int]
+                     ) -> Tuple[List[Request], int]:
+        """One speculative window (§16): the draft proposes ``spec_w``
+        tokens per slot, the target verifies all of them in ONE batched
+        pass over the same positions, and the longest agreeing prefix is
+        accepted on the device; the host reads back one packed
+        ``[tokens | emit count]`` row per slot, the fused window's one
+        sync.  Rollback of the rejected tail is table truncation on both
+        pools (the verify already rewound the positions); truncation
+        never mutates a block, and a trailing block the radix tree still
+        holds only loses this slot's reference."""
+        w = self.spec_w
+        max_emit = np.ones(self.slots, np.int32)
+        for slot, a in enumerate(self.active):
+            if a is None:
+                continue
+            e = min(a["target"] - len(a["generated"]), w)
+            if max_steps is not None:
+                e = min(e, max_steps)
+            max_emit[slot] = max(e, 1)
+        # post-grow/evict snapshot (the fused window's contract)
+        self.window_stats = {
+            "live0": int(sum(int(self.pos_host[s])
+                             for s, a in enumerate(self.active)
+                             if a is not None)),
+            "active": self.num_active,
+            "used_tokens": self.allocator.used_blocks * self.bt,
+        }
+        # the one spec-window readback: packed tokens and emit counts
+        packed = self._speculate(max_emit).cpu().numpy()
+        self.host_syncs += count_sync()
+        self.spec_windows += 1
+        finished: List[Request] = []
+        kmax = 0
+        for slot, a in enumerate(self.active):
+            if a is None:
+                continue
+            e = int(packed[slot, w])
+            a["generated"].extend(packed[slot, :e].tolist())
+            self.pos_host[slot] += e
+            kmax = max(kmax, e)
+            self.spec_slot_windows += 1
+            self.spec_emitted += e
+            self.spec_accepted += max(e - 1, 0)
+            if not a.get("draft_cold"):
+                # proposals clamped away by max_emit (a finish, max_steps)
+                # were never candidates: counting them as rejections
+                # would understate the draft's quality
+                self.spec_drafted += min(w - 1, int(max_emit[slot]) - 1)
+            if len(a["generated"]) >= a["target"]:
+                finished.append(a["req"])
+                self.generated[a["req"].req_id] = a["generated"]
+                self.mispredict.observe(a["req"].app, a["reserve_g"],
+                                        len(a["generated"]))
+                self._unpin_prefix(slot)
+                self.allocator.free_seq(slot)
+                self._release(slot)
+                continue
+            # rollback = truncation: both pools drop every block past the
+            # accepted stream, floored at the admission reservation so
+            # that speculation never un-reserves the blocks the §13
+            # admission control promised this request
+            keep = max(
+                self.allocator.blocks_needed(
+                    max(int(self.pos_host[slot]), 1)),
+                self.allocator.blocks_needed(int(a["reserve_tokens"])))
+            self.allocator.truncate(slot, keep)
+            self.allocator.truncate(self._draft_seq(slot), keep)
+        self.decode_steps += kmax
+        self.clock += kmax
+        return finished, kmax
+
+    def _spec_state(self, max_emit: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {"logits": self.logits, "positions": self.positions,
+                "tables": self.tables, "active": self.active_mask,
+                "draft_logits": self.draft_logits,
+                "draft_tables": self.draft_tables, "max_emit": max_emit}
+
+    def _speculate(self, max_emit: np.ndarray) -> torch.Tensor:
+        """One speculative window under the per-slot budget ``max_emit``,
+        written into the engine's tensors in place; returns the packed
+        ``[B, spec_w + 1]`` on the device.  A CUDA engine replays its
+        captured window, capturing it first if no window or ``warmup()``
+        has (that window is then the capture's warm-up run, so it still
+        runs once); a CPU engine runs it eagerly."""
+        if self.device.type == "cpu":
+            b, w = self.slots, self.spec_w
+            proposed = torch.zeros((b, w), dtype=torch.int32)
+            packed = torch.zeros((b, w + 1), dtype=torch.int32)
+            spec_window_into(
+                self.params, self.cfg, self.pages, self.draft_params,
+                self.draft_cfg, self.draft_pages,
+                self._spec_state(self._upload(max_emit)[0]), proposed,
+                packed, null_block=self.null_block, act_dtype=self.dtype)
+            return packed
+        if self._spec_graph is None:
+            self._spec_graph = SpecGraph(self, live=True, max_emit=max_emit)
+            self.graph_captures += 1
+            return self._spec_graph.packed
+        return self._spec_graph.run(max_emit)
+
     def _decode(self, k: int) -> torch.Tensor:
         """``k`` greedy decode steps over every slot, written into the
         engine's tensors in place; returns the tokens ``[B, k]`` on the
@@ -1398,26 +1806,26 @@ class PagedContinuousEngine:
         reference's ``warmup``, which pre-compiles them): the
         variable-prefix wave at every (batch bucket x suffix bucket x
         gather-table width) shape, the grow path's copy-on-write copy at
-        every power of two up to ``slots`` (with the prefix cache), and
-        the decode.  On a CUDA engine the decode step is captured here
-        (once per engine; a second call captures nothing), so that a
-        serve after ``warmup()`` captures nothing; a CPU engine runs the
-        fused decode at every window in ``windows``.
+        every power of two up to ``slots`` (with the prefix cache), one
+        swap-out and one resume (with the swap tier), and the decode.  On
+        a CUDA engine the decode step is captured here (once per engine;
+        a second call captures nothing), so that a serve after
+        ``warmup()`` captures nothing; a CPU engine runs the fused decode
+        at every window in ``windows``.  A speculative engine never runs
+        the plain decode: it runs the draft model's wave at every (batch
+        bucket x full-history bucket) shape, and captures its speculative
+        window instead (a CPU engine runs one).
 
         Nothing is written that a live request could read: the waves
         have ``write_lens == 0`` and null-to-null copy-on-write pairs,
-        and update sacrificial copies of the slot state; the decode runs
-        on an idle state (null tables, position 0, no slot active), so
-        its junk lands in the null block only.  The defaults are the
-        reference's."""
+        and update sacrificial copies of the slot state; the swap pass
+        moves the null block through a free tier slot and restores a
+        sacrificial copy of the slot state; the decode and the
+        speculative window run on an idle state (null tables, position
+        0, no slot active), so their junk lands in the null blocks only.
+        The defaults are the reference's."""
         if suffix_buckets is None:
-            top = _bucket(self.max_len)
-            suffix_buckets = [b for b in _BUCKETS if b <= top]
-            nxt = _BUCKETS[-1] * 2          # pow2 tail for max_len > table
-            while nxt <= top:
-                suffix_buckets.append(nxt)
-                nxt *= 2
-            suffix_buckets = suffix_buckets or [top]
+            suffix_buckets = _bucket_list(_bucket(self.max_len))
         if batch_sizes is None:
             batch_sizes, n = [], 1
             while n < self.slots:
@@ -1431,30 +1839,8 @@ class PagedContinuousEngine:
                 k <<= 1
         widths = [1] + ([self.max_blocks]
                         if self.prefix_cache is not None else [])
-        for nb in batch_sizes:
-            zeros = np.zeros(nb, np.int32)
-            nulls = np.full(nb, self.null_block, np.int32)
-            for sb in suffix_buckets:
-                for w in widths:
-                    (tokens, lengths, plens, attn, rows, wlens, src, dst,
-                     slots, sel, pos) = self._upload(
-                        np.zeros((nb, sb), np.int32), np.ones(nb, np.int32),
-                        zeros, np.full((nb, w), self.null_block, np.int32),
-                        np.full((nb, self.max_blocks), self.null_block,
-                                np.int32), zeros, nulls, nulls, zeros, zeros,
-                        zeros)
-                    state = {"tables": self.tables.clone(),
-                             "positions": self.positions.clone(),
-                             "active": self.active_mask.clone(),
-                             "logits": self.logits.clone()}
-                    M.prefill_wave(
-                        self.params, self.cfg, self.pages, state,
-                        {"tokens": tokens, "lengths": lengths,
-                         "prefix_lens": plens, "attn_tables": attn,
-                         "tables": rows, "write_lens": wlens,
-                         "cow_src": src, "cow_dst": dst, "slots": slots,
-                         "row_sel": sel, "positions": pos},
-                        null_block=self.null_block, act_dtype=self.dtype)
+        self._warm_waves(self.params, self.cfg, self.pages, self.tables,
+                         self.logits, batch_sizes, suffix_buckets, widths)
         if self.prefix_cache is not None:
             # grow-path copy-on-write copies pad to a power of two <=
             # slots; null -> null clones leave the pool unchanged
@@ -1463,6 +1849,20 @@ class PagedContinuousEngine:
                 nulls = np.full(k, self.null_block, np.int32)
                 M.copy_pages(self.pages, *self._upload(nulls, nulls))
                 k <<= 1
+        if self.swap is not None:
+            self._warm_swap()
+        if self.spec_decode:
+            # the draft's admission and resume waves: full history (a
+            # resume's too), prefix 0
+            hist = self.max_len + (self.max_gen if self.swap is not None
+                                   else 0)
+            top = _bucket(hist)
+            self._warm_waves(self.draft_params, self.draft_cfg,
+                             self.draft_pages, self.draft_tables,
+                             self.draft_logits, batch_sizes,
+                             _bucket_list(top), [1])
+            self._warm_spec()
+            return
         if self.device.type == "cuda":
             if self._decode_graph is None:
                 self._decode_graph = DecodeGraph.paged(self, live=False)
@@ -1477,6 +1877,94 @@ class PagedContinuousEngine:
                  "block_tables": self._null_row[None, :].repeat(b, 1),
                  "active": torch.zeros_like(self.active_mask)},
                 num_steps=k, act_dtype=self.dtype)
+
+    def _warm_swap(self) -> None:
+        """The swap pass of :meth:`warmup` (§15): one swap-out's and one
+        resume's work, each copy and allocation of it, on one page: the
+        null block's pages are gathered, copied with a logits row into
+        pinned memory (one free tier slot, which stays free), read back,
+        scattered into the null block again, and restored into a
+        sacrificial copy of the slot state; then the work is waited for,
+        as a swap-out waits for its copies.  The reference compiles and
+        runs its gather, scatter and slot restore here."""
+        if not self.swap.free:
+            return
+        null = self._upload(np.array([self.null_block], np.int32))[0]
+        vals = M.gather_pages(self.pages, null)
+        row = self.swap.host_empty(self.logits.shape[1:], self.logits.dtype)
+        row.copy_(self.logits[0])
+        M.scatter_pages(self.pages, null, self.swap.warm(vals, self.device))
+        row_t, pos_t = self._upload(
+            np.full(self.max_blocks, self.null_block, np.int32),
+            np.zeros(1, np.int32))
+        _restore_slot(self.tables.clone(), self.positions.clone(),
+                      self.active_mask.clone(), self.logits.clone(), 0,
+                      row_t, pos_t, row)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _warm_waves(self, params, cfg, pages, tables: torch.Tensor,
+                    logits: torch.Tensor, batch_sizes: List[int],
+                    buckets: List[int], widths: List[int]) -> None:
+        """One variable-prefix wave of ``params`` on ``pages`` at every
+        (batch bucket x suffix bucket x gather-table width) shape, with
+        ``write_lens == 0`` and null-to-null copy-on-write pairs, each
+        updating a sacrificial copy of the slot state (``tables``,
+        ``logits`` and the engine's positions and active mask)."""
+        for nb in batch_sizes:
+            zeros = np.zeros(nb, np.int32)
+            nulls = np.full(nb, self.null_block, np.int32)
+            for sb in buckets:
+                for w in widths:
+                    (tokens, lengths, plens, attn, rows, wlens, src, dst,
+                     slots, sel, pos) = self._upload(
+                        np.zeros((nb, sb), np.int32), np.ones(nb, np.int32),
+                        zeros, np.full((nb, w), self.null_block, np.int32),
+                        np.full((nb, self.max_blocks), self.null_block,
+                                np.int32), zeros, nulls, nulls, zeros, zeros,
+                        zeros)
+                    state = {"tables": tables.clone(),
+                             "positions": self.positions.clone(),
+                             "active": self.active_mask.clone(),
+                             "logits": logits.clone()}
+                    M.prefill_wave(
+                        params, cfg, pages, state,
+                        {"tokens": tokens, "lengths": lengths,
+                         "prefix_lens": plens, "attn_tables": attn,
+                         "tables": rows, "write_lens": wlens,
+                         "cow_src": src, "cow_dst": dst, "slots": slots,
+                         "row_sel": sel, "positions": pos},
+                        null_block=self.null_block, act_dtype=self.dtype)
+
+    def _idle_spec_state(self) -> Dict[str, torch.Tensor]:
+        """A speculative window's state on which it writes only into the
+        null blocks of the two pools: copies of the logits, null tables,
+        position 0, no slot active, a budget of 1."""
+        b = self.slots
+        return {"logits": self.logits.clone(),
+                "positions": torch.zeros_like(self.positions),
+                "tables": self._null_row[None, :].repeat(b, 1),
+                "active": torch.zeros_like(self.active_mask),
+                "draft_logits": self.draft_logits.clone(),
+                "draft_tables": self._null_row[None, :].repeat(b, 1),
+                "max_emit": torch.ones(b, dtype=torch.int32,
+                                       device=self.device)}
+
+    def _warm_spec(self) -> None:
+        """The speculative window of :meth:`warmup` (§16), on an idle
+        state: captured on the card, run on the CPU."""
+        if self.device.type == "cuda":
+            if self._spec_graph is None:
+                self._spec_graph = SpecGraph(self, live=False)
+                self.graph_captures += 1
+            return
+        b, w = self.slots, self.spec_w
+        spec_window_into(
+            self.params, self.cfg, self.pages, self.draft_params,
+            self.draft_cfg, self.draft_pages, self._idle_spec_state(),
+            torch.zeros((b, w), dtype=torch.int32),
+            torch.zeros((b, w + 1), dtype=torch.int32),
+            null_block=self.null_block, act_dtype=self.dtype)
 
     def utilization(self) -> float:
         """1 - internal fragmentation over live tokens (null block counts
@@ -1611,4 +2099,20 @@ def drive_paged(engine: PagedContinuousEngine, requests: List[Request], *,
             "retries_max": max(engine.retries.values(), default=0),
             "swap_outs": engine.swap_outs,
             "swap_ins": engine.swap_ins,
-            "reprefilled_swapped_tokens": engine.reprefilled_swapped_tokens}
+            "reprefilled_swapped_tokens": engine.reprefilled_swapped_tokens,
+            # §16 speculative decoding (all zero with spec off)
+            "spec_windows": engine.spec_windows,
+            "spec_emitted": engine.spec_emitted,
+            "spec_accepted": engine.spec_accepted,
+            "spec_drafted": engine.spec_drafted,
+            "draft_quarantined": engine.draft_quarantined,
+            "draft_prefill_tokens": engine.draft_prefill_tokens,
+            "draft_reprefill_tokens": engine.draft_reprefill_tokens,
+            # the headline §16 metric: tokens emitted per target verify
+            # row (1.0 is the spec-off baseline)
+            "accepted_per_dispatch": (
+                engine.spec_emitted / engine.spec_slot_windows
+                if engine.spec_slot_windows else 0.0),
+            "acceptance_rate": (
+                engine.spec_accepted / engine.spec_drafted
+                if engine.spec_drafted else 0.0)}

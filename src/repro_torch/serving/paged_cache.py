@@ -203,6 +203,23 @@ class BlockAllocator:
         if self._shadow is not None:
             self._shadow.on_free_seq(seq_id)
 
+    def truncate(self, seq_id: int, keep_blocks: int) -> List[int]:
+        """Shrink seq ``seq_id``'s table to its first ``keep_blocks``
+        entries, releasing one reference per trailing block: the
+        speculative-decode rollback (DESIGN.md §16).  It only ever
+        decrements, so a trailing block another holder keeps (a
+        published radix page, a swap image's device hold) survives with
+        that holder's reference and is never mutated.  Returns the
+        released trailing blocks."""
+        table = self.tables.get(seq_id, [])
+        if keep_blocks < 0:
+            raise ValueError(f"keep_blocks must be >= 0, got {keep_blocks}")
+        trailing = table[keep_blocks:]
+        if trailing:
+            del table[keep_blocks:]
+            self.release(trailing, holder=seq_id)
+        return trailing
+
     @property
     def used_blocks(self) -> int:
         return self.num_blocks - len(self.free)
@@ -918,6 +935,18 @@ class HostSwapTier:
             if b is not None:
                 del self.by_block[b]
                 allocator.release([b], holder=_san.SWAP_HOLDER)
+
+    def warm(self, values: torch.Tensor,
+             device: Union[str, torch.device]) -> torch.Tensor:
+        """A swap-out's store copy and a resume's read, once, for an
+        engine's ``warmup()``: ``values`` (one page, ``[P, L, 1, ...]``)
+        goes into a free slot, which stays free (its contents are junk,
+        as every free slot's are), and comes back as :meth:`read` gives
+        it."""
+        s = self.free[-1]
+        self._store[s:s + 1].copy_(values.movedim(2, 0),
+                                   non_blocking=self.pin_memory)
+        return self.read([s], device)
 
     # -- pressure escape hatch -----------------------------------------------
 

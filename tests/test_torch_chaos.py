@@ -10,8 +10,8 @@ identical streams, equal counters (``host_syncs``, ``evictions``,
 ``quarantined``, ``deadline_misses``, ``stall_ticks``, the swap counters
 and the rest of ``COUNTERS``), equal fault-injector counters, the same
 shed reasons for the same requests in the same order, and both pools
-drained.  ``test_poisoned_draft_storm_keeps_verified_streams`` needs
-speculative decoding (§16), which the port does not have yet.
+drained.  Under speculative decoding (§16) the draft's counters
+(``SPEC_COUNTERS``) must agree too.
 
 The harness here (``run_pair``, ``assert_parity``) is shared with
 ``test_torch_swap.py`` and ``test_torch_sanitizer.py``."""
@@ -56,6 +56,11 @@ COUNTERS = ("host_syncs", "evictions", "swap_outs", "swap_ins",
             "prefill_dispatches", "cow_copies", "requeue_prefix_hits",
             "swapped_blocks", "swap_reused_blocks",
             "reprefilled_swapped_tokens")
+
+#: the §16 counters, for the storms under speculative decoding
+SPEC_COUNTERS = ("spec_windows", "spec_slot_windows", "spec_emitted",
+                 "spec_accepted", "spec_drafted", "draft_quarantined",
+                 "draft_prefill_tokens", "draft_reprefill_tokens")
 
 #: per side: engine module, faults module, paged-cache module, apps module
 SIDES = {"jax": (jax_engine, jax_faults, jax_cache, jax_apps),
@@ -232,6 +237,27 @@ def test_poisoned_logits_quarantine_is_surgical():
     assert inj.poisoned == 1
     assert eng.quarantined == 1 and stats["quarantined"] == 1
     assert stats["served"] == 4
+
+
+def test_poisoned_draft_storm_keeps_verified_streams():
+    """§14 x §16: a poisoned DRAFT logits row under speculation ices the
+    slot's draft (a cold draft), never the request: no target
+    quarantine, every stream equals the spec-off fault-free reference,
+    the draft pool drains, and the draft counters equal JAX's."""
+    runs = run_pair(lambda m: _reqs(m, 4),
+                    [dict(window=2, kind="poison_draft_logits", slot=0)],
+                    **_kw(n=4, spec_decode=True, draft_k=4, nan_guard=True))
+    for name in SPEC_COUNTERS:
+        assert getattr(runs["torch"][0], name) == \
+            getattr(runs["jax"][0], name), name
+    assert_parity(runs)
+    eng, inj, _, stats = runs["torch"]
+    assert inj.draft_poisoned == 1
+    assert eng.draft_quarantined == 1
+    assert eng.quarantined == 0, \
+        "a draft fault must never quarantine the verified target stream"
+    assert stats["served"] == 4 and not stats["shed"]
+    _assert_contract(runs["torch"], 4)
 
 
 def test_poisoned_draft_is_noop_without_speculation():

@@ -393,6 +393,28 @@ def test_paged_decode_plan_reads_no_device_value():
         assert kernel.paged_decode_plan(*meta, H100_SMS)[0] == splits
 
 
+def test_paged_decode_plan_takes_a_fixed_split_count():
+    """``splits`` replaces the planned count (one split: a row's
+    arithmetic that does not depend on the batch, for
+    ``batch_invariant``), with no scratch for one split; a count outside
+    [1, MAX_SPLITS] is refused before a launch."""
+    from repro_torch.kernels.decode_attention import kernel
+    q = torch.zeros(1, 32, 128, dtype=torch.bfloat16)
+    pages = torch.zeros(64, 16, 32, 128, dtype=torch.bfloat16)
+    tables = torch.zeros(1, 40, dtype=torch.int32)
+    lens = torch.full((1,), 300, dtype=torch.int32)
+    assert kernel.paged_decode_plan(q, pages, tables, lens, H100_SMS)[0] > 1
+    splits, _, part_o, part_ml, counters = kernel.paged_decode_plan(
+        q, pages, tables, lens, H100_SMS, 1)
+    assert splits == 1 and part_o is None and part_ml is None \
+        and counters is None
+    assert kernel.paged_decode_plan(q, pages, tables, lens, H100_SMS,
+                                    3)[3].shape == (1, 32, 3, 2)
+    for bad in (0, kernel.MAX_SPLITS + 1):
+        with pytest.raises(ValueError, match="splits"):
+            kernel.paged_decode_plan(q, pages, tables, lens, H100_SMS, bad)
+
+
 def test_paged_kernels_refuse_other_head_sizes():
     """Paged decode (f32 and bf16) and bf16 prefix prefill take D in
     {32, 64, 128} and refuse any other before a launch; f32 prefix

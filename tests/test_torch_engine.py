@@ -153,6 +153,34 @@ def test_launcher_serves_the_same_requests_as_jax():
         assert got[key] == want[key], key
 
 
+def test_launcher_spec_decode_matches_jax():
+    """The launcher's ``spec_decode`` (a self-draft, as in the
+    reference): the same requests, streams' counts and §16 keys as the
+    reference launcher's."""
+    from repro.launch.serve import run_paged_engine_backend as jax_run
+    from repro_torch.launch.serve import run_paged_engine_backend
+
+    jcfg = jax_config("smollm-135m").reduced()
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    want = jax_run("smollm-135m", 2.0, 2.0, "magnus-paged",
+                   prefix_cache=True, spec_decode=True, draft_k=2)
+    got = run_paged_engine_backend(
+        "smollm-135m", 2.0, 2.0, "magnus-paged", prefix_cache=True,
+        spec_decode=True, draft_k=2, device="cpu", params=params_from_numpy(
+            jax.tree.map(np.asarray, jp), device="cpu"))
+    eng = got.pop("engine")
+    eng.assert_drained()
+    assert eng.draft_params is eng.params
+    assert got["requests"] > 0 and got["spec_windows"] > 0
+    assert got["acceptance_rate"] == 1.0
+    for key in ("requests", "steps", "peak_concurrency", "evictions",
+                "prefix_hits", "prefill_dispatches", "prefill_tokens",
+                "host_syncs", "spec_windows",
+                "accepted_per_dispatch", "acceptance_rate",
+                "draft_quarantined", "draft_prefill_tokens", "shed"):
+        assert got[key] == want[key], key
+
+
 _PROP_ENGINE = {}
 
 
@@ -252,12 +280,22 @@ def test_fused_engine_matches_per_token_engine():
 
 def _engine_state(eng):
     """Everything a request can read: the pool outside the null block,
-    the tables, positions, active mask and carried logits."""
+    the tables, positions, active mask and carried logits, and the swap
+    tier's slots in use (with its free list and maps, as tensors)."""
     keep = torch.ones(eng.allocator.num_blocks, dtype=torch.bool)
     keep[eng.null_block] = False
-    return ([eng.pages[key][:, keep].clone() for key in ("k", "v")]
-            + [t.clone() for t in (eng.tables, eng.positions,
-                                   eng.active_mask, eng.logits)])
+    state = ([eng.pages[key][:, keep].clone() for key in ("k", "v")]
+             + [t.clone() for t in (eng.tables, eng.positions,
+                                    eng.active_mask, eng.logits)])
+    if eng.swap is not None:
+        used = sorted(eng.swap.slot_ref)
+        state += [eng.swap._store[used].clone(),
+                  torch.tensor(eng.swap.free + [-1] + used),
+                  torch.tensor([s for m in eng.swap.maps.values()
+                                for s in m])]
+        state += [eng._swapped[rid]["logits"].clone()
+                  for rid in sorted(eng._swapped)]
+    return state
 
 
 def _assert_same(a, b):
@@ -267,16 +305,19 @@ def _assert_same(a, b):
 
 
 WARM_KW = dict(max_concurrency=4, num_blocks=96, block_tokens=4,
-               max_len=64, max_gen=8, prefix_cache=True)
+               max_len=64, max_gen=8, prefix_cache=True, swap_blocks=16)
 
 
 def test_warmup_writes_nothing_and_is_idempotent():
     """``warmup()`` in the middle of a serve (requests admitted, pages
-    written, a window decoded, stale logits in idle slots) leaves every
-    tensor a request can read bit-equal, and so does a second call (the
-    null block is the write sink: duplicate pad writes leave it junk in
-    no fixed order); the serve then goes on exactly as on an engine that
-    was never warmed, which equals JAX's."""
+    written, a window decoded, stale logits in idle slots, one request
+    suspended on the host swap tier) leaves every tensor a request can
+    read bit-equal, the tier's slots in use and its books included, and
+    so does a second call (the null block is the write sink: duplicate
+    pad writes leave it junk in no fixed order; the swap pass moves it
+    through a free tier slot); the serve then goes on, the suspended
+    request resumed, exactly as on an engine that was never warmed,
+    which equals JAX's."""
     jp, tp = _params()
     streams = {}
     for warm in (True, False, "jax"):
@@ -287,6 +328,7 @@ def test_warmup_writes_nothing_and_is_idempotent():
         n = eng.join_many(reqs[:3])
         assert n == 3
         eng.step_window(max_steps=2)
+        assert eng._swap_out(1) and eng.num_suspended == 1
         if warm is True:
             before = _engine_state(eng)
             eng.warmup()
@@ -296,6 +338,7 @@ def test_warmup_writes_nothing_and_is_idempotent():
             _assert_same(once, _engine_state(eng))
         (jax_drive if warm == "jax" else drive_paged)(eng, reqs[3:])
         assert all(r.req_id in eng.generated for r in reqs)
+        assert eng.swap_ins == 1 and eng.reprefilled_swapped_tokens == 0
         streams[warm] = [eng.generated[r.req_id] for r in reqs]
         eng.assert_drained()
     assert streams[True] == streams[False] == streams["jax"]
@@ -320,3 +363,52 @@ def test_warmed_engine_matches_jax(case):
     for name in COUNTERS:
         assert getattr(te, name) == getattr(je, name), name
     te.assert_drained()
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["spec_off", "spec_on"])
+@pytest.mark.parametrize("case", ["evict_requeue", "prefix_on"])
+def test_can_admit_matches_jax_and_the_next_join(case, spec):
+    """``can_admit`` (the reference's admission probe: free blocks plus
+    what radix eviction could reclaim, less a hit's shared blocks, plus
+    a speculative engine's draft copy of the reservation), asked before
+    every ``join`` of a one-at-a-time serve: the port's answer equals
+    JAX's, and equals whether that join succeeds.  With speculation on,
+    the pool is twice the fixture's (each request's draft pool is a
+    private copy of its reservation)."""
+    from collections import deque
+    from repro.serving.engine import EngineFull as JaxEngineFull
+    from repro_torch.serving.engine import EngineFull
+    make, kw = CASES[case]
+    jp, tp = _params()
+    kw = dict(kw, spec_decode=spec,
+              num_blocks=kw["num_blocks"] * (2 if spec else 1))
+    answers, streams = {}, {}
+    for side in ("jax", "torch"):
+        reqs = make(jax_apps if side == "jax" else apps)
+        eng = (JaxEngine(JCFG, params=jp, **kw) if side == "jax" else
+               PagedContinuousEngine(CFG, params=tp, device="cpu", **kw))
+        pending, said = deque(reqs), []
+        for _ in range(400):
+            if not (pending or eng.num_active):
+                break
+            if pending:
+                ok = eng.can_admit(pending[0])
+                try:
+                    eng.join(pending[0])
+                    joined = True
+                except (EngineFull, JaxEngineFull):
+                    joined = False
+                assert ok == joined, (side, len(said))
+                said.append(ok)
+                if joined:
+                    pending.popleft()
+                    continue
+            _, evicted, _ = eng.step_window()
+            pending.extendleft(reversed(evicted))
+        assert not pending and not eng.num_active
+        eng.assert_drained()
+        answers[side] = said
+        streams[side] = [eng.generated[r.req_id] for r in reqs]
+    assert answers["torch"] == answers["jax"]
+    assert False in answers["torch"] and True in answers["torch"]
+    assert streams["torch"] == streams["jax"]

@@ -33,6 +33,7 @@ from repro_torch.kernels.decode_attention import ops, ref
 from repro_torch.models import model as M
 from repro_torch.params import params_from_numpy
 from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
+from repro_torch.serving.faults import FaultEvent, FaultInjector
 from repro_torch.workload.apps import make_dataset
 
 TOL = 2e-4          # f32, of the reference's largest magnitude
@@ -299,3 +300,214 @@ def test_replayed_window_reads_nothing(card, dtype):
         _, _, k = eng.step_window(max_steps=8)
     assert k == 8 and reads["reads"] == 0
     assert eng.host_syncs == syncs + 1
+
+
+# ---------------------------------------------------------------------------
+# the speculative window (§16) as one captured graph
+# ---------------------------------------------------------------------------
+
+DRAFT = CFG.reduced(num_layers=1, d_model=128)      # head size 32
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _spec_params():
+    """The target's and a smaller draft's f32 weights, on the CPU (drawn
+    there, so that both devices get the same values)."""
+    return (M.init_params(CFG, seed=0, device="cpu"),
+            M.init_params(DRAFT, seed=1, device="cpu"))
+
+
+def _spec_engine(device, *, draft=False, **kw):
+    tp, dp = _spec_params()
+    extra = ({"draft_cfg": DRAFT, "draft_params": _to(dp, device)}
+             if draft else {})
+    return PagedContinuousEngine(CFG, _to(tp, device), device=device,
+                                 dtype=torch.float32, spec_decode=True,
+                                 draft_k=4, **extra, **{**ENGINE_KW, **kw})
+
+
+def _spec_bound(eng):
+    g = eng._spec_graph.state
+    return {**{key: t.data_ptr() for key, t in g.items()},
+            **{f"pages.{k}": v.data_ptr() for k, v in eng.pages.items()},
+            **{f"draft_pages.{k}": v.data_ptr()
+               for k, v in eng.draft_pages.items()}}
+
+
+def _spec_addresses(eng):
+    return {"logits": eng.logits.data_ptr(),
+            "positions": eng.positions.data_ptr(),
+            "tables": eng.tables.data_ptr(),
+            "active": eng.active_mask.data_ptr(),
+            "draft_logits": eng.draft_logits.data_ptr(),
+            "draft_tables": eng.draft_tables.data_ptr(),
+            "max_emit": eng._spec_graph.max_emit.data_ptr(),
+            **{f"pages.{k}": v.data_ptr() for k, v in eng.pages.items()},
+            **{f"draft_pages.{k}": v.data_ptr()
+               for k, v in eng.draft_pages.items()}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft", [False, True], ids=["self", "small"])
+def test_spec_engine_captures_once_and_serves_like_cpu(card, draft):
+    """A spec engine captures its window once (at its first window), a
+    warmed one before its serve and never in it, and neither captures
+    the plain decode step; both serve mixed, under-predicted lengths
+    with the streams and counters of the eager CPU engine (f32, TF32
+    off), which equal a spec-off engine's streams."""
+    out = {}
+    for name, dev, kw in (("cpu", "cpu", {}), ("lazy", "cuda", {}),
+                          ("warm", "cuda", {"warmup": True})):
+        eng = _spec_engine(dev, draft=draft, **kw)
+        captures0 = eng.graph_captures
+        reqs = _requests(6, 4, lambda i: 1 + (4 + 5 * i) % 16,
+                         undershoot=True, words=(4, 14, 55))
+        st = drive_paged(eng, reqs)
+        assert st["served"] == len(reqs)
+        eng.assert_drained()
+        assert eng._decode_graph is None
+        out[name] = ([eng.generated[r.req_id] for r in reqs],
+                     {n: getattr(eng, n) for n in (
+                         "host_syncs", "spec_windows", "spec_emitted",
+                         "spec_accepted", "spec_drafted", "decode_steps",
+                         "evictions", "prefill_tokens")},
+                     (captures0, eng.graph_captures))
+    assert out["cpu"][2] == (0, 0)
+    assert out["lazy"][2] == (0, 1) and out["warm"][2] == (1, 1)
+    assert out["lazy"][:2] == out["cpu"][:2] == out["warm"][:2]
+    assert out["lazy"][1]["host_syncs"] == out["lazy"][1]["spec_windows"]
+    tp, _ = _spec_params()
+    ref = PagedContinuousEngine(CFG, tp, device="cpu", **ENGINE_KW)
+    reqs = _requests(6, 4, lambda i: 1 + (4 + 5 * i) % 16,
+                     undershoot=True, words=(4, 14, 55))
+    drive_paged(ref, reqs)
+    assert out["lazy"][0] == [ref.generated[r.req_id] for r in reqs]
+
+
+@pytest.mark.cuda
+def test_spec_graph_keeps_addresses_and_equals_eager(card):
+    """After the capture, a draft quarantine, a swap-out (the draft pool
+    dropped) and a resume (rebuilt) leave every tensor the window graph
+    bound at its captured address; a replayed window then equals
+    ``spec_window_into`` run eagerly on a snapshot of the state, bit for
+    bit (packed tokens and counts, both logits, positions, both pools
+    outside their null blocks)."""
+    from repro_torch.serving.graphs import spec_window_into
+    inj = FaultInjector([FaultEvent(window=2, kind="poison_draft_logits",
+                                    slot=0)])
+    eng = _spec_engine("cuda", draft=True, faults=inj, swap_blocks=32)
+    reqs = _requests(3, seed=1, gen=16)
+    assert eng.join_many(reqs) == 3
+    eng.step_window(max_steps=2)                   # window 1: the capture
+    assert eng.graph_captures == 1
+    bound = _spec_bound(eng)
+    assert _spec_addresses(eng) == bound
+    eng.step_window(max_steps=2)                   # window 2: the guard
+    assert inj.draft_poisoned == 1 and eng.draft_quarantined == 1
+    live = next(s for s, a in enumerate(eng.active)
+                if a is not None and not a.get("draft_cold"))
+    assert eng._swap_out(live) and eng._resume_swapped() == 1
+    assert _spec_addresses(eng) == bound and eng.graph_captures == 1
+    snaps, speculate = [], eng._speculate
+
+    def spy(max_emit):
+        # the state the window starts from, after the window's grows
+        snaps.append(({k: t.clone() for k, t in
+                       eng._spec_graph.state.items()},
+                      {k: v.clone() for k, v in eng.pages.items()},
+                      {k: v.clone() for k, v in eng.draft_pages.items()},
+                      torch.from_numpy(max_emit.copy()).cuda()))
+        return speculate(max_emit)
+
+    eng._speculate = spy
+    _, _, k = eng.step_window()
+    del eng._speculate
+    assert k > 0 and eng.num_active == 3       # nobody finished
+    snap, pages, dpages, max_emit = snaps[0]
+    snap["max_emit"] = max_emit
+    b, w = eng.slots, eng.spec_w
+    want = torch.zeros((b, w + 1), dtype=torch.int32, device="cuda")
+    spec_window_into(eng.params, eng.cfg, pages, eng.draft_params,
+                     eng.draft_cfg, dpages, snap,
+                     torch.zeros((b, w), dtype=torch.int32, device="cuda"),
+                     want, null_block=eng.null_block,
+                     act_dtype=torch.float32)
+    live = eng.active_mask
+    assert torch.equal(eng._spec_graph.packed[live], want[live])
+    for key in ("logits", "positions", "draft_logits"):
+        assert torch.equal(eng._spec_graph.state[key], snap[key]), key
+    keep = torch.ones(eng.allocator.num_blocks, dtype=torch.bool,
+                      device="cuda")
+    keep[eng.null_block] = False
+    for mine, theirs in ((eng.pages, pages), (eng.draft_pages, dpages)):
+        for key in ("k", "v"):
+            assert torch.equal(mine[key][:, keep], theirs[key][:, keep])
+    st = drive_paged(eng, [])
+    assert not st["unserved"] and len(eng.generated) == 3
+    assert _spec_addresses(eng) == bound and eng.graph_captures == 1
+    eng.assert_drained()
+
+
+@pytest.mark.cuda
+def test_batch_invariant_is_bit_exact_on_the_card(card):
+    """Inside ``batch_invariant()`` on the card (f32, TF32 off): a verify
+    of the W tokens that W decode steps consume gives the steps' final
+    logits and pool writes bit for bit (the default arithmetic rounds
+    the two apart, even in f32); and a graphed self-draft spec serve's
+    streams equal a graphed spec-off serve's, every proposal accepted,
+    with one capture."""
+    tp, _ = _spec_params()
+    params = _to(tp, "cuda")
+    rng = np.random.default_rng(3)
+    b, nb, bt, w = 4, 64, 16, 5
+    tables = torch.from_numpy(
+        rng.permutation(np.arange(1, nb))[:b * 3].reshape(b, 3)
+        .astype(np.int32)).cuda()
+    shape = (CFG.num_layers, nb, bt, CFG.num_kv_heads, CFG.head_dim)
+    pages = {key: torch.from_numpy(rng.normal(size=shape)
+                                   .astype(np.float32)).cuda()
+             for key in ("k", "v")}
+    batch = {"logits": torch.from_numpy(rng.normal(
+                 size=(b, CFG.padded_vocab)).astype(np.float32)).cuda(),
+             "positions": torch.tensor([3, 17, 30, 9], dtype=torch.int32,
+                                       device="cuda"),
+             "block_tables": tables,
+             "active": torch.ones(b, dtype=torch.bool, device="cuda")}
+    keep = torch.ones(nb, dtype=torch.bool, device="cuda")
+    keep[0] = False
+    with M.batch_invariant():
+        spages = {key: v.clone() for key, v in pages.items()}
+        slog, spages, spos, stoks = M.decode_multi_paged(
+            params, CFG, spages, batch, num_steps=w,
+            act_dtype=torch.float32)
+        vpages = {key: v.clone() for key, v in pages.items()}
+        vlog, vpages, vpos, packed = M.verify_window(
+            params, CFG, vpages,
+            dict(batch, proposed=stoks, max_emit=torch.full(
+                (b,), w, dtype=torch.int32, device="cuda")),
+            null_block=0, act_dtype=torch.float32)
+        assert packed[:, w].tolist() == [w] * b
+        assert torch.equal(vlog, slog) and torch.equal(vpos, spos)
+        for key in ("k", "v"):
+            assert torch.equal(vpages[key][:, keep], spages[key][:, keep])
+        streams = {}
+        for name, kw in (("off", {}), ("on", {"spec_decode": True,
+                                              "draft_k": 4})):
+            eng = PagedContinuousEngine(CFG, params, device="cuda",
+                                        dtype=torch.float32,
+                                        **{**ENGINE_KW, **kw})
+            reqs = _requests(6, 4, lambda i: 1 + (4 + 5 * i) % 16,
+                             undershoot=True, words=(4, 14, 55))
+            st = drive_paged(eng, reqs)
+            assert st["served"] == len(reqs)
+            eng.assert_drained()
+            streams[name] = [eng.generated[r.req_id] for r in reqs]
+        assert eng.graph_captures == 1
+        assert st["acceptance_rate"] == 1.0
+    assert streams["on"] == streams["off"]

@@ -1,7 +1,8 @@
 """Guards of the PyTorch port's boundaries:
 
-- no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
-  JAX or anything of the reference package ``repro``;
+- no module of ``src/repro_torch``, not ``chip_smoke.py`` and none of
+  the port's scripts imports JAX or anything of the reference package
+  ``repro``;
 - the entry points default to the CUDA card and raise without one,
   instead of running on the CPU;
 - on a CPU tensor the kernel wrappers call the plain version and never
@@ -15,7 +16,11 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + [
+    ROOT / "scripts" / name for name in (
+        "f32_invariance.py", "first_swap_out.py",
+        "padded_graph_breakeven.py", "run_cuda_tests.py",
+        "spec_rehearsal.py", "ssd_scan_phases.py")]
 
 
 def _imported_modules(path):

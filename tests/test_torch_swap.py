@@ -5,14 +5,15 @@ each engine test run through both engines with the same weights,
 requests and ``FaultEvent`` plan (the harness of
 ``test_torch_chaos.py``): identical streams and counters, the same shed
 reasons in the same order, both pools and both tiers drained.
-``test_swap_mid_speculation_resumes_bitexact`` needs speculative
-decoding (§16), which the port does not have yet.
 
 The port writes every tensor a captured decode graph reads in place:
 ``test_inplace_writes_keep_addresses`` holds the addresses of the
 logits, positions, tables, active mask and pools across a poison, a
 quarantine, a swap-out and a resume (``_restore_slot``,
-``scatter_pages``).
+``scatter_pages``); ``test_spec_inplace_writes_keep_addresses`` holds
+those and the speculative window's (the draft logits, tables and pool)
+across a draft quarantine, a swap-out that drops the draft pool and a
+resume that rebuilds it.
 
 On the card (``cuda``-marked, the tiny config in f32 with the decode
 graph captured): the same addresses hold and are the graph's own, the
@@ -44,7 +45,8 @@ from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
 from repro_torch.serving.faults import FaultEvent, FaultInjector
 from repro_torch.serving.paged_cache import BlockAllocator, HostSwapTier
 
-from test_torch_chaos import CFG, SIDES, assert_parity, make_engine, run_pair
+from test_torch_chaos import (CFG, SIDES, SPEC_COUNTERS, assert_parity,
+                              make_engine, run_pair)
 
 MAX_GEN = 10
 BT = 4
@@ -229,6 +231,43 @@ def test_forced_swap_roundtrip_resumes_bitexact():
     for r in reqs:
         assert eng.generated[r.req_id] == ref[r.req_id]
     assert_parity(runs)
+
+
+def test_swap_mid_speculation_resumes_bitexact():
+    """§15 x §16: suspending a slot mid-speculation drops its draft KV
+    (never swapped: it can be recomputed), and the resume re-prefills
+    the DRAFT pool only: the target stream goes on with zero re-prefilled
+    tokens and equals the spec-off reference, as JAX's does."""
+    n = 2
+
+    def suspend(eng, reqs):
+        assert eng.join_many(copy.deepcopy(reqs)) == n
+        eng.step_window()                          # mid-speculation state
+        live = next(s for s, a in enumerate(eng.active) if a is not None)
+        assert eng._swap_out(live)
+        assert eng.num_suspended == 1
+        # the suspended slot's draft band is released at suspension
+        assert eng.allocator.tables.get(eng._draft_seq(live), []) == []
+        return []
+
+    runs = _pair(n, before=suspend, **_kw(num_blocks=48, n=n,
+                                          spec_decode=True, draft_k=4))
+    for name in SPEC_COUNTERS:
+        assert getattr(runs["torch"][0], name) == \
+            getattr(runs["jax"][0], name), name
+    assert_parity(runs)
+    eng, _, reqs, stats = runs["torch"]
+    assert stats["swap_outs"] == 1 and stats["swap_ins"] == 1
+    assert stats["reprefilled_swapped_tokens"] == 0, \
+        "the TARGET stream must never re-prefill across a suspension"
+    assert stats["draft_reprefill_tokens"] > 0, \
+        "resume must rebuild the draft KV from the verified stream"
+    # a spec window emits up to draft_k+1 tokens, so the short request
+    # can finish inside the manual step_window: count streams
+    assert len(eng.generated) == n and not stats["shed"]
+    ref = _reference_streams(n)
+    for r in reqs:
+        assert eng.generated[r.req_id] == ref[r.req_id]
 
 
 def test_swap_out_refuses_when_tier_full():
@@ -488,6 +527,50 @@ def _write_everything(eng, reqs, inj):
     stats = drive_paged(eng, evicted)
     assert _addresses(eng) == want
     return stats
+
+
+def _spec_addresses(eng):
+    return {**_addresses(eng),
+            "draft_logits": eng.draft_logits.data_ptr(),
+            "draft_tables": eng.draft_tables.data_ptr(),
+            **{f"draft_pages.{key}": v.data_ptr()
+               for key, v in eng.draft_pages.items()}}
+
+
+def test_spec_inplace_writes_keep_addresses():
+    """A speculative engine: the draft poison (window 1's prologue), the
+    draft guard's quarantine, a swap-out (the draft pool dropped) and a
+    resume (the draft pool rebuilt by a draft wave) write the engine's
+    tensors and both pools in place; the streams equal a spec-off
+    engine's."""
+    inj = FaultInjector([FaultEvent(window=1, kind="poison_draft_logits",
+                                    slot=0)])
+    kw = _kw(num_blocks=48, n=3)
+    eng = PagedContinuousEngine(CFG, seed=0, device="cpu", faults=inj,
+                                spec_decode=True, draft_k=2, **kw)
+    want = _spec_addresses(eng)
+    reqs = _reqs("torch", 3)
+    for r in reqs:
+        r.gen_length = MAX_GEN
+    assert eng.join_many(copy.deepcopy(reqs)) == 3
+    eng.step_window()
+    assert inj.draft_poisoned == 1 and eng.draft_quarantined == 1
+    assert eng.quarantined == 0
+    assert _spec_addresses(eng) == want, "the draft quarantine rebound"
+    live = next(s for s, a in enumerate(eng.active)
+                if a is not None and not a.get("draft_cold"))
+    assert eng._swap_out(live)
+    assert _spec_addresses(eng) == want, "the swap-out rebound a tensor"
+    assert eng._resume_swapped() == 1 and eng.draft_reprefill_tokens > 0
+    assert _spec_addresses(eng) == want, "the resume rebound a tensor"
+    stats = drive_paged(eng, [])
+    assert _spec_addresses(eng) == want
+    assert stats["unserved"] == [] and not stats["shed"]
+    ref = PagedContinuousEngine(CFG, seed=0, device="cpu", **kw)
+    drive_paged(ref, copy.deepcopy(reqs))
+    assert [eng.generated[r.req_id] for r in reqs] == \
+        [ref.generated[r.req_id] for r in reqs]
+    eng.assert_drained()
 
 
 def test_inplace_writes_keep_addresses():
