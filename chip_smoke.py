@@ -185,11 +185,45 @@ CUDA toolkit.  Phases, each fatal on failure:
    the spec-off serve's, with the self-draft's acceptance 1.0; each
    differing stream and each rejected proposal is logged before the
    verdict.  Each engine is dropped before the next is built; the
-   phase's peak allocation is logged.
+   phase's peak allocation is logged;
+17. kill and recover (§17: the snapshot, the write-ahead journal and
+   the restore, in place under the captured decode graph), at full
+   width with phase 5's requests and weights, snapshots in a temporary
+   directory whose free space is checked first and which the phase
+   removes.  (a) Phase 5's geometry with the radix cache, driven as the
+   launcher drives it (``magnus_service``) by ``drive_paged`` under a
+   ``RecoveryManager`` and a ``FaultInjector`` with one crash at the
+   window seam: snapshots after windows 2 and 4, the crash at window
+   6 (rows in flight, 32 requests finished), the crashed engine and its
+   pool dropped, then ``recover()`` onto an engine built with
+   ``warmup=True`` (its decode graph captured before the restore) and
+   sharing the weight tensors.  Right after the restore the restored
+   blocks and logits rows equal the file's bytes and the tensors the
+   graph captured are the engine's; the first window and every later
+   one replays (no capture), and each recovered decode step and replay
+   wave is held against the plain kernels at layer 0 right after its
+   window (the first window's steps also timed on the restored pool, as
+   phase 6 times); every request recovered, nothing re-prefilled, both
+   pools drained, launches once per layer and step or wave of both
+   engines, and the recovered engine's steps, waves and host syncs
+   phase 5's plus exactly two syncs a snapshot.  Logged: each
+   snapshot's bytes and host seconds to gather and read back, to hash
+   and to write, ``restore_s``, the recovered serve's tokens/s beside
+   phase 5's; the streams and journal mismatches against phase 5's, by
+   cause.  (b) Phase 15's geometry (128 blocks, the pinned host tier,
+   app head1 under-predicted, a 40-block pool shrink): a snapshot with
+   images in the tier, the crash at a swap-out; the restored tier's
+   used slots equal the file's ``swap_store`` through the layout
+   conversion, the store is pinned, the resumed requests' decode is
+   held, the tier drains.  (c) The f32 witness (TF32 off, inside
+   ``batch_invariant()``, phase 16 (c)'s weights and pool): an uncrashed
+   serve, then (a)'s crash and recovery, whose every stream must equal
+   it, with no journal mismatch; a bf16 stream of (a) that differs from
+   phase 5's fails only where (c) differs too.
 
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves; phase 14 runs right after
-phase 5, then phase 15 and phase 16 last.  The line before the last is a
+phase 5, then phases 15, 16 and 17 last.  The line before the last is a
 JSON object with one entry per kernel (six); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is missing or the port's sources are not beside
@@ -924,26 +958,24 @@ def profile_window(torch, engine, reqs, eager=False):
 # phase 14: phase 5's serve on an engine warmed up ahead of time
 # ---------------------------------------------------------------------------
 
-def warmed_serve(torch, reqs, reset_counts, counts):
-    """Phase 5's serve again, set up as ``run_paged_engine_backend`` sets
-    it up (the same service, predictor, pool and weights, so the same
-    schedule) but with ``warmup=True``, which the launcher does not
-    expose: the engine runs every wave shape and captures its decode
-    step before the counts are zeroed.  Returns the serve's launches,
-    plain calls, streams, host syncs, windows and steps, and the engine's
-    captures before and after the serve."""
-    from repro_torch.configs import get_config
+def magnus_service(cfg, geometry):
+    """The Magnus service over a pool of ``geometry``, set up as
+    ``run_paged_engine_backend`` sets it up (the same predictor, memory
+    model and shared misprediction EWMA; with phase 5's requests queued
+    after the engine is built, as the launcher queues them, phase 5's
+    schedule).  Returns the allocator, the service, the EWMA and
+    ``drive_paged``'s ``refill`` and ``backlog``."""
     from repro_torch.core.magnus import MagnusConfig, MagnusService
     from repro_torch.core.predictor import GenerationLengthPredictor
     from repro_torch.core.wma import MemoryModel
-    from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
     from repro_torch.serving.paged_cache import (BlockAllocator,
                                                  MispredictionEWMA)
     from repro_torch.workload.apps import make_dataset
-    cfg = get_config("chatglm-6b")
     memory = MemoryModel(cfg, hbm_bytes=2 * 2 ** 30,
-                         max_len=SERVE["max_len"], max_gen=SERVE["max_gen"])
-    allocator = BlockAllocator(SERVE["num_blocks"], SERVE["block_tokens"])
+                         max_len=geometry["max_len"],
+                         max_gen=geometry["max_gen"])
+    allocator = BlockAllocator(geometry["num_blocks"],
+                               geometry["block_tokens"])
     svc = MagnusService(
         memory, MagnusConfig(strategy="magnus-paged", prefix_sharing=True),
         predictor=GenerationLengthPredictor(seed=0).fit(
@@ -951,6 +983,27 @@ def warmed_serve(torch, reqs, reset_counts, counts):
         allocator=allocator)
     ewma = MispredictionEWMA()
     svc.memory.headroom = ewma
+
+    def refill(steps):
+        nb = svc.next_batch(now=float(steps))
+        return nb.requests if nb is not None else None
+
+    return (allocator, svc, ewma, refill,
+            lambda: len(svc.batcher.queue) > 0)
+
+
+def warmed_serve(torch, reqs, reset_counts, counts):
+    """Phase 5's serve again, set up as ``run_paged_engine_backend`` sets
+    it up (``magnus_service``: the same service, predictor, pool and
+    weights, so the same schedule) but with ``warmup=True``, which the
+    launcher does not expose: the engine runs every wave shape and
+    captures its decode step before the counts are zeroed.  Returns the
+    serve's launches, plain calls, streams, host syncs, windows and
+    steps, and the engine's captures before and after the serve."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
+    cfg = get_config("chatglm-6b")
+    allocator, svc, ewma, refill, backlog = magnus_service(cfg, SERVE)
     t0 = time.perf_counter()
     engine = PagedContinuousEngine(
         cfg, seed=0, max_concurrency=SERVE["max_concurrency"],
@@ -965,16 +1018,11 @@ def warmed_serve(torch, reqs, reset_counts, counts):
         f" s, {captures0} capture(s)")
     for r in reqs:
         svc.on_request(r, r.arrival_time)
-
-    def refill(steps):
-        nb = svc.next_batch(now=float(steps))
-        return nb.requests if nb is not None else None
-
     t0 = time.perf_counter()
     with replays() as rep:
         reset_counts()
         st = drive_paged(engine, [], max_steps=100_000, refill=refill,
-                         backlog=lambda: len(svc.batcher.queue) > 0)
+                         backlog=backlog)
         torch.cuda.synchronize()
         launches = counts("launches")
     wall = time.perf_counter() - t0
@@ -1986,6 +2034,653 @@ def spec_phase(torch, ops, ref, cfg, reqs, streams5, shapes5, streams32,
     spec_f32_witness(torch, cfg, reqs, streams32)
     log(f"phase 16 peak: {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
         f" GiB allocated")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: kill and recover (§17), restored in place under the graph
+# ---------------------------------------------------------------------------
+
+# (a) and (c) run phase 5's schedule (9 windows; admission waves in
+# windows 1 and 6, after which a snapshot refuses, as the reference's
+# does with the radix cache): snapshots after windows 2 and 4, the crash
+# at window 6's seam (32 requests finished in window 5, the last 16
+# admitted and prefilled, none decoded), then the recovery restores
+# window 4's image (32 rows in flight, 16 requests to replay) and
+# snapshots after window 8 (scripts/recovery_rehearsal.py)
+RECOVER_EVERY, RECOVER_CRASH, RECOVERY_EVERY = 2, 6, 4
+# (b) phase 15's geometry, the app head1 under-predicted x0.25 and the
+# pool shrunk by 40 blocks from window 3, so that two requests suspend
+# in each of windows 3-5: a snapshot after window 3 (two images in the
+# tier), the crash at window 4's first swap-out; the recovery does not
+# snapshot (its run admits in most windows)
+SWAP_EVERY, SWAP_CRASH, SWAP_RECOVERY_EVERY = 3, 4, 1_000
+P17_DISK = 10 << 30            # free disk the phase needs: (c)'s f32
+#                                snapshots take ~6.1 GB
+
+
+def p17_events(FaultEvent, kind):
+    """The crashed run's fault plan: (a) and (c) crash at window
+    ``RECOVER_CRASH``'s window seam; (b) skews, shrinks the pool and
+    crashes at window ``SWAP_CRASH``'s first swap-out."""
+    if kind == "swap":
+        return [FaultEvent(window=0, kind="predict_skew", app="head1",
+                           factor=0.25),
+                FaultEvent(window=3, kind="pool_shrink", blocks=40),
+                FaultEvent(window=SWAP_CRASH, kind="crash", seam="swap")]
+    return [FaultEvent(window=RECOVER_CRASH, kind="crash", seam="window")]
+
+
+def crash_run(torch, cfg, params, device, dtype, ckpt, *, every, events,
+              geometry, service, swap_blocks=0):
+    """Phase 17's crashed process: phase 5's requests on an engine of
+    ``geometry`` with ``params``, a ``FaultInjector`` over ``events``
+    (its crash among them) and the NaN guard off (one readback a window,
+    as in phase 5), driven by ``drive_paged`` under a ``RecoveryManager``
+    that snapshots every ``every`` windows into ``ckpt``: with
+    ``service`` as the launcher drives it (``magnus_service``: phase 5's
+    schedule), else over the request list (as phase 15).  Returns the
+    engine, the requests, the manager and the crash's (seam, window), or
+    None if it did not fire."""
+    from repro_torch.serving import snapshot as snaplib
+    from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
+    from repro_torch.serving.faults import EngineCrash, FaultInjector
+    from repro_torch.workload.apps import make_shared_head_dataset
+    reqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
+                                    gen_length=GEN_LENGTH, seed=0)
+    kw = dict(device=device, dtype=dtype, faults=FaultInjector(events),
+              nan_guard=False, swap_blocks=swap_blocks,
+              **{k: geometry[k] for k in ("max_concurrency", "max_len",
+                                          "max_gen")})
+    drive = {}
+    if service:
+        allocator, svc, ewma, refill, backlog = magnus_service(cfg, geometry)
+        engine = PagedContinuousEngine(cfg, params, allocator=allocator,
+                                       prefix_cache=svc.prefix_cache,
+                                       mispredict=ewma, **kw)
+        for r in reqs:
+            svc.on_request(r, r.arrival_time)
+        todo, drive = [], {"refill": refill, "backlog": backlog}
+    else:
+        engine = PagedContinuousEngine(
+            cfg, params, num_blocks=geometry["num_blocks"],
+            block_tokens=geometry["block_tokens"], prefix_cache=True, **kw)
+        todo = list(reqs)
+    mgr = snaplib.RecoveryManager(ckpt, snapshot_every=every)
+    crash = None
+    try:
+        drive_paged(engine, todo, max_steps=100_000, recovery=mgr, **drive)
+    except EngineCrash as e:
+        # the seam and window only: the exception's traceback holds the
+        # engine, and with it its pool
+        crash = (e.seam, e.window)
+    mgr.close()
+    return {"engine": engine, "reqs": reqs, "mgr": mgr, "crash": crash}
+
+
+def recover_run(torch, cfg, params, device, dtype, ckpt, *, every,
+                geometry, swap_blocks=0, warm=True, built=None):
+    """``serving.snapshot.recover`` of ``ckpt`` onto a fresh engine of the
+    crashed one's geometry and weight tensors, without faults (a dead
+    process's plan does not survive it), its decode step captured before
+    the restore (on the card): built with ``warmup=True`` (``warm``
+    True), or warmed at one wave shape and its decode (``warm`` "decode",
+    for modes whose waves are slow to warm at every shape).
+    ``built(engine)`` runs on it before the restore.  Returns the
+    recovered engine and the report."""
+    from repro_torch.serving import snapshot as snaplib
+    from repro_torch.serving.engine import PagedContinuousEngine
+
+    def factory():
+        engine = PagedContinuousEngine(
+            cfg, params, device=device, dtype=dtype,
+            num_blocks=geometry["num_blocks"],
+            block_tokens=geometry["block_tokens"], prefix_cache=True,
+            swap_blocks=swap_blocks, warmup=warm is True,
+            **{k: geometry[k] for k in ("max_concurrency", "max_len",
+                                        "max_gen")})
+        if warm == "decode":
+            engine.warmup(suffix_buckets=[8], batch_sizes=[1], windows=[1])
+        if built is not None:
+            built(engine)
+        return engine
+
+    return snaplib.recover(factory, ckpt, snapshot_every=every)
+
+
+class snapshot_parts:
+    """Inside the ``with`` block every engine snapshot is timed in its
+    parts, on the host clock: the gather and the two readbacks
+    (``readback``), the SHA-256 over its arrays (``hash``), and the rest
+    of its writing (``write``: packing, meta, the npz), beside its
+    blocks and file bytes; every snapshot read is timed (``reads``: the
+    file loaded and its checksum verified), and ``last`` keeps the meta
+    and arrays of the last one read, for the checks right after a
+    restore."""
+
+    def __init__(self):
+        self.snaps, self.reads, self.last = [], [], None
+
+    def __enter__(self):
+        from repro_torch.serving import engine as E
+        from repro_torch.serving import snapshot as snaplib
+        self.orig = (E.PagedContinuousEngine.snapshot, snaplib.save_engine,
+                     snaplib._digest, snaplib.read_snapshot)
+        snap, save, digest, read = self.orig
+        parts = {}
+
+        def timed_digest(*a):
+            t0 = time.perf_counter()
+            out = digest(*a)
+            if "t0" in parts:
+                parts["hash"] = parts.get("hash", 0.0) \
+                    + time.perf_counter() - t0
+            return out
+
+        def timed_save(*a, **kw):
+            parts["readback"] = time.perf_counter() - parts["t0"]
+            t0 = time.perf_counter()
+            out = save(*a, **kw)
+            parts["save"] = time.perf_counter() - t0
+            return out
+
+        def timed_snapshot(engine, path):
+            blocks = sum(b != engine.null_block
+                         for b in engine.allocator.refcount)
+            parts.clear()
+            parts["t0"] = time.perf_counter()
+            out = snap(engine, path)
+            total = time.perf_counter() - parts.pop("t0")
+            self.snaps.append({
+                "window": engine.windows, "blocks": blocks,
+                "bytes": os.path.getsize(out), "total_s": total,
+                "readback_s": parts["readback"], "hash_s": parts["hash"],
+                "write_s": parts["save"] - parts["hash"]})
+            return out
+
+        def timed_read(path):
+            t0 = time.perf_counter()
+            self.last = read(path)
+            self.reads.append(time.perf_counter() - t0)
+            return self.last
+
+        E.PagedContinuousEngine.snapshot = timed_snapshot
+        snaplib.save_engine = timed_save
+        snaplib._digest = timed_digest
+        snaplib.read_snapshot = timed_read
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import engine as E
+        from repro_torch.serving import snapshot as snaplib
+        (E.PagedContinuousEngine.snapshot, snaplib.save_engine,
+         snaplib._digest, snaplib.read_snapshot) = self.orig
+        self.last = None
+
+
+def _bits(torch, a):
+    """A host tensor's (or numpy array's) bytes as integers of its width,
+    for a byte-for-byte comparison."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
+    t = t.cpu()
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _addresses(engine):
+    return {"logits": engine.logits.data_ptr(),
+            "positions": engine.positions.data_ptr(),
+            "tables": engine.tables.data_ptr(),
+            "active": engine.active_mask.data_ptr(),
+            **{f"pages.{k}": v.data_ptr() for k, v in engine.pages.items()}}
+
+
+def p17_run(torch, ops, ref, cfg, params, dtype, ckpt, *, kind, geometry,
+            every, recovery_every, service, swap_blocks, warm,
+            reset_counts, counts, holds=True, spin=None):
+    """One kill and recover of phase 17 on the card: ``crash_run``, the
+    crashed engine dropped and its memory freed, then ``recover_run``.
+
+    Right after the restore: the restored pool's blocks, logits rows and
+    tier slots equal the file's bytes, the tier's store is pinned, and
+    the tensors the decode graph captured (in the warmup, before the
+    restore) are still the engine's.  After every window of the
+    recovered engine, with ``holds``: its layer-0 decode steps (a
+    replayed step's from the tensors the graph captured) and admission
+    waves go through each paged kernel and its plain version on its
+    pools as they are then (phase 6's ``hold``); with ``spin``, the
+    first window's decode steps are also timed there, on the restored
+    pool, as phase 6 times.  Launch counts are zeroed before the crashed
+    run and again after the recovery's warmup, and the holds' launches
+    are taken back.  Each wave's KV lineage is recorded across both
+    engines.  Returns what the checks and the log need."""
+    import gc
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.faults import FaultEvent
+    device = "cuda"
+    out = {"kind": kind}
+    timer = snapshot_parts()
+    with timer, wave_shapes() as shapes:
+        reset_counts()
+        t0 = time.perf_counter()
+        crashed = crash_run(torch, cfg, params, device, dtype, ckpt,
+                            every=every, events=p17_events(FaultEvent, kind),
+                            geometry=geometry, service=service,
+                            swap_blocks=swap_blocks)
+        torch.cuda.synchronize()
+        out["crash_wall"] = time.perf_counter() - t0
+        launches = counts("launches")
+        eng = crashed["engine"]
+        reqs = crashed["reqs"]
+        out["crashed"] = {
+            "crash": crashed["crash"], "windows": eng.windows,
+            "decode_steps": eng.decode_steps,
+            "waves": eng.prefill_dispatches, "host_syncs": eng.host_syncs,
+            "finished": len(eng.generated), "active": eng.num_active,
+            "suspended": eng.num_suspended, "swap_outs": eng.swap_outs,
+            "snapshots": crashed["mgr"].snapshots_taken,
+            "captures": eng.graph_captures}
+        n_snaps = len(timer.snaps)
+        # process death: the engine, its graph and its pool go before the
+        # fresh engine allocates its own; the weights stay, shared
+        del eng, crashed
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["after_death_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+
+        keeping = {"on": False}
+        decoded = Recorder(
+            transformer, "paged_decode_attention", cfg.num_layers,
+            lambda q, kp, vp, tables, lengths, **_:
+            (q.clone(), tables.clone(), lengths.clone())
+            if keeping["on"] else None, snap=(0, 4))
+        waves = Recorder(
+            transformer, "paged_prefix_prefill_attention", cfg.num_layers,
+            lambda q, ks, vs, kp, vp, tables, plens, slens:
+            (q, ks, vs, tables.clone(), plens.clone(), slens.clone())
+            if keeping["on"] else None)
+        st = {"windows": 0, "errs": {"paged_decode_attention": [],
+                                     "paged_prefix_prefill_attention": []}}
+        holders = (ops.paged_decode_attention,
+                   ops.paged_prefix_prefill_attention)
+
+        def built(engine):
+            torch.cuda.synchronize()
+            st["built"] = time.perf_counter()
+            st["engine"] = engine
+            st["captures"] = engine.graph_captures
+            st["graph"] = engine._decode_graph
+            st["bound"] = {
+                **{k: t.data_ptr() for k, t in
+                   engine._decode_graph.state.items()},
+                **{f"pages.{k}": v.data_ptr()
+                   for k, v in engine.pages.items()}}
+            decoded.kept.clear()
+            waves.kept.clear()
+            keeping["on"] = True
+            reset_counts()
+
+        restore = E.PagedContinuousEngine.restore
+
+        def checked_restore(engine, path):
+            restore(engine, path)
+            meta, arrays = timer.last
+            blocks = meta["page_blocks"]
+            got = M.gather_pages(engine.pages, torch.tensor(
+                blocks, device=engine.device)).cpu()
+            check(torch.equal(_bits(torch, got),
+                              _bits(torch, arrays["page_values"])),
+                  f"{kind}: the restored pool's {len(blocks)} blocks differ "
+                  f"from the file's page_values")
+            del got
+            check(torch.equal(_bits(torch, engine.logits),
+                              _bits(torch, arrays["logits"])),
+                  f"{kind}: the restored logits rows differ from the file's")
+            check(_addresses(engine) == st["bound"],
+                  f"{kind}: the restore moved a tensor the graph captured")
+            used = meta["swap"]["used"] if meta["swap"] else []
+            if used:
+                store = engine.swap._store[used].movedim(0, 2)
+                check(torch.equal(_bits(torch, store),
+                                  _bits(torch, arrays["swap_store"])),
+                      f"{kind}: the restored tier slots {used} differ from "
+                      f"the file's swap_store")
+                check(engine.swap._store.is_pinned(),
+                      f"{kind}: the restored tier's store is not pinned")
+            st["restored"] = {
+                "file": os.path.basename(path), "blocks": len(blocks),
+                "active": engine.num_active,
+                "suspended": engine.num_suspended, "tier_slots": len(used),
+                "finished": len(engine.generated),
+                "decode_steps": engine.decode_steps,
+                "waves": engine.prefill_dispatches,
+                "tokens": sum(len(g) for g in engine.generated.values())
+                + sum(len(a["generated"]) for a in engine.active if a)
+                + sum(len(i["generated"])
+                      for i in engine._swapped.values())}
+            timer.last = None
+
+        def held_window(engine, *a, **kw):
+            replayed0 = rep.replayed_steps
+            result = step_window(engine, *a, **kw)
+            if engine is not st.get("engine") or not holds:
+                return result
+            t_hold = time.perf_counter()
+            n0 = [fn.launches for fn in holders]
+            if st["windows"] == 0:
+                check(engine.graph_captures == st["captures"] == 1
+                      and engine._decode_graph is st["graph"]
+                      and rep.replayed_steps - replayed0 == result[2] > 0,
+                      f"{kind}: the recovered engine's first window "
+                      f"captured ({engine.graph_captures} captures) or "
+                      f"ran steps eagerly")
+                if spin is not None:
+                    out["timed"] = summarize(
+                        "paged_decode_attention on the restored pool "
+                        "(phase 17, the recovered engine's first window)",
+                        *time_decode(torch, ops, ref, decoded.kept,
+                                     engine.pages["k"], engine.pages["v"],
+                                     spin))
+            K, V = engine.pages["k"][0], engine.pages["v"][0]
+            for q, tables, lens in decoded.kept:
+                st["errs"]["paged_decode_attention"].append(hold(
+                    torch, "paged_decode_attention",
+                    ops.paged_decode_attention(q, K, V, tables, lens),
+                    ref.paged_decode_attention_ref(q, K, V, tables, lens)))
+            for q, ks, vs, tables, pl, sl in waves.kept:
+                st["errs"]["paged_prefix_prefill_attention"].append(hold(
+                    torch, "paged_prefix_prefill_attention",
+                    ops.paged_prefix_prefill_attention(
+                        q, ks, vs, K, V, tables, pl, sl),
+                    ref.paged_prefix_prefill_attention_ref(
+                        q, ks, vs, K, V, tables, pl, sl)))
+            decoded.kept.clear()
+            waves.kept.clear()
+            for fn, n in zip(holders, n0):
+                fn.launches = n
+            st["windows"] += 1
+            st["held_s"] = st.get("held_s", 0.0) \
+                + time.perf_counter() - t_hold
+            return result
+
+        with decoded, waves, replays(decoded) as rep:
+            step_window = E.PagedContinuousEngine.step_window
+            E.PagedContinuousEngine.restore = checked_restore
+            E.PagedContinuousEngine.step_window = held_window
+            try:
+                eng, report = recover_run(
+                    torch, cfg, params, device, dtype, ckpt,
+                    every=recovery_every, geometry=geometry,
+                    swap_blocks=swap_blocks, warm=warm, built=built)
+                torch.cuda.synchronize()
+                t_end = time.perf_counter()
+            finally:
+                E.PagedContinuousEngine.restore = restore
+                E.PagedContinuousEngine.step_window = step_window
+        st.pop("engine", None)
+        st.pop("graph", None)
+        for name, n in counts("launches").items():
+            launches[name] += n
+    eng.assert_drained()
+    rs = st["restored"]
+    tokens = sum(len(g) for g in eng.generated.values()) - rs["tokens"]
+    # the recovered serve: from the end of the restore to the end of the
+    # run, less the holds and timings made between its windows; its
+    # snapshots are part of it
+    wall = (t_end - st["built"] - report["restore_s"]
+            - st.get("held_s", 0.0))
+    out.update({
+        "engine": eng, "reqs": reqs, "report": report, "restored": rs,
+        "launches": launches, "plain_calls": counts("plain_calls"),
+        "snaps": timer.snaps, "crash_snaps": n_snaps,
+        "reads_s": timer.reads, "shapes": shapes.by_req,
+        "serve_wall": wall, "tokens_per_s": tokens / wall,
+        "snapshot_s": sum(x["total_s"] for x in timer.snaps[n_snaps:]),
+        "replayed_steps": rep.replayed_steps,
+        "holds": {k: (len(v), max((x for x, _ in v), default=None))
+                  for k, v in st["errs"].items()},
+        "steps": (out["crashed"]["decode_steps"]
+                  + eng.decode_steps - rs["decode_steps"]),
+        "waves": (out["crashed"]["waves"]
+                  + eng.prefill_dispatches - rs["waves"])})
+    return out
+
+
+def check_p17(label, r, layers, *, sched5=None, invariant=False):
+    """Phase 17's checks of one kill and recover: the crash fired where
+    planned after its snapshots, every request recovered with nothing
+    re-prefilled and both tiers drained, one capture (the warmup's) and
+    every recovered step replayed, the kernels launched once per layer
+    and step or wave of the two engines (in the ``invariant``
+    arithmetic a wave's attention runs through the decode kernel) and
+    no plain call, and, for a run of phase 5's schedule (``sched5``),
+    the recovered engine's steps and waves equal phase 5's and its host
+    syncs phase 5's plus exactly two a snapshot."""
+    eng, rep, crashed = r["engine"], r["report"], r["crashed"]
+    check(crashed["crash"] is not None and crashed["snapshots"] >= 1,
+          f"{label}: the crash {crashed['crash']} after "
+          f"{crashed['snapshots']} snapshots")
+    check(rep["recovered"] == rep["journaled"] == N_REQUESTS
+          and rep["replayed_reprefill_tokens"] == 0
+          and rep["snapshot_used"] is not None,
+          f"{label}: report " + json.dumps(
+              {k: v for k, v in rep.items() if k != "stats"}))
+    if eng.swap is not None:
+        check(eng.swap.empty, f"{label}: the host tier is not empty")
+    check(eng.graph_captures == 1
+          and r["replayed_steps"] == eng.decode_steps
+          - r["restored"]["decode_steps"],
+          f"{label}: {eng.graph_captures} captures, "
+          f"{r['replayed_steps']} replayed steps")
+    want = {"paged_decode_attention": layers * r["steps"],
+            "paged_prefix_prefill_attention": layers * r["waves"]}
+    if invariant:
+        want = {"paged_decode_attention": layers * (r["steps"] + r["waves"]),
+                "paged_prefix_prefill_attention": 0}
+    got = {k: r["launches"][k] for k in want}
+    check(got == want and r["steps"] and r["waves"],
+          f"{label}: launches {got}, predicted {want}")
+    check(not any(r["plain_calls"].values()),
+          f"{label}: plain calls {r['plain_calls']}")
+    for req in r["reqs"]:
+        toks = eng.generated.get(req.req_id)
+        check(toks is not None and len(toks) == GEN_LENGTH
+              and all(0 <= t < eng.cfg.vocab_size for t in toks),
+              f"{label}: request {req.req_id} unfinished or out of range")
+    if sched5 is not None:
+        # the restored counter holds the crashed run's snapshots up to the
+        # one used (all of them: the crash came after the last), and the
+        # recovery adds its own
+        snaps = len(r["snaps"])
+        check(crashed["host_syncs"]
+              == crashed["windows"] - 1 + 2 * crashed["snapshots"],
+              f"{label}: the crashed run's {crashed['host_syncs']} host "
+              f"syncs in {crashed['windows'] - 1} decoded windows and "
+              f"{crashed['snapshots']} snapshots")
+        check((eng.decode_steps, eng.prefill_dispatches)
+              == (sched5["steps"], sched5["waves"])
+              and eng.host_syncs == sched5["host_syncs"] + 2 * snaps,
+              f"{label}: {eng.decode_steps} steps, "
+              f"{eng.prefill_dispatches} waves, {eng.host_syncs} host "
+              f"syncs with {snaps} snapshots; phase 5: {sched5}")
+
+
+def log_p17(label, r, res5=None):
+    rep, rs = r["report"], r["restored"]
+    snaps = r["snaps"]
+    log(f"{label}: crashed run {r['crash_wall']:.2f} s, " + json.dumps(
+        r["crashed"]) + f"; {r['after_death_gib']:.2f} GiB allocated "
+        f"after its death; restored {rs['file']}: " + json.dumps(
+            {k: v for k, v in rs.items() if k != "file"})
+        + f"; report " + json.dumps(
+            {k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in rep.items() if k not in ("stats", "snapshot_used")}))
+    log(f"{label} snapshots (window, blocks, MB, host s: all, gather and "
+        f"readback, hash, write): " + "; ".join(
+            f"({s['window']}, {s['blocks']}, {s['bytes'] / 1e6:.1f}, "
+            f"{s['total_s']:.3f}, {s['readback_s']:.3f}, {s['hash_s']:.3f}, "
+            f"{s['write_s']:.3f})" for s in snaps)
+        + f"; reads (load and checksum) {[round(x, 3) for x in r['reads_s']]}"
+        f" s; restore_s {rep['restore_s']:.3f}")
+    tp = (f"{r['tokens_per_s']:.1f} tokens/s in {r['serve_wall']:.2f} s, "
+          f"{r['snapshot_s']:.2f} s of it in its snapshots")
+    if res5 is not None:
+        tp += f" (phase 5: {res5['token_tp']} in {res5['wall_s']} s)"
+    log(f"{label}: recovered serve {tp}; launches {r['launches']} over "
+        f"{r['steps']} steps and {r['waves']} waves; holds " + json.dumps(
+            {k: [n, None if e is None else float(f"{e:.4g}")]
+             for k, (n, e) in r["holds"].items()}))
+
+
+def recovery_phase(torch, ops, ref, cfg, reqs5, streams5, shapes5, sched5,
+                   res5, spin, reset_counts, counts):
+    """Phase 17: kill and recover at full width.  (a) phase 5's requests,
+    weights and geometry with the radix cache, driven as the launcher
+    drives them, crashed mid-window after two snapshots and recovered
+    onto an engine built with ``warmup=True``; (b) phase 15's geometry
+    and pinned tier, crashed mid-swap after a snapshot that holds
+    suspended images; (c) the f32 witness (TF32 off, inside
+    ``batch_invariant()``, phase 16 (c)'s weights and pool): an uncrashed
+    serve, then (a)'s crash and recovery, whose every stream must equal
+    the uncrashed serve's.  The bf16 streams and journal mismatches are
+    put down to their causes against phase 5's (``compare_streams``); a
+    bf16 difference fails only where (c) differs too.  Each engine is
+    dropped and its pool freed before the next is built; the snapshots
+    go to a temporary directory, whose free space is checked first, and
+    which the phase removes.  Returns row 1's timing on the restored
+    pool."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch.models import model as M
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-recovery-")
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"phase 17: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+            f"allocated before it; snapshots in {tmp}, {free / 2 ** 30:.1f}"
+            f" GiB free there")
+        check(free >= P17_DISK, f"{free / 2 ** 30:.1f} GiB free in {tmp}: "
+              f"phase 17's snapshots need {P17_DISK / 2 ** 30:.0f}")
+        params = M.init_params(cfg, seed=0, device="cuda",
+                               dtype=torch.bfloat16)   # phase 5's weights
+        a = p17_run(torch, ops, ref, cfg, params, torch.bfloat16,
+                    os.path.join(tmp, "a"), kind="window", geometry=SERVE,
+                    every=RECOVER_EVERY, recovery_every=RECOVERY_EVERY,
+                    service=True, swap_blocks=0, warm=True,
+                    reset_counts=reset_counts, counts=counts, spin=spin)
+        check_p17("phase 17 (a)", a, cfg.num_layers, sched5=sched5)
+        log_p17("phase 17 (a)", a, res5)
+        same, restarted, other, unexplained = compare_streams(
+            a["reqs"], a["engine"].generated, a["shapes"], reqs5, streams5,
+            shapes5)
+        differ16 = restarted + other + unexplained
+        log(f"phase 17 (a) streams against phase 5's, bf16: {same} equal; "
+            f"differ: {restarted} restarted, {other} with another KV "
+            f"lineage than phase 5, {unexplained} with phase 5's lineage")
+        timed = a.pop("timed")
+        mism16 = a["report"]["journal_mismatches"]
+        del a
+        shutil.rmtree(os.path.join(tmp, "a"))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        b = p17_run(torch, ops, ref, cfg, params, torch.bfloat16,
+                    os.path.join(tmp, "b"), kind="swap", geometry=CHAOS,
+                    every=SWAP_EVERY, recovery_every=SWAP_RECOVERY_EVERY,
+                    service=False, swap_blocks=CHAOS_SWAP_BLOCKS,
+                    warm="decode", reset_counts=reset_counts, counts=counts)
+        check_p17("phase 17 (b)", b, cfg.num_layers)
+        check(b["crashed"]["crash"][0] == "swap"
+              and b["restored"]["suspended"] >= 1
+              and b["restored"]["tier_slots"] >= 1
+              and b["engine"].swap_ins >= b["restored"]["suspended"],
+              f"phase 17 (b): crash {b['crashed']['crash']}, restored "
+              f"{b['restored']}, {b['engine'].swap_ins} resumes")
+        log_p17("phase 17 (b)", b)
+        del b, params
+        shutil.rmtree(os.path.join(tmp, "b"))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        c = p17_f32_witness(torch, ops, ref, cfg, os.path.join(tmp, "c"),
+                            reset_counts, counts)
+        both = [i for i in differ16 if i in c["differ"]]
+        log(f"phase 17: bf16 journal mismatches {mism16}; bf16 streams "
+            f"differing from phase 5's {differ16}, of them also differing "
+            f"in the f32 witness {both}")
+        check(not both, f"phase 17: streams {both} differ in bf16 and in "
+              f"the f32 witness")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 17 peak: {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        f" GiB allocated")
+    return timed
+
+
+def p17_f32_witness(torch, ops, ref, cfg, ckpt, reset_counts, counts):
+    """Phase 17 (c): in f32 (TF32 off) inside ``batch_invariant()``, on
+    phase 16 (c)'s f32 weights and pool, an uncrashed serve of phase 5's
+    requests as the launcher drives them, then (a)'s crash and
+    recovery, whose every stream must equal the uncrashed serve's, with
+    no journal mismatch and nothing re-prefilled."""
+    import gc
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
+    from repro_torch.workload.apps import make_shared_head_dataset
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on for f32 GEMMs")
+    geometry = dict(SERVE, num_blocks=SPEC_F32_BLOCKS)
+    params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    with M.batch_invariant():
+        reqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
+                                        gen_length=GEN_LENGTH, seed=0)
+        allocator, svc, ewma, refill, backlog = magnus_service(cfg, geometry)
+        eng = PagedContinuousEngine(
+            cfg, params, device="cuda", dtype=torch.float32,
+            allocator=allocator, prefix_cache=svc.prefix_cache,
+            mispredict=ewma, **{k: geometry[k] for k in (
+                "max_concurrency", "max_len", "max_gen")})
+        for r in reqs:
+            svc.on_request(r, r.arrival_time)
+        t0 = time.perf_counter()
+        drive_paged(eng, [], max_steps=100_000, refill=refill,
+                    backlog=backlog)
+        wall = time.perf_counter() - t0
+        eng.assert_drained()
+        want = [eng.generated[r.req_id] for r in reqs]
+        sched = {"steps": eng.decode_steps, "waves": eng.prefill_dispatches,
+                 "host_syncs": eng.host_syncs}
+        del eng, allocator, svc
+        gc.collect()
+        torch.cuda.empty_cache()
+        c = p17_run(torch, ops, ref, cfg, params, torch.float32, ckpt,
+                    kind="window", geometry=geometry, every=RECOVER_EVERY,
+                    recovery_every=RECOVERY_EVERY, service=True,
+                    swap_blocks=0, warm="decode", reset_counts=reset_counts,
+                    counts=counts, holds=False)
+    check_p17("phase 17 (c)", c, cfg.num_layers, sched5=sched,
+              invariant=True)
+    log_p17("phase 17 (c)", c)
+    got = [c["engine"].generated[r.req_id] for r in c["reqs"]]
+    differ = [i for i, (x, y) in enumerate(zip(got, want)) if x != y]
+    rep = c["report"]
+    log(f"phase 17 (c), f32 witness: uncrashed serve {wall:.2f} s, "
+        f"{sched}; {N_REQUESTS - len(differ)} of {N_REQUESTS} recovered "
+        f"streams equal it (differing: {differ}); journal mismatches "
+        f"{rep['journal_mismatches']}, confirmed "
+        f"{rep['journal_confirmed']}")
+    check(not differ and rep["journal_mismatches"] == 0
+          and rep["replayed_reprefill_tokens"] == 0,
+          f"phase 17 (c): recovered f32 streams {differ} differ from the "
+          f"uncrashed serve's, {rep['journal_mismatches']} journal "
+          f"mismatches")
+    del c, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"differ": differ}
 
 
 # ---------------------------------------------------------------------------
@@ -3259,6 +3954,15 @@ def main() -> int:
         # captured graph
         spec_phase(torch, ops, ref, cfg, reqs, streams5, shapes5, streams32,
                    res5, spin, reset_counts, counts)
+
+        # 17. kill and recover: the snapshot, the journal and the
+        # restore in place under the captured decode graph
+        t17 = recovery_phase(torch, ops, ref, cfg, reqs, streams5, shapes5,
+                             sched5, res5, spin, reset_counts, counts)
+        log("phase 17 kernels (mean of per-shape medians, CUDA events, ms): "
+            + json.dumps({"paged_decode_attention on the restored pool": {
+                key: (round(v, 4) if isinstance(v, float) else v)
+                for key, v in t17.items()}}))
 
         source = {"paged_decode_attention":
                   ("src/repro_torch/csrc/paged_decode_attention.cu",

@@ -10,7 +10,10 @@ paper's padded-batch ``BatchEngine`` (:func:`run_engine_backend`); the
 (:func:`run_paged_engine_backend`).  The padded path serves the dense
 and SSM (``--arch mamba2-780m``) families, the paged one the dense
 family.  Runs on the CUDA card unless
-``--device cpu`` is given.  Like the reference launcher, it serves
+``--device cpu`` is given.  ``--checkpoint-dir`` turns on the paged
+engine's crash-safe serving (a write-ahead journal and a snapshot every
+``--snapshot-every`` windows; a journal left by an earlier process is
+recovered first).  Like the reference launcher, it serves
 ``reduced()`` configurations in f32.  The reference's roofline
 simulator backend (``--backend sim``) is not ported yet.
 """
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import List, Optional
 
@@ -113,6 +117,8 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
                              ttl_steps: Optional[int] = None,
                              swap_blocks: int = 0,
                              spec_decode: bool = False, draft_k: int = 4,
+                             checkpoint_dir: Optional[str] = None,
+                             snapshot_every: int = 8,
                              reduced: bool = True, device=None,
                              dtype: torch.dtype = torch.float32,
                              max_len: int = 200, max_gen: int = 32,
@@ -132,7 +138,14 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
     suspends victims to host pages (pinned on the card) instead of
     destroying their KV.  ``spec_decode`` turns on speculative decoding
     (§16) with a self-draft proposing ``draft_k`` tokens a window, as
-    in the reference; greedy output is unchanged.
+    in the reference; greedy output is unchanged.  ``checkpoint_dir``
+    turns on crash-safe serving (§17): every admission is journaled
+    write-ahead, a full engine snapshot lands every ``snapshot_every``
+    windows, and a journal that a previous process left there is
+    recovered first, on a fresh engine of the serving engine's geometry
+    that shares its weight tensors (its outstanding requests finish
+    before new traffic is served, and the report is under
+    ``"recovered_on_start"``).  It does not cover ``spec_decode``.
 
     ``reduced`` serves ``cfg.reduced()`` (the reference launcher always
     does); ``max_len``, ``max_gen`` and ``num_blocks`` size the engine
@@ -150,6 +163,9 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
     if strategy not in PAGED_STRATEGIES:
         raise ValueError(f"strategy {strategy!r}: the port serves "
                          f"{PAGED_STRATEGIES}")
+    if checkpoint_dir is not None and spec_decode:
+        raise ValueError("--checkpoint-dir does not cover speculative "
+                         "engines (§16/§17): snapshot() refuses them")
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -179,6 +195,36 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
     for r in wl:
         svc.on_request(r, r.arrival_time)   # prediction + Algorithm-1 acct
 
+    recovery = recovered = None
+    if checkpoint_dir is not None:
+        from repro_torch.serving import snapshot as snaplib
+
+        def fresh_engine():
+            # the serving engine's geometry and weight tensors, with an
+            # allocator of its own (the service's belongs to THIS run)
+            return PagedContinuousEngine(
+                cfg, engine.params, max_concurrency=max_concurrency,
+                max_len=max_len, max_gen=max_gen, dtype=dtype,
+                allocator=BlockAllocator(num_blocks, block_tokens),
+                prefix_cache=prefix_cache, default_ttl=ttl_steps,
+                swap_blocks=swap_blocks, device=dev)
+
+        wal = os.path.join(checkpoint_dir, snaplib.JOURNAL_NAME)
+        if os.path.exists(wal):
+            # restore-on-start: bring the previous process's journaled
+            # work to completion before serving new traffic
+            prev, report = snaplib.recover(fresh_engine, checkpoint_dir,
+                                           snapshot_every=snapshot_every)
+            prev.assert_drained()
+            recovered = {k: report[k] for k in
+                         ("journaled", "outstanding", "recovered",
+                          "replayed_reprefill_tokens", "restore_s",
+                          "torn_records")}
+            del prev
+            os.remove(wal)   # recovered: this process's WAL starts fresh
+        recovery = snaplib.RecoveryManager(checkpoint_dir,
+                                           snapshot_every=snapshot_every)
+
     def refill(steps: int):
         # admission order comes from the service's scheduler (HRRN for
         # magnus-paged, FCFS for ccb-paged)
@@ -189,10 +235,13 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
         torch.cuda.synchronize(dev)
     start = time.perf_counter()
     st = drive_paged(engine, [], max_steps=100_000, refill=refill,
-                     backlog=lambda: len(svc.batcher.queue) > 0)
+                     backlog=lambda: len(svc.batcher.queue) > 0,
+                     recovery=recovery)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - start
+    if recovery is not None:
+        recovery.close()
     util = st["util"]
     total_tokens = sum(len(g) for g in engine.generated.values())
     return {"requests": st["served"], "steps": st["steps"],
@@ -232,6 +281,13 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
             "acceptance_rate": round(st["acceptance_rate"], 3),
             "draft_quarantined": st["draft_quarantined"],
             "draft_prefill_tokens": st["draft_prefill_tokens"],
+            # crash-safe serving (DESIGN.md §17)
+            "snapshots_taken": recovery.snapshots_taken
+            if recovery is not None else 0,
+            "journal_records": recovery.journal.records_written
+            if recovery is not None else 0,
+            "replayed_reprefill_tokens": st["replayed_reprefill_tokens"],
+            "recovered_on_start": recovered,
             "headroom": ewma.snapshot(),
             "device": str(dev), "engine": engine}
 
@@ -268,6 +324,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--draft-k", type=int, default=4,
                     help="speculative tokens proposed a window (the verify "
                          "covers draft-k + 1 positions)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="paged engine: crash-safe serving (DESIGN.md "
+                         "§17): a write-ahead admission journal and "
+                         "periodic full-engine snapshots in this "
+                         "directory; on start a surviving journal is "
+                         "recovered first (outstanding requests finished "
+                         "as an uncrashed run would)")
+    ap.add_argument("--snapshot-every", type=int, default=8,
+                    help="windows between full engine snapshots when "
+                         "--checkpoint-dir is set")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (raises without one)")
     ap.add_argument("--seed", type=int, default=0)
@@ -275,17 +341,21 @@ def main(argv: Optional[List[str]] = None) -> None:
     paged_only = {"--prefix-cache": args.prefix_cache,
                   "--ttl-steps": args.ttl_steps is not None,
                   "--swap-blocks": args.swap_blocks > 0,
-                  "--spec-decode": args.spec_decode}
+                  "--spec-decode": args.spec_decode,
+                  "--checkpoint-dir": args.checkpoint_dir is not None}
     for flag, given in paged_only.items():
         if given and args.strategy not in PAGED_STRATEGIES:
             ap.error(f"{flag} needs a -paged strategy")
+    if args.checkpoint_dir is not None and args.spec_decode:
+        ap.error("--checkpoint-dir does not cover --spec-decode")
     if args.strategy in PAGED_STRATEGIES:
         out = run_paged_engine_backend(
             args.arch, args.rate, args.duration, args.strategy, args.seed,
             block_tokens=args.block_tokens, prefix_cache=args.prefix_cache,
             ttl_steps=args.ttl_steps, swap_blocks=args.swap_blocks,
             spec_decode=args.spec_decode, draft_k=args.draft_k,
-            device=args.device)
+            checkpoint_dir=args.checkpoint_dir,
+            snapshot_every=args.snapshot_every, device=args.device)
     else:
         out = run_engine_backend(args.arch, args.rate, args.duration,
                                  args.strategy, args.seed,

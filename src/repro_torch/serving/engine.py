@@ -37,13 +37,20 @@
   window, the target verifies them in one batched pass, and rollback is
   block-table truncation.  On the card the whole window (draft steps
   and verify) is one captured CUDA graph per engine.
+- Crash-safe serving on the paged engine (§17): ``drive_paged`` journals
+  every admission write-ahead through a ``serving.snapshot``
+  ``RecoveryManager``, which snapshots the whole engine every few
+  windows (:meth:`PagedContinuousEngine.snapshot`, two counted
+  readbacks); ``serving.snapshot.recover`` restores the last snapshot
+  into a fresh engine (:meth:`PagedContinuousEngine.restore`, in place,
+  so a graph captured before it reads the restored state) and replays
+  the journal's unfinished requests.
 
 Generation is length-scripted replay (DESIGN.md §7): logits come from the
 real model, and a request stops at its ground-truth generation length.
 
-Not in this module yet: snapshot/restore (§17).  The padded engines
-serve the dense and SSM (mamba2) families with a float cache; the paged
-engine serves the dense family.
+The padded engines serve the dense and SSM (mamba2) families with a
+float cache; the paged engine serves the dense family.
 """
 from __future__ import annotations
 
@@ -575,8 +582,14 @@ class PagedContinuousEngine:
         self.reprefilled_swapped_tokens = 0
         self.swapped_ctx_tokens = 0    # context length at each suspension
         self.swap_in_s = 0.0           # host time inside _swap_in
-        # §17 (snapshot and recovery, ROADMAP §1 item 3) adds its journal
-        # hook and its restored-id tripwire here
+        # -- crash-safe serving (DESIGN.md §17) ----------------------------
+        # write-ahead admission journal hook (a RecoveryManager attaches
+        # its journal here; None = durability off, zero-cost)
+        self.journal = None
+        # req_ids whose progress a restored snapshot already covers: a
+        # re-prefill of one after restore is a recovery bug, counted
+        self._restored_ids: Set[int] = set()
+        self.replayed_reprefill_tokens = 0
         # -- speculative decoding (DESIGN.md §16) ------------------------
         # the draft's pool is carved out of the SAME allocator, so
         # admission, grow and the §13/§15 pressure valves see its
@@ -914,7 +927,11 @@ class PagedContinuousEngine:
                 # a suspended request came back through the prefill path
                 # instead of _swap_in: count the wasted tokens exactly
                 self.reprefilled_swapped_tokens += len(sfx)
-            # §17's restored-id tripwire counts here (ROADMAP §1 item 3)
+            if p["req"].req_id in self._restored_ids:
+                # a snapshot-covered request re-entered through the
+                # prefill path: the restore should have rebuilt its KV
+                # from the image (§17), so count the wasted tokens
+                self.replayed_reprefill_tokens += len(sfx)
         # pad rows repeat row 0's slot/table/position (identical duplicate
         # writes) and keep plens[0] for a valid attention gather
         plens[n:] = plens[0]
@@ -1094,7 +1111,9 @@ class PagedContinuousEngine:
         if len(a["generated"]) > self._observed_gen.get(req.req_id, 0):
             self._observed_gen[req.req_id] = len(a["generated"])
         self._requeued.add(req.req_id)
-        # §17 clears its restored-id tripwire here (ROADMAP §1 item 3)
+        # destructive eviction: the readmission legitimately re-prefills
+        # (the §17 snapshot-coverage tripwire must not fire on it)
+        self._restored_ids.discard(req.req_id)
         self._unpin_prefix(slot)
         self.allocator.free_seq(slot)     # shared prefix pages survive:
         self._release(slot)               # the cache still holds a reference
@@ -1193,7 +1212,9 @@ class PagedContinuousEngine:
         shadow = self.allocator._shadow
         if shadow is not None:
             shadow.on_swap_out(req.req_id)
-        # §17 journals the suspension here (ROADMAP §1 item 3)
+        if self.journal is not None:
+            self.journal.append("swap", rid=int(req.req_id), dir="out",
+                                clock=int(self.clock))
         return True
 
     def _swap_out_victim(self, exclude: int) -> bool:
@@ -1263,7 +1284,9 @@ class PagedContinuousEngine:
         if shadow is not None:
             shadow.mark_materialized(slot)
             shadow.on_swap_in(rid)
-        # §17 journals the resume here (ROADMAP §1 item 3)
+        if self.journal is not None:
+            self.journal.append("swap", rid=int(rid), dir="in",
+                                clock=int(self.clock))
         self.swap_in_s += time.perf_counter() - t0
 
     def _try_resume(self, rid: int) -> bool:
@@ -1981,12 +2004,61 @@ class PagedContinuousEngine:
         self._flush_publishes()
         _san.check_engine_drained(self)
 
+    # -- crash-safe snapshot / restore (DESIGN.md §17) -----------------------
+
+    @hot_path
+    def snapshot(self, path: str) -> str:
+        """Serialize the complete engine image to ``path`` (checksummed
+        npz, written atomically).  Exactly TWO counted readbacks: one
+        gather of every live block of the pool (null block excluded: its
+        contents are junk by construction), read back in one copy, and
+        one of the logits rows;
+        everything else the snapshot stores is host state.  Must be
+        taken at a window boundary: mid-wave state (``_wave_pending``)
+        and §16 speculative engines refuse."""
+        from repro_torch.serving import snapshot as snaplib
+        if self.spec_decode:
+            raise snaplib.SnapshotError(
+                "snapshot/restore does not cover speculative engines (§16)")
+        self._flush_publishes()
+        if self._wave_pending:
+            raise snaplib.SnapshotError(
+                "snapshot inside an admission wave (wave_pending non-empty)")
+        used = sorted(b for b in self.allocator.refcount
+                      if b != self.null_block)
+        vals = None
+        if used:
+            # the page readback: ONE copy of the whole pool image (a bf16
+            # pool's bytes as they are; the file keeps them as uint16)
+            vals = M.gather_pages(
+                self.pages, self._upload(np.array(used, np.int32))[0]).cpu()
+            self.host_syncs += count_sync()
+        # the logits readback, for a bit-exact restore
+        logits = self.logits.cpu()
+        self.host_syncs += count_sync()
+        return snaplib.save_engine(self, path, page_blocks=used,
+                                   page_values=vals, logits=logits)
+
+    def restore(self, path: str) -> None:
+        """Apply a snapshot to this freshly constructed (or warmed) engine:
+        allocator books overwritten wholesale (free-list order included),
+        exactly the snapshot's pages scattered back into the pools, the
+        slot tensors written in place (so a decode graph captured before
+        the restore replays on the restored state), radix tree and swap
+        tier rebuilt, counters, EWMA and clock restored, and the §13
+        shadow REBUILT from the snapshot, then cross-checked against the
+        restored books.  Not a hot path: restore happens once, at
+        process start."""
+        from repro_torch.serving import snapshot as snaplib
+        snaplib.load_engine(self, path)
+
 
 def drive_paged(engine: PagedContinuousEngine, requests: List[Request], *,
                 max_steps: int = 2_000, refill=None, backlog=None,
                 queue_cap: Optional[int] = None,
                 max_retries: Optional[int] = None,
-                stall_limit: int = 64) -> Dict[str, object]:
+                stall_limit: int = 64,
+                recovery=None) -> Dict[str, object]:
     """The canonical paged serve loop: batched admission until the engine
     refuses, fused decode windows, evictions requeued at the queue front.
 
@@ -2004,8 +2076,13 @@ def drive_paged(engine: PagedContinuousEngine, requests: List[Request], *,
     shed the queue head (``admission_stalled``), or with an empty queue
     the oldest suspended image (``swapped_timeout``), instead of
     hanging.  A ``PoolExhausted`` window sheds the culprit with reason
-    ``oom`` and requeues the rest.  The reference's ``recovery`` (§17)
-    joins here once ported (ROADMAP §1 item 3).
+    ``oom`` and requeues the rest.
+
+    ``recovery`` (optional) is a §17 ``RecoveryManager``
+    (``serving.snapshot``): every request is journaled write-ahead,
+    before any engine work touches it, and finish/shed records are
+    fsync'd at each window boundary, with a full snapshot every
+    ``snapshot_every`` windows.
 
     ``steps`` counts decode iterations, not windows; ``util`` holds one
     sample per decode iteration; ``host_syncs`` is the device-to-host
@@ -2018,6 +2095,10 @@ def drive_paged(engine: PagedContinuousEngine, requests: List[Request], *,
     def _shed(req: Request, reason: str) -> None:
         engine.shed_log.append(Shed(req, reason, engine.clock))
 
+    if recovery is not None:
+        recovery.attach(engine)
+        for r in pending:
+            recovery.on_admit(r, engine)
     if queue_cap is not None:
         while len(pending) > queue_cap:
             _shed(pending.pop(), "queue_full")
@@ -2038,6 +2119,9 @@ def drive_paged(engine: PagedContinuousEngine, requests: List[Request], *,
             if not more:
                 break
             pending.extend(more)
+            if recovery is not None:
+                for r in more:
+                    recovery.on_admit(r, engine)
             if queue_cap is not None:
                 while len(pending) > queue_cap:
                     _shed(pending.pop(), "queue_full")
@@ -2054,6 +2138,8 @@ def drive_paged(engine: PagedContinuousEngine, requests: List[Request], *,
             evictions += len(e.evicted)
             for r in reversed(e.evicted):
                 pending.appendleft(r)
+            if recovery is not None:
+                recovery.after_window(engine)
             steps += 1
             no_progress += 1
             continue
@@ -2065,6 +2151,9 @@ def drive_paged(engine: PagedContinuousEngine, requests: List[Request], *,
                 _shed(r, "retry_budget")
             else:
                 pending.appendleft(r)
+        if recovery is not None:
+            # §17 window boundary: fsync the WAL tail, maybe snapshot
+            recovery.after_window(engine, finished)
         # reconstruct the per-iteration utilization ramp from the
         # window's post-grow snapshot
         ws = engine.window_stats
@@ -2100,6 +2189,7 @@ def drive_paged(engine: PagedContinuousEngine, requests: List[Request], *,
             "swap_outs": engine.swap_outs,
             "swap_ins": engine.swap_ins,
             "reprefilled_swapped_tokens": engine.reprefilled_swapped_tokens,
+            "replayed_reprefill_tokens": engine.replayed_reprefill_tokens,
             # §16 speculative decoding (all zero with spec off)
             "spec_windows": engine.spec_windows,
             "spec_emitted": engine.spec_emitted,

@@ -55,10 +55,12 @@ Fault kinds (each a :class:`FaultEvent` on the plan):
     window prologue but before the fused decode dispatch, ``"swap"`` —
     before a victim's pages are read back to host, ``"publish"`` — with
     radix publishes still queued) at the first time that seam is
-    reached with ``engine.windows >= window``.  The engine raises at all
-    four seams; the kill-and-recover harness that catches the raise
-    (snapshot + journal replay, DESIGN.md §17) is not ported yet
-    (ROADMAP §1 item 3).
+    reached with ``engine.windows >= window``.  The kill-and-recover
+    harness (DESIGN.md §17, ``tests/test_torch_recovery.py`` and
+    ``chip_smoke.py`` phase 17) catches the raise, drops the crashed
+    engine, and brings the run to completion through
+    ``serving.snapshot.recover``: the last snapshot plus a replay of the
+    write-ahead journal.
 
 The injector is zero-cost when absent: the engine checks
 ``self.faults is not None`` exactly like the sanitizer checks
@@ -97,7 +99,9 @@ class EngineCrash(RuntimeError):
     """A scripted ``crash`` event fired: the engine process is dead.
 
     Raised *through* the serve loop on purpose — nothing between the seam
-    and the harness may catch it, exactly like a SIGKILL."""
+    and the harness may catch it, exactly like a SIGKILL.  Recovery is
+    a fresh engine restored from the last snapshot plus journal replay
+    (``repro_torch.serving.snapshot.recover``)."""
 
     def __init__(self, seam: str, window: int):
         super().__init__(f"scripted crash at seam {seam!r} "

@@ -14,9 +14,14 @@ state (tokens, logits, positions and pages bit-equal), the kernels'
 launch counts grow under replay as they do eagerly, a warmed engine
 serves mixed, under-predicted lengths with no capture (the torch side of
 the reference's ``test_recompile.py``), a later eager launch that grows
-the shared counter buffer leaves a captured graph right, and a replayed
-window reads nothing on the host."""
+the shared counter buffer leaves a captured graph right, a replayed
+window reads nothing on the host, and an engine warmed before it
+restores a §17 snapshot replays its graph on the restored state (the
+addresses the graph bound kept, no capture after the warmup's, streams
+equal to the CPU engine's recovery)."""
+import copy
 import functools
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -300,6 +305,63 @@ def test_replayed_window_reads_nothing(card, dtype):
         _, _, k = eng.step_window(max_steps=8)
     assert k == 8 and reads["reads"] == 0
     assert eng.host_syncs == syncs + 1
+
+
+@pytest.mark.cuda
+def test_restored_engine_replays_its_graph_on_the_restored_state(
+        card, tmp_path):
+    """§17 under the captured graph: a CPU engine crashes mid-window
+    after two snapshots; a CUDA engine built with ``warmup=True`` (its
+    decode step captured before the restore) recovers the run: the
+    restore keeps every address the graph bound, no window captures
+    again, and every stream equals the CPU engine's recovery at f32."""
+    from repro_torch.serving import snapshot as snaplib
+    from repro_torch.serving.faults import EngineCrash
+    tp, _ = _spec_params()
+    kw = dict(ENGINE_KW, swap_blocks=16)
+    reqs = _requests(6, 4, lambda i: 1 + (4 + 5 * i) % 16,
+                     undershoot=True, words=(4, 14, 55))
+    ckpt = tmp_path / "ckpt"
+    crashed = PagedContinuousEngine(
+        CFG, tp, device="cpu", faults=FaultInjector([FaultEvent(
+            window=5, kind="crash", seam="window")]), **kw)
+    mgr = snaplib.RecoveryManager(str(ckpt), snapshot_every=2)
+    with pytest.raises(EngineCrash):
+        drive_paged(crashed, [copy.deepcopy(r) for r in reqs], recovery=mgr)
+    mgr.close()
+    assert mgr.snapshots_taken == 2
+    out, made = {}, []
+
+    def build(device):
+        eng = PagedContinuousEngine(CFG, _to(tp, device), device=device,
+                                    warmup=device == "cuda", **kw)
+        if device == "cuda":
+            assert eng.graph_captures == 1
+            g = eng._decode_graph
+            made.append((eng, g, {
+                **{key: t.data_ptr() for key, t in g.state.items()},
+                **{f"pages.{k}": v.data_ptr() for k, v in eng.pages.items()}}))
+        return eng
+
+    for device in ("cpu", "cuda"):
+        d = tmp_path / device
+        shutil.copytree(ckpt, d)
+        eng, report = snaplib.recover(lambda: build(device), str(d),
+                                      snapshot_every=2)
+        assert report["snapshot_used"] is not None
+        assert report["recovered"] == len(reqs)
+        assert report["replayed_reprefill_tokens"] == 0
+        assert report["journal_mismatches"] == 0
+        eng.assert_drained()
+        out[device] = [eng.generated[r.req_id] for r in reqs]
+    eng, graph, bound = made[0]
+    assert eng.graph_captures == 1 and eng._decode_graph is graph
+    assert {**{key: t.data_ptr() for key, t in {
+        "logits": eng.logits, "positions": eng.positions,
+        "tables": eng.tables, "active": eng.active_mask}.items()},
+        **{f"pages.{k}": v.data_ptr() for k, v in eng.pages.items()}} \
+        == bound
+    assert out["cuda"] == out["cpu"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Guards of the PyTorch port's boundaries:
 
 - no module of ``src/repro_torch``, not ``chip_smoke.py`` and none of
-  the port's scripts imports JAX or anything of the reference package
-  ``repro``;
+  the port's scripts imports JAX, anything of the reference package
+  ``repro``, or ``ml_dtypes`` (which the reference's bf16 snapshots need
+  and the card's machine does not have);
 - the entry points default to the CUDA card and raise without one,
   instead of running on the CPU;
 - on a CPU tensor the kernel wrappers call the plain version and never
@@ -19,8 +20,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [
     ROOT / "scripts" / name for name in (
         "f32_invariance.py", "first_swap_out.py",
-        "padded_graph_breakeven.py", "run_cuda_tests.py",
-        "spec_rehearsal.py", "ssd_scan_phases.py")]
+        "padded_graph_breakeven.py", "recovery_rehearsal.py",
+        "run_cuda_tests.py", "spec_rehearsal.py", "ssd_scan_phases.py")]
 
 
 def _imported_modules(path):
@@ -37,7 +38,7 @@ def _imported_modules(path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_reference(path):
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert not bad, f"{path.name} imports {bad}"
 
 
