@@ -221,9 +221,27 @@ CUDA toolkit.  Phases, each fatal on failure:
    it, with no journal mismatch; a bf16 stream of (a) that differs from
    phase 5's fails only where (c) differs too.
 
+18. MoE serve: ``run_paged_engine_backend("olmoe-1b-7b", ...,
+   reduced=False)`` in bf16 (16 layers, d_model 2048, 64 experts top 8;
+   weights drawn on the card from seed 0 once chatglm-6b's are gone)
+   with the radix cache, on phase 5's geometry and requests.  Fatal
+   checks: every request finishes, the pool drains, the cache hits;
+   decode steps, waves and host syncs as ``scripts/moe_rehearsal.py``
+   predicts (``MOE_SCHEDULE``), the decode kernel 16 times a step and
+   prefix prefill 16 times a wave, one capture and replays after it;
+   every step's and wave's layer-0 attention held as phase 6 holds; the
+   layer-0 capacity-dispatch FFN of every 16th step and every wave held
+   against a per-token plain form that finds the drop set itself, in
+   bf16 (5e-2) and f32 with TF32 off (2e-4); a graphed decode window
+   against an eager one bit for bit (tokens, logits, positions, pools).
+   Logged: the dropped share of every step and wave at layer 0, the
+   step's bound (its weights at 3.35 TB/s), both windows' profiles,
+   tokens/s beside phase 5's, the peak allocation, and rows 1-2 timed
+   at olmoe's inputs as phase 6 times them.
+
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves; phase 14 runs right after
-phase 5, then phases 15, 16 and 17 last.  The line before the last is a
+phase 5, then phases 15, 16, 17 and 18 last.  The line before the last is a
 JSON object with one entry per kernel (six); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is missing or the port's sources are not beside
@@ -896,7 +914,7 @@ def window_profile(torch, run, label, kernel="decode_split_kernel"):
             "idle": idle}
 
 
-def profile_window(torch, engine, reqs, eager=False):
+def profile_window(torch, engine, reqs, eager=False, pools=False):
     """Where a decode step's time goes on the card: admit one full wave
     into the served engine, settle it with one short window, then time
     and profile decode windows of 8 steps through the engine (replays of
@@ -904,7 +922,8 @@ def profile_window(torch, engine, reqs, eager=False):
     also the same windows run eagerly by ``decode_multi_paged`` on a
     copy of the state (the launches one by one from Python, and the
     readback), after holding its first window to the graphed one bit for
-    bit.  Then drain."""
+    bit (with ``pools``, the pools too, but for the null block: the idle
+    rows' write sink, written in no fixed order).  Then drain."""
     from repro_torch.models import model as M
     from repro_torch.serving.engine import drive_paged
     check(engine.join_many(reqs) == len(reqs), "profile wave refused")
@@ -930,8 +949,16 @@ def profile_window(torch, engine, reqs, eager=False):
         check(torch.equal(logits, engine.logits)
               and torch.equal(positions[live], engine.positions[live]),
               "graphed and eager windows differ in logits or positions")
+        if pools:
+            keep = torch.ones(engine.allocator.num_blocks, dtype=torch.bool,
+                              device=logits.device)
+            keep[engine.null_block] = False
+            check(all(torch.equal(engine.pages[key][:, keep],
+                                  pages[key][:, keep]) for key in pages),
+                  "graphed and eager windows differ in the pools")
         log(f"graphed and eager {k}-step windows at {engine.num_active} "
-            f"rows: tokens, logits and positions bit-equal")
+            f"rows: tokens, logits, positions"
+            f"{' and pools' if pools else ''} bit-equal")
 
         def run_eager():
             toks = M.decode_multi_paged(
@@ -2684,6 +2711,286 @@ def p17_f32_witness(torch, ops, ref, cfg, ckpt, reset_counts, counts):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the MoE family (olmoe-1b-7b) on the paged main path
+# ---------------------------------------------------------------------------
+
+# olmoe-1b-7b at full width (16 layers, d_model 2048, 16 heads of 128, 64
+# experts top 8 of width 1024, capacity factor 1.25) on phase 5's
+# geometry, requests and radix cache.  Its schedule, from
+# scripts/moe_rehearsal.py (the same serve of the reduced() config on the
+# CPU): decode steps, admission waves and host syncs (one a window)
+MOE_ARCH = "olmoe-1b-7b"
+MOE_SCHEDULE = dict(decode_steps=128, waves=5, host_syncs=9)
+MOE_HOLD_EVERY = 16            # the FFN hold: every 16th step, every wave
+MOE_FREE_BEFORE = 2 << 30      # allocated before the phase: chatglm-6b's
+#                                weights (12.4 GB) must be gone
+
+
+def moe_dispatch(torch, p, x, m, group_size):
+    """Phase 18's plain form of the reference's routing over x [B, S, d]
+    (flattened row-major into groups of ``moe._num_groups``), computed on
+    its own: the f32 router logits, top-k and renormalised gates, then
+    each group's drop set by walking its tokens in order and each
+    token's k experts in rank order, an assignment kept while its expert
+    holds fewer than ``cap``.  Returns (kept: per expert the (token,
+    rank) pairs it computes, renormalised gates [T, K], dropped share,
+    groups, cap)."""
+    import math
+    b, s, d = x.shape
+    t, e, k = b * s, m.num_experts, m.top_k
+    g = max(1, math.ceil(t / group_size))
+    while t % g:
+        g += 1
+    cap = max(1, math.ceil(t // g * k / e * m.capacity_factor))
+    probs = torch.softmax(x.reshape(t, d).float() @ p["router"].float(), -1)
+    gates, idx = torch.topk(probs, k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    ids = idx.tolist()
+    kept = [[] for _ in range(e)]
+    dropped = 0
+    for group in range(g):
+        load = [0] * e
+        for i in range(group * (t // g), (group + 1) * (t // g)):
+            for j, ex in enumerate(ids[i]):
+                if load[ex] < cap:
+                    load[ex] += 1
+                    kept[ex].append((i, j))
+                else:
+                    dropped += 1
+    return kept, gates, dropped / (t * k), g, cap
+
+
+def moe_plain(torch, p, x, m, group_size):
+    """The MoE FFN of x by a per-(token, expert) plain form: for each
+    token and each of its kept experts (``moe_dispatch``), gate x
+    SwiGLU_e(x_token), the gate rounded to bf16 as the reference's
+    combine weights are; the kept rows of one expert go through its
+    weights together (row by row the same products)."""
+    import torch.nn.functional as F
+    b, s, d = x.shape
+    kept, gates, *_ = moe_dispatch(torch, p, x, m, group_size)
+    gates = gates.to(torch.bfloat16).to(x.dtype)
+    xt = x.reshape(b * s, d)
+    y = torch.zeros_like(xt)
+    for ex, pairs in enumerate(kept):
+        if not pairs:
+            continue
+        rows = torch.tensor([i for i, _ in pairs], device=x.device)
+        ranks = torch.tensor([j for _, j in pairs], device=x.device)
+        xe = xt[rows]
+        h = F.silu(xe @ p["gate"][ex]) * (xe @ p["up"][ex])
+        y.index_add_(0, rows, (h @ p["down"][ex]) * gates[rows, ranks, None])
+    return y.reshape(b, s, d)
+
+
+def hold_moe(torch, moe, ps, x, m, group_size, label):
+    """``moe.moe_forward`` on a served layer-0 FFN input against
+    ``moe_plain``: in bf16 as served (5e-2 of scale), then in f32 with
+    TF32 off on the same input and the same layer's weights in f32
+    (2e-4); ``ps`` maps each dtype to the layer's weights in it.  Returns
+    the two errors relative to scale."""
+    out = []
+    for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 2e-4)):
+        pd, xd = ps[dtype], x.to(dtype)
+        got = moe.moe_forward(pd, xd, m, group_size=group_size)[0].float()
+        want = moe_plain(torch, pd, xd, m, group_size).float()
+        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs().max().item() / scale
+        check(torch.isfinite(got).all().item(), f"{label}: non-finite FFN")
+        check(err <= tol, f"{label} {dtype}: the MoE FFN is {err:.3e} of "
+              f"scale {scale:.1f} from the per-token plain form (tol {tol})")
+        out.append(err)
+    return out
+
+
+def moe_phase(torch, ops, ref, transformer, res5, spin, reset_counts,
+              counts):
+    """Phase 18: olmoe-1b-7b served at full width in bf16 through
+    ``run_paged_engine_backend`` (``magnus-paged``, the radix cache,
+    phase 5's geometry and requests), its weights drawn on the card from
+    seed 0 after chatglm-6b's are gone.  Checks: every request finishes,
+    the pool drains, the prefix cache hits; decode steps, waves and host
+    syncs as ``MOE_SCHEDULE`` (the CPU rehearsal) predicts, the decode
+    kernel launched 16 times a step and prefix prefill 16 times a wave,
+    one capture and replays for every later step; every step's and
+    wave's layer-0 attention held against the plain kernels; layer 0's
+    FFN at every ``MOE_HOLD_EVERY``-th step, every wave and 64 served
+    steps stacked into one batch of 8 groups held against the per-token
+    plain form in bf16 and f32.  Logs the dropped share of every step
+    and wave at layer 0, the serve's tokens/s beside phase 5's, the
+    graphed and eager decode windows (held bit for bit, pools included)
+    beside a step's bound, and rows 1-2 timed at olmoe's inputs.
+    Returns those timings and the serve's launches."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_paged_engine_backend
+    from repro_torch.models import moe
+    from repro_torch.workload.apps import make_shared_head_dataset
+    from repro_torch.workload.tokenizer import encode
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = torch.cuda.memory_allocated()
+    log(f"phase 18: {before / 2 ** 30:.2f} GiB allocated before it")
+    check(before < MOE_FREE_BEFORE, "chatglm-6b's weights were not "
+          "released before phase 18")
+    mcfg = get_config(MOE_ARCH)
+    reqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
+                                    gen_length=GEN_LENGTH, seed=0)
+    top = max(max(encode(f"{r.instruction} {r.user_input}", mcfg.vocab_size))
+              for r in reqs)
+    check(top < mcfg.vocab_size, f"prompt id {top} >= {mcfg.vocab_size}")
+    layers = mcfg.num_layers
+    decoded, waves = paged_recorders(transformer, layers)
+    ffn = Recorder(transformer, "moe_forward", layers,
+                   lambda p, x, m, **_: x.clone(), snap=(1,))
+    t0 = time.perf_counter()
+    with decoded, waves, ffn, replays(decoded, ffn) as windows:
+        reset_counts()
+        res = run_paged_engine_backend(
+            MOE_ARCH, 0.0, 0.0, "magnus-paged", seed=0, reduced=False,
+            device="cuda", dtype=torch.bfloat16, prefix_cache=True,
+            requests=reqs, **SERVE)
+        launches = counts("launches")
+    plain_calls = counts("plain_calls")
+    engine = res.pop("engine")
+    cfg = engine.cfg
+    log(f"serve {MOE_ARCH} full width bf16: {time.perf_counter() - t0:.1f}"
+        f" s with set-up; " + json.dumps(res))
+    log(f"phase 18 serve kernel launches {launches}, plain calls "
+        f"{plain_calls}, {windows.windows} decode windows, "
+        f"{engine.graph_captures} capture(s) of the decode step")
+    windows.log("phase 18 serve", engine.decode_steps)
+    gib = 2 ** 30
+    log(f"phase 18 after the serve: {torch.cuda.memory_allocated() / gib:.2f}"
+        f" GiB allocated, peak so far (the weights' draw included) "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f}")
+    check(cfg.num_layers == 16 and cfg.d_model == 2048
+          and cfg.moe.num_experts == 64 and cfg.moe.top_k == 8,
+          f"phase 18 did not serve {MOE_ARCH} at full width")
+    check(res["requests"] == N_REQUESTS,
+          f"phase 18: {res['requests']} of {N_REQUESTS} requests finished")
+    engine.assert_drained()
+    check(res["prefix_hits"] > 0, "phase 18: the prefix cache never hit")
+    sched = {"decode_steps": engine.decode_steps,
+             "waves": engine.prefill_dispatches,
+             "host_syncs": res["host_syncs"]}
+    check(sched == MOE_SCHEDULE, f"phase 18 schedule {sched}, the CPU "
+          f"rehearsal predicted {MOE_SCHEDULE}")
+    check(launches["paged_decode_attention"] == layers * sched["decode_steps"]
+          and launches["paged_prefix_prefill_attention"]
+          == layers * sched["waves"],
+          f"phase 18 launches {launches} against {sched}")
+    check(not any(plain_calls.values()),
+          f"plain versions ran in phase 18: {plain_calls}")
+    check(res["host_syncs"] == windows.windows,
+          f"phase 18: {res['host_syncs']} host syncs in {windows.windows} "
+          f"windows")
+    check(engine.graph_captures == 1
+          and windows.replayed_steps == engine.decode_steps - 1,
+          f"phase 18: {engine.graph_captures} captures, "
+          f"{windows.replayed_steps} replayed of {engine.decode_steps}")
+    for r in reqs:
+        toks = engine.generated[r.req_id]
+        check(len(toks) == min(r.gen_length, SERVE["max_gen"])
+              and all(0 <= x < cfg.vocab_size for x in toks),
+              f"phase 18 request {r.req_id}: {len(toks)} tokens or one out "
+              f"of range")
+    check(torch.isfinite(engine.logits.float()).all().item(),
+          "phase 18: non-finite logits after serving")
+    check(len(decoded.kept) == sched["decode_steps"]
+          and len(waves.kept) == sched["waves"]
+          and len(ffn.kept) == sched["decode_steps"] + sched["waves"],
+          f"phase 18 recorded {len(decoded.kept)} steps, {len(waves.kept)}"
+          f" waves, {len(ffn.kept)} FFN inputs")
+
+    # layer 0: attention held for every step and wave, the FFN against
+    # its plain form, the dropped share of every step and wave
+    K, V = engine.pages["k"], engine.pages["v"]
+    for q, tables, lens in decoded.kept:
+        hold(torch, "paged_decode_attention (phase 18)",
+             ops.paged_decode_attention(q, K[0], V[0], tables, lens),
+             ref.paged_decode_attention_ref(q, K[0], V[0], tables, lens))
+    for q, ks, vs, tables, pl, sl in waves.kept:
+        hold(torch, "paged_prefix_prefill_attention (phase 18)",
+             ops.paged_prefix_prefill_attention(q, ks, vs, K[0], V[0],
+                                                tables, pl, sl),
+             ref.paged_prefix_prefill_attention_ref(q, ks, vs, K[0], V[0],
+                                                    tables, pl, sl))
+    log(f"phase 18: layer-0 attention of {len(decoded.kept)} steps and "
+        f"{len(waves.kept)} waves held against the plain kernels")
+    p0 = {k: v[0] for k, v in engine.params["blocks"]["moe"].items()}
+    ps = {torch.bfloat16: p0, torch.float32: {
+        k: v.float() for k, v in p0.items()}}
+    gs = cfg.moe_group_size
+    drops = {"decode": [], "wave": []}
+    errs = {"decode": [], "wave": []}
+    step = 0
+    for x in ffn.kept:
+        kind = "decode" if x.shape[1] == 1 else "wave"
+        _, _, share, g, cap = moe_dispatch(torch, p0, x, cfg.moe, gs)
+        drops[kind].append((round(share, 4), tuple(x.shape[:2]), g, cap))
+        if kind == "wave" or step % MOE_HOLD_EVERY == 0:
+            errs[kind].append(hold_moe(torch, moe, ps, x, cfg.moe, gs,
+                                       f"phase 18 {kind} {len(errs[kind])}"))
+        step += kind == "decode"
+    # served waves are single groups (T <= 256): the groups' layout is
+    # held on the served decode steps' inputs, 64 stacked as one batch
+    # [32, 64] (T = 2048: 8 groups of 256, cap 40)
+    steps = [x for x in ffn.kept if x.shape[1] == 1]
+    if len(steps) >= 64:
+        x = torch.cat(steps[:64], dim=1)
+        _, _, share, g, cap = moe_dispatch(torch, p0, x, cfg.moe, gs)
+        errs["wave"].append(hold_moe(torch, moe, ps, x, cfg.moe, gs,
+                                     "phase 18 stacked steps"))
+        drops["stacked"] = (round(share, 4), tuple(x.shape[:2]), g, cap)
+    shares = [d[0] for d in drops["decode"]]
+    layout = sorted({(g, c) for *_, g, c in drops["decode"]})
+    log(f"phase 18 layer-0 dropped share of assignments: decode steps "
+        f"(T 32, groups, cap {layout})"
+        f" min {min(shares)} mean {sum(shares) / len(shares):.4f} max "
+        f"{max(shares)}, each {shares}; waves (share, [rows, bucket], "
+        f"groups, cap) {drops['wave']}; 64 steps stacked as one batch "
+        f"{drops.get('stacked')}")
+    check("stacked" in drops, "phase 18: fewer than 64 decode steps to "
+          "stack into a batch of several groups")
+    log(f"phase 18 FFN held against the per-token plain form (err of "
+        f"scale, bf16 and f32): {len(errs['decode'])} decode steps "
+        f"max {[max(e[i] for e in errs['decode']) for i in (0, 1)]}, "
+        f"{len(errs['wave'])} waves and the stacked steps max "
+        f"{[max(e[i] for e in errs['wave']) for i in (0, 1)]}")
+
+    # a step's bound: every weight but the embedding read once
+    weights = sum(t.numel() * t.element_size()
+                  for k, v in engine.params.items() if k != "embed"
+                  for t in _leaves(v))
+    log(f"phase 18 decode step bound: {weights / 1e9:.2f} GB of weights "
+        f"at 3.35 TB/s = {weights / HBM_BYTES_PER_S * 1e3:.2f} ms")
+    log(f"phase 18 serve: {res['token_tp']} tokens/s in {res['wall_s']} s "
+        f"(phase 5 chatglm-6b: {res5['token_tp']} in {res5['wall_s']} s)")
+    log_profiles(f"{MOE_ARCH} decode step at 32 rows", profile_window(
+        torch, engine, make_shared_head_dataset(
+            SERVE["max_concurrency"], n_apps=3, gen_length=GEN_LENGTH,
+            seed=1), eager=True, pools=True))
+
+    # rows 1-2 at olmoe's own inputs: a sample of the steps, every wave
+    sample = decoded.kept[::max(1, len(decoded.kept) // SPEC_TIMED)]
+    t18 = {"paged_decode_attention": summarize(
+               "paged_decode_attention (phase 18)", *time_decode(
+                   torch, ops, ref, sample, K, V, spin)),
+           "paged_prefix_prefill_attention": summarize(
+               "paged_prefix_prefill_attention (phase 18)", *time_prefill(
+                   torch, ops, ref, waves.kept, K, V, spin))}
+    log(f"phase 18 peak: {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        f" GiB allocated")
+    del engine, K, V, p0, ps, decoded, waves, ffn, windows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return t18, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timings at the serve's shapes
 # ---------------------------------------------------------------------------
 
@@ -3963,6 +4270,17 @@ def main() -> int:
             + json.dumps({"paged_decode_attention on the restored pool": {
                 key: (round(v, 4) if isinstance(v, float) else v)
                 for key, v in t17.items()}}))
+
+        # 18. olmoe-1b-7b's MoE paged serve at full width, its capacity
+        # dispatch inside the captured decode graph
+        t18, moe_launches = moe_phase(torch, ops, ref, transformer, res5,
+                                      spin, reset_counts, counts)
+        log("phase 18 kernels at olmoe-1b-7b's inputs (mean of per-shape "
+            "medians, CUDA events, ms): " + json.dumps({
+                name: {"launches": moe_launches[name], **{
+                    key: (round(v, 4) if isinstance(v, float) else v)
+                    for key, v in row.items()}}
+                for name, row in t18.items()}))
 
         source = {"paged_decode_attention":
                   ("src/repro_torch/csrc/paged_decode_attention.cu",

@@ -26,9 +26,9 @@ reference package's ``models/model.py``).  Batches are dicts of tensors:
 The functions run where their tensors live; the constructors
 (:func:`init_params`, :func:`init_cache`, :func:`init_paged_cache`)
 take a ``device`` that defaults to the CUDA card and raise without one.
-The dense and SSM families have a dense cache in the port; the others
-raise ``NotImplementedError`` (``transformer.supports_dense`` says why).
-The paged entry points serve the dense family only
+The dense, MoE and SSM families have a dense cache in the port; the
+others raise ``NotImplementedError`` (``transformer.supports_dense`` says
+why).  The paged entry points serve the dense and MoE families
 (:func:`supports_paged`).  :func:`batch_invariant` makes their
 arithmetic of a token independent of its batch, wave or window.
 """

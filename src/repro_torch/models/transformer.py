@@ -22,9 +22,11 @@ cost of speed), so that greedy streams can be compared bit for bit
 across serves that batch the same requests differently.
 
 Attention and the SSD scan go through the kernels' ops: the hand-written
-CUDA kernels on the card, their plain versions on the CPU.  The dense and
-SSM families are ported; the others raise ``NotImplementedError`` with
-the reason.
+CUDA kernels on the card, their plain versions on the CPU.  The dense,
+MoE (``models/moe.py``: the FFN of every row and position of the
+``[B, S]`` batch, pads and idle slots included, as the reference groups
+them) and SSM families are ported; the others raise
+``NotImplementedError`` with the reason.
 
 Where the reference is functional (``.at[].set`` on donated buffers),
 this port writes into the caches, the pools and the engine's state
@@ -46,12 +48,13 @@ from repro_torch.kernels.decode_attention.ops import (
 from repro_torch.models.attention import (gqa_decode_attention,
                                          gqa_prefill_attention)
 from repro_torch.models.layers import apply_rope, rms_norm, swiglu
+from repro_torch.models.moe import moe_forward, moe_forward_ragged
 from repro_torch.models.ssm import (mamba_decode, mamba_forward,
                                     mamba_state_spec)
 
-# SSM decay parameters stay f32 whatever the compute dtype, as in the
-# reference (its ``_KEEP_F32``)
-KEEP_F32 = frozenset({"A_log", "D", "dt_bias"})
+# SSM decay parameters and the MoE router stay f32 whatever the compute
+# dtype, as in the reference (its ``_KEEP_F32``)
+KEEP_F32 = frozenset({"A_log", "D", "dt_bias", "router"})
 
 
 # ---------------------------------------------------------------------------
@@ -60,9 +63,9 @@ KEEP_F32 = frozenset({"A_log", "D", "dt_bias"})
 
 def cast_params(tree, dtype: torch.dtype):
     """Cast floating weights to the compute dtype, except the SSM decay
-    parameters (``KEEP_F32``).  A tensor already of that dtype is
-    returned as it is, so weights stored in the compute dtype (the engine
-    casts once, at construction) cost nothing here."""
+    parameters and the MoE router (``KEEP_F32``).  A tensor already of
+    that dtype is returned as it is, so weights stored in the compute
+    dtype (the engine casts once, at construction) cost nothing here."""
     if isinstance(tree, dict):
         return {k: v if k in KEEP_F32 else cast_params(v, dtype)
                 for k, v in tree.items()}
@@ -106,7 +109,11 @@ def batch_invariant() -> Iterator[None]:
     in f32 (``chip_smoke.py`` phase 16 (c)).  It is slower: each chunk
     reads the weights again, and a wave's attention reads each row's
     history once per query.  A CUDA graph keeps the arithmetic it was
-    captured with, so an engine is built and warmed inside the block."""
+    captured with, so an engine is built and warmed inside the block.
+
+    A MoE config raises inside the block: its capacity dispatch couples
+    the tokens of a group (``models/moe.py``), so no chunking of rows
+    can make a token's FFN independent of its batch-mates."""
     prev = _INVARIANT[0]
     _INVARIANT[0] = True
     try:
@@ -157,8 +164,21 @@ def _qkv(ap: Dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _ffn(bp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The FFN sub-layer with its residual.  A MoE FFN runs on the whole
+    ``[B, S, d]`` at once (serving discards its aux loss)."""
     if cfg.moe is not None:
-        raise NotImplementedError("the MoE FFN is not ported yet")
+        if _INVARIANT[0]:
+            raise NotImplementedError(
+                f"{cfg.name}: batch_invariant() cannot hold for a MoE "
+                f"FFN: the capacity dispatch couples the tokens of a group, "
+                f"so a token's output depends on its batch-mates")
+        h = rms_norm(x, bp["norm2"], cfg.norm_eps)
+        if cfg.moe_ragged:
+            y, _ = moe_forward_ragged(bp["moe"], h, cfg.moe)
+        else:
+            y, _ = moe_forward(bp["moe"], h, cfg.moe,
+                               group_size=cfg.moe_group_size)
+        return x + y
     h = _norm(x, bp["norm2"], cfg.norm_eps)
     mlp = bp["mlp"]
     return x + _by_rows(
@@ -181,12 +201,10 @@ def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def supports_dense(cfg: ModelConfig) -> Tuple[bool, str]:
-    """The dense-cache half covers the plain-GQA dense family and the
-    attention-free SSM family; the others need parts of the model the
-    port does not have yet."""
-    if cfg.family == "moe":
-        return False, "family moe: the MoE FFN is not ported yet"
-    if cfg.family not in ("dense", "ssm"):
+    """The dense-cache half covers the plain-GQA dense and MoE families
+    and the attention-free SSM family; the others need parts of the model
+    the port does not have yet."""
+    if cfg.family not in ("dense", "moe", "ssm"):
         return False, (f"family {cfg.family}: its layers (hybrid "
                        f"attention and SSM heads, vision or audio front "
                        f"ends) are not ported yet")

@@ -1,7 +1,8 @@
-"""Parameters of the dense and SSM (mamba2) models as nested dicts of
-tensors, with the reference package's keys and layouts (``embed [V,
+"""Parameters of the dense, MoE and SSM (mamba2) models as nested dicts
+of tensors, with the reference package's keys and layouts (``embed [V,
 d]``, ``blocks/attn/wq [L, d, Hq, hd]``, ``blocks/attn/wo [L, Hq, hd,
-d]``, ``blocks/mlp/gate [L, d, d_ff]``, ``blocks/mamba/in_proj [L, d,
+d]``, ``blocks/mlp/gate [L, d, d_ff]``, ``blocks/moe/router [L, d,
+E]``, ``blocks/moe/gate [L, E, d, f]``, ``blocks/mamba/in_proj [L, d,
 2 d_in + 2 N + H]``, ...).
 
 Two sources: :func:`params_from_numpy` carries the reference package's
@@ -10,10 +11,11 @@ weights across (the caller converts them to numpy), and
 distribution, for runs that cannot take weights from the reference.
 
 Weights are stored in the compute dtype, except the SSM decay
-parameters, which stay f32 (``transformer.KEEP_F32``).  The reference
-stores f32 weights and casts them at each use (``cast_params``); storing
-them cast once only moves where the rounding to that dtype happens, and
-with bf16 it halves the memory the weights take on the card."""
+parameters and the MoE router, which stay f32
+(``transformer.KEEP_F32``).  The reference stores f32 weights and casts
+them at each use (``cast_params``); storing them cast once only moves
+where the rounding to that dtype happens, and with bf16 it halves the
+memory the weights take on the card."""
 from __future__ import annotations
 
 import math
@@ -45,13 +47,31 @@ def _mamba_spec(cfg: ModelConfig) -> Dict[str, Spec]:
             "out_proj": ((L, d_in, d), "normal", 1.0)}
 
 
+def _moe_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """One stacked MoE FFN (the reference's ``moe.moe_spec``): the router
+    (kept f32), the routed experts and, when asked, the shared ones."""
+    m, d, L = cfg.moe, cfg.d_model, cfg.num_layers
+    e, f = m.num_experts, m.d_ff_expert
+    spec: Dict[str, Any] = {"router": ((L, d, e), "normal", 1.0),
+                            "gate": ((L, e, d, f), "normal", 1.0),
+                            "up": ((L, e, d, f), "normal", 1.0),
+                            "down": ((L, e, f, d), "normal", 1.0)}
+    if m.num_shared:
+        fs = f * m.num_shared
+        spec["shared"] = {"gate": ((L, d, fs), "normal", 1.0),
+                          "up": ((L, d, fs), "normal", 1.0),
+                          "down": ((L, fs, d), "normal", 1.0)}
+    return spec
+
+
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """Shapes and initialisers of the dense and SSM families' parameters
-    (the reference package's ``transformer.model_spec``)."""
-    if cfg.family not in ("dense", "ssm") or cfg.moe is not None \
-            or cfg.uses_mla or cfg.mtp_depth:
+    """Shapes and initialisers of the dense, MoE and SSM families'
+    parameters (the reference package's ``transformer.model_spec``)."""
+    if cfg.family not in ("dense", "moe", "ssm") or cfg.uses_mla \
+            or cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: the port covers the dense and SSM families only")
+            f"{cfg.name}: the port covers the dense, MoE and SSM families "
+            f"only")
     d, v, L = cfg.d_model, cfg.padded_vocab, cfg.num_layers
     if cfg.family == "ssm":
         spec: Dict[str, Any] = {
@@ -78,12 +98,15 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
             "norm1": ((L, d), "ones", 1.0),
             "attn": attn,
             "norm2": ((L, d), "ones", 1.0),
-            "mlp": {"gate": ((L, d, ff), "normal", 1.0),
-                    "up": ((L, d, ff), "normal", 1.0),
-                    "down": ((L, ff, d), "normal", 1.0)},
         },
         "final_norm": ((d,), "ones", 1.0),
     }
+    if cfg.moe is not None:
+        spec["blocks"]["moe"] = _moe_spec(cfg)
+    else:
+        spec["blocks"]["mlp"] = {"gate": ((L, d, ff), "normal", 1.0),
+                                 "up": ((L, d, ff), "normal", 1.0),
+                                 "down": ((L, ff, d), "normal", 1.0)}
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((d, v), "normal", 1.0)
     return spec

@@ -4,8 +4,9 @@ across by ``params_from_numpy``: ``prefill`` logits and caches (padded,
 and ring-packed for a sliding-window model), ``decode_step`` logits and
 caches, and, in the port itself, the fused ``decode_multi`` against
 sequential ``decode_step`` calls.  Configs: chatglm-6b (MHA) and
-qwen2.5-14b (GQA, QKV bias), reduced.  Families the port does not cover
-yet and context-parallel caches raise, and the padded engines refuse an
+qwen2.5-14b (GQA, QKV bias), reduced (the MoE family has its own file,
+``test_torch_moe.py``).  Families the port does not cover yet and
+context-parallel caches raise, and the padded engines refuse an
 int8 cache (the SSM family and the int8 decode path have their own test
 files)."""
 import dataclasses
@@ -161,8 +162,8 @@ def test_decode_multi_equals_sequential_decode_steps(arch):
         assert torch.equal(a, b)
 
 
-UNSUPPORTED = ("olmoe-1b-7b", "deepseek-v3-671b", "hymba-1.5b",
-               "internvl2-26b", "whisper-large-v3")
+UNSUPPORTED = ("deepseek-v3-671b", "hymba-1.5b", "internvl2-26b",
+               "whisper-large-v3")
 
 
 @pytest.mark.parametrize("arch", UNSUPPORTED)

@@ -10,7 +10,8 @@ launches get, and outlives the shared buffer's growth.
 
 On the card (``cuda``-marked, a reduced chatglm-6b in f32 and bf16):
 the replayed window equals ``decode_multi_paged`` run eagerly on cloned
-state (tokens, logits, positions and pages bit-equal), the kernels'
+state (tokens, logits, positions and pages bit-equal; also for a reduced
+olmoe-1b-7b, its MoE FFN inside the graph), the kernels'
 launch counts grow under replay as they do eagerly, a warmed engine
 serves mixed, under-predicted lengths with no capture (the torch side of
 the reference's ``test_recompile.py``), a later eager launch that grows
@@ -168,8 +169,8 @@ def _requests(n, seed, gen, undershoot=False, words=(2, 9, 30)):
     return reqs
 
 
-def _engine(dtype, **kw):
-    return PagedContinuousEngine(CFG, seed=0, device="cuda", dtype=dtype,
+def _engine(dtype, cfg=CFG, **kw):
+    return PagedContinuousEngine(cfg, seed=0, device="cuda", dtype=dtype,
                                  **{**ENGINE_KW, **kw})
 
 
@@ -191,7 +192,8 @@ def _assert_window_equals_eager(eng, pages, batch, k, toks):
     n0 = ops.paged_decode_attention.launches
     logits, pages, positions, want = M.decode_multi_paged(
         eng.params, eng.cfg, pages, batch, num_steps=k, act_dtype=eng.dtype)
-    assert ops.paged_decode_attention.launches - n0 == CFG.num_layers * k
+    assert ops.paged_decode_attention.launches - n0 == \
+        eng.cfg.num_layers * k
     live = batch["active"]
     assert torch.equal(toks[live.cpu()], want[live].cpu())
     assert torch.equal(eng.logits, logits)
@@ -224,6 +226,29 @@ def test_captured_window_equals_eager_window(card, dtype):
                 g = a["generated"]
                 assert len(g) == before[slot] + k
                 toks[slot] = torch.tensor(g[-k:], dtype=torch.int32)
+        _assert_window_equals_eager(eng, pages, batch, k, toks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_moe_window_captured_once_equals_eager(card, dtype):
+    """A reduced olmoe-1b-7b engine: the capacity-dispatch FFN of every
+    slot (the idle one included) inside the captured step.  One capture,
+    one host sync a window as for the dense family, and each replayed
+    window equals the eager fused window bit for bit."""
+    eng = _engine(dtype, cfg=get_config("olmoe-1b-7b").reduced())
+    assert eng.join_many(_requests(3, seed=1, gen=16)) == 3
+    for _ in range(2):
+        pages, batch = _snapshot(eng)
+        syncs = eng.host_syncs
+        _, _, k = eng.step_window(max_steps=4)
+        assert k == 4 and eng.graph_captures == 1
+        assert eng.host_syncs == syncs + 1
+        toks = torch.full((eng.slots, k), -1, dtype=torch.int32)
+        for slot, a in enumerate(eng.active):
+            if a is not None:
+                toks[slot] = torch.tensor(a["generated"][-k:],
+                                          dtype=torch.int32)
         _assert_window_equals_eager(eng, pages, batch, k, toks)
 
 

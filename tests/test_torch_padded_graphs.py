@@ -3,15 +3,16 @@
 counterpart of the reference's compiled ``decode_multi`` window in
 ``BatchEngine.serve_batch``.
 
-On the CPU, for a reduced chatglm-6b and a reduced mamba2-780m: the
+On the CPU, for a reduced chatglm-6b, mamba2-780m and olmoe-1b-7b: the
 captured unit, ``decode_step_into`` (one greedy step written in place),
 repeated ``k`` times equals ``decode_multi(k)`` bit for bit (tokens,
 logits, positions and the dense cache or SSM state) and the JAX
 ``decode_multi`` at f32 from the same state; a CPU ``BatchEngine``
 decodes eagerly and captures nothing.
 
-On the card (``cuda``-marked, a reduced chatglm-6b in f32 and bf16 and
-a reduced mamba2-780m in f32): a ``BatchEngine`` batch captures once,
+On the card (``cuda``-marked, a reduced chatglm-6b in f32 and bf16, a
+reduced mamba2-780m in f32 and a reduced olmoe-1b-7b in bf16, its MoE
+FFN inside the graph): a ``BatchEngine`` batch captures once,
 and its streams, logits, positions and cache equal the same batch
 decoded by eager ``decode_multi`` on a copy of its state, with the
 kernels' launch counts equal to eager's; a batch of one step, or of
@@ -42,7 +43,7 @@ from repro_torch.serving.engine import BatchEngine
 from repro_torch.workload import apps
 
 TOL = 2e-4          # f32, of the reference's largest magnitude
-ARCHS = ("chatglm-6b", "mamba2-780m")
+ARCHS = ("chatglm-6b", "mamba2-780m", "olmoe-1b-7b")
 KERNELS = decode_ops.KERNELS + flash_ops.KERNELS + scan_ops.KERNELS
 
 
@@ -169,8 +170,8 @@ def card():
 
 
 CARD_CASES = [("chatglm-6b", torch.float32), ("chatglm-6b", torch.bfloat16),
-              ("mamba2-780m", torch.float32)]
-CARD_IDS = ["chatglm-f32", "chatglm-bf16", "mamba2-f32"]
+              ("mamba2-780m", torch.float32), ("olmoe-1b-7b", torch.bfloat16)]
+CARD_IDS = ["chatglm-f32", "chatglm-bf16", "mamba2-f32", "olmoe-bf16"]
 
 
 def _card_engine(arch, dtype, max_gen=16):

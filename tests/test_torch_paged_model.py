@@ -20,7 +20,10 @@ from repro_torch.params import params_from_numpy
 
 TOL = 2e-4     # f32, relative to each tensor's scale (see _allclose)
 CONFIGS = {"smollm": dict(arch="smollm-135m", num_layers=2, d_model=64),
-           "chatglm": dict(arch="chatglm-6b")}      # MHA: G = 1
+           "chatglm": dict(arch="chatglm-6b"),      # MHA: G = 1
+           # MoE: the wave's pad row and the idle decode slots take part
+           # in the capacity dispatch, as in JAX
+           "olmoe": dict(arch="olmoe-1b-7b")}
 
 
 def _configs(name):
