@@ -238,11 +238,35 @@ CUDA toolkit.  Phases, each fatal on failure:
    step's bound (its weights at 3.35 TB/s), both windows' profiles,
    tokens/s beside phase 5's, the peak allocation, and rows 1-2 timed
    at olmoe's inputs as phase 6 times them.
+19. hybrid serve: ``run_engine_backend("hymba-1.5b", ...,
+   reduced=False)`` in bf16 (32 layers, d_model 1600, 25 query heads
+   over 5 KV heads of 64 beside 25 SSM heads of 64 with d_state 16, a
+   2,048-token window; weights drawn on the card from seed 0 once
+   olmoe-1b-7b's are gone), ``magnus`` through the padded
+   ``BatchEngine`` on phase 7's requests.  (a) Fatal checks: every
+   request gets its generation length, every batch G(B) iterations;
+   batches, steps, host syncs, captures, the WMA total and the batches'
+   shapes as ``scripts/hybrid_rehearsal.py`` predicts
+   (``HYBRID_SCHEDULE``); flash and the scan 32 times a batch, dense
+   decode 32 times a step, nothing else and no plain version; one
+   capture a batch and replays after it; each batch's layer-0 flash
+   call (window mode) and a sample of decode steps held as phase 6
+   holds; graphed and eager windows of the largest batch held bit for
+   bit (all four cache leaves: K, V, the SSD and conv states) and
+   profiled beside the step's bound.  (b) A 4,096-token prefill of two
+   rows (4,096 and 3,000 tokens), where the window binds in every
+   layer: layer 0's flash call held at 5e-2 and its scan (32 chunks, N
+   16) in f32 at 2e-4; then 8 decode steps on the engines' 8,192-slot
+   cache and on the 2,048-slot ring, every step's layer-0 decode
+   attention held.  (c) Flash (at the serve's shapes and windowed at S
+   4,096, against SDPA with a band mask), dense decode at G 5 and the
+   scan at N 16 (both P slices) timed at those inputs as phase 6
+   times.  (d) tokens/s beside phases 7 and 11, the peak allocation.
 
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves; phase 14 runs right after
-phase 5, then phases 15, 16, 17 and 18 last.  The line before the last is a
-JSON object with one entry per kernel (six); the last line is
+phase 5, then phases 15, 16, 17, 18 and 19 last.  The line before the
+last is a JSON object with one entry per kernel (six); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is missing or the port's sources are not beside
 this script.
@@ -2726,6 +2750,7 @@ MOE_FREE_BEFORE = 2 << 30      # allocated before the phase: chatglm-6b's
 #                                weights (12.4 GB) must be gone
 
 
+
 def moe_dispatch(torch, p, x, m, group_size):
     """Phase 18's plain form of the reference's routing over x [B, S, d]
     (flattened row-major into groups of ``moe._num_groups``), computed on
@@ -2991,6 +3016,332 @@ def moe_phase(torch, ops, ref, transformer, res5, spin, reset_counts,
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the hybrid family (hymba-1.5b) on the padded path
+# ---------------------------------------------------------------------------
+
+# hymba-1.5b (32 layers, d_model 1600, 25 query heads over 5 KV heads of
+# 64 beside 25 SSM heads of 64 with d_state 16, a 2,048-token sliding
+# window) on phase 7's requests.  Its schedule, from
+# scripts/hybrid_rehearsal.py (the batcher on the full config's memory
+# model at an H100 80GB's memory, the reduced model served on the CPU):
+# batches, decode steps, host syncs (popcount G(B) a batch), captures (a
+# batch of at least MIN_GRAPH_STEPS steps), the WMA total and each
+# batch's [size, length, G(B)]
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_SCHEDULE = dict(
+    batches=9, decode_steps=576, host_syncs=9, captures=9, wma_total=28703,
+    shapes=[[1, 256, 64], [1, 256, 64], [3, 256, 64], [4, 256, 64],
+            [5, 256, 64], [6, 256, 64], [11, 256, 64], [13, 256, 64],
+            [20, 256, 64]])
+HYBRID_FREE_BEFORE = 2 << 30   # allocated before the phase: olmoe-1b-7b's
+#                                weights (13.85 GB) must be gone
+# (b): two prompts of a 4,096-token prefill, where the window binds in
+# every layer; decoded on the engines' cache (no window at decode) and
+# on the ring of the window (decode_cache_len's), 8 steps each
+HYBRID_LONG = (4096, 3000)
+HYBRID_CACHES = (8192, 2048)
+HYBRID_LONG_STEPS = 8
+
+
+def hybrid_step_bound(engine, reqs, bl, steps):
+    """A padded decode step's least time at the profiled batch: every
+    weight but the embedding read once, the recurrent state (f32) read
+    and written, and the K/V of the window's mean length read once, at
+    3.35 TB/s.  Returns (ms, weights GB, state GB, KV GB)."""
+    import math
+    from repro_torch.models.transformer import cache_struct
+    cfg = engine.cfg
+    weights = sum(t.numel() * t.element_size()
+                  for k, v in engine.params.items() if k != "embed"
+                  for t in _leaves(v))
+    shapes, _ = cache_struct(cfg, len(reqs), 1)
+    state = 2 * sum(math.prod(shape) * 4 for shape, _ in shapes["ssm"])
+    tokens = sum(min(r.length, bl) + steps / 2 for r in reqs)
+    kv = tokens * cfg.kv_bytes_per_token(2)
+    total = weights + state + kv
+    return total / HBM_BYTES_PER_S * 1e3, weights / 1e9, state / 1e9, kv / 1e9
+
+
+def hybrid_long_window(torch, ops, ref, fops, fref, sops, sref, ssm_module,
+                       transformer, engine):
+    """Phase 19 (b): two rows of hymba-1.5b at S = 4,096 (lengths
+    ``HYBRID_LONG``), prefilled so that the 2,048-token window binds in
+    every layer: layer 0's flash call (window mode, whole K/V tiles left
+    of the window skipped) held against its plain version at 5e-2 of
+    scale, and its SSD scan (32 chunks of 128, N 16) at 2e-4 in f32.
+    Then the same prompts on two caches, each decoding
+    ``HYBRID_LONG_STEPS`` steps with every step's layer-0 decode
+    attention held against the plain version: the engines' cache
+    (``HYBRID_CACHES[0]`` slots, every cached key read at decode) and the
+    ring of the window (``HYBRID_CACHES[1]``, as the reference's
+    ``decode_cache_len`` gives, where the new K/V overwrites the oldest
+    slot).  Returns (the layer-0 flash call, the layer-0 scan call)."""
+    from repro_torch.models import model as M
+    cfg, params, dtype = engine.cfg, engine.params, engine.dtype
+    s, layers, window = max(HYBRID_LONG), cfg.num_layers, cfg.sliding_window
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(3, cfg.vocab_size, (len(HYBRID_LONG), s),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    lengths = torch.tensor(HYBRID_LONG, dtype=torch.int32, device="cuda")
+    flash = Recorder(transformer, "gqa_prefill_attention", layers,
+                     lambda q, k, v, **kw: (q, k, v, kw))
+    scan = Recorder(ssm_module, "ssd_scan", layers)
+    streams = {}
+    for cache_len in HYBRID_CACHES:
+        dec = Recorder(transformer, "gqa_decode_attention", layers,
+                       lambda q, kc, vc, lens: (q[:, 0].clone(), kc.clone(),
+                                                vc.clone(), lens.clone()))
+        t0 = time.perf_counter()
+        with flash, scan:
+            logits, cache = M.prefill(
+                params, cfg, {"tokens": tokens, "lengths": lengths},
+                act_dtype=dtype, cache_len=cache_len)
+        check(cache["kv"][0].shape[2] == cache_len,
+              f"phase 19 (b): a KV cache of {cache['kv'][0].shape[2]} "
+              f"slots, not {cache_len}")
+        with dec:
+            logits, cache, positions, toks = M.decode_multi(
+                params, cfg, cache, {"logits": logits,
+                                     "positions": lengths.clone()},
+                num_steps=HYBRID_LONG_STEPS, act_dtype=dtype)
+        toks = toks.cpu()
+        wall = time.perf_counter() - t0
+        check(len(dec.kept) == HYBRID_LONG_STEPS,
+              f"phase 19 (b): {len(dec.kept)} decode steps recorded")
+        errs = []
+        for i, (q, kc, vc, lens) in enumerate(dec.kept):
+            want = torch.clamp(lengths + i + 1, max=cache_len)
+            check(torch.equal(lens, want.to(lens.dtype)),
+                  f"phase 19 (b) cache {cache_len} step {i}: lengths "
+                  f"{lens.tolist()}, not {want.tolist()}")
+            errs.append(hold(torch, f"decode_attention (phase 19 (b), "
+                             f"cache {cache_len})",
+                             ops.decode_attention(q, kc, vc, lens),
+                             ref.decode_attention_ref(q, kc, vc, lens)))
+        check(torch.isfinite(logits.float()).all().item(),
+              f"phase 19 (b) cache {cache_len}: non-finite logits")
+        streams[cache_len] = (toks, logits.float())
+        kind = "the ring" if cache_len < s else "the engines' cache"
+        slots = [[(p + i) % cache_len for i in (0, HYBRID_LONG_STEPS - 1)]
+                 for p in HYBRID_LONG]
+        log(f"phase 19 (b) {kind}, {cache_len} slots: prefill of "
+            f"{list(HYBRID_LONG)} tokens and {HYBRID_LONG_STEPS} decode "
+            f"steps in {wall:.2f} s, writing slots {slots} (first and last "
+            f"of each row); every step's layer-0 decode attention held "
+            f"(max abs err {max(e for e, _ in errs):.3e} at scale up to "
+            f"{max(sc for _, sc in errs):.1f})")
+        del cache, dec
+    check(len(flash.kept) == len(scan.kept) == len(HYBRID_CACHES),
+          f"phase 19 (b): kept {len(flash.kept)} flash and "
+          f"{len(scan.kept)} scan calls of layer 0")
+    q, k, v, kw = flash.kept[0]
+    check(kw.get("window") == window and q.shape[1] == s
+          and (q.shape[2], k.shape[2], q.shape[3]) == (25, 5, 64),
+          f"phase 19 (b): layer 0's flash call {tuple(q.shape)} "
+          f"{tuple(k.shape)} {kw}")
+    err, scale = hold(torch, "flash_attention (phase 19 (b))",
+                      fops.flash_attention(q, k, v, causal=True,
+                                           window=window),
+                      fref.flash_attention_ref(q, k, v, causal=True,
+                                               window=window))
+    x, dt, a, b, c, chunk = scan.kept[0]
+    check(x.dtype == torch.float32 and b.shape[-1] == 16
+          and -(-x.shape[1] // chunk) == 32,
+          f"phase 19 (b): the scan's input {tuple(x.shape)} N "
+          f"{b.shape[-1]} chunk {chunk}")
+    got = sops.ssd_scan(x, dt, a, b, c, chunk)
+    serr, sscale = scan_err(got, sref.ssd_chunked_ref(x, dt, a, b, c, chunk))
+    check(all(torch.isfinite(t).all().item() for t in got),
+          "phase 19 (b): the scan is non-finite")
+    check(serr <= SCAN_TOL * max(1.0, sscale),
+          f"phase 19 (b): scan err {serr} at scale {sscale}")
+    (t_eng, l_eng), (t_ring, l_ring) = (streams[c] for c in HYBRID_CACHES)
+    log(f"phase 19 (b) layer 0 at S {s}, window {window}: flash held (max "
+        f"abs err {err:.3e} at scale {scale:.1f}), the scan ({x.shape[1]} "
+        f"tokens, 32 chunks, N 16) held in f32 ({serr:.3e} at scale "
+        f"{sscale:.1f}, tol {SCAN_TOL} of scale); the engines' cache and "
+        f"the ring after {HYBRID_LONG_STEPS} steps: tokens equal in "
+        f"{int((t_eng == t_ring).sum())} of {t_eng.numel()}, logits apart "
+        f"by up to {(l_eng - l_ring).abs().max().item():.3f} at scale "
+        f"{l_eng.abs().max().item():.1f} (the reference's semantics: "
+        f"decode reads every cached key, the ring only the window)")
+    return (q, k, v), (x, dt, a, b, c, chunk)
+
+
+def hybrid_phase(torch, ops, ref, fops, fref, sops, sref, ssm_module,
+                 transformer, hbm, spin, others, reset_counts, counts):
+    """Phase 19: hymba-1.5b served at full width in bf16 through
+    ``run_engine_backend`` (``magnus``, the padded ``BatchEngine``) on
+    phase 7's requests, its weights drawn on the card from seed 0 once
+    olmoe-1b-7b's are gone.  (a) Checks: every request gets its
+    generation length and every batch G(B) iterations; batches, steps,
+    host syncs, captures, the WMA total and the batches' shapes as
+    ``HYBRID_SCHEDULE`` (the CPU rehearsal) predicts; flash and the scan
+    launched once a layer and batch, dense decode once a layer and step,
+    nothing else and no plain version; one capture a batch and replays
+    after it; every batch's layer-0 flash call (window 2,048) and a
+    sample of decode steps (replayed ones included) held against the
+    plain kernels, the scans in (c); graphed against eager on the
+    largest batch (held bit for bit, all four cache leaves), profiled
+    beside the step's bound.  (b) :func:`hybrid_long_window`.  (c) The
+    kernels timed at hymba's inputs as phase 6 times them.  (d)
+    tokens/s and wall s beside ``others`` (label -> the "token_tp" and
+    "wall_s" of phases 7 and 11 in the same run), the peak allocation.
+    Returns (the timings, the serve's launches)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_engine_backend
+    from repro_torch.models.transformer import d_inner
+    from repro_torch.workload.generator import poisson_workload
+    from repro_torch.workload.tokenizer import encode
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    log(f"phase 19: {before / 2 ** 30:.2f} GiB allocated before it; "
+        f"hbm_bytes {hbm}")
+    check(before < HYBRID_FREE_BEFORE, "olmoe-1b-7b's weights were not "
+          "released before phase 19")
+    hcfg = get_config(HYBRID_ARCH)
+    reqs = poisson_workload(8, 60, seed=0, max_len=DENSE_MAX_LEN,
+                            max_gen=DENSE_MAX_GEN)[:DENSE_N_REQUESTS]
+    targets = {r.req_id: min(r.gen_length, DENSE_MAX_GEN) for r in reqs}
+    top = max(max(encode(f"{r.instruction} {r.user_input}", hcfg.vocab_size))
+              for r in reqs)
+    check(top < hcfg.vocab_size, f"prompt id {top} >= {hcfg.vocab_size}")
+    layers, window = hcfg.num_layers, hcfg.sliding_window
+    prefills, decodes = dense_recorders(transformer, layers, window=window)
+    scans = Recorder(ssm_module, "ssd_scan", layers)
+    t_phase = t0 = time.perf_counter()
+    with prefills, decodes, scans, replays(decodes) as rep:
+        reset_counts()
+        res = run_engine_backend(
+            HYBRID_ARCH, 0.0, 0.0, "magnus", seed=0, reduced=False,
+            device="cuda", dtype=torch.bfloat16, hbm_bytes=hbm,
+            max_len=DENSE_MAX_LEN, max_gen=DENSE_MAX_GEN, requests=reqs)
+        launches = counts("launches")
+    plain = counts("plain_calls")
+    engine, results = res.pop("engine"), res.pop("results")
+    cfg = engine.cfg
+    log(f"hybrid padded serve {HYBRID_ARCH} full width bf16 magnus: "
+        f"{time.perf_counter() - t0:.1f} s with set-up; " + json.dumps(res))
+    log(f"hybrid padded serve batches (size, batch length, G(B), host "
+        f"syncs): " + "; ".join(
+            f"({r.batch_size}, {r.batch_length}, {r.iterations}, "
+            f"{bin(r.iterations).count('1')})" for r in results))
+    log(f"hybrid padded serve kernel launches {launches}, plain calls "
+        f"{plain}")
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim, d_inner(cfg) // cfg.ssm.head_dim, cfg.ssm.head_dim,
+           cfg.ssm.d_state, cfg.ssm.chunk_size, cfg.sliding_window,
+           cfg.padded_vocab)
+          == (32, 1600, 25, 5, 64, 25, 64, 16, 128, 2048, 32768),
+          f"phase 19 did not serve {HYBRID_ARCH} at full width")
+    check(res["requests"] == DENSE_N_REQUESTS,
+          f"phase 19: {res['requests']} of {DENSE_N_REQUESTS} requests")
+    check(sorted(rid for r in results for rid in r.generated)
+          == sorted(targets), "phase 19: the batches did not serve each "
+          "request once")
+    for r in results:
+        check(r.iterations == max(targets[i] for i in r.generated),
+              f"phase 19: a batch ran {r.iterations} iterations, not its "
+              f"G(B)")
+        for rid, toks in r.generated.items():
+            check(len(toks) == targets[rid]
+                  and all(0 <= x < cfg.vocab_size for x in toks),
+                  f"phase 19 request {rid}: {len(toks)} of {targets[rid]} "
+                  f"tokens or one out of range")
+    steps = sum(r.iterations for r in results)
+    sched = {"batches": len(results), "decode_steps": steps,
+             "host_syncs": res["host_syncs"],
+             "captures": engine.graph_captures,
+             "wma_total": res["wma_total"],
+             "shapes": sorted([r.batch_size, r.batch_length, r.iterations]
+                              for r in results)}
+    check(sched == HYBRID_SCHEDULE, f"phase 19 schedule {sched}, the CPU "
+          f"rehearsal predicted {HYBRID_SCHEDULE}")
+    check(res["host_syncs"] == sum(bin(r.iterations).count("1")
+                                   for r in results),
+          f"phase 19: host syncs {res['host_syncs']}: not one a window")
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=layers * len(results),
+                ssd_scan=layers * len(results),
+                decode_attention=layers * steps)
+    check(launches == want, f"phase 19 launches {launches}, not {want}")
+    check(not any(plain.values()), f"plain versions ran in phase 19: "
+          f"{plain}")
+    check(decodes.steps == steps and len(prefills.kept) == len(results)
+          and len(scans.kept) == len(results),
+          f"phase 19 recorded {decodes.steps} decode steps, "
+          f"{len(prefills.kept)} prefills and {len(scans.kept)} scans")
+    check_captures("hybrid padded serve", engine, results, rep, steps)
+    flash_errs = [hold(torch, "flash_attention (phase 19)",
+                       fops.flash_attention(q, k, v, causal=True,
+                                            window=window),
+                       fref.flash_attention_ref(q, k, v, causal=True,
+                                                window=window))
+                  for q, k, v in prefills.kept]
+    dec_errs = [hold(torch, "decode_attention (phase 19)",
+                     ops.decode_attention(q, kc, vc, lens),
+                     ref.decode_attention_ref(q, kc, vc, lens))
+                for q, kc, vc, lens in decodes.kept]
+    check(decodes.kept, "phase 19: no decode step kept")
+    log(f"phase 19 held against the plain kernels: {len(flash_errs)} "
+        f"batches' layer-0 flash calls (window {window}; max abs err "
+        f"{max(e for e, _ in flash_errs):.3e}), {len(dec_errs)} sampled "
+        f"decode steps' layer-0 attention (one in {DECODE_SAMPLE} of a "
+        f"batch's, replayed ones included; max abs err "
+        f"{max(e for e, _ in dec_errs):.3e})")
+    big = max(results, key=lambda r: r.batch_size)
+    breqs = [r for r in reqs if r.req_id in big.generated]
+    cache_len = 1 << (big.batch_length + big.iterations - 1).bit_length()
+    profiles = profile_dense_window(torch, engine, breqs, big.batch_length,
+                                    cache_len, label="hybrid padded")
+    log_profiles(f"hybrid padded decode step at {big.batch_size} rows",
+                 profiles)
+    ms, wgb, sgb, kgb = hybrid_step_bound(engine, breqs, big.batch_length, 8)
+    log(f"phase 19 decode step bound at {big.batch_size} rows: {ms:.3f} ms "
+        f"({wgb:.2f} GB of weights, {sgb:.3f} GB of recurrent state read "
+        f"and written, {kgb:.3f} GB of K/V at 3.35 TB/s); graphed busy "
+        f"{profiles['graphed']['busy_ms']:.2f} ms is "
+        f"{profiles['graphed']['busy_ms'] / ms:.1f}x it")
+    log(f"phase 19 serve: {res['token_tp']} tokens/s in {res['wall_s']} s "
+        f"(" + "; ".join(f"{label}: {r['token_tp']} in {r['wall_s']} s"
+                         for label, r in others.items()) + ")")
+
+    # (b) the window at full width
+    long_flash, long_scan = hybrid_long_window(
+        torch, ops, ref, fops, fref, sops, sref, ssm_module, transformer,
+        engine)
+
+    # (c) the kernels at hymba's own inputs
+    t19 = {
+        "flash_attention": summarize(
+            "flash_attention (phase 19, serve)", *time_flash(
+                torch, fops, fref, prefills.kept, spin, window=window)),
+        "flash_attention (window)": summarize(
+            "flash_attention (phase 19 (b), S 4096, window 2048)",
+            *time_flash(torch, fops, fref, [long_flash], spin,
+                        window=window)),
+        "decode_attention": summarize(
+            "decode_attention (phase 19)", *time_dense_decode(
+                torch, ops, ref, decodes.kept, spin)),
+        "ssd_scan": summarize(
+            "ssd_scan (phase 19, serve)", *time_scan(
+                torch, sops, sref, scans.kept, spin)),
+        "ssd_scan (S 4096)": summarize(
+            "ssd_scan (phase 19 (b), S 4096)", *time_scan(
+                torch, sops, sref, [long_scan], spin))}
+    log(f"phase 19 peak: {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        f" GiB allocated; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del engine, results, rep, prefills, decodes, scans, long_flash, long_scan
+    gc.collect()
+    torch.cuda.empty_cache()
+    return t19, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timings at the serve's shapes
 # ---------------------------------------------------------------------------
 
@@ -3160,11 +3511,11 @@ def time_prefill(torch, ops, ref, calls, K, V, spin):
 # phases 7-8: the padded serve and its kernels
 # ---------------------------------------------------------------------------
 
-def dense_recorders(transformer, layers):
+def dense_recorders(transformer, layers, window=None):
     """Recorders of the dense model's layer-0 attention inputs: every
-    prefill (one per batch) and every ``DECODE_SAMPLE``-th decode step of
-    each batch, with the step's layer-0 cache cloned, up to
-    ``KEEP_BYTES`` in all."""
+    prefill (one per batch; causal, with the served model's ``window``)
+    and every ``DECODE_SAMPLE``-th decode step of each batch, with the
+    step's layer-0 cache cloned, up to ``KEEP_BYTES`` in all."""
     left = [KEEP_BYTES]
 
     def afford(*ts):
@@ -3174,9 +3525,10 @@ def dense_recorders(transformer, layers):
         left[0] -= n
         return True
 
-    def keep_prefill(q, k, v, *, causal=True, window=None):
-        check(causal and window is None,
-              "the served model is causal without a window")
+    def keep_prefill(q, k, v, *, causal=True, window=None, want=window):
+        check(causal and window == want,
+              f"the served model is causal with window {want}, not "
+              f"{window}")
         decode.restart()                      # a new batch
         return (q, k, v) if afford(q, k, v) else None
 
@@ -3272,30 +3624,43 @@ def log_profiles(label, profiles):
          for mode, m in profiles.items()}))
 
 
-def time_flash(torch, fops, fref, calls, spin):
-    """Kernel 3 on each batch's layer-0 prefill of the padded serve.  The
-    library yardstick is SDPA with ``is_causal`` on the same q, k, v in
-    SDPA's [B, H, S, D] layout."""
+def time_flash(torch, fops, fref, calls, spin, window=None):
+    """Kernel 3 on each batch's layer-0 prefill of the padded serve, as
+    the model calls it (causal, with the served model's ``window``).
+    The library yardstick is SDPA on the same q, k, v in SDPA's [B, H,
+    S, D] layout, K and V repeated to the query heads for GQA: with
+    ``is_causal``, or with a boolean mask of the band where the window
+    is shorter than the sequence."""
     import torch.nn.functional as F
     per = {k: [] for k in ("ms", "plain_ms", "library_ms", "bound")}
     errs = []
     for q, k, v in calls:
         b, s, hq, d = q.shape
-        hkv = k.shape[2]
-        check(hq == hkv, "the yardstick assumes the served model's MHA")
-        kern = lambda r: fops.flash_attention(q, k, v, causal=True)
-        plain = lambda r: fref.flash_attention_ref(q, k, v, causal=True)
+        g = hq // k.shape[2]
+        kern = lambda r: fops.flash_attention(q, k, v, causal=True,
+                                              window=window)
+        plain = lambda r: fref.flash_attention_ref(q, k, v, causal=True,
+                                                   window=window)
         errs.append(hold(torch, "flash_attention", kern(0), plain(0)))
         per["ms"].append(median_ms(torch, kern, PREFILL_REPS, spin))
         per["plain_ms"].append(median_ms(torch, plain, PREFILL_REPS, spin))
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib = lambda r: F.scaled_dot_product_attention(qt, kt, vt,
-                                                       is_causal=True)
+        kt, vt = kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1)
+        w = s if window is None else min(window, s)
+        if w < s:
+            i = torch.arange(s, device="cuda")
+            band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
+            lib = lambda r: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band)
+        else:
+            lib = lambda r: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True)
         lib(0)
         per["library_ms"].append(median_ms(torch, lib, PREFILL_REPS, spin))
         del qt, kt, vt
         e = q.element_size()
-        pairs = b * s * (s + 1) // 2       # every (q, k) pair with k <= q
+        # every (q, k) pair with k <= q and q - k < w
+        pairs = b * (w * (w + 1) // 2 + (s - w) * w)
         nbytes = 2 * q.numel() * e + 2 * k.numel() * e
         per["bound"].append(bound(nbytes, 4 * d * hq * pairs))
     return per, errs
@@ -3305,21 +3670,21 @@ def time_dense_decode(torch, dops, dref, calls, spin):
     """Kernel 4 on each kept decode step of the padded serve (its layer-0
     query, the cache as the step met it, and the lengths).  The library
     yardstick is SDPA with a length mask on the cache cut to its longest
-    row."""
+    row, K and V repeated to the query heads for GQA."""
     import torch.nn.functional as F
     per = {k: [] for k in ("ms", "plain_ms", "library_ms", "bound")}
     errs = []
     for q, kc, vc, lens in calls:
         b, hq, d = q.shape
         _, s, hkv, _ = kc.shape
-        check(hq == hkv, "the yardstick assumes the served model's MHA")
         kern = lambda r: dops.decode_attention(q, kc, vc, lens)
         plain = lambda r: dref.decode_attention_ref(q, kc, vc, lens)
         errs.append(hold(torch, "decode_attention", kern(0), plain(0)))
         per["ms"].append(median_ms(torch, kern, DECODE_REPS, spin))
         per["plain_ms"].append(median_ms(torch, plain, DECODE_REPS, spin))
         w = int(lens.max())
-        kt, vt = (x[:, :w].transpose(1, 2).contiguous() for x in (kc, vc))
+        kt, vt = (x[:, :w].transpose(1, 2).repeat_interleave(hq // hkv, 1)
+                  .contiguous() for x in (kc, vc))
         mask = (torch.arange(w, device="cuda")[None, :]
                 < lens[:, None])[:, None, None, :]
         q4 = q[:, :, None, :]
@@ -3552,7 +3917,8 @@ def ssm_serve(torch, ssm_module, hbm, reset_counts, counts):
     ``run_engine_backend`` (``magnus``, the padded ``BatchEngine``) on
     phase 7's 64 Poisson requests, with the launch counts zeroed just
     before and read just after.  Returns (the launch counts, the kept
-    layer-0 scan inputs, one per batch)."""
+    layer-0 scan inputs, one per batch, the serve's tokens/s and wall
+    s)."""
     from repro_torch.launch.serve import run_engine_backend
     from repro_torch.workload.generator import poisson_workload
     reqs = poisson_workload(8, 60, seed=0, max_len=DENSE_MAX_LEN,
@@ -3614,7 +3980,7 @@ def ssm_serve(torch, ssm_module, hbm, reset_counts, counts):
                      [r for r in reqs if r.req_id in big.generated],
                      big.batch_length, big.batch_length + big.iterations,
                      label="SSM padded", kernel=None))
-    return launches, scans.kept
+    return launches, scans.kept, {k: res[k] for k in ("wall_s", "token_tp")}
 
 
 def int8_window(torch, np, transformer, dref, reset_counts, counts):
@@ -4180,6 +4546,7 @@ def main() -> int:
                          big.batch_length, 1 << (big.batch_length
                                                  + big.iterations
                                                  - 1).bit_length()))
+        res7 = {k: dres[k] for k in ("wall_s", "token_tp")}
         del dengine, dres, results, drep   # drep: the last batch's cache
         torch.cuda.empty_cache()
 
@@ -4195,8 +4562,8 @@ def main() -> int:
 
         # 11. serve mamba2-780m at full width through the padded
         # BatchEngine, on phase 7's requests
-        slaunches, scans = ssm_serve(torch, ssm_module, hbm, reset_counts,
-                                     counts)
+        slaunches, scans, res11 = ssm_serve(torch, ssm_module, hbm,
+                                            reset_counts, counts)
         torch.cuda.empty_cache()
 
         # 12. an int8 decode window of chatglm-6b at full width
@@ -4281,6 +4648,21 @@ def main() -> int:
                     key: (round(v, 4) if isinstance(v, float) else v)
                     for key, v in row.items()}}
                 for name, row in t18.items()}))
+
+        # 19. hymba-1.5b's hybrid padded serve at full width, its
+        # attention and SSM heads under the captured decode graph, and
+        # the sliding window at a 4,096-token prefill
+        t19, hybrid_launches = hybrid_phase(
+            torch, ops, ref, fops, fref, sops, sref, ssm_module,
+            transformer, hbm, spin, {"phase 7 chatglm-6b": res7,
+                                     "phase 11 mamba2-780m": res11},
+            reset_counts, counts)
+        log("phase 19 kernels at hymba-1.5b's inputs (mean of per-shape "
+            "medians, CUDA events, ms): " + json.dumps({
+                name: {"launches": hybrid_launches.get(name), **{
+                    key: (round(v, 4) if isinstance(v, float) else v)
+                    for key, v in row.items()}}
+                for name, row in t19.items()}))
 
         source = {"paged_decode_attention":
                   ("src/repro_torch/csrc/paged_decode_attention.cu",

@@ -8,8 +8,10 @@ The padded strategies (``vs vsq ccb glp abp magnus``) serve through the
 paper's padded-batch ``BatchEngine`` (:func:`run_engine_backend`); the
 ``-paged`` ones through the ``PagedContinuousEngine``
 (:func:`run_paged_engine_backend`).  The padded path serves the dense,
-MoE (``--arch olmoe-1b-7b``) and SSM (``--arch mamba2-780m``) families,
-the paged one the dense and MoE families.  Runs on the CUDA card unless
+MoE (``--arch olmoe-1b-7b``), SSM (``--arch mamba2-780m``) and hybrid
+(``--arch hymba-1.5b``) families, the paged one the dense and MoE
+families (a paged strategy refuses the others with the reference's
+reason).  Runs on the CUDA card unless
 ``--device cpu`` is given.  ``--checkpoint-dir`` turns on the paged
 engine's crash-safe serving (a write-ahead journal and a snapshot every
 ``--snapshot-every`` windows; a journal left by an earlier process is

@@ -5,8 +5,10 @@ reference package's ``models/model.py``).  Batches are dicts of tensors:
   decode_step        : {"tokens": [B], "positions": [B]} against a dense
                        cache: {"kv": (k, v)}, each [L, B, S, Hkv, D];
                        {"kv": (k, v, k_scale, v_scale)} int8 with bf16
-                       scales [L, B, S, Hkv] (``cfg.cache_int8``); or
-                       {"ssm": (state, conv)} (the SSM family)
+                       scales [L, B, S, Hkv] (``cfg.cache_int8``);
+                       {"ssm": (state, conv)} (the SSM family); or
+                       {"kv": (k, v), "ssm": (state, conv)} (the hybrid
+                       family: both, written in place by each step)
   decode_multi       : {"logits": [B, padded_vocab], "positions": [B]}
                        (``decode_step_into``: one of its steps in place)
   prefill_wave       : {"tokens": [B, S], "lengths": [B], "prefix_lens",
@@ -26,9 +28,9 @@ reference package's ``models/model.py``).  Batches are dicts of tensors:
 The functions run where their tensors live; the constructors
 (:func:`init_params`, :func:`init_cache`, :func:`init_paged_cache`)
 take a ``device`` that defaults to the CUDA card and raise without one.
-The dense, MoE and SSM families have a dense cache in the port; the
-others raise ``NotImplementedError`` (``transformer.supports_dense`` says
-why).  The paged entry points serve the dense and MoE families
+The dense, MoE, SSM and hybrid families have a dense cache in the port;
+the others raise ``NotImplementedError`` (``transformer.supports_dense``
+says why).  The paged entry points serve the dense and MoE families
 (:func:`supports_paged`).  :func:`batch_invariant` makes their
 arithmetic of a token independent of its batch, wave or window.
 """
@@ -53,7 +55,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
     """A zero dense decode cache: {"kv": (k, v)}, each [L, batch, seq,
     Hkv, D] in ``dtype``; int8 values and bf16 scales with
     ``cfg.cache_int8``; {"ssm": (state, conv)} in f32 for the SSM
-    family."""
+    family; both keys for the hybrid family."""
     return transformer.init_cache(cfg, batch, seq, dtype=dtype,
                                   device=resolve_device(device))
 
@@ -65,7 +67,9 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     """Prefill right-padded prompts.  Returns (next-token logits [B, V],
     dense cache of capacity ``cache_len``: a float KV cache, also for an
     int8 config, as in the reference; the recurrent state for the SSM
-    family)."""
+    family; both for the hybrid family, whose prefill masks keys outside
+    ``cfg.sliding_window`` and whose ``cache_len`` below S ring-packs the
+    KV only)."""
     return transformer.prefill(params, cfg, batch["tokens"],
                                batch["lengths"], act_dtype=act_dtype,
                                cache_len=cache_len)
@@ -110,8 +114,8 @@ def decode_step_into(params, cfg: ModelConfig, cache,
                      *, act_dtype: torch.dtype = torch.bfloat16) -> None:
     """One step of :func:`decode_multi` written in place, so that a CUDA
     graph can replay it: argmax the carried ``state["logits"]``, run
-    :func:`decode_step` at ``state["positions"]`` (the dense cache or the
-    SSM state is written in place), copy the new logits into
+    :func:`decode_step` at ``state["positions"]`` (the dense cache, the
+    SSM state, or both for the hybrid family, written in place), copy the new logits into
     ``state["logits"]``, advance every row's position (the padded batch
     has no idle row) and write the step's token into ``tok_out`` [B].
     ``k`` calls equal ``decode_multi(num_steps=k)``."""

@@ -8,7 +8,8 @@ package's ``models/transformer.py``), in two halves:
   sliding-window models), or with ``cfg.cache_int8`` int8 K and V with
   bf16 scales per (token, head); for the SSM family (mamba2) it is the
   per-layer recurrent state, ``[L, B, H, P, N]`` and ``[L, B, C, K-1]``
-  in f32;
+  in f32; the hybrid family (hymba: attention and SSM heads side by
+  side in every layer) keeps both;
 - paged (DESIGN.md §8-§12): KV lives in one K and one V pool per layer,
   ``[L, num_blocks, bt, Hkv, D]``, shared by every request and addressed
   through per-request block tables; speculative decoding (§16) drafts
@@ -25,7 +26,7 @@ Attention and the SSD scan go through the kernels' ops: the hand-written
 CUDA kernels on the card, their plain versions on the CPU.  The dense,
 MoE (``models/moe.py``: the FFN of every row and position of the
 ``[B, S]`` batch, pads and idle slots included, as the reference groups
-them) and SSM families are ported; the others raise
+them), SSM and hybrid families are ported; the others raise
 ``NotImplementedError`` with the reason.
 
 Where the reference is functional (``.at[].set`` on donated buffers),
@@ -37,6 +38,7 @@ weights, the reference's ``lax.scan``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -201,13 +203,13 @@ def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def supports_dense(cfg: ModelConfig) -> Tuple[bool, str]:
-    """The dense-cache half covers the plain-GQA dense and MoE families
-    and the attention-free SSM family; the others need parts of the model
-    the port does not have yet."""
-    if cfg.family not in ("dense", "moe", "ssm"):
-        return False, (f"family {cfg.family}: its layers (hybrid "
-                       f"attention and SSM heads, vision or audio front "
-                       f"ends) are not ported yet")
+    """The dense-cache half covers the plain-GQA dense and MoE families,
+    the attention-free SSM family and the hybrid family (GQA and SSM
+    heads in every layer); the others need parts of the model the port
+    does not have yet."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        return False, (f"family {cfg.family}: its layers (vision or "
+                       f"audio front ends) are not ported yet")
     if cfg.uses_mla:
         return False, "MLA latent caches are not ported yet"
     return True, ""
@@ -278,36 +280,56 @@ def _attention_decode(ap: Dict, x: torch.Tensor, cfg: ModelConfig,
     return _out_proj(out.to(x.dtype), ap["wo"])
 
 
-def _d_inner(cfg: ModelConfig) -> int:
+def d_inner(cfg: ModelConfig) -> int:
+    """Inner width of a layer's Mamba2 sub-layer: the SSM config's for
+    the SSM family, half of it for the hybrid family, whose SSM heads
+    sit beside the attention heads (the reference's ``expand * d_model
+    // 2``)."""
+    if cfg.family == "hybrid":
+        return cfg.ssm.expand * cfg.d_model // 2
     return cfg.ssm.d_inner(cfg.d_model)
 
 
 def block_forward(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor, *, window: Optional[int] = None):
-    """Full-sequence block.  Returns (x, the layer's cache entry): (k, v)
-    for the dense family, (SSD state, conv state) for the SSM family."""
+    """Full-sequence block.  Returns (x, the layer's cache entry):
+    {"kv": (k, v)}, {"ssm": (SSD state, conv state)}, or both for the
+    hybrid family, whose attention and SSM sub-layers read the same
+    normed input and are averaged: ``x + (attn(h) + mamba(h)) / 2``."""
     h = _norm(x, bp["norm1"], cfg.norm_eps)
     if cfg.family == "ssm":
-        y, state = mamba_forward(bp["mamba"], h, cfg.ssm, _d_inner(cfg),
+        y, state = mamba_forward(bp["mamba"], h, cfg.ssm, d_inner(cfg),
                                  return_state=True)
-        return x + y, state
+        return x + y, {"ssm": state}
     y, kv = _attention(bp["attn"], h, cfg, positions, window=window)
-    return _ffn(bp, x + y, cfg), kv
+    entry = {"kv": kv}
+    if cfg.family == "hybrid":
+        ym, entry["ssm"] = mamba_forward(bp["mamba"], h, cfg.ssm,
+                                         d_inner(cfg), return_state=True)
+        y = (y + ym) * 0.5
+    return _ffn(bp, x + y, cfg), entry
 
 
 def block_decode(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
-                 layer_cache: Tuple[torch.Tensor, ...],
+                 layer_cache: Dict[str, Tuple[torch.Tensor, ...]],
                  positions: torch.Tensor) -> torch.Tensor:
-    """One-token block; writes this layer's cache entry (the leaves of
-    ``cache["kv"]`` or ``cache["ssm"]`` at this layer) in place."""
+    """One-token block; writes this layer's cache entry (``layer_cache``:
+    the leaves of ``cache["kv"]`` and/or ``cache["ssm"]`` at this layer)
+    in place."""
     h = _norm(x, bp["norm1"], cfg.norm_eps)
-    if cfg.family == "ssm":
-        y, new = mamba_decode(bp["mamba"], h, cfg.ssm, _d_inner(cfg),
-                              layer_cache)
-        for leaf, value in zip(layer_cache, new):
+    y = None
+    if "kv" in layer_cache:
+        y = _attention_decode(bp["attn"], h, cfg, layer_cache["kv"],
+                              positions)
+    if "ssm" in layer_cache:
+        state = layer_cache["ssm"]
+        ym, new = mamba_decode(bp["mamba"], h, cfg.ssm, d_inner(cfg),
+                               state)
+        for leaf, value in zip(state, new):
             leaf.copy_(value)
-        return x + y
-    y = _attention_decode(bp["attn"], h, cfg, layer_cache, positions)
+        if y is None:                  # the SSM family: no FFN sub-layer
+            return x + ym
+        y = (y + ym) * 0.5
     return _ffn(bp, x + y, cfg)
 
 
@@ -336,7 +358,9 @@ def prefill(params: Dict, cfg: ModelConfig, tokens, lengths, *,
     cache): {"kv": (k, v)}, each [L, B, cache_len, Hkv, D] in
     ``act_dtype`` (a float cache with ``cfg.cache_int8`` too, as in the
     reference), or for the SSM family {"ssm": (state [L, B, H, P, N],
-    conv [L, B, C, K-1])} in f32, whatever ``act_dtype``.
+    conv [L, B, C, K-1])} in f32, whatever ``act_dtype``; the hybrid
+    family's holds both.  A sliding window masks the prefill's keys
+    (``cfg.sliding_window``); only the KV is ring-packed.
 
     The logits are computed for each row's last valid position only
     (the reference computes all S rows and picks one; the rows are
@@ -348,27 +372,23 @@ def prefill(params: Dict, cfg: ModelConfig, tokens, lengths, *,
     b, s = tokens.shape
     cl = s if cache_len is None else cache_len
     positions = torch.arange(s, device=x.device)
-    if cfg.family == "ssm":
-        cache = init_cache(cfg, b, cl, device=x.device)
-        for i in range(cfg.num_layers):
-            x, new = block_forward(_layer(params["blocks"], i), x, cfg,
-                                   positions)
-            for leaf, value in zip(cache["ssm"], new):
-                leaf[i] = value
-    else:
-        shape = (cfg.num_layers, b, cl, cfg.num_kv_heads, cfg.head_dim)
-        ck = torch.zeros(shape, dtype=act_dtype, device=x.device)
-        cv = torch.zeros(shape, dtype=act_dtype, device=x.device)
-        for i in range(cfg.num_layers):
-            bp = _layer(params["blocks"], i)
-            x, (k, v) = block_forward(bp, x, cfg, positions,
-                                      window=cfg.sliding_window)
-            for leaf, new in ((ck, k), (cv, v)):
-                if cl >= s:          # pad: the zero tail is already there
-                    leaf[i, :, :s] = new
-                else:
-                    leaf[i] = _fit_cache(new, s, cl)
-        cache = {"kv": (ck, cv)}
+    # the KV leaves in act_dtype (float even for an int8 config), the
+    # SSM state in f32
+    shapes, _ = cache_struct(dataclasses.replace(cfg, cache_int8=False), b,
+                             cl, act_dtype)
+    cache = {key: tuple(torch.zeros(shape, dtype=dt, device=x.device)
+                        for shape, dt in leaves)
+             for key, leaves in shapes.items()}
+    for i in range(cfg.num_layers):
+        x, entry = block_forward(_layer(params["blocks"], i), x, cfg,
+                                 positions, window=cfg.sliding_window)
+        for leaf, new in zip(cache.get("kv", ()), entry.get("kv", ())):
+            if cl >= s:              # pad: the zero tail is already there
+                leaf[i, :, :s] = new
+            else:
+                leaf[i] = _fit_cache(new, s, cl)
+        for leaf, new in zip(cache.get("ssm", ()), entry.get("ssm", ())):
+            leaf[i] = new
     rows = torch.arange(b, device=x.device)
     last = x[rows, lengths.long() - 1]
     logits = _logits(params, cfg, last[:, None])[:, 0]
@@ -383,10 +403,10 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict, tokens,
     _require_dense(cfg)
     params = cast_params(params, act_dtype)
     x = _embed_in(params, tokens[:, None], act_dtype)
-    leaves = cache["ssm" if cfg.family == "ssm" else "kv"]
     for i in range(cfg.num_layers):
         x = block_decode(_layer(params["blocks"], i), x, cfg,
-                         tuple(leaf[i] for leaf in leaves), positions)
+                         {key: tuple(leaf[i] for leaf in leaves)
+                          for key, leaves in cache.items()}, positions)
     return _logits(params, cfg, x)[:, 0], cache
 
 
@@ -394,25 +414,30 @@ def cache_struct(cfg: ModelConfig, batch: int, seq: int,
                  dtype: torch.dtype = torch.bfloat16):
     """Returns ({key: ((shape, dtype), ...)}, logical axes) of the decode
     cache: {"kv": (k, v)} in ``dtype``, {"kv": (k int8, v int8, k scales
-    bf16, v scales bf16)} with ``cfg.cache_int8``, or {"ssm": (state,
-    conv)} in f32 for the SSM family.  ``seq`` is the KV capacity (the
-    window for sliding-window models); the SSM state does not depend on
-    it."""
+    bf16, v scales bf16)} with ``cfg.cache_int8``, {"ssm": (state,
+    conv)} in f32 for the SSM family, and both "kv" and "ssm" for the
+    hybrid family.  ``seq`` is the KV capacity (the window for
+    sliding-window models); the SSM state does not depend on it."""
     _require_dense(cfg)
     n_layers = cfg.num_layers
-    if cfg.family == "ssm":
-        shapes, axes = mamba_state_spec(cfg, batch, _d_inner(cfg))
-        return ({"ssm": tuple(((n_layers,) + sh, torch.float32)
-                              for sh in shapes)},
-                {"ssm": tuple(("layers",) + a for a in axes)})
-    shape = (n_layers, batch, seq, cfg.num_kv_heads, cfg.head_dim)
-    ax = ("layers", "cache_batch", "kv_seq", "cache_heads", None)
-    if cfg.cache_int8:
-        sc = shape[:-1]
-        return ({"kv": ((shape, torch.int8), (shape, torch.int8),
-                        (sc, torch.bfloat16), (sc, torch.bfloat16))},
-                {"kv": (ax, ax, ax[:-1], ax[:-1])})
-    return {"kv": ((shape, dtype), (shape, dtype))}, {"kv": (ax, ax)}
+    shapes: Dict[str, Tuple] = {}
+    axes: Dict[str, Tuple] = {}
+    if cfg.family != "ssm":
+        shape = (n_layers, batch, seq, cfg.num_kv_heads, cfg.head_dim)
+        ax = ("layers", "cache_batch", "kv_seq", "cache_heads", None)
+        if cfg.cache_int8:
+            sc = shape[:-1]
+            shapes["kv"] = ((shape, torch.int8), (shape, torch.int8),
+                            (sc, torch.bfloat16), (sc, torch.bfloat16))
+            axes["kv"] = (ax, ax, ax[:-1], ax[:-1])
+        else:
+            shapes["kv"] = ((shape, dtype), (shape, dtype))
+            axes["kv"] = (ax, ax)
+    if cfg.family in ("ssm", "hybrid"):
+        sh, ax = mamba_state_spec(cfg, batch, d_inner(cfg))
+        shapes["ssm"] = tuple(((n_layers,) + s, torch.float32) for s in sh)
+        axes["ssm"] = tuple(("layers",) + a for a in ax)
+    return shapes, axes
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, *,

@@ -1,4 +1,5 @@
-"""Parameters of the dense, MoE and SSM (mamba2) models as nested dicts
+"""Parameters of the dense, MoE, SSM (mamba2) and hybrid (hymba) models
+as nested dicts
 of tensors, with the reference package's keys and layouts (``embed [V,
 d]``, ``blocks/attn/wq [L, d, Hq, hd]``, ``blocks/attn/wo [L, Hq, hd,
 d]``, ``blocks/mlp/gate [L, d, d_ff]``, ``blocks/moe/router [L, d,
@@ -25,16 +26,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import KEEP_F32
+from repro_torch.models.transformer import KEEP_F32, d_inner
 
 # name -> (shape, init, scale) for one leaf of the parameter tree
 Spec = Tuple[Tuple[int, ...], str, float]
 
 
-def _mamba_spec(cfg: ModelConfig) -> Dict[str, Spec]:
-    """One stacked Mamba2 block (the reference's ``ssm.mamba_spec``)."""
+def _mamba_spec(cfg: ModelConfig, d_in: int) -> Dict[str, Spec]:
+    """One stacked Mamba2 block of inner width ``d_in`` (the reference's
+    ``ssm.mamba_spec``)."""
     s, d, L = cfg.ssm, cfg.d_model, cfg.num_layers
-    d_in = s.d_inner(d)
     n_h, n = d_in // s.head_dim, s.d_state
     conv_dim = d_in + 2 * n
     return {"in_proj": ((L, d, 2 * d_in + 2 * n + n_h), "normal", 1.0),
@@ -65,19 +66,22 @@ def _moe_spec(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """Shapes and initialisers of the dense, MoE and SSM families'
-    parameters (the reference package's ``transformer.model_spec``)."""
-    if cfg.family not in ("dense", "moe", "ssm") or cfg.uses_mla \
+    """Shapes and initialisers of the dense, MoE, SSM and hybrid
+    families' parameters (the reference package's
+    ``transformer.model_spec``).  A hybrid block is the dense block with
+    a Mamba2 sub-layer of half the SSM family's inner width beside its
+    attention (``transformer.d_inner``)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.uses_mla \
             or cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: the port covers the dense, MoE and SSM families "
-            f"only")
+            f"{cfg.name}: the port covers the dense, MoE, SSM and hybrid "
+            f"families only")
     d, v, L = cfg.d_model, cfg.padded_vocab, cfg.num_layers
     if cfg.family == "ssm":
         spec: Dict[str, Any] = {
             "embed": ((v, d), "normal", 1.0),
             "blocks": {"norm1": ((L, d), "ones", 1.0),
-                       "mamba": _mamba_spec(cfg)},
+                       "mamba": _mamba_spec(cfg, d_inner(cfg))},
             "final_norm": ((d,), "ones", 1.0)}
         if not cfg.tie_embeddings:
             spec["lm_head"] = ((d, v), "normal", 1.0)
@@ -97,10 +101,12 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
         "blocks": {
             "norm1": ((L, d), "ones", 1.0),
             "attn": attn,
-            "norm2": ((L, d), "ones", 1.0),
         },
         "final_norm": ((d,), "ones", 1.0),
     }
+    if cfg.family == "hybrid":
+        spec["blocks"]["mamba"] = _mamba_spec(cfg, d_inner(cfg))
+    spec["blocks"]["norm2"] = ((L, d), "ones", 1.0)
     if cfg.moe is not None:
         spec["blocks"]["moe"] = _moe_spec(cfg)
     else:
@@ -141,8 +147,8 @@ def params_from_numpy(tree, *, device, dtype=torch.float32):
     parameter or dense-cache pytree after ``np.asarray``) -> the same
     tree of tensors on ``device``; floating arrays become ``dtype``, the
     ``KEEP_F32`` leaves f32.  The reference's dense caches (``{"kv": (k,
-    v)}``, ``{"ssm": (state, conv)}``) have the port's layout, so they
-    cross over as they are."""
+    v)}``, ``{"ssm": (state, conv)}``, both for the hybrid family) have
+    the port's layout, so they cross over as they are."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(
                     v, device=device,

@@ -49,8 +49,9 @@
 Generation is length-scripted replay (DESIGN.md §7): logits come from the
 real model, and a request stops at its ground-truth generation length.
 
-The padded engines serve the dense, MoE and SSM (mamba2) families with
-a float cache; the paged engine serves the dense and MoE families.
+The padded engines serve the dense, MoE, SSM (mamba2) and hybrid
+(hymba: KV and recurrent state in one cache) families with a float
+cache; the paged engine serves the dense and MoE families.
 """
 from __future__ import annotations
 

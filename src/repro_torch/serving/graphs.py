@@ -19,9 +19,10 @@ capture one:
   ``slots``, so it captures once per engine, at its first window or in
   ``warmup()``.
 - :meth:`DecodeGraph.padded`: ``decode_step_into`` on one padded batch's
-  dense cache (or SSM state) and logits, with positions of its own.  A
-  ``BatchEngine`` allocates that cache in each batch's prefill, so it
-  captures once per batch, and the graph is dropped with the batch.
+  dense cache (its SSM state, or both for the hybrid family) and
+  logits, with positions of its own.  A ``BatchEngine`` allocates that
+  cache in each batch's prefill, so it captures once per batch, and the
+  graph is dropped with the batch.
 
 A speculative paged engine (§16) never runs the plain decode step.  It
 captures its whole window instead, :class:`SpecGraph`: the draft

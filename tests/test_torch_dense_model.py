@@ -162,8 +162,7 @@ def test_decode_multi_equals_sequential_decode_steps(arch):
         assert torch.equal(a, b)
 
 
-UNSUPPORTED = ("deepseek-v3-671b", "hymba-1.5b", "internvl2-26b",
-               "whisper-large-v3")
+UNSUPPORTED = ("deepseek-v3-671b", "internvl2-26b", "whisper-large-v3")
 
 
 @pytest.mark.parametrize("arch", UNSUPPORTED)

@@ -114,6 +114,34 @@ def test_cuda_flash_tensor_core_edges(s, hq, hkv, d, window, mode):
     torch.testing.assert_close(out.float(), want.float(), atol=5e-2, rtol=0)
 
 
+# hymba-1.5b's heads (25 query heads over 5 KV heads of 64, G = 5) with
+# S past the window: (B, S, window); the last is the model's own 2,048
+# window at a 4,096-token prompt, where whole K/V tiles left of the
+# window are skipped
+HYMBA_WINDOWS = [(2, 640, 256), (1, 4096, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,s,window", HYMBA_WINDOWS)
+def test_cuda_flash_window_at_hymba_heads(b, s, window, dtype):
+    """The kernel in window mode at Hq 25 / Hkv 5, D 64, S > window,
+    against its plain version: 2e-4 in f32 (TF32 off), 5e-2 in bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt, _, tol = DTYPES[dtype]
+    rng = np.random.default_rng(11)
+    args = [torch.from_numpy(rng.normal(size=(b, s, h, 64)).astype(
+        np.float32)).to("cuda", tdt) for h in (25, 5, 5)]
+    n0 = ops.flash_attention.launches
+    out = ops.flash_attention(*args, causal=True, window=window)
+    assert ops.flash_attention.launches == n0 + 1
+    want = ref.flash_attention_ref(*args, causal=True, window=window)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
+
+
 def test_flash_kernel_refuses_other_bf16_head_sizes():
     """The tensor-core kernel takes D in {32, 64, 128}; the wrapper raises
     on any other bf16 head size before it reaches the card (f32 keeps

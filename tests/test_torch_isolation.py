@@ -19,7 +19,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [
     ROOT / "scripts" / name for name in (
-        "f32_invariance.py", "first_swap_out.py",
+        "eager_step_compare.py", "f32_invariance.py", "first_swap_out.py",
+        "hybrid_phase.py", "hybrid_rehearsal.py", "moe_rehearsal.py",
         "padded_graph_breakeven.py", "recovery_rehearsal.py",
         "run_cuda_tests.py", "spec_rehearsal.py", "ssd_scan_phases.py")]
 

@@ -3,7 +3,8 @@
 counterpart of the reference's compiled ``decode_multi`` window in
 ``BatchEngine.serve_batch``.
 
-On the CPU, for a reduced chatglm-6b, mamba2-780m and olmoe-1b-7b: the
+On the CPU, for a reduced chatglm-6b, mamba2-780m, olmoe-1b-7b and
+hymba-1.5b (the hybrid family: KV and SSM state in one cache): the
 captured unit, ``decode_step_into`` (one greedy step written in place),
 repeated ``k`` times equals ``decode_multi(k)`` bit for bit (tokens,
 logits, positions and the dense cache or SSM state) and the JAX
@@ -11,8 +12,10 @@ logits, positions and the dense cache or SSM state) and the JAX
 decodes eagerly and captures nothing.
 
 On the card (``cuda``-marked, a reduced chatglm-6b in f32 and bf16, a
-reduced mamba2-780m in f32 and a reduced olmoe-1b-7b in bf16, its MoE
-FFN inside the graph): a ``BatchEngine`` batch captures once,
+reduced mamba2-780m in f32, a reduced olmoe-1b-7b in bf16, its MoE
+FFN inside the graph, and a reduced hymba-1.5b in f32 and bf16, its
+attention and SSM heads both inside the graph, its prefill in window
+mode): a ``BatchEngine`` batch captures once,
 and its streams, logits, positions and cache equal the same batch
 decoded by eager ``decode_multi`` on a copy of its state, with the
 kernels' launch counts equal to eager's; a batch of one step, or of
@@ -43,7 +46,7 @@ from repro_torch.serving.engine import BatchEngine
 from repro_torch.workload import apps
 
 TOL = 2e-4          # f32, of the reference's largest magnitude
-ARCHS = ("chatglm-6b", "mamba2-780m", "olmoe-1b-7b")
+ARCHS = ("chatglm-6b", "mamba2-780m", "olmoe-1b-7b", "hymba-1.5b")
 KERNELS = decode_ops.KERNELS + flash_ops.KERNELS + scan_ops.KERNELS
 
 
@@ -112,9 +115,10 @@ def test_decode_step_into_equals_decode_multi_and_jax(arch, k):
     assert torch.equal(toks, ftoks)
     assert torch.equal(state["logits"], flog)
     assert torch.equal(state["positions"], fpos)
-    (key,) = cache
-    for got, want in zip(cache[key], fcache[key]):
-        assert torch.equal(got, want)
+    assert set(cache) == set(fcache) == set(jcache)
+    for key in cache:
+        for got, want in zip(cache[key], fcache[key]):
+            assert torch.equal(got, want)
     jdec = jax.jit(functools.partial(JM.decode_multi, cfg=jcfg,
                                      act_dtype=jnp.float32),
                    static_argnames=("num_steps",))
@@ -124,8 +128,9 @@ def test_decode_step_into_equals_decode_multi_and_jax(arch, k):
     assert np.array_equal(toks.numpy(), np.asarray(jtoks))
     assert np.array_equal(state["positions"].numpy(), np.asarray(jpos))
     _allclose(state["logits"].numpy(), jlog)
-    for got, want in zip(cache[key], jc[key]):
-        _allclose(got.numpy(), want)
+    for key in cache:
+        for got, want in zip(cache[key], jc[key]):
+            _allclose(got.numpy(), want)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -170,8 +175,10 @@ def card():
 
 
 CARD_CASES = [("chatglm-6b", torch.float32), ("chatglm-6b", torch.bfloat16),
-              ("mamba2-780m", torch.float32), ("olmoe-1b-7b", torch.bfloat16)]
-CARD_IDS = ["chatglm-f32", "chatglm-bf16", "mamba2-f32", "olmoe-bf16"]
+              ("mamba2-780m", torch.float32), ("olmoe-1b-7b", torch.bfloat16),
+              ("hymba-1.5b", torch.float32), ("hymba-1.5b", torch.bfloat16)]
+CARD_IDS = ["chatglm-f32", "chatglm-bf16", "mamba2-f32", "olmoe-bf16",
+            "hymba-f32", "hymba-bf16"]
 
 
 def _card_engine(arch, dtype, max_gen=16):
@@ -227,11 +234,15 @@ def test_captured_batch_equals_eager_decode(card, arch, dtype, monkeypatch):
             act_dtype=dtype)
         chunks.append(toks.cpu())
     eager = {n: c - l1[n] for n, c in _launches().items()}
-    layers, ssm = eng.cfg.num_layers, eng.cfg.family == "ssm"
+    layers, family = eng.cfg.num_layers, eng.cfg.family
     prefill = {n: 0 for n in served}
-    prefill["ssd_scan" if ssm else "flash_attention"] = layers
+    if family != "ssm":
+        prefill["flash_attention"] = layers
+    if family in ("ssm", "hybrid"):
+        prefill["ssd_scan"] = layers
     assert {n: served[n] - eager[n] for n in served} == prefill
-    assert eager["decode_attention"] == (0 if ssm else layers * 13)
+    assert eager["decode_attention"] == (0 if family == "ssm"
+                                         else layers * 13)
     toks = torch.cat(chunks, 1)
     for i, r in enumerate(reqs):
         assert res.generated[r.req_id] == toks[i, :r.gen_length].tolist()

@@ -241,3 +241,37 @@ def test_cuda_kernel_matches_plain_versions():
             got = torch.tril(scratch[:, z, :m, :m])
             lim = CHUNKED_TOL * max(1.0, want.abs().max().item())
             assert (got - want).abs().max().item() < lim, (bsz, s, z)
+
+
+# hymba-1.5b's SSM heads (H 25, P 64, N 16, chunk 128), which the wrapper
+# runs on the N <= 32 instance: (B, S), S a multiple of the chunk, ragged,
+# and the 4,096-token prompt (32 chunks)
+HYMBA_SCANS = [(2, 256), (3, 200), (2, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_tile", kernel.P_TILES)
+@pytest.mark.parametrize("bsz,s", HYMBA_SCANS)
+def test_cuda_scan_at_hymba_widths(bsz, s, p_tile):
+    """The scan at H 25, P 64, N 16, chunk 128 against the chunked plain
+    version at 2e-4 of the output's scale, at both P slices, and against
+    the recurrence at the reference's 5e-3 where S is short; through the
+    wrapper too, which counts one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [torch.from_numpy(a).cuda()
+            for a in _inputs(bsz, s, 25, 64, 16, seed=5)]
+    n0 = ops.ssd_scan.launches
+    outs = [ops.ssd_scan(*args, 128),
+            kernel.ssd_scan_kernel(*args, chunk=128, p_tile=p_tile)]
+    assert ops.ssd_scan.launches == n0 + 1
+    wants = [(ref.ssd_chunked_ref(*args, 128), None)]
+    if s <= 256:
+        wants.append((ref.ssd_scan_ref(*args), ORACLE_TOL))
+    for (wy, ws), tol in wants:
+        for y, st in outs:
+            for got, want in ((y, wy), (st, ws)):
+                assert torch.isfinite(got).all()
+                lim = tol or CHUNKED_TOL * max(1.0, want.abs().max().item())
+                assert (got - want).abs().max().item() < lim, (bsz, s)
