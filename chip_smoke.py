@@ -262,10 +262,40 @@ CUDA toolkit.  Phases, each fatal on failure:
    4,096, against SDPA with a band mask), dense decode at G 5 and the
    scan at N 16 (both P slices) timed at those inputs as phase 6
    times.  (d) tokens/s beside phases 7 and 11, the peak allocation.
+20. MLA serve: deepseek-v3-671b at its published widths (d_model 7168,
+   128 heads, q_lora 1536, kv_lora 512, nope 128, rope 64, v 128; 256
+   experts of 2,048 top 8 plus a shared one) cut to 2 layers and no
+   MTP module (``MLA_CUT``; 49.8 GB in bf16, drawn on the card from seed
+   0 once hymba-1.5b's weights are gone, a slice at a time), in bf16
+   through the padded launcher's loop (``serve_padded``, ``magnus``)
+   on phase 7's requests.  (a) Fatal checks: every request gets its
+   generation length; batches, steps, host syncs, captures, the WMA
+   total and the shapes as ``scripts/mla_vlm_rehearsal.py`` predicts
+   (``MLA_SCHEDULE``); no kernel launch and no plain call (MLA is plain
+   PyTorch, as in the reference); one capture a batch; the layer-0
+   absorbed decode of a sample of steps (replayed ones included) held
+   against the naive form (K and V expanded from the latent, f32) at
+   ``MLA_TOL`` of scale; graphed and eager windows of the largest batch
+   bit for bit (both latent leaves, logits, positions), profiled beside
+   the step's bound.  (b) A prefill of 2,048 and 1,500 tokens: layer
+   0's ``mla_prefill`` in two KV chunks of 1,024 held against one chunk
+   (bf16 5e-2, f32 2e-4).  (c) Logged: ``init_params``'s host seconds
+   and peak, tokens/s beside phase 7's, the phase's peak allocation.
+21. vlm serve: ``run_engine_backend("internvl2-26b", ...,
+   reduced=False)`` uncut in bf16 (48 layers, d_model 6144, 48 query
+   heads over 8 KV heads of 128, 256 zero patches before every prompt),
+   ``magnus`` on phase 7's requests once deepseek-v3-671b's weights are
+   gone.  Fatal checks: as phase 19's (``VLM_SCHEDULE``); flash 48
+   times a batch at S = bl + 256, dense decode 48 times a step on a
+   ``_bucket(bl + G(B) + 256)`` cache; every batch's layer-0 flash call
+   and a sample of decode steps held as phase 6 holds; graphed and
+   eager windows bit for bit.  Logged: both kernels timed at these
+   inputs as phase 8 times them, the step's bound, tokens/s beside
+   phase 7's, the peak allocation.
 
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves; phase 14 runs right after
-phase 5, then phases 15, 16, 17, 18 and 19 last.  The line before the
+phase 5, then phases 15, 16, 17, 18, 19, 20 and 21 last.  The line before the
 last is a JSON object with one entry per kernel (six); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is missing or the port's sources are not beside
@@ -3016,6 +3046,60 @@ def moe_phase(torch, ops, ref, transformer, res5, spin, reset_counts,
 
 
 # ---------------------------------------------------------------------------
+# phases 11, 19-21: what every padded serve of phase 7's requests checks
+# ---------------------------------------------------------------------------
+
+def check_padded_serve(label, cfg, res, results, targets):
+    """What every padded serve must show: every request served once with
+    its generation length, every batch G(B) iterations, one readback a
+    power-of-two window, and the schedule the CPU rehearsal predicted.
+    Returns the decode steps."""
+    check(res["requests"] == len(targets),
+          f"{label}: {res['requests']} of {len(targets)} requests")
+    check(sorted(rid for r in results for rid in r.generated)
+          == sorted(targets), f"{label}: the batches did not serve each "
+          f"request once")
+    for r in results:
+        check(r.iterations == max(targets[i] for i in r.generated),
+              f"{label}: a batch ran {r.iterations} iterations, not its "
+              f"G(B)")
+        for rid, toks in r.generated.items():
+            check(len(toks) == targets[rid]
+                  and all(0 <= x < cfg.vocab_size for x in toks),
+                  f"{label} request {rid}: {len(toks)} of {targets[rid]} "
+                  f"tokens or one out of range")
+    steps = sum(r.iterations for r in results)
+    check(res["host_syncs"] == sum(bin(r.iterations).count("1")
+                                   for r in results),
+          f"{label}: host syncs {res['host_syncs']}: not one a window")
+    return steps
+
+
+def padded_schedule(res, engine, results):
+    return {"batches": len(results),
+            "decode_steps": sum(r.iterations for r in results),
+            "host_syncs": res["host_syncs"],
+            "captures": engine.graph_captures,
+            "wma_total": res["wma_total"],
+            "shapes": sorted([r.batch_size, r.batch_length, r.iterations]
+                             for r in results)}
+
+
+def phase7_requests(vocab_size):
+    """Phase 7's 64 Poisson requests, their generation targets, and a
+    check that every prompt id lies inside the vocabulary."""
+    from repro_torch.workload.generator import poisson_workload
+    from repro_torch.workload.tokenizer import encode
+    reqs = poisson_workload(8, 60, seed=0, max_len=DENSE_MAX_LEN,
+                            max_gen=DENSE_MAX_GEN)[:DENSE_N_REQUESTS]
+    targets = {r.req_id: min(r.gen_length, DENSE_MAX_GEN) for r in reqs}
+    top = max(max(encode(f"{r.instruction} {r.user_input}", vocab_size))
+              for r in reqs)
+    check(top < vocab_size, f"prompt id {top} >= {vocab_size}")
+    return reqs, targets
+
+
+# ---------------------------------------------------------------------------
 # phase 19: the hybrid family (hymba-1.5b) on the padded path
 # ---------------------------------------------------------------------------
 
@@ -3043,11 +3127,14 @@ HYBRID_CACHES = (8192, 2048)
 HYBRID_LONG_STEPS = 8
 
 
-def hybrid_step_bound(engine, reqs, bl, steps):
+def padded_step_bound(engine, reqs, bl, steps):
     """A padded decode step's least time at the profiled batch: every
-    weight but the embedding read once, the recurrent state (f32) read
-    and written, and the K/V of the window's mean length read once, at
-    3.35 TB/s.  Returns (ms, weights GB, state GB, KV GB)."""
+    weight but the embedding read once (every expert's too: the capacity
+    dispatch computes them all), the recurrent state (f32) read and
+    written where the model has one, and the cache entries (K/V, or
+    MLA's latents) of the window's mean length, the vlm family's patch
+    prefix included, read once, at 3.35 TB/s.  Returns (ms, weights GB,
+    state GB, cache GB)."""
     import math
     from repro_torch.models.transformer import cache_struct
     cfg = engine.cfg
@@ -3055,8 +3142,10 @@ def hybrid_step_bound(engine, reqs, bl, steps):
                   for k, v in engine.params.items() if k != "embed"
                   for t in _leaves(v))
     shapes, _ = cache_struct(cfg, len(reqs), 1)
-    state = 2 * sum(math.prod(shape) * 4 for shape, _ in shapes["ssm"])
-    tokens = sum(min(r.length, bl) + steps / 2 for r in reqs)
+    state = 2 * sum(math.prod(shape) * 4 for shape, _ in
+                    shapes.get("ssm", ()))
+    prefix = cfg.num_patches if cfg.family == "vlm" else 0
+    tokens = sum(min(r.length, bl) + prefix + steps / 2 for r in reqs)
     kv = tokens * cfg.kv_bytes_per_token(2)
     total = weights + state + kv
     return total / HBM_BYTES_PER_S * 1e3, weights / 1e9, state / 1e9, kv / 1e9
@@ -3192,8 +3281,6 @@ def hybrid_phase(torch, ops, ref, fops, fref, sops, sref, ssm_module,
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run_engine_backend
     from repro_torch.models.transformer import d_inner
-    from repro_torch.workload.generator import poisson_workload
-    from repro_torch.workload.tokenizer import encode
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3203,12 +3290,7 @@ def hybrid_phase(torch, ops, ref, fops, fref, sops, sref, ssm_module,
     check(before < HYBRID_FREE_BEFORE, "olmoe-1b-7b's weights were not "
           "released before phase 19")
     hcfg = get_config(HYBRID_ARCH)
-    reqs = poisson_workload(8, 60, seed=0, max_len=DENSE_MAX_LEN,
-                            max_gen=DENSE_MAX_GEN)[:DENSE_N_REQUESTS]
-    targets = {r.req_id: min(r.gen_length, DENSE_MAX_GEN) for r in reqs}
-    top = max(max(encode(f"{r.instruction} {r.user_input}", hcfg.vocab_size))
-              for r in reqs)
-    check(top < hcfg.vocab_size, f"prompt id {top} >= {hcfg.vocab_size}")
+    reqs, targets = phase7_requests(hcfg.vocab_size)
     layers, window = hcfg.num_layers, hcfg.sliding_window
     prefills, decodes = dense_recorders(transformer, layers, window=window)
     scans = Recorder(ssm_module, "ssd_scan", layers)
@@ -3237,32 +3319,10 @@ def hybrid_phase(torch, ops, ref, fops, fref, sops, sref, ssm_module,
            cfg.padded_vocab)
           == (32, 1600, 25, 5, 64, 25, 64, 16, 128, 2048, 32768),
           f"phase 19 did not serve {HYBRID_ARCH} at full width")
-    check(res["requests"] == DENSE_N_REQUESTS,
-          f"phase 19: {res['requests']} of {DENSE_N_REQUESTS} requests")
-    check(sorted(rid for r in results for rid in r.generated)
-          == sorted(targets), "phase 19: the batches did not serve each "
-          "request once")
-    for r in results:
-        check(r.iterations == max(targets[i] for i in r.generated),
-              f"phase 19: a batch ran {r.iterations} iterations, not its "
-              f"G(B)")
-        for rid, toks in r.generated.items():
-            check(len(toks) == targets[rid]
-                  and all(0 <= x < cfg.vocab_size for x in toks),
-                  f"phase 19 request {rid}: {len(toks)} of {targets[rid]} "
-                  f"tokens or one out of range")
-    steps = sum(r.iterations for r in results)
-    sched = {"batches": len(results), "decode_steps": steps,
-             "host_syncs": res["host_syncs"],
-             "captures": engine.graph_captures,
-             "wma_total": res["wma_total"],
-             "shapes": sorted([r.batch_size, r.batch_length, r.iterations]
-                              for r in results)}
+    steps = check_padded_serve("phase 19", cfg, res, results, targets)
+    sched = padded_schedule(res, engine, results)
     check(sched == HYBRID_SCHEDULE, f"phase 19 schedule {sched}, the CPU "
           f"rehearsal predicted {HYBRID_SCHEDULE}")
-    check(res["host_syncs"] == sum(bin(r.iterations).count("1")
-                                   for r in results),
-          f"phase 19: host syncs {res['host_syncs']}: not one a window")
     want = {name: 0 for name in launches}
     want.update(flash_attention=layers * len(results),
                 ssd_scan=layers * len(results),
@@ -3299,7 +3359,7 @@ def hybrid_phase(torch, ops, ref, fops, fref, sops, sref, ssm_module,
                                     cache_len, label="hybrid padded")
     log_profiles(f"hybrid padded decode step at {big.batch_size} rows",
                  profiles)
-    ms, wgb, sgb, kgb = hybrid_step_bound(engine, breqs, big.batch_length, 8)
+    ms, wgb, sgb, kgb = padded_step_bound(engine, breqs, big.batch_length, 8)
     log(f"phase 19 decode step bound at {big.batch_size} rows: {ms:.3f} ms "
         f"({wgb:.2f} GB of weights, {sgb:.3f} GB of recurrent state read "
         f"and written, {kgb:.3f} GB of K/V at 3.35 TB/s); graphed busy "
@@ -3339,6 +3399,384 @@ def hybrid_phase(torch, ops, ref, fops, fref, sops, sref, ssm_module,
     gc.collect()
     torch.cuda.empty_cache()
     return t19, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the MLA family (deepseek-v3-671b) on the padded path
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v3-671b"
+# its published widths, cut in depth only: 61 layers to 2 (a layer is
+# 11.5 B parameters, 22.9 GB in bf16; a third would leave no room on 80
+# GB), and the MTP module (another 22.9 GB, which only training reads)
+# dropped
+MLA_CUT = dict(num_layers=2, mtp_depth=0)
+# the CPU rehearsal's (scripts/mla_vlm_rehearsal.py): memory never binds
+MLA_SCHEDULE = dict(
+    batches=9, decode_steps=576, host_syncs=9, captures=9, wma_total=28703,
+    shapes=[[1, 256, 64], [1, 256, 64], [3, 256, 64], [4, 256, 64],
+            [5, 256, 64], [6, 256, 64], [11, 256, 64], [13, 256, 64],
+            [20, 256, 64]])
+MLA_FREE_BEFORE = 2 << 30      # allocated before the phase: hymba-1.5b's
+#                                weights (2.79 GB) must be gone
+MLA_TOL = 2e-3                 # absorbed against naive decode, f32, of
+#                                the output's scale
+# (b): two prompts of 2,048 and 1,500 tokens, so mla_prefill runs two KV
+# chunks of 1,024, held against its one-chunk form
+MLA_LONG = (2048, 1500)
+
+
+def mla_config():
+    """deepseek-v3-671b at its published widths, cut by ``MLA_CUT``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MLA_ARCH), **MLA_CUT)
+
+
+def mla_naive(torch, q_nope, q_rope, c_kv, k_rope, k_b, v_b, valid, scale):
+    """One-token MLA without the absorption, in f32, on the same latent
+    cache: K = c_kv @ k_b and V = c_kv @ v_b for every head, a plain
+    softmax over the first ``valid`` slots.  Returns o [B, H, Dv]."""
+    f = lambda t: t.float()
+    k = torch.einsum("bsr,rhd->bshd", f(c_kv), f(k_b))
+    v = torch.einsum("bsr,rhd->bshd", f(c_kv), f(v_b))
+    sc = (torch.einsum("bhd,bshd->bhs", f(q_nope), k)
+          + torch.einsum("bhd,bsd->bhs", f(q_rope), f(k_rope))) * scale
+    mask = (torch.arange(c_kv.shape[1], device=sc.device)[None, :]
+            < valid[:, None])
+    sc = sc.masked_fill(~mask[:, None, :], float("-inf"))
+    return torch.einsum("bhs,bshd->bhd", torch.softmax(sc, dim=-1), v)
+
+
+def mla_long_prefill(torch, transformer, mla_module, engine):
+    """Phase 20 (b): two rows of ``MLA_LONG`` tokens prefilled at full
+    width, so that ``mla_prefill`` runs two KV chunks of 1,024; layer
+    0's output held against the one-chunk form (``chunk = S``) on the
+    same inputs: in bf16 as served at 5e-2 of scale, and the same call
+    in f32 (weights and input cast, TF32 off) at 2e-4."""
+    from repro_torch.models import model as M
+    cfg, params = engine.cfg, engine.params
+    s, m = max(MLA_LONG), cfg.mla
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(3, cfg.vocab_size, (len(MLA_LONG), s),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    lengths = torch.tensor(MLA_LONG, dtype=torch.int32, device="cuda")
+    rec = Recorder(transformer, "mla_prefill", cfg.num_layers,
+                   lambda p, x, mm, h, positions, theta: (p, x, positions))
+    t0 = time.perf_counter()
+    with rec:
+        logits, cache = M.prefill(params, cfg, {"tokens": tokens,
+                                                "lengths": lengths},
+                                  act_dtype=engine.dtype, cache_len=s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(torch.isfinite(logits.float()).all().item()
+          and [t.shape for t in cache["kv"]]
+          == [(cfg.num_layers, 2, s, m.kv_lora_rank),
+              (cfg.num_layers, 2, s, m.qk_rope_dim)],
+          f"phase 20 (b): logits or latent cache {[t.shape for t in cache['kv']]}")
+    check(len(rec.kept) == 1, f"phase 20 (b): {len(rec.kept)} prefills")
+    p, x, positions = rec.kept[0]
+    del cache, rec
+    check(mla_module._pick_chunk(s, 1024) == 1024,
+          "phase 20 (b): the prefill is not two chunks of 1,024")
+    run = lambda pp, xx, chunk: mla_module.mla_prefill(
+        pp, xx, m, cfg.num_heads, positions, cfg.rope_theta, chunk=chunk)[0]
+    err16, sc16 = hold(torch, "mla_prefill (phase 20 (b), bf16, two "
+                       "chunks against one)", run(p, x, 1024), run(p, x, s))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p32 = {k: v.float() for k, v in p.items()}
+        err32, sc32 = hold(torch, "mla_prefill (phase 20 (b), f32)",
+                           run(p32, x.float(), 1024),
+                           run(p32, x.float(), s), tol=2e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"phase 20 (b): a prefill of {list(MLA_LONG)} tokens in {wall:.2f} s;"
+        f" layer 0's mla_prefill in two KV chunks of 1,024 against one of "
+        f"{s}: bf16 max abs err {err16:.3e} at scale {sc16:.1f} (tol 5e-2 "
+        f"of scale), f32 {err32:.3e} at scale {sc32:.1f} (tol 2e-4)")
+
+
+def mla_phase(torch, transformer, mla_module, hbm, others, reset_counts,
+              counts):
+    """Phase 20: deepseek-v3-671b at its published widths, cut to
+    ``MLA_CUT``, in bf16 through the padded launcher's loop
+    (``serve_padded``: ``magnus``, ``BatchEngine``) on phase 7's
+    requests, its weights drawn on the card from seed 0 once
+    hymba-1.5b's are gone.  (a) Checks: as phase 19's (the schedule as
+    ``MLA_SCHEDULE``, the CPU rehearsal, predicts), but no kernel
+    launches and no plain version runs: MLA is plain PyTorch, as in the
+    reference; one capture a batch; at layer 0 of every
+    ``DECODE_SAMPLE``-th step of a batch (replayed ones included) the
+    absorbed attention held against the naive form (:func:`mla_naive`)
+    at ``MLA_TOL``; graphed and eager windows of the largest batch bit
+    for bit (both latent leaves, logits, positions), profiled beside the
+    step's bound.  (b) :func:`mla_long_prefill`.  (c) Logged: the host
+    seconds ``init_params`` took and the peak while it drew, tokens/s
+    beside ``others``, the phase's peak allocation.  Returns the serve's
+    launches."""
+    import gc
+    from repro_torch.launch.serve import serve_padded
+    from repro_torch.models import model as M
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    log(f"phase 20: {before / 2 ** 30:.2f} GiB allocated before it; "
+        f"hbm_bytes {hbm}")
+    check(before < MLA_FREE_BEFORE, "hymba-1.5b's weights were not "
+          "released before phase 20")
+    cfg, t_phase = mla_config(), time.perf_counter()
+    m, moe = cfg.mla, cfg.moe
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, m.q_lora_rank,
+           m.kv_lora_rank, m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim,
+           moe.num_experts, moe.d_ff_expert, moe.top_k, moe.num_shared,
+           moe.capacity_factor, cfg.padded_vocab, cfg.mtp_depth)
+          == (2, 7168, 128, 1536, 512, 128, 64, 128, 256, 2048, 8, 1, 1.25,
+              131072, 0), f"phase 20: {cfg} is not {MLA_ARCH} at its "
+          f"published widths cut to {MLA_CUT}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"phase 20: {MLA_ARCH} cut to {MLA_CUT}: {n / 1e9:.2f} B parameters,"
+        f" {nbytes / 1e9:.2f} GB ({nbytes / 2 ** 30:.2f} GiB) in bf16 (the "
+        f"routers f32), drawn on the card in {init_s:.2f} host s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB while drawing")
+    reqs, targets = phase7_requests(cfg.vocab_size)
+    layers = cfg.num_layers
+
+    def new_batch(*a, **kw):
+        decodes.restart()
+        return None
+
+    prefills = Recorder(transformer, "mla_prefill", layers, new_batch)
+    decodes = Recorder(mla_module, "absorbed_attention", layers,
+                       lambda qn, qr, ckv, kr, kb, vb, valid, scale:
+                       (qn.clone(), qr.clone(), ckv.clone(), kr.clone(),
+                        valid.clone()),
+                       every=DECODE_SAMPLE, snap=(0, 1, 6))
+    t0 = time.perf_counter()
+    with prefills, decodes, replays(decodes) as rep:
+        reset_counts()
+        res = serve_padded(
+            cfg, 0.0, 0.0, "magnus", seed=0, device="cuda",
+            dtype=torch.bfloat16, hbm_bytes=hbm, max_len=DENSE_MAX_LEN,
+            max_gen=DENSE_MAX_GEN, requests=reqs, params=params)
+        launches = counts("launches")
+    plain = counts("plain_calls")
+    del params                      # the engine holds the same tensors
+    engine, results = res.pop("engine"), res.pop("results")
+    log(f"MLA padded serve {MLA_ARCH} (cut {MLA_CUT}) bf16 magnus: "
+        f"{time.perf_counter() - t0:.1f} s; " + json.dumps(res))
+    log(f"MLA padded serve batches (size, batch length, G(B), host "
+        f"syncs): " + "; ".join(
+            f"({r.batch_size}, {r.batch_length}, {r.iterations}, "
+            f"{bin(r.iterations).count('1')})" for r in results))
+    steps = check_padded_serve("phase 20", cfg, res, results, targets)
+    sched = padded_schedule(res, engine, results)
+    check(sched == MLA_SCHEDULE, f"phase 20 schedule {sched}, the CPU "
+          f"rehearsal predicted {MLA_SCHEDULE}")
+    check(not any(launches.values()) and not any(plain.values()),
+          f"phase 20 launched {launches}, plain calls {plain}: MLA runs "
+          f"no attention kernel and no plain version")
+    check(prefills.steps == len(results) and decodes.steps == steps,
+          f"phase 20 recorded {prefills.steps} prefills and "
+          f"{decodes.steps} decode steps")
+    check_captures("MLA padded serve", engine, results, rep, steps)
+    check(decodes.kept, "phase 20: no decode step kept")
+    mp = {k: v[0] for k, v in engine.params["blocks"]["mla"].items()}
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        errs = [hold(torch, "MLA absorbed decode against naive (phase 20)",
+                     mla_module.absorbed_attention(
+                         qn, qr, ckv, kr, mp["k_b"], mp["v_b"], valid,
+                         scale),
+                     mla_naive(torch, qn, qr, ckv, kr, mp["k_b"], mp["v_b"],
+                               valid, scale), tol=MLA_TOL)
+                for qn, qr, ckv, kr, valid in decodes.kept]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"phase 20 held: {len(errs)} sampled decode steps' layer-0 absorbed "
+        f"attention (one in {DECODE_SAMPLE} of a batch's, replayed ones "
+        f"included) against the naive form in f32: max abs err "
+        f"{max(e for e, _ in errs):.3e} at scale up to "
+        f"{max(sc for _, sc in errs):.1f} (tol {MLA_TOL} of scale)")
+    big = max(results, key=lambda r: r.batch_size)
+    breqs = [r for r in reqs if r.req_id in big.generated]
+    cache_len = 1 << (big.batch_length + big.iterations - 1).bit_length()
+    profiles = profile_dense_window(torch, engine, breqs, big.batch_length,
+                                    cache_len, label="MLA padded",
+                                    kernel=None)
+    log_profiles(f"MLA padded decode step at {big.batch_size} rows",
+                 profiles)
+    ms, wgb, _, kgb = padded_step_bound(engine, breqs, big.batch_length, 8)
+    log(f"phase 20 decode step bound at {big.batch_size} rows: {ms:.3f} ms "
+        f"({wgb:.2f} GB of weights, every expert's, and {kgb:.4f} GB of "
+        f"latents at 3.35 TB/s); graphed busy "
+        f"{profiles['graphed']['busy_ms']:.2f} ms is "
+        f"{profiles['graphed']['busy_ms'] / ms:.2f}x it")
+    log(f"phase 20 serve: {res['token_tp']} tokens/s in {res['wall_s']} s "
+        f"(" + "; ".join(f"{label}: {r['token_tp']} in {r['wall_s']} s"
+                         for label, r in others.items()) + ")")
+    del rep, prefills, decodes, errs
+    mla_long_prefill(torch, transformer, mla_module, engine)
+    log(f"phase 20 peak: {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        f" GiB allocated; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del engine, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the vlm family (internvl2-26b) on the padded path
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "internvl2-26b"
+# the CPU rehearsal's (scripts/mla_vlm_rehearsal.py): memory never binds
+VLM_SCHEDULE = dict(
+    batches=9, decode_steps=576, host_syncs=9, captures=9, wma_total=28703,
+    shapes=[[1, 256, 64], [1, 256, 64], [3, 256, 64], [4, 256, 64],
+            [5, 256, 64], [6, 256, 64], [11, 256, 64], [13, 256, 64],
+            [20, 256, 64]])
+VLM_FREE_BEFORE = 2 << 30      # deepseek-v3-671b's weights must be gone
+
+
+def vlm_phase(torch, ops, ref, fops, fref, transformer, hbm, spin, others,
+              reset_counts, counts):
+    """Phase 21: internvl2-26b uncut (48 layers, d_model 6144, 48 query
+    heads over 8 KV heads of 128, 256 patches) in bf16 through
+    ``run_engine_backend`` (``magnus``, the padded ``BatchEngine``, zero
+    patches in front of every prompt) on phase 7's requests, its
+    weights drawn on the card from seed 0 once deepseek-v3-671b's are
+    gone.  Checks: as phase 19's (the schedule as ``VLM_SCHEDULE``
+    predicts); flash 48 times a batch at S = bl + 256, dense decode 48
+    times a step on a ``_bucket(bl + G(B) + 256)`` cache, nothing else
+    and no plain version; one capture a batch; each batch's layer-0
+    flash call and a sample of decode steps held as phase 6 holds;
+    graphed and eager windows of the largest batch bit for bit, profiled
+    beside the step's bound.  Both kernels timed at these inputs as
+    phase 8 times them.  Logged: tokens/s beside ``others``, the peak
+    allocation.  Returns (the timings, the serve's launches)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_engine_backend
+    from repro_torch.serving.engine import _bucket
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    log(f"phase 21: {before / 2 ** 30:.2f} GiB allocated before it")
+    check(before < VLM_FREE_BEFORE, "deepseek-v3-671b's weights were not "
+          "released before phase 21")
+    vcfg = get_config(VLM_ARCH)
+    reqs, targets = phase7_requests(vcfg.vocab_size)
+    layers, patches = vcfg.num_layers, vcfg.num_patches
+    prefills, decodes = dense_recorders(transformer, layers)
+    t_phase = t0 = time.perf_counter()
+    with prefills, decodes, replays(decodes) as rep:
+        reset_counts()
+        res = run_engine_backend(
+            VLM_ARCH, 0.0, 0.0, "magnus", seed=0, reduced=False,
+            device="cuda", dtype=torch.bfloat16, hbm_bytes=hbm,
+            max_len=DENSE_MAX_LEN, max_gen=DENSE_MAX_GEN, requests=reqs)
+        launches = counts("launches")
+    plain = counts("plain_calls")
+    engine, results = res.pop("engine"), res.pop("results")
+    cfg = engine.cfg
+    log(f"vlm padded serve {VLM_ARCH} full width bf16 magnus: "
+        f"{time.perf_counter() - t0:.1f} s with set-up; " + json.dumps(res))
+    log(f"vlm padded serve batches (size, batch length, G(B), host "
+        f"syncs): " + "; ".join(
+            f"({r.batch_size}, {r.batch_length}, {r.iterations}, "
+            f"{bin(r.iterations).count('1')})" for r in results))
+    log(f"vlm padded serve kernel launches {launches}, plain calls {plain}")
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.num_patches, cfg.rope_theta,
+           cfg.padded_vocab)
+          == (48, 6144, 48, 8, 128, 16384, 256, 1e6, 94208),
+          f"phase 21 did not serve {VLM_ARCH} at full width")
+    steps = check_padded_serve("phase 21", cfg, res, results, targets)
+    sched = padded_schedule(res, engine, results)
+    check(sched == VLM_SCHEDULE, f"phase 21 schedule {sched}, the CPU "
+          f"rehearsal predicted {VLM_SCHEDULE}")
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=layers * len(results),
+                decode_attention=layers * steps)
+    check(launches == want, f"phase 21 launches {launches}, not {want}")
+    check(not any(plain.values()), f"plain versions ran in phase 21: "
+          f"{plain}")
+    check(decodes.steps == steps and prefills.steps == len(results),
+          f"phase 21 recorded {decodes.steps} decode steps and "
+          f"{prefills.steps} prefills")
+    check_captures("vlm padded serve", engine, results, rep, steps)
+    lens = sorted({r.batch_length + patches for r in results})
+    check(all(q.shape[1] in lens and (q.shape[2], k.shape[2], q.shape[3])
+              == (48, 8, 128) for q, k, _ in prefills.kept),
+          f"phase 21: flash shapes {[tuple(q.shape) for q, _, _ in prefills.kept]}"
+          f", not S in {lens} at 48/8 heads of 128")
+    slots = {_bucket(r.batch_length + r.iterations + patches)
+             for r in results}
+    check(all(kc.shape[1] in slots for _, kc, _, _ in decodes.kept),
+          f"phase 21: decode caches of "
+          f"{sorted({kc.shape[1] for _, kc, _, _ in decodes.kept})} slots, "
+          f"not {sorted(slots)}")
+    flash_errs = [hold(torch, "flash_attention (phase 21)",
+                       fops.flash_attention(q, k, v, causal=True),
+                       fref.flash_attention_ref(q, k, v, causal=True))
+                  for q, k, v in prefills.kept]
+    dec_errs = [hold(torch, "decode_attention (phase 21)",
+                     ops.decode_attention(q, kc, vc, ln),
+                     ref.decode_attention_ref(q, kc, vc, ln))
+                for q, kc, vc, ln in decodes.kept]
+    check(prefills.kept and decodes.kept, "phase 21: nothing kept")
+    log(f"phase 21 held against the plain kernels: {len(flash_errs)} "
+        f"batches' layer-0 flash calls at S {lens} (max abs err "
+        f"{max(e for e, _ in flash_errs):.3e}), {len(dec_errs)} sampled "
+        f"decode steps' layer-0 attention on caches of {sorted(slots)} "
+        f"slots (max abs err {max(e for e, _ in dec_errs):.3e})")
+    big = max(results, key=lambda r: r.batch_size)
+    breqs = [r for r in reqs if r.req_id in big.generated]
+    cache_len = _bucket(big.batch_length + big.iterations + patches)
+    profiles = profile_dense_window(torch, engine, breqs, big.batch_length,
+                                    cache_len, label="vlm padded")
+    log_profiles(f"vlm padded decode step at {big.batch_size} rows",
+                 profiles)
+    ms, wgb, _, kgb = padded_step_bound(engine, breqs, big.batch_length, 8)
+    log(f"phase 21 decode step bound at {big.batch_size} rows: {ms:.3f} ms "
+        f"({wgb:.2f} GB of weights, {kgb:.3f} GB of K/V with the patch "
+        f"prefix at 3.35 TB/s); graphed busy "
+        f"{profiles['graphed']['busy_ms']:.2f} ms is "
+        f"{profiles['graphed']['busy_ms'] / ms:.2f}x it")
+    log(f"phase 21 serve: {res['token_tp']} tokens/s in {res['wall_s']} s "
+        f"(" + "; ".join(f"{label}: {r['token_tp']} in {r['wall_s']} s"
+                         for label, r in others.items()) + ")")
+    del engine, results, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    t21 = {
+        "flash_attention": summarize(
+            "flash_attention (phase 21)", *time_flash(
+                torch, fops, fref, prefills.kept, spin)),
+        "decode_attention": summarize(
+            "decode_attention (phase 21)", *time_dense_decode(
+                torch, ops, ref, decodes.kept, spin))}
+    log(f"phase 21 peak: {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        f" GiB allocated; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del prefills, decodes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return t21, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3400,16 +3838,17 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def hold(torch, name, out, want):
+def hold(torch, name, out, want, tol=5e-2):
     """Max abs error of the kernel against its plain version, held to
-    bf16's 5e-2 at the output's own scale (served K/V are not unit-size:
-    random weights leave values of order 10, where one bf16 step is
-    0.06)."""
+    ``tol`` of the output's own scale (its largest magnitude, at least
+    1): bf16's 5e-2 by default (served K/V are not unit-size: random
+    weights leave values of order 10, where one bf16 step is 0.06)."""
     scale = max(1.0, want.float().abs().max().item())
     err = (out.float() - want.float()).abs().max().item()
     check(torch.isfinite(out).all().item(), f"{name}: NaN at the serve's "
           f"inputs")
-    check(err <= 5e-2 * scale, f"{name}: err {err} at scale {scale}")
+    check(err <= tol * scale, f"{name}: err {err} at scale {scale}, tol "
+          f"{tol} of scale")
     return err, scale
 
 
@@ -3568,7 +4007,9 @@ def profile_dense_window(torch, engine, reqs, bl, cache_len, steps=8,
     windows bit for bit (tokens, logits, positions, cache); then time and
     profile windows of ``steps`` steps through each (:func:`window_profile`:
     host ms, device busy ms and idle share a step, the readback
-    included).  Returns {"graphed": ..., "eager": ...}."""
+    included).  The vlm family's batch carries the engine's zero
+    patches, as ``serve_batch`` feeds them.  Returns {"graphed": ...,
+    "eager": ...}."""
     from repro_torch.models import model as M
     from repro_torch.serving.graphs import DecodeGraph
     cfg, params, dtype = engine.cfg, engine.params, engine.dtype
@@ -3577,9 +4018,11 @@ def profile_dense_window(torch, engine, reqs, bl, cache_len, steps=8,
                            dtype=torch.int32, device="cuda")
     tokens = torch.randint(3, cfg.vocab_size, (len(reqs), bl), generator=gen,
                            device="cuda", dtype=torch.int32)
-    logits, cache = M.prefill(params, cfg, {"tokens": tokens,
-                                            "lengths": lengths},
-                              act_dtype=dtype, cache_len=cache_len)
+    batch = {"tokens": tokens, "lengths": lengths}
+    if cfg.family == "vlm":
+        batch["patches"] = engine._patches(len(reqs))
+    logits, cache = M.prefill(params, cfg, batch, act_dtype=dtype,
+                              cache_len=cache_len)
     eager = {"cache": {key: tuple(t.clone() for t in leaves)
                        for key, leaves in cache.items()},
              "logits": logits.clone(), "positions": lengths.clone()}
@@ -3920,10 +4363,8 @@ def ssm_serve(torch, ssm_module, hbm, reset_counts, counts):
     layer-0 scan inputs, one per batch, the serve's tokens/s and wall
     s)."""
     from repro_torch.launch.serve import run_engine_backend
-    from repro_torch.workload.generator import poisson_workload
-    reqs = poisson_workload(8, 60, seed=0, max_len=DENSE_MAX_LEN,
-                            max_gen=DENSE_MAX_GEN)[:DENSE_N_REQUESTS]
-    targets = {r.req_id: min(r.gen_length, DENSE_MAX_GEN) for r in reqs}
+    from repro_torch.configs import get_config
+    reqs, targets = phase7_requests(get_config("mamba2-780m").vocab_size)
     t0 = time.perf_counter()
     with Recorder(ssm_module, "ssd_scan", 48) as scans, replays() as rep:
         reset_counts()
@@ -3946,22 +4387,7 @@ def ssm_serve(torch, ssm_module, hbm, reset_counts, counts):
            cfg.ssm.n_heads(cfg.d_model), cfg.ssm.d_state,
            cfg.padded_vocab) == (48, 1536, 3072, 48, 128, 51200),
           "the SSM serve did not run mamba2-780m at full width")
-    check(res["requests"] == DENSE_N_REQUESTS,
-          f"{res['requests']} of {DENSE_N_REQUESTS} requests served")
-    check(sorted(rid for r in results for rid in r.generated)
-          == sorted(targets), "the SSM batches did not serve each request "
-          "once")
-    for r in results:
-        check(r.iterations == max(targets[i] for i in r.generated),
-              f"an SSM batch ran {r.iterations} iterations, not its G(B)")
-        for rid, toks in r.generated.items():
-            check(len(toks) == targets[rid],
-                  f"request {rid}: {len(toks)} of {targets[rid]} tokens")
-            check(all(0 <= x < cfg.vocab_size for x in toks),
-                  f"request {rid}: token out of range")
-    check(res["host_syncs"] == sum(bin(r.iterations).count("1")
-                                   for r in results),
-          f"SSM host syncs {res['host_syncs']}: not one per window")
+    check_padded_serve("the SSM serve", cfg, res, results, targets)
     check(launches["ssd_scan"] == cfg.num_layers * len(results),
           f"ssd_scan launches {launches['ssd_scan']} != 48 x "
           f"{len(results)} batches")
@@ -4663,6 +5089,27 @@ def main() -> int:
                     key: (round(v, 4) if isinstance(v, float) else v)
                     for key, v in row.items()}}
                 for name, row in t19.items()}))
+
+        # 20. deepseek-v3-671b's MLA padded serve at its published
+        # widths (2 layers, no MTP), its absorbed decode and capacity
+        # dispatch under the captured decode graph
+        from repro_torch.models import mla as mla_module
+        mla_launches = mla_phase(torch, transformer, mla_module, hbm,
+                                 {"phase 7 chatglm-6b": res7},
+                                 reset_counts, counts)
+        log(f"phase 20 kernel launches: {mla_launches}")
+
+        # 21. internvl2-26b's vlm padded serve uncut, its 256-patch
+        # prefix in every prefill and decode cache
+        t21, vlm_launches = vlm_phase(
+            torch, ops, ref, fops, fref, transformer, hbm, spin,
+            {"phase 7 chatglm-6b": res7}, reset_counts, counts)
+        log("phase 21 kernels at internvl2-26b's inputs (mean of per-shape "
+            "medians, CUDA events, ms): " + json.dumps({
+                name: {"launches": vlm_launches.get(name), **{
+                    key: (round(v, 4) if isinstance(v, float) else v)
+                    for key, v in row.items()}}
+                for name, row in t21.items()}))
 
         source = {"paged_decode_attention":
                   ("src/repro_torch/csrc/paged_decode_attention.cu",

@@ -7,11 +7,13 @@ drives the PyTorch engines.
 The padded strategies (``vs vsq ccb glp abp magnus``) serve through the
 paper's padded-batch ``BatchEngine`` (:func:`run_engine_backend`); the
 ``-paged`` ones through the ``PagedContinuousEngine``
-(:func:`run_paged_engine_backend`).  The padded path serves the dense,
-MoE (``--arch olmoe-1b-7b``), SSM (``--arch mamba2-780m``) and hybrid
-(``--arch hymba-1.5b``) families, the paged one the dense and MoE
-families (a paged strategy refuses the others with the reference's
-reason).  Runs on the CUDA card unless
+(:func:`run_paged_engine_backend`).  The padded path serves the
+decoder-only families: dense, MoE (``--arch olmoe-1b-7b``; with MLA,
+``--arch deepseek-v3-671b``), SSM (``--arch mamba2-780m``), hybrid
+(``--arch hymba-1.5b``) and vlm (``--arch internvl2-26b``, zero
+patches in front of every prompt); the paged one the dense and MoE
+families without MLA (a paged strategy refuses the others with the
+reference's reason).  Runs on the CUDA card unless
 ``--device cpu`` is given.  ``--checkpoint-dir`` turns on the paged
 engine's crash-safe serving (a write-ahead journal and a snapshot every
 ``--snapshot-every`` windows; a journal left by an earlier process is
@@ -30,6 +32,7 @@ from typing import List, Optional
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import Request
 from repro_torch.device import resolve_device
 from repro_torch.workload.apps import make_dataset
@@ -52,20 +55,37 @@ def run_engine_backend(arch: str, rate: float, duration: float,
                        max_gen: int = 32,
                        requests: Optional[List[Request]] = None,
                        params=None) -> dict:
-    """Padded-batch serving for real (paper §II-D): MagnusService forms
-    the batches (prediction, WMA-directed batching, HRRN) and
+    """Padded-batch serving for real (paper §II-D) of ``arch``:
+    :func:`serve_padded` on its config, or on ``cfg.reduced()`` with
+    ``reduced`` (the reference launcher always serves that).  The other
+    arguments are :func:`serve_padded`'s."""
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    return serve_padded(cfg, rate, duration, strategy, seed, device=device,
+                        dtype=dtype, hbm_bytes=hbm_bytes, max_len=max_len,
+                        max_gen=max_gen, requests=requests, params=params)
+
+
+def serve_padded(cfg: ModelConfig, rate: float, duration: float,
+                 strategy: str, seed: int = 0, *, device=None,
+                 dtype: torch.dtype = torch.float32,
+                 hbm_bytes: int = 2 * 2 ** 30, max_len: int = 256,
+                 max_gen: int = 32, requests: Optional[List[Request]] = None,
+                 params=None) -> dict:
+    """The padded launcher's loop on ``cfg``: MagnusService forms the
+    batches (prediction, WMA-directed batching, HRRN) and
     ``BatchEngine.serve_batch`` pads, prefills and decodes each one until
     its longest request finishes.
 
     ``hbm_bytes``, ``max_len`` and ``max_gen`` size the memory model
     that caps the batches; ``max_gen`` also caps the engine's generation.
-    ``reduced`` serves ``cfg.reduced()`` (the reference launcher always
-    does).  The traffic is a Poisson workload at ``rate`` for
-    ``duration`` seconds (prompts up to ``min(max_len, 200)`` tokens)
-    unless ``requests`` is given; every request is queued before the
-    first batch forms.  The weights are random from ``seed`` unless
-    ``params`` is given.  The result holds the engine under ``"engine"``
-    and each batch's :class:`ServeResult` under ``"results"``."""
+    The traffic is a Poisson workload at ``rate`` for ``duration``
+    seconds (prompts up to ``min(max_len, 200)`` tokens) unless
+    ``requests`` is given; every request is queued before the first
+    batch forms.  The weights are random from ``seed`` unless ``params``
+    is given.  The result holds the engine under ``"engine"`` and each
+    batch's :class:`ServeResult` under ``"results"``."""
     from repro_torch.core.magnus import MagnusConfig, MagnusService
     from repro_torch.core.predictor import GenerationLengthPredictor
     from repro_torch.core.wma import MemoryModel
@@ -75,9 +95,6 @@ def run_engine_backend(arch: str, rate: float, duration: float,
         raise ValueError(f"strategy {strategy!r}: the padded path serves "
                          f"{PADDED_STRATEGIES}")
     dev = resolve_device(device)
-    cfg = get_config(arch)
-    if reduced:
-        cfg = cfg.reduced()
     memory = MemoryModel(cfg, hbm_bytes=hbm_bytes, max_len=max_len,
                          max_gen=max_gen)
     predictor = GenerationLengthPredictor(seed=seed).fit(

@@ -1,14 +1,19 @@
 """Model facade for the dense-cache and paged serving paths (the
 reference package's ``models/model.py``).  Batches are dicts of tensors:
 
-  prefill            : {"tokens": [B, S], "lengths": [B]}
+  prefill            : {"tokens": [B, S], "lengths": [B]}, and for the
+                       vlm family "patches": [B, num_patches, d_model]
   decode_step        : {"tokens": [B], "positions": [B]} against a dense
                        cache: {"kv": (k, v)}, each [L, B, S, Hkv, D];
-                       {"kv": (k, v, k_scale, v_scale)} int8 with bf16
-                       scales [L, B, S, Hkv] (``cfg.cache_int8``);
-                       {"ssm": (state, conv)} (the SSM family); or
-                       {"kv": (k, v), "ssm": (state, conv)} (the hybrid
-                       family: both, written in place by each step)
+                       {"kv": (c_kv [L, B, S, R], k_rope [L, B, S, Dr])}
+                       (the MLA family's latents); {"kv": (k, v,
+                       k_scale, v_scale)} int8 with bf16 scales [L, B,
+                       S, Hkv] (``cfg.cache_int8``); {"ssm": (state,
+                       conv)} (the SSM family); or {"kv": (k, v), "ssm":
+                       (state, conv)} (the hybrid family: both, written
+                       in place by each step).  The vlm family's
+                       positions are text-relative (the patch prefix is
+                       added inside)
   decode_multi       : {"logits": [B, padded_vocab], "positions": [B]}
                        (``decode_step_into``: one of its steps in place)
   prefill_wave       : {"tokens": [B, S], "lengths": [B], "prefix_lens",
@@ -28,10 +33,12 @@ reference package's ``models/model.py``).  Batches are dicts of tensors:
 The functions run where their tensors live; the constructors
 (:func:`init_params`, :func:`init_cache`, :func:`init_paged_cache`)
 take a ``device`` that defaults to the CUDA card and raise without one.
-The dense, MoE, SSM and hybrid families have a dense cache in the port;
-the others raise ``NotImplementedError`` (``transformer.supports_dense``
-says why).  The paged entry points serve the dense and MoE families
-(:func:`supports_paged`).  :func:`batch_invariant` makes their
+The decoder-only families have a dense cache in the port: dense, MoE
+(GQA, or MLA for deepseek-v3), SSM (mamba2), hybrid (hymba) and vlm
+(internvl2); the encoder-decoder family (whisper) raises
+``NotImplementedError`` (``transformer.supports_dense`` says why).  The
+paged entry points serve the dense and MoE families without MLA
+(:func:`supports_paged`, the reference's rule).  :func:`batch_invariant` makes their
 arithmetic of a token independent of its batch, wave or window.
 """
 from __future__ import annotations
@@ -53,9 +60,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Optional[torch.device] = None):
     """A zero dense decode cache: {"kv": (k, v)}, each [L, batch, seq,
-    Hkv, D] in ``dtype``; int8 values and bf16 scales with
-    ``cfg.cache_int8``; {"ssm": (state, conv)} in f32 for the SSM
-    family; both keys for the hybrid family."""
+    Hkv, D] in ``dtype``; the latents (c_kv, k_rope) in ``dtype`` for
+    MLA; int8 values and bf16 scales with ``cfg.cache_int8``; {"ssm":
+    (state, conv)} in f32 for the SSM family; both keys for the hybrid
+    family."""
     return transformer.init_cache(cfg, batch, seq, dtype=dtype,
                                   device=resolve_device(device))
 
@@ -66,13 +74,17 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
             cache_len: Optional[int] = None):
     """Prefill right-padded prompts.  Returns (next-token logits [B, V],
     dense cache of capacity ``cache_len``: a float KV cache, also for an
-    int8 config, as in the reference; the recurrent state for the SSM
-    family; both for the hybrid family, whose prefill masks keys outside
-    ``cfg.sliding_window`` and whose ``cache_len`` below S ring-packs the
-    KV only)."""
+    int8 config, as in the reference; the latents for MLA; the recurrent
+    state for the SSM family; both for the hybrid family, whose prefill
+    masks keys outside ``cfg.sliding_window`` and whose ``cache_len``
+    below S ring-packs the KV only).  The vlm family's cache holds the
+    ``batch["patches"]`` prefix in front of the prompt, so it needs
+    ``cache_len`` >= num_patches + S to keep all of it (the reference's
+    ``ContinuousEngine`` sizes it without the patches and ring-packs)."""
     return transformer.prefill(params, cfg, batch["tokens"],
-                               batch["lengths"], act_dtype=act_dtype,
-                               cache_len=cache_len)
+                               batch["lengths"],
+                               patches=batch.get("patches"),
+                               act_dtype=act_dtype, cache_len=cache_len)
 
 
 @hot_path
@@ -115,7 +127,8 @@ def decode_step_into(params, cfg: ModelConfig, cache,
     """One step of :func:`decode_multi` written in place, so that a CUDA
     graph can replay it: argmax the carried ``state["logits"]``, run
     :func:`decode_step` at ``state["positions"]`` (the dense cache, the
-    SSM state, or both for the hybrid family, written in place), copy the new logits into
+    MLA latents, the SSM state, or both for the hybrid family, written
+    in place), copy the new logits into
     ``state["logits"]``, advance every row's position (the padded batch
     has no idle row) and write the step's token into ``tok_out`` [B].
     ``k`` calls equal ``decode_multi(num_steps=k)``."""

@@ -9,7 +9,11 @@ package's ``models/transformer.py``), in two halves:
   bf16 scales per (token, head); for the SSM family (mamba2) it is the
   per-layer recurrent state, ``[L, B, H, P, N]`` and ``[L, B, C, K-1]``
   in f32; the hybrid family (hymba: attention and SSM heads side by
-  side in every layer) keeps both;
+  side in every layer) keeps both; the MLA family (deepseek-v3:
+  ``models/mla.py``) keeps each token's compressed latent and shared
+  rotary key, ``[L, B, S, R]`` and ``[L, B, S, Dr]``; the vlm family
+  (internvl2) is the dense model with a patch prefix (``patches @
+  projector``) in front of the prompt in its cache;
 - paged (DESIGN.md §8-§12): KV lives in one K and one V pool per layer,
   ``[L, num_blocks, bt, Hkv, D]``, shared by every request and addressed
   through per-request block tables; speculative decoding (§16) drafts
@@ -23,11 +27,14 @@ cost of speed), so that greedy streams can be compared bit for bit
 across serves that batch the same requests differently.
 
 Attention and the SSD scan go through the kernels' ops: the hand-written
-CUDA kernels on the card, their plain versions on the CPU.  The dense,
+CUDA kernels on the card, their plain versions on the CPU.  MLA runs in
+plain PyTorch, as the reference runs it in plain ``jnp``.  The dense,
 MoE (``models/moe.py``: the FFN of every row and position of the
 ``[B, S]`` batch, pads and idle slots included, as the reference groups
-them), SSM and hybrid families are ported; the others raise
-``NotImplementedError`` with the reason.
+them), MLA, SSM, hybrid and vlm families are ported; the
+encoder-decoder family (whisper) raises ``NotImplementedError`` with the
+reason.  Only training reads deepseek-v3's multi-token-prediction
+weights (``params["mtp"]``), so no entry point here does.
 
 Where the reference is functional (``.at[].set`` on donated buffers),
 this port writes into the caches, the pools and the engine's state
@@ -50,6 +57,7 @@ from repro_torch.kernels.decode_attention.ops import (
 from repro_torch.models.attention import (gqa_decode_attention,
                                          gqa_prefill_attention)
 from repro_torch.models.layers import apply_rope, rms_norm, swiglu
+from repro_torch.models.mla import mla_decode, mla_prefill
 from repro_torch.models.moe import moe_forward, moe_forward_ragged
 from repro_torch.models.ssm import (mamba_decode, mamba_forward,
                                     mamba_state_spec)
@@ -187,9 +195,15 @@ def _ffn(bp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         lambda r: swiglu(r, mlp["gate"], mlp["up"], mlp["down"]), h)
 
 
-def _embed_in(params: Dict, tokens: torch.Tensor,
-              act_dtype: torch.dtype) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(act_dtype)
+def _embed_in(params: Dict, tokens: torch.Tensor, act_dtype: torch.dtype,
+              patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings [B, S, d]; with ``patches`` [B, P, d] (the vlm
+    family) ``patches @ projector`` in front of them: [B, P + S, d]."""
+    x = params["embed"][tokens.long()].to(act_dtype)
+    if patches is not None:
+        proj = patches.to(act_dtype) @ params["projector"].to(act_dtype)
+        x = torch.cat([proj, x], dim=1)
+    return x
 
 
 def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -203,15 +217,14 @@ def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def supports_dense(cfg: ModelConfig) -> Tuple[bool, str]:
-    """The dense-cache half covers the plain-GQA dense and MoE families,
-    the attention-free SSM family and the hybrid family (GQA and SSM
-    heads in every layer); the others need parts of the model the port
-    does not have yet."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        return False, (f"family {cfg.family}: its layers (vision or "
-                       f"audio front ends) are not ported yet")
-    if cfg.uses_mla:
-        return False, "MLA latent caches are not ported yet"
+    """The dense-cache half covers the decoder-only families: dense and
+    MoE (GQA or MLA attention), the attention-free SSM family, the
+    hybrid family (GQA and SSM heads in every layer) and the vlm family
+    (the dense model behind a patch prefix); the encoder-decoder family
+    (whisper) is not ported yet."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
+        return False, (f"family {cfg.family}: its encoder-decoder layers "
+                       f"are not ported yet")
     return True, ""
 
 
@@ -293,15 +306,21 @@ def d_inner(cfg: ModelConfig) -> int:
 def block_forward(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor, *, window: Optional[int] = None):
     """Full-sequence block.  Returns (x, the layer's cache entry):
-    {"kv": (k, v)}, {"ssm": (SSD state, conv state)}, or both for the
-    hybrid family, whose attention and SSM sub-layers read the same
-    normed input and are averaged: ``x + (attn(h) + mamba(h)) / 2``."""
+    {"kv": (k, v)}, {"kv": (c_kv, k_rope)} for MLA (which ignores
+    ``window``, as the reference's does), {"ssm": (SSD state, conv
+    state)}, or both "kv" and "ssm" for the hybrid family, whose
+    attention and SSM sub-layers read the same normed input and are
+    averaged: ``x + (attn(h) + mamba(h)) / 2``."""
     h = _norm(x, bp["norm1"], cfg.norm_eps)
     if cfg.family == "ssm":
         y, state = mamba_forward(bp["mamba"], h, cfg.ssm, d_inner(cfg),
                                  return_state=True)
         return x + y, {"ssm": state}
-    y, kv = _attention(bp["attn"], h, cfg, positions, window=window)
+    if cfg.uses_mla:
+        y, kv = mla_prefill(bp["mla"], h, cfg.mla, cfg.num_heads, positions,
+                            cfg.rope_theta)
+    else:
+        y, kv = _attention(bp["attn"], h, cfg, positions, window=window)
     entry = {"kv": kv}
     if cfg.family == "hybrid":
         ym, entry["ssm"] = mamba_forward(bp["mamba"], h, cfg.ssm,
@@ -318,7 +337,10 @@ def block_decode(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
     in place."""
     h = _norm(x, bp["norm1"], cfg.norm_eps)
     y = None
-    if "kv" in layer_cache:
+    if cfg.uses_mla:
+        y = mla_decode(bp["mla"], h, cfg.mla, cfg.num_heads,
+                       layer_cache["kv"], positions, cfg.rope_theta)
+    elif "kv" in layer_cache:
         y = _attention_decode(bp["attn"], h, cfg, layer_cache["kv"],
                               positions)
     if "ssm" in layer_cache:
@@ -348,7 +370,7 @@ def _fit_cache(leaf: torch.Tensor, s: int, cache_len: int) -> torch.Tensor:
 
 
 def prefill(params: Dict, cfg: ModelConfig, tokens, lengths, *,
-            act_dtype: torch.dtype = torch.bfloat16,
+            patches=None, act_dtype: torch.dtype = torch.bfloat16,
             cache_len: Optional[int] = None):
     """Build the decode cache.  tokens: [B, S] right-padded to S (the
     prompts attend causally over their pads, and an SSM row's state
@@ -357,19 +379,30 @@ def prefill(params: Dict, cfg: ModelConfig, tokens, lengths, *,
     for sliding-window models).  Returns (next-token logits [B, V],
     cache): {"kv": (k, v)}, each [L, B, cache_len, Hkv, D] in
     ``act_dtype`` (a float cache with ``cfg.cache_int8`` too, as in the
-    reference), or for the SSM family {"ssm": (state [L, B, H, P, N],
-    conv [L, B, C, K-1])} in f32, whatever ``act_dtype``; the hybrid
-    family's holds both.  A sliding window masks the prefill's keys
-    (``cfg.sliding_window``); only the KV is ring-packed.
+    reference); {"kv": (c_kv [L, B, cache_len, R], k_rope [L, B,
+    cache_len, Dr])} for MLA; for the SSM family {"ssm": (state [L, B,
+    H, P, N], conv [L, B, C, K-1])} in f32, whatever ``act_dtype``; the
+    hybrid family's holds both.  A sliding window masks the prefill's
+    keys (``cfg.sliding_window``); only the KV is ring-packed.
+
+    The vlm family takes ``patches`` [B, P, d] (P = ``cfg.num_patches``)
+    and runs over P + S positions, the projected patches first, so its
+    cache holds the patch prefix at positions 0..P-1 (sized by
+    ``cache_len`` like any other); a row's logits are those at
+    ``P + lengths - 1``.
 
     The logits are computed for each row's last valid position only
-    (the reference computes all S rows and picks one; the rows are
+    (the reference computes all rows and picks one; the rows are
     independent, so only the size of the product differs: at full width
     the S-row product would be B * S * padded_vocab values)."""
     _require_dense(cfg)
+    vlm = cfg.family == "vlm"
+    if vlm and patches is None:
+        raise ValueError(f"{cfg.name}: the vlm family's prefill takes "
+                         f"patches [B, {cfg.num_patches}, d]")
     params = cast_params(params, act_dtype)
-    x = _embed_in(params, tokens, act_dtype)
-    b, s = tokens.shape
+    x = _embed_in(params, tokens, act_dtype, patches if vlm else None)
+    b, s = x.shape[:2]
     cl = s if cache_len is None else cache_len
     positions = torch.arange(s, device=x.device)
     # the KV leaves in act_dtype (float even for an int8 config), the
@@ -390,7 +423,8 @@ def prefill(params: Dict, cfg: ModelConfig, tokens, lengths, *,
         for leaf, new in zip(cache.get("ssm", ()), entry.get("ssm", ())):
             leaf[i] = new
     rows = torch.arange(b, device=x.device)
-    last = x[rows, lengths.long() - 1]
+    offs = cfg.num_patches if vlm else 0
+    last = x[rows, offs + lengths.long() - 1]
     logits = _logits(params, cfg, last[:, None])[:, 0]
     return logits, cache
 
@@ -398,10 +432,14 @@ def prefill(params: Dict, cfg: ModelConfig, tokens, lengths, *,
 def decode_step(params: Dict, cfg: ModelConfig, cache: Dict, tokens,
                 positions, *, act_dtype: torch.dtype = torch.bfloat16):
     """tokens: [B] new ids; positions: [B] tokens already cached (the new
-    token's absolute position; an SSM step does not read it).  Returns
-    (logits [B, V], cache updated in place)."""
+    token's absolute position; an SSM step does not read it).  For the
+    vlm family the positions are text-relative: the cache holds the
+    patch prefix, so ``cfg.num_patches`` is added here, as in the
+    reference.  Returns (logits [B, V], cache updated in place)."""
     _require_dense(cfg)
     params = cast_params(params, act_dtype)
+    if cfg.family == "vlm":
+        positions = positions + cfg.num_patches
     x = _embed_in(params, tokens[:, None], act_dtype)
     for i in range(cfg.num_layers):
         x = block_decode(_layer(params["blocks"], i), x, cfg,
@@ -413,10 +451,11 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict, tokens,
 def cache_struct(cfg: ModelConfig, batch: int, seq: int,
                  dtype: torch.dtype = torch.bfloat16):
     """Returns ({key: ((shape, dtype), ...)}, logical axes) of the decode
-    cache: {"kv": (k, v)} in ``dtype``, {"kv": (k int8, v int8, k scales
-    bf16, v scales bf16)} with ``cfg.cache_int8``, {"ssm": (state,
-    conv)} in f32 for the SSM family, and both "kv" and "ssm" for the
-    hybrid family.  ``seq`` is the KV capacity (the window for
+    cache: {"kv": (k, v)} in ``dtype``, {"kv": (c_kv [L, B, S, R],
+    k_rope [L, B, S, Dr])} in ``dtype`` for MLA, {"kv": (k int8, v int8,
+    k scales bf16, v scales bf16)} with ``cfg.cache_int8``, {"ssm":
+    (state, conv)} in f32 for the SSM family, and both "kv" and "ssm"
+    for the hybrid family.  ``seq`` is the KV capacity (the window for
     sliding-window models); the SSM state does not depend on it."""
     _require_dense(cfg)
     n_layers = cfg.num_layers
@@ -425,7 +464,12 @@ def cache_struct(cfg: ModelConfig, batch: int, seq: int,
     if cfg.family != "ssm":
         shape = (n_layers, batch, seq, cfg.num_kv_heads, cfg.head_dim)
         ax = ("layers", "cache_batch", "kv_seq", "cache_heads", None)
-        if cfg.cache_int8:
+        if cfg.uses_mla:
+            m, lat = cfg.mla, ("layers", "cache_batch", "kv_seq", None)
+            shapes["kv"] = (((n_layers, batch, seq, m.kv_lora_rank), dtype),
+                            ((n_layers, batch, seq, m.qk_rope_dim), dtype))
+            axes["kv"] = (lat, lat)
+        elif cfg.cache_int8:
             sc = shape[:-1]
             shapes["kv"] = ((shape, torch.int8), (shape, torch.int8),
                             (sc, torch.bfloat16), (sc, torch.bfloat16))

@@ -1,10 +1,11 @@
-"""Parameters of the dense, MoE, SSM (mamba2) and hybrid (hymba) models
-as nested dicts
-of tensors, with the reference package's keys and layouts (``embed [V,
-d]``, ``blocks/attn/wq [L, d, Hq, hd]``, ``blocks/attn/wo [L, Hq, hd,
-d]``, ``blocks/mlp/gate [L, d, d_ff]``, ``blocks/moe/router [L, d,
-E]``, ``blocks/moe/gate [L, E, d, f]``, ``blocks/mamba/in_proj [L, d,
-2 d_in + 2 N + H]``, ...).
+"""Parameters of the decoder-only models (the dense, MoE, MLA
+(deepseek-v3), SSM (mamba2), hybrid (hymba) and vlm (internvl2)
+families) as nested dicts of tensors, with the reference package's keys
+and layouts (``embed [V, d]``, ``blocks/attn/wq [L, d, Hq, hd]``,
+``blocks/attn/wo [L, Hq, hd, d]``, ``blocks/mla/k_b [L, R, H, Dn]``,
+``blocks/mlp/gate [L, d, d_ff]``, ``blocks/moe/router [L, d, E]``,
+``blocks/moe/gate [L, E, d, f]``, ``blocks/mamba/in_proj [L, d, 2 d_in
++ 2 N + H]``, ``projector [d, d]``, ``mtp/block/...``, ...).
 
 Two sources: :func:`params_from_numpy` carries the reference package's
 weights across (the caller converts them to numpy), and
@@ -33,89 +34,142 @@ Spec = Tuple[Tuple[int, ...], str, float]
 
 
 def _mamba_spec(cfg: ModelConfig, d_in: int) -> Dict[str, Spec]:
-    """One stacked Mamba2 block of inner width ``d_in`` (the reference's
+    """One Mamba2 block of inner width ``d_in`` (the reference's
     ``ssm.mamba_spec``)."""
-    s, d, L = cfg.ssm, cfg.d_model, cfg.num_layers
+    s, d = cfg.ssm, cfg.d_model
     n_h, n = d_in // s.head_dim, s.d_state
     conv_dim = d_in + 2 * n
-    return {"in_proj": ((L, d, 2 * d_in + 2 * n + n_h), "normal", 1.0),
-            "conv_w": ((L, conv_dim, s.conv_kernel), "normal", 1.0),
-            "conv_b": ((L, conv_dim), "zeros", 1.0),
-            "A_log": ((L, n_h), "ones", 1.0),
-            "D": ((L, n_h), "ones", 1.0),
-            "dt_bias": ((L, n_h), "zeros", 1.0),
-            "norm_w": ((L, d_in), "ones", 1.0),
-            "out_proj": ((L, d_in, d), "normal", 1.0)}
+    return {"in_proj": ((d, 2 * d_in + 2 * n + n_h), "normal", 1.0),
+            "conv_w": ((conv_dim, s.conv_kernel), "normal", 1.0),
+            "conv_b": ((conv_dim,), "zeros", 1.0),
+            "A_log": ((n_h,), "ones", 1.0),
+            "D": ((n_h,), "ones", 1.0),
+            "dt_bias": ((n_h,), "zeros", 1.0),
+            "norm_w": ((d_in,), "ones", 1.0),
+            "out_proj": ((d_in, d), "normal", 1.0)}
 
 
 def _moe_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    """One stacked MoE FFN (the reference's ``moe.moe_spec``): the router
-    (kept f32), the routed experts and, when asked, the shared ones."""
-    m, d, L = cfg.moe, cfg.d_model, cfg.num_layers
+    """One MoE FFN (the reference's ``moe.moe_spec``): the router (kept
+    f32), the routed experts and, when asked, the shared ones."""
+    m, d = cfg.moe, cfg.d_model
     e, f = m.num_experts, m.d_ff_expert
-    spec: Dict[str, Any] = {"router": ((L, d, e), "normal", 1.0),
-                            "gate": ((L, e, d, f), "normal", 1.0),
-                            "up": ((L, e, d, f), "normal", 1.0),
-                            "down": ((L, e, f, d), "normal", 1.0)}
+    spec: Dict[str, Any] = {"router": ((d, e), "normal", 1.0),
+                            "gate": ((e, d, f), "normal", 1.0),
+                            "up": ((e, d, f), "normal", 1.0),
+                            "down": ((e, f, d), "normal", 1.0)}
     if m.num_shared:
         fs = f * m.num_shared
-        spec["shared"] = {"gate": ((L, d, fs), "normal", 1.0),
-                          "up": ((L, d, fs), "normal", 1.0),
-                          "down": ((L, fs, d), "normal", 1.0)}
+        spec["shared"] = {"gate": ((d, fs), "normal", 1.0),
+                          "up": ((d, fs), "normal", 1.0),
+                          "down": ((fs, d), "normal", 1.0)}
     return spec
+
+
+def _mla_spec(cfg: ModelConfig) -> Dict[str, Spec]:
+    """One MLA sub-layer (the reference's ``mla.mla_spec``): the query's
+    low-rank pair with its norm, the KV latent's down-projection (with
+    the shared rotary key) and norm, the latent's per-head key and value
+    up-projections, and the output projection."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+    qh = m.qk_nope_dim + m.qk_rope_dim
+    return {"q_a": ((d, m.q_lora_rank), "normal", 1.0),
+            "q_a_norm": ((m.q_lora_rank,), "ones", 1.0),
+            "q_b": ((m.q_lora_rank, h, qh), "normal", 1.0),
+            "kv_a": ((d, m.kv_lora_rank + m.qk_rope_dim), "normal", 1.0),
+            "kv_a_norm": ((m.kv_lora_rank,), "ones", 1.0),
+            "k_b": ((m.kv_lora_rank, h, m.qk_nope_dim), "normal", 1.0),
+            "v_b": ((m.kv_lora_rank, h, m.v_head_dim), "normal", 1.0),
+            "out": ((h, m.v_head_dim, d), "normal", 1.0)}
+
+
+def _attn_spec(cfg: ModelConfig) -> Dict[str, Spec]:
+    """One GQA sub-layer, its query heads padded to ``pad_heads_to``."""
+    d, hkv, hd = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
+    hq = max(cfg.num_heads, cfg.pad_heads_to)
+    attn = {"wq": ((d, hq, hd), "normal", 1.0),
+            "wk": ((d, hkv, hd), "normal", 1.0),
+            "wv": ((d, hkv, hd), "normal", 1.0),
+            "wo": ((hq, hd, d), "normal", 1.0)}
+    if cfg.qkv_bias:
+        attn["bq"] = ((hq, hd), "zeros", 1.0)
+        attn["bk"] = ((hkv, hd), "zeros", 1.0)
+        attn["bv"] = ((hkv, hd), "zeros", 1.0)
+    return attn
+
+
+def _block_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """One layer (the reference's ``transformer._block_spec``): the
+    SSM family's norm and Mamba2 block; the others' norm, attention (MLA
+    or GQA), the hybrid family's Mamba2 sub-layer beside it at half the
+    SSM family's inner width (``transformer.d_inner``), then the FFN's
+    norm and the FFN (MoE or SwiGLU MLP)."""
+    d = cfg.d_model
+    spec: Dict[str, Any] = {"norm1": ((d,), "ones", 1.0)}
+    if cfg.family == "ssm":
+        spec["mamba"] = _mamba_spec(cfg, d_inner(cfg))
+        return spec
+    if cfg.uses_mla:
+        spec["mla"] = _mla_spec(cfg)
+    else:
+        spec["attn"] = _attn_spec(cfg)
+    if cfg.family == "hybrid":
+        spec["mamba"] = _mamba_spec(cfg, d_inner(cfg))
+    spec["norm2"] = ((d,), "ones", 1.0)
+    if cfg.moe is not None:
+        spec["moe"] = _moe_spec(cfg)
+    else:
+        spec["mlp"] = {"gate": ((d, cfg.d_ff), "normal", 1.0),
+                       "up": ((d, cfg.d_ff), "normal", 1.0),
+                       "down": ((cfg.d_ff, d), "normal", 1.0)}
+    return spec
+
+
+def _stack(spec, n: int):
+    """Every leaf of ``spec`` with a leading layers axis of ``n``."""
+    if isinstance(spec, dict):
+        return {k: _stack(v, n) for k, v in spec.items()}
+    shape, init, scale = spec
+    return (n,) + shape, init, scale
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """Shapes and initialisers of the dense, MoE, SSM and hybrid
-    families' parameters (the reference package's
-    ``transformer.model_spec``).  A hybrid block is the dense block with
-    a Mamba2 sub-layer of half the SSM family's inner width beside its
-    attention (``transformer.d_inner``)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.uses_mla \
-            or cfg.mtp_depth:
+    """Shapes and initialisers of the decoder-only families' parameters
+    (the reference package's ``transformer.model_spec``): the embedding,
+    one block spec stacked over the layers, the final norm, the LM head
+    unless it is tied, the vlm family's patch ``projector [d, d]`` and,
+    with ``cfg.mtp_depth``, deepseek-v3's multi-token-prediction module
+    ``"mtp"`` (``proj [2d, d]``, one unstacked block, ``norm_h`` and
+    ``norm_e``), which only training reads."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: the port covers the dense, MoE, SSM and hybrid "
-            f"families only")
-    d, v, L = cfg.d_model, cfg.padded_vocab, cfg.num_layers
-    if cfg.family == "ssm":
-        spec: Dict[str, Any] = {
-            "embed": ((v, d), "normal", 1.0),
-            "blocks": {"norm1": ((L, d), "ones", 1.0),
-                       "mamba": _mamba_spec(cfg, d_inner(cfg))},
-            "final_norm": ((d,), "ones", 1.0)}
-        if not cfg.tie_embeddings:
-            spec["lm_head"] = ((d, v), "normal", 1.0)
-        return spec
-    hq = max(cfg.num_heads, cfg.pad_heads_to)
-    hkv, hd, ff = cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
-    attn = {"wq": ((L, d, hq, hd), "normal", 1.0),
-            "wk": ((L, d, hkv, hd), "normal", 1.0),
-            "wv": ((L, d, hkv, hd), "normal", 1.0),
-            "wo": ((L, hq, hd, d), "normal", 1.0)}
-    if cfg.qkv_bias:
-        attn["bq"] = ((L, hq, hd), "zeros", 1.0)
-        attn["bk"] = ((L, hkv, hd), "zeros", 1.0)
-        attn["bv"] = ((L, hkv, hd), "zeros", 1.0)
+            f"{cfg.name}: family {cfg.family}: its encoder-decoder layers "
+            f"are not ported yet")
+    d, v = cfg.d_model, cfg.padded_vocab
     spec: Dict[str, Any] = {
         "embed": ((v, d), "normal", 1.0),
-        "blocks": {
-            "norm1": ((L, d), "ones", 1.0),
-            "attn": attn,
-        },
-        "final_norm": ((d,), "ones", 1.0),
-    }
-    if cfg.family == "hybrid":
-        spec["blocks"]["mamba"] = _mamba_spec(cfg, d_inner(cfg))
-    spec["blocks"]["norm2"] = ((L, d), "ones", 1.0)
-    if cfg.moe is not None:
-        spec["blocks"]["moe"] = _moe_spec(cfg)
-    else:
-        spec["blocks"]["mlp"] = {"gate": ((L, d, ff), "normal", 1.0),
-                                 "up": ((L, d, ff), "normal", 1.0),
-                                 "down": ((L, ff, d), "normal", 1.0)}
+        "blocks": _stack(_block_spec(cfg), cfg.num_layers),
+        "final_norm": ((d,), "ones", 1.0)}
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((d, v), "normal", 1.0)
+    if cfg.family == "vlm":
+        spec["projector"] = ((d, d), "normal", 1.0)
+    if cfg.mtp_depth:
+        spec["mtp"] = {"proj": ((2 * d, d), "normal", 1.0),
+                       "block": _block_spec(cfg),
+                       "norm_h": ((d,), "ones", 1.0),
+                       "norm_e": ((d,), "ones", 1.0)}
     return spec
+
+
+# a normal leaf of more than DRAW_WHOLE elements is drawn DRAW_SLICE
+# elements (1 GiB of f32) at a time: the whole-leaf f32 draw of
+# deepseek-v3's expert weights would take 28 GiB beside their cast copy.
+# No leaf of chatglm-6b, mamba2-780m, olmoe-1b-7b (whose experts are
+# exactly 2 ** 31) or hymba-1.5b is larger, so their weights do not
+# depend on the slicing
+DRAW_WHOLE = 1 << 31
+DRAW_SLICE = 1 << 28
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
@@ -124,7 +178,9 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     ``scale / sqrt(shape[0])`` (the leading axis, as the reference's
     ``materialize`` takes it), ones and zeros where the spec says so.
     Draws in f32 from ``generator``, which must live on ``device``, then
-    casts to ``dtype`` (the ``KEEP_F32`` leaves stay f32)."""
+    casts to ``dtype`` (the ``KEEP_F32`` leaves stay f32); a leaf of
+    more than ``DRAW_WHOLE`` elements is drawn and cast ``DRAW_SLICE``
+    elements at a time, so its f32 copy never exists whole."""
     def make(spec, dt):
         if isinstance(spec, dict):
             return {k: make(s, torch.float32 if k in KEEP_F32 else dt)
@@ -135,9 +191,19 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
         if init == "ones":
             return torch.ones(shape, dtype=dt, device=device)
         fan_in = shape[0] if len(shape) > 1 else max(shape[-1], 1)
-        w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return w.mul_(scale / math.sqrt(fan_in)).to(dt)
+        std = scale / math.sqrt(fan_in)
+        if math.prod(shape) <= DRAW_WHOLE:
+            w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=device)
+            return w.mul_(std).to(dt)
+        out = torch.empty(shape, dtype=dt, device=device)
+        flat = out.view(-1)
+        for i in range(0, flat.numel(), DRAW_SLICE):
+            w = torch.randn(min(DRAW_SLICE, flat.numel() - i),
+                            generator=generator, dtype=torch.float32,
+                            device=device)
+            flat[i:i + w.numel()] = w.mul_(std)
+        return out
 
     return make(param_specs(cfg), dtype)
 

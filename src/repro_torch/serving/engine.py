@@ -49,9 +49,12 @@
 Generation is length-scripted replay (DESIGN.md §7): logits come from the
 real model, and a request stops at its ground-truth generation length.
 
-The padded engines serve the dense, MoE, SSM (mamba2) and hybrid
-(hymba: KV and recurrent state in one cache) families with a float
-cache; the paged engine serves the dense and MoE families.
+The padded engines serve the decoder-only families with a float cache:
+dense, MoE (with GQA, or MLA's latent cache for deepseek-v3), SSM
+(mamba2), hybrid (hymba: KV and recurrent state in one cache) and vlm
+(internvl2: zero patches in front of every prompt, as in the
+reference); the paged engine serves the dense and MoE families without
+MLA.
 """
 from __future__ import annotations
 
@@ -196,6 +199,13 @@ class _DenseEngine:
                                           dtype=dtype))
         self.host_syncs = 0
 
+    def _patches(self, rows: int) -> torch.Tensor:
+        """The vlm family's image input: zero patches [rows, P, d] in the
+        engine's dtype, as the reference's engines feed (the vision
+        tower is a stub there too)."""
+        return torch.zeros((rows, self.cfg.num_patches, self.cfg.d_model),
+                           dtype=self.dtype, device=self.device)
+
 
 def _encode_prompt(req: Request, vocab_size: int) -> List[int]:
     return encode(f"{req.instruction} {req.user_input}", vocab_size)
@@ -263,12 +273,15 @@ class BatchEngine(_DenseEngine):
         gen_targets = np.array([min(r.gen_length, self.max_gen)
                                 for r in reqs], np.int32)
         bg = int(gen_targets.max())
-        cache_len = _bucket(bl + bg)
+        vlm = self.cfg.family == "vlm"
+        cache_len = _bucket(bl + bg + (self.cfg.num_patches if vlm else 0))
         tokens, positions = _upload(self.device, self._tokens(reqs, bl),
                                     lengths)
-        logits, cache = M.prefill(
-            self.params, self.cfg, {"tokens": tokens, "lengths": positions},
-            act_dtype=self.dtype, cache_len=cache_len)
+        batch_in = {"tokens": tokens, "lengths": positions}
+        if vlm:
+            batch_in["patches"] = self._patches(len(reqs))
+        logits, cache = M.prefill(self.params, self.cfg, batch_in,
+                                  act_dtype=self.dtype, cache_len=cache_len)
         # gen_targets are known up front, so the whole decode loop fuses
         # into power-of-two on-device windows.  Decode until the slowest
         # request finishes (request waiting!).  decode_time excludes the
@@ -321,7 +334,13 @@ class ContinuousEngine(_DenseEngine):
     """Conservative continuous batching with the real model: fixed slots
     over one dense cache ``[L, slots, max_len + max_gen, Hkv, D]``; a
     join prefills alone (a single-request batch) while decoding pauses,
-    and every step reads its tokens back."""
+    and every step reads its tokens back.
+
+    The cache is sized without the vlm family's patch prefix, as in the
+    reference: a join whose patches plus prompt bucket exceed
+    ``max_len + max_gen`` ring-packs its prefill into the slot (the last
+    ``max_len + max_gen`` positions), so its decode no longer reads the
+    first patches (ROADMAP §3)."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, seed: int = 0,
                  slots: int = 4, max_len: int = 256, max_gen: int = 64,
@@ -366,9 +385,12 @@ class ContinuousEngine(_DenseEngine):
         tokens[0, :len(ids)] = ids
         tokens_t, lengths_t = _upload(self.device, tokens,
                                       np.array([len(ids)], np.int32))
+        batch_in = {"tokens": tokens_t, "lengths": lengths_t}
+        if self.cfg.family == "vlm":
+            batch_in["patches"] = self._patches(1)
         logits, single_cache = M.prefill(
-            self.params, self.cfg, {"tokens": tokens_t, "lengths": lengths_t},
-            act_dtype=self.dtype, cache_len=self.max_len + self.max_gen)
+            self.params, self.cfg, batch_in, act_dtype=self.dtype,
+            cache_len=self.max_len + self.max_gen)
         self._merge_cache_slot(slot, single_cache)
         self.logits[slot] = logits[0].to(self.dtype)
         self.positions[slot] = len(ids)

@@ -19,8 +19,8 @@ capture one:
   ``slots``, so it captures once per engine, at its first window or in
   ``warmup()``.
 - :meth:`DecodeGraph.padded`: ``decode_step_into`` on one padded batch's
-  dense cache (its SSM state, or both for the hybrid family) and
-  logits, with positions of its own.  A ``BatchEngine`` allocates that
+  dense cache (the MLA family's latents, the SSM state, or both KV and
+  state for the hybrid family) and logits, with positions of its own.  A ``BatchEngine`` allocates that
   cache in each batch's prefill, so it captures once per batch, and the
   graph is dropped with the batch.
 
@@ -92,8 +92,9 @@ def _launches() -> Dict[object, int]:
 
 def _query_heads(params) -> int:
     """Query heads a decode launch plans split counters for; 0 for a
-    family without attention (the SSM family launches no decode
-    kernel)."""
+    model whose layers have no ``"attn"`` weights, which launches no
+    decode kernel: the SSM family (no attention) and the MLA family
+    (its absorbed decode is plain PyTorch, as in the reference)."""
     attn = params["blocks"].get("attn")
     return 0 if attn is None else attn["wq"].shape[2]
 

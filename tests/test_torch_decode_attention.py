@@ -292,6 +292,40 @@ def test_cuda_dense_decode_kernel_matches_plain_version(dtype):
                                    atol=0, rtol=0)
 
 
+# internvl2-26b's padded decode: 48 query heads over 8 KV heads of 128
+# (G 6) on BatchEngine's _bucket(bl + bg + 256) cache (1,024 slots at bl
+# 256, bg 64), the rows at 256 patches + their prompt + steps taken
+INTERNVL2_DECODES = [(20, 1024, (257, 300, 512, 575, 319) * 4),
+                     (1, 512, (290,))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,s,lens", INTERNVL2_DECODES,
+                         ids=["rows20", "rows1"])
+def test_cuda_dense_decode_at_internvl2_heads(b, s, lens, dtype):
+    """The dense decode kernel at Hq 48 / Hkv 8, D 128 against its plain
+    version (2e-4 in f32, TF32 off; 5e-2 in bf16), then with NaN
+    written past the lengths, which changes nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt, _, tol = DTYPES[dtype]
+    assert len(lens) == b
+    q, k, v, ln = [torch.from_numpy(a).to("cuda") for a in
+                   _dense_setup(s, 48, 8, 128, lens, seed=5)]
+    q, k, v = q.to(tdt), k.to(tdt), v.to(tdt)
+    n0 = ops.decode_attention.launches
+    out = ops.decode_attention(q, k, v, ln)
+    assert ops.decode_attention.launches == n0 + 1
+    want = ref.decode_attention_ref(q, k, v, ln)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
+    for i, n in enumerate(lens):
+        k[i, n:], v[i, n:] = float("nan"), float("nan")
+    torch.testing.assert_close(ops.decode_attention(q, k, v, ln), out,
+                               atol=0, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # the split-KV decode kernel's host side and edges
 # ---------------------------------------------------------------------------

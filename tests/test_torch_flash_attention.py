@@ -142,6 +142,34 @@ def test_cuda_flash_window_at_hymba_heads(b, s, window, dtype):
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
 
 
+# internvl2-26b's prefill: 48 query heads over 8 KV heads of 128 (G 6),
+# S = 256 patches + the prompt bucket (bl 32 and 256), and S 200, off
+# every tile
+INTERNVL2_PREFILLS = [(4, 288), (2, 512), (1, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,s", INTERNVL2_PREFILLS)
+def test_cuda_flash_at_internvl2_heads(b, s, dtype):
+    """The causal kernel at Hq 48 / Hkv 8, D 128 (internvl2-26b's widths,
+    its prefill behind a 256-patch prefix) against its plain version:
+    2e-4 in f32 (TF32 off), 5e-2 in bf16, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt, _, tol = DTYPES[dtype]
+    rng = np.random.default_rng(13)
+    args = [torch.from_numpy(rng.normal(size=(b, s, h, 128)).astype(
+        np.float32)).to("cuda", tdt) for h in (48, 8, 8)]
+    n0 = ops.flash_attention.launches
+    out = ops.flash_attention(*args, causal=True)
+    assert ops.flash_attention.launches == n0 + 1
+    want = ref.flash_attention_ref(*args, causal=True)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
+
+
 def test_flash_kernel_refuses_other_bf16_head_sizes():
     """The tensor-core kernel takes D in {32, 64, 128}; the wrapper raises
     on any other bf16 head size before it reaches the card (f32 keeps

@@ -20,7 +20,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [
     ROOT / "scripts" / name for name in (
         "eager_step_compare.py", "f32_invariance.py", "first_swap_out.py",
-        "hybrid_phase.py", "hybrid_rehearsal.py", "moe_rehearsal.py",
+        "hybrid_phase.py", "hybrid_rehearsal.py", "mla_vlm_phases.py",
+        "mla_vlm_rehearsal.py", "moe_rehearsal.py",
         "padded_graph_breakeven.py", "recovery_rehearsal.py",
         "run_cuda_tests.py", "spec_rehearsal.py", "ssd_scan_phases.py")]
 

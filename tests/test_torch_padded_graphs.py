@@ -3,8 +3,11 @@
 counterpart of the reference's compiled ``decode_multi`` window in
 ``BatchEngine.serve_batch``.
 
-On the CPU, for a reduced chatglm-6b, mamba2-780m, olmoe-1b-7b and
-hymba-1.5b (the hybrid family: KV and SSM state in one cache): the
+On the CPU, for a reduced chatglm-6b, mamba2-780m, olmoe-1b-7b,
+hymba-1.5b (the hybrid family: KV and SSM state in one cache),
+deepseek-v3-671b (the MLA family: a latent cache, decoded in plain
+PyTorch) and internvl2-26b (the vlm family: zero patches in front of
+the prompt, the decode positions offset by them): the
 captured unit, ``decode_step_into`` (one greedy step written in place),
 repeated ``k`` times equals ``decode_multi(k)`` bit for bit (tokens,
 logits, positions and the dense cache or SSM state) and the JAX
@@ -13,9 +16,12 @@ decodes eagerly and captures nothing.
 
 On the card (``cuda``-marked, a reduced chatglm-6b in f32 and bf16, a
 reduced mamba2-780m in f32, a reduced olmoe-1b-7b in bf16, its MoE
-FFN inside the graph, and a reduced hymba-1.5b in f32 and bf16, its
+FFN inside the graph, a reduced hymba-1.5b in f32 and bf16, its
 attention and SSM heads both inside the graph, its prefill in window
-mode): a ``BatchEngine`` batch captures once,
+mode, a reduced deepseek-v3-671b in bf16, its absorbed MLA decode and
+MoE FFN inside the graph and no attention kernel, and a reduced
+internvl2-26b in bf16 behind its patch prefix): a ``BatchEngine`` batch
+captures once,
 and its streams, logits, positions and cache equal the same batch
 decoded by eager ``decode_multi`` on a copy of its state, with the
 kernels' launch counts equal to eager's; a batch of one step, or of
@@ -46,7 +52,8 @@ from repro_torch.serving.engine import BatchEngine
 from repro_torch.workload import apps
 
 TOL = 2e-4          # f32, of the reference's largest magnitude
-ARCHS = ("chatglm-6b", "mamba2-780m", "olmoe-1b-7b", "hymba-1.5b")
+ARCHS = ("chatglm-6b", "mamba2-780m", "olmoe-1b-7b", "hymba-1.5b",
+         "deepseek-v3-671b", "internvl2-26b")
 KERNELS = decode_ops.KERNELS + flash_ops.KERNELS + scan_ops.KERNELS
 
 
@@ -77,9 +84,12 @@ def _jax_prefill(arch, b=3, s=16, cache_len=32, seed=0):
     rng = np.random.default_rng(seed)
     tokens = rng.integers(3, cfg.vocab_size, size=(b, s)).astype(np.int32)
     lengths = np.array([s, 9, 1][:b], np.int32)
-    logits, cache = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(tokens),
-                                          "lengths": jnp.asarray(lengths)},
-                               act_dtype=jnp.float32, cache_len=cache_len)
+    batch = {"tokens": jnp.asarray(tokens), "lengths": jnp.asarray(lengths)}
+    if cfg.family == "vlm":
+        batch["patches"] = jnp.zeros((b, cfg.num_patches, cfg.d_model))
+        cache_len += cfg.num_patches
+    logits, cache = JM.prefill(jp, jcfg, batch, act_dtype=jnp.float32,
+                               cache_len=cache_len)
     return np.asarray(logits), jax.tree.map(np.asarray, cache), lengths
 
 
@@ -136,10 +146,11 @@ def test_decode_step_into_equals_decode_multi_and_jax(arch, k):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_query_heads_size_the_private_counters(arch):
     """The graph sizes its split counters from the attention weights'
-    query heads; the SSM family has none and launches no decode kernel,
-    so it plans none (the paged engine's sizing raised there)."""
+    query heads; the SSM family has none and the MLA family's decode is
+    plain PyTorch, so neither launches a decode kernel and both plan
+    none (the paged engine's sizing raised there)."""
     _, cfg, _, tp = _setup(arch)
-    want = (0 if cfg.family == "ssm"
+    want = (0 if cfg.family == "ssm" or cfg.uses_mla
             else tp["blocks"]["attn"]["wq"].shape[2])
     assert graphs._query_heads(tp) == want
 
@@ -176,9 +187,11 @@ def card():
 
 CARD_CASES = [("chatglm-6b", torch.float32), ("chatglm-6b", torch.bfloat16),
               ("mamba2-780m", torch.float32), ("olmoe-1b-7b", torch.bfloat16),
-              ("hymba-1.5b", torch.float32), ("hymba-1.5b", torch.bfloat16)]
+              ("hymba-1.5b", torch.float32), ("hymba-1.5b", torch.bfloat16),
+              ("deepseek-v3-671b", torch.bfloat16),
+              ("internvl2-26b", torch.bfloat16)]
 CARD_IDS = ["chatglm-f32", "chatglm-bf16", "mamba2-f32", "olmoe-bf16",
-            "hymba-f32", "hymba-bf16"]
+            "hymba-f32", "hymba-bf16", "deepseek-bf16", "internvl2-bf16"]
 
 
 def _card_engine(arch, dtype, max_gen=16):
@@ -235,14 +248,14 @@ def test_captured_batch_equals_eager_decode(card, arch, dtype, monkeypatch):
         chunks.append(toks.cpu())
     eager = {n: c - l1[n] for n, c in _launches().items()}
     layers, family = eng.cfg.num_layers, eng.cfg.family
+    attends = family != "ssm" and not eng.cfg.uses_mla
     prefill = {n: 0 for n in served}
-    if family != "ssm":
+    if attends:
         prefill["flash_attention"] = layers
     if family in ("ssm", "hybrid"):
         prefill["ssd_scan"] = layers
     assert {n: served[n] - eager[n] for n in served} == prefill
-    assert eager["decode_attention"] == (0 if family == "ssm"
-                                         else layers * 13)
+    assert eager["decode_attention"] == (layers * 13 if attends else 0)
     toks = torch.cat(chunks, 1)
     for i, r in enumerate(reqs):
         assert res.generated[r.req_id] == toks[i, :r.gen_length].tolist()
@@ -283,9 +296,11 @@ def test_replayed_window_reads_nothing(card, arch, dtype):
     tokens = torch.randint(3, eng.cfg.vocab_size, (3, 16), device="cuda",
                            dtype=torch.int32)
     lengths = torch.tensor([16, 9, 4], dtype=torch.int32, device="cuda")
-    logits, cache = M.prefill(eng.params, eng.cfg,
-                              {"tokens": tokens, "lengths": lengths},
-                              act_dtype=dtype, cache_len=32)
+    batch = {"tokens": tokens, "lengths": lengths}
+    if eng.cfg.family == "vlm":
+        batch["patches"] = eng._patches(3)
+    logits, cache = M.prefill(eng.params, eng.cfg, batch, act_dtype=dtype,
+                              cache_len=32 + eng.cfg.num_patches)
     g = graphs.DecodeGraph.padded(eng.params, eng.cfg, cache, logits,
                                   lengths, act_dtype=dtype, max_steps=8,
                                   stream=torch.cuda.Stream())
