@@ -292,10 +292,29 @@ CUDA toolkit.  Phases, each fatal on failure:
    eager windows bit for bit.  Logged: both kernels timed at these
    inputs as phase 8 times them, the step's bound, tokens/s beside
    phase 7's, the peak allocation.
+22. enc-dec serve: whisper-large-v3 uncut in bf16 (32 encoder and 32
+   decoder layers, d_model 1280, 20 heads of 64, 1,500 zero frames
+   padded to 1,536) once internvl2-26b's weights are gone.  (a) The
+   flash kernel's full mode with Sq != Sk and a key bound at whisper's
+   heads (the encoder's S 1,536 with 1,500 keys, the cross prefill's Sq
+   64 and 256, bounds off the tile) and (b) the dense decode kernel on
+   a 1,536-row cross cache at length 1,500, each against its plain
+   version in f32 (TF32 off, 2e-4) and bf16 (5e-2), with NaN past the
+   bound changing no output bit.  (c) A reduced whisper in f32 on the
+   card against the CPU: logits at 2e-4, greedy tokens equal.  (d)
+   ``run_engine_backend("whisper-large-v3", ..., reduced=False)``,
+   ``magnus`` on phase 7's requests: as phase 21's checks
+   (``ENCDEC_SCHEDULE``, from ``scripts/encdec_rehearsal.py``); flash 96
+   times a batch (the encoder, the decoder's causal self-attention and
+   its cross attention), dense decode 64 times a step (self and cross);
+   each batch's three layer-0 flash calls and a sample of steps' two
+   layer-0 decode calls held; graphed and eager windows bit for bit.
+   Logged: each batch's encoder card ms, both kernels timed at these
+   inputs, the step's bound, tokens/s beside phase 7's, the peak.
 
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves; phase 14 runs right after
-phase 5, then phases 15, 16, 17, 18, 19, 20 and 21 last.  The line before the
+phase 5, then phases 15 to 22 last.  The line before the
 last is a JSON object with one entry per kernel (six); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is missing or the port's sources are not beside
@@ -779,12 +798,16 @@ class Recorder:
     the positions ``snap`` are temporaries of the step, whose memory a
     later layer of the same replay may reuse: they are copied inside the
     capture, so each replay leaves that step's layer-0 values in the
-    copies; the others (the cache, the tables) are the engine's own."""
+    copies; the others (the cache, the tables) are the engine's own.
+
+    ``at`` takes the step's call at that index instead of its first (a
+    model that calls ``name`` more than once a layer, or in more than
+    one stack, as the encoder-decoder family does)."""
 
     def __init__(self, module, name, layers, keep=lambda *a: a, every=1,
-                 snap=()):
+                 snap=(), at=0):
         self.module, self.name, self.layers = module, name, layers
-        self.keep, self.every, self.snap = keep, every, snap
+        self.keep, self.every, self.snap, self.at = keep, every, snap, at
         self.kept, self.steps = [], 0
         self._calls = self._step = self._captured_calls = 0
         self.captured = None
@@ -811,13 +834,13 @@ class Recorder:
 
         def call(*args, **kw):
             if _capturing():
-                if self._captured_calls % self.layers == 0:
+                if self._captured_calls % self.layers == self.at:
                     self.captured = (tuple(
                         a.clone() if i in self.snap else a
                         for i, a in enumerate(args)), kw)
                 self._captured_calls += 1
             else:
-                if self._calls % self.layers == 0:
+                if self._calls % self.layers == self.at:
                     self._take(args, kw)
                 self._calls += 1
             return orig(*args, **kw)
@@ -3780,6 +3803,420 @@ def vlm_phase(torch, ops, ref, fops, fref, transformer, hbm, spin, others,
 
 
 # ---------------------------------------------------------------------------
+# phase 22: the encoder-decoder family (whisper-large-v3) on the padded path
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "whisper-large-v3"
+# the CPU rehearsal's (scripts/encdec_rehearsal.py): the batcher on
+# whisper-large-v3's memory model (each request's cross K/V priced at
+# 1,500 rows) at an H100 80GB's memory
+ENCDEC_SCHEDULE = dict(
+    batches=9, decode_steps=576, host_syncs=9, captures=9, wma_total=28703,
+    shapes=[[1, 256, 64], [1, 256, 64], [3, 256, 64], [4, 256, 64],
+            [5, 256, 64], [6, 256, 64], [11, 256, 64], [13, 256, 64],
+            [20, 256, 64]])
+ENCDEC_FREE_BEFORE = 2 << 30   # internvl2-26b's weights must be gone
+# (a): the flash kernel's full mode with a key bound at whisper's heads
+# (20 of 64, G 1): (B, Sq, Sk, kv_len): the encoder over 1,536 padded
+# frames with 1,500 real, the cross prefill at prompt buckets 64 and 256
+# against them, and bounds off the 64-key tile at small S
+ENCDEC_FLASH = [(1, 1536, 1536, 1500), (4, 1536, 1536, 1500),
+                (4, 64, 1536, 1500), (2, 256, 1536, 1500),
+                (3, 8, 130, 100), (2, 77, 77, 50)]
+# (b): the dense decode kernel on a 1,536-row cross cache read to 1,500
+# keys, at one row and at the serve's largest batch
+ENCDEC_DECODE_ROWS = (1, 20)
+
+
+def encdec_kernel_checks(torch, fops, fref, ops, ref):
+    """Phase 22 (a) and (b) at whisper-large-v3's heads (20 of 64): the
+    flash kernel's full mode with Sq != Sk and a key bound
+    (``ENCDEC_FLASH``), and the dense decode kernel on a cross cache of
+    1,536 rows at length 1,500 (``ENCDEC_DECODE_ROWS``), each against
+    its plain version in f32 (TF32 off, 2e-4) and bf16 (2e-2), each of
+    the output's own largest magnitude with no floor (averages over
+    1,500 random keys are about 0.04, so a floor of 1 would hide a key
+    let in past the bound); NaN written into the K/V rows from the
+    bound to the end must change each kernel's output by exactly 0, and
+    a bounded flash call must equal, bit for bit, the call on K and V
+    cut to the bound (the same tiles run, so a wrong bound mask shows
+    even where the bf16 tensor maps zero-fill past the bound)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    h, d = 20, 64
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    nan = float("nan")
+    errs = {}
+    for dt, name, tol in ((torch.float32, "f32", 2e-4),
+                          (torch.bfloat16, "bf16", 2e-2)):
+        for b, sq, sk, kv in ENCDEC_FLASH:
+            q = rand(b, sq, h, d).to(dt)
+            k, v = rand(b, sk, h, d).to(dt), rand(b, sk, h, d).to(dt)
+            out = fops.flash_attention(q, k, v, causal=False, kv_len=kv)
+            label = (f"flash_attention full mode ({name}, B {b}, Sq {sq}, "
+                     f"Sk {sk}, kv_len {kv})")
+            err, scale = hold(torch, label, out, fref.flash_attention_ref(
+                q, k, v, causal=False, kv_len=kv), tol=tol, floor=0.0)
+            check(torch.equal(fops.flash_attention(
+                q, k[:, :kv].contiguous(), v[:, :kv].contiguous(),
+                causal=False), out),
+                f"{label}: differs from the call on K and V cut to the bound")
+            kp, vp = k.clone(), v.clone()
+            kp[:, kv:], vp[:, kv:] = nan, nan
+            check(torch.equal(fops.flash_attention(
+                q, kp, vp, causal=False, kv_len=kv), out),
+                f"{label}: NaN past the key bound changed the output")
+            errs[f"flash {name}"] = max(err / scale,
+                                        errs.get(f"flash {name}", 0))
+        for b in ENCDEC_DECODE_ROWS:
+            q = rand(b, h, d).to(dt)
+            kc, vc = (rand(b, 1536, h, d).to(dt) for _ in range(2))
+            lens = torch.full((b,), 1500, dtype=torch.int32, device="cuda")
+            out = ops.decode_attention(q, kc, vc, lens)
+            label = f"decode_attention on a cross cache ({name}, B {b})"
+            err, scale = hold(torch, label, out, ref.decode_attention_ref(
+                q, kc, vc, lens), tol=tol, floor=0.0)
+            kc[:, 1500:], vc[:, 1500:] = nan, nan
+            check(torch.equal(ops.decode_attention(q, kc, vc, lens), out),
+                  f"{label}: NaN past the length changed the output")
+            errs[f"decode {name}"] = max(err / scale,
+                                         errs.get(f"decode {name}", 0))
+    log(f"phase 22 (a), (b): flash full mode with a key bound at "
+        f"{len(ENCDEC_FLASH)} shapes {ENCDEC_FLASH} and dense decode on "
+        f"1,536-row cross caches at length 1,500 ({ENCDEC_DECODE_ROWS} "
+        f"rows), 20 heads of 64, held against the plain versions (max abs "
+        f"err over the output's largest magnitude "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}"
+        f"; f32 tol 2e-4, bf16 2e-2); each bounded flash call equal bit "
+        f"for bit to the call on K and V cut to the bound; NaN past the "
+        f"bound changed no output bit")
+
+
+def encdec_model_check(torch, np):
+    """Phase 22 (c): reduced whisper-large-v3 (2 + 2 layers, 16 frames
+    padded to 512) in f32 on the card against the CPU, as phase 4 checks
+    chatglm-6b: random frames, right-padded prompts, a prefill into a
+    64-slot cache and a fused decode window.  The prefill's logits and
+    the window's are held at 2e-4 (relative to 1 + their scale) and the
+    greedy tokens must be equal; the caches' distance is logged."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.params import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(ENCDEC_ARCH).reduced()
+    params_cpu = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    rng = np.random.default_rng(22)
+    b, s, steps = 3, 32, 6
+    tokens = rng.integers(3, cfg.vocab_size, size=(b, s))
+    lengths = np.array([32, 17, 5])
+    frames = rng.standard_normal((b, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        params = params_cpu if dev == "cpu" else _to(torch, params_cpu, dev)
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                      device=dev)
+        logits, cache = M.prefill(params, cfg, {
+            "tokens": t(tokens), "lengths": t(lengths),
+            "frames": torch.as_tensor(frames, device=dev)},
+            act_dtype=torch.float32, cache_len=64)
+        first = logits.clone()
+        caches = [c.clone() for key in ("kv", "cross") for c in cache[key]]
+        logits, cache, _, toks = M.decode_multi(
+            params, cfg, cache, {"logits": logits, "positions": t(lengths)},
+            num_steps=steps, act_dtype=torch.float32)
+        results[dev] = ([first, logits], caches + list(cache["kv"]),
+                        toks.cpu())
+    errs = _rel_errs(torch, results["cuda"][0], results["cpu"][0])
+    cache_errs = _rel_errs(torch, results["cuda"][1], results["cpu"][1])
+    same = torch.equal(results["cuda"][2], results["cpu"][2])
+    log(f"phase 22 (c): {ENCDEC_ARCH} reduced f32 card vs cpu: max rel err "
+        f"{max(errs):.3e} (tol 2e-4) over the prefill's logits and the "
+        f"logits after {steps} fused decode steps; tokens equal: {same}; "
+        f"the caches (self and cross after the prefill, self after the "
+        f"window) differ by up to {max(cache_errs):.3e} of 1 + their scale")
+    check(same, "whisper decode tokens differ between card and cpu")
+    check(max(errs) <= 2e-4, f"whisper model card vs cpu: {errs}")
+
+
+def encdec_recorders(encdec, enc_layers, dec_layers):
+    """Recorders of whisper's layer-0 attention inputs in a padded serve:
+    every prefill's encoder, decoder self-attention and cross attention
+    flash calls (a prefill makes ``enc_layers + 2 * dec_layers`` calls,
+    the encoder's first, then a self and a cross call a decoder layer),
+    and every ``DECODE_SAMPLE``-th decode step's self and cross decode
+    calls (two a layer), the step's layer-0 caches cloned, up to
+    ``KEEP_BYTES`` in all.  Returns (encoder, self, cross, self decode,
+    cross decode)."""
+    left = [KEEP_BYTES]
+    calls = enc_layers + 2 * dec_layers
+
+    def afford(*ts):
+        n = sum(t.nbytes for t in ts)
+        if n > left[0]:
+            return False
+        left[0] -= n
+        return True
+
+    def keep_prefill(causal_want, restart=False):
+        def keep(q, k, v, *, causal=True, window=None, kv_len=None):
+            check(causal == causal_want and window is None,
+                  f"whisper prefill call: causal {causal}, window {window}")
+            if restart:                       # a new batch
+                dec_self.restart()
+                dec_cross.restart()
+            return (q, k, v, kv_len) if afford(q, k, v) else None
+        return keep
+
+    def keep_decode(q, kc, vc, lengths):
+        if afford(kc, vc):
+            return q[:, 0].clone(), kc.clone(), vc.clone(), lengths.clone()
+        return None
+
+    enc = Recorder(encdec, "gqa_prefill_attention", calls,
+                   keep_prefill(False, restart=True), at=0)
+    self_ = Recorder(encdec, "gqa_prefill_attention", calls,
+                     keep_prefill(True), at=enc_layers)
+    cross = Recorder(encdec, "gqa_prefill_attention", calls,
+                     keep_prefill(False), at=enc_layers + 1)
+    dec_self = Recorder(encdec, "gqa_decode_attention", 2 * dec_layers,
+                        keep_decode, every=DECODE_SAMPLE, snap=(0, 3), at=0)
+    dec_cross = Recorder(encdec, "gqa_decode_attention", 2 * dec_layers,
+                         keep_decode, every=DECODE_SAMPLE, snap=(0, 3), at=1)
+    return enc, self_, cross, dec_self, dec_cross
+
+
+class encoder_timer:
+    """Inside the ``with`` block, each call of ``encdec.encode`` (one a
+    padded batch's prefill) is bracketed by CUDA events; ``ms()`` gives
+    each call's card time once the work is done."""
+
+    def __init__(self, encdec):
+        self.module, self.events = encdec, []
+
+    def __enter__(self):
+        import torch
+        self.orig = orig = self.module.encode
+
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(*a, **kw)
+            end.record()
+            self.events.append((start, end, a[2].shape[0]))
+            return out
+
+        self.module.encode = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.encode = self.orig
+
+    def ms(self):
+        return [(rows, round(s.elapsed_time(e), 3))
+                for s, e, rows in self.events]
+
+
+def encdec_step_bound(engine, reqs, bl, steps):
+    """A padded whisper decode step's least time at the profiled batch:
+    the decoder's weights (every decoder block but its cross
+    attention's K and V projections, which only the prefill reads, its
+    final LayerNorm and the embedding, read as the tied LM head) once,
+    each row's self K/V
+    at the window's mean length and its cross K/V at ``encoder_seq``
+    rows (what decode reads of it) once, at 3.35 TB/s.  Returns (ms,
+    weights GB, self K/V GB, cross K/V GB)."""
+    cfg, p = engine.cfg, engine.params
+    blocks = dict(p["dec_blocks"])
+    blocks["cross"] = {k: t for k, t in blocks["cross"].items()
+                       if k not in ("wk", "wv", "bv")}
+    weights = sum(t.numel() * t.element_size() for t in
+                  _leaves({"dec_blocks": blocks, "dec_ln": p["dec_ln"],
+                           "embed": p["embed"]}))
+    per_token = 2 * cfg.num_layers * cfg.num_heads * cfg.head_dim * 2
+    tokens = sum(min(r.length, bl) + steps / 2 for r in reqs)
+    kv = tokens * per_token
+    cross = len(reqs) * cfg.encoder_seq * per_token
+    total = weights + kv + cross
+    return (total / HBM_BYTES_PER_S * 1e3, weights / 1e9, kv / 1e9,
+            cross / 1e9)
+
+
+def encdec_phase(torch, np, ops, ref, fops, fref, hbm, spin, others,
+                 reset_counts, counts):
+    """Phase 22: whisper-large-v3 uncut (32 encoder and 32 decoder
+    layers, d_model 1280, 20 heads of 64, 1,500 audio frames padded to
+    1,536) in bf16, random weights from seed 0 once internvl2-26b's are
+    gone.  (a), (b): :func:`encdec_kernel_checks`; (c):
+    :func:`encdec_model_check`; (d): a serve through
+    ``run_engine_backend`` (``magnus``, the padded ``BatchEngine``, zero
+    frames) on phase 7's requests with ``hbm_bytes`` the card's memory.
+    Checks of (d): as phase 21's (the schedule as ``ENCDEC_SCHEDULE``
+    predicts); flash 96 times a batch (the encoder's 32 layers at Sq =
+    Sk = 1,536 with 1,500 keys, then a causal self-attention and a
+    cross attention at Sq = bl, Sk = 1,536, 1,500 keys in each decoder
+    layer), dense decode 64 times a step (self on the batch's
+    ``_bucket(bl + G(B))``-slot cache, cross on the 1,536-row cross
+    cache at 1,500), nothing else and no plain version; one capture a
+    batch; each batch's three layer-0 flash calls and a sample of decode
+    steps' two layer-0 decode calls held as phase 6 holds; graphed and
+    eager windows of the largest batch bit for bit, profiled beside the
+    step's bound.  Logged: tokens/s beside ``others``, each batch's
+    encoder ms, the peak allocation.  Returns (the timings at these
+    inputs, the serve's launches)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_engine_backend
+    from repro_torch.models import encdec
+    from repro_torch.serving.engine import _bucket
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    log(f"phase 22: {before / 2 ** 30:.2f} GiB allocated before it")
+    check(before < ENCDEC_FREE_BEFORE, "internvl2-26b's weights were not "
+          "released before phase 22")
+    t_phase = time.perf_counter()
+    encdec_kernel_checks(torch, fops, fref, ops, ref)
+    encdec_model_check(torch, np)
+
+    ecfg = get_config(ENCDEC_ARCH)
+    reqs, targets = phase7_requests(ecfg.vocab_size)
+    nenc, ndec = ecfg.encoder_layers, ecfg.num_layers
+    recs = encdec_recorders(encdec, nenc, ndec)
+    enc, self_, cross, dec_self, dec_cross = recs
+    t0 = time.perf_counter()
+    with enc, self_, cross, dec_self, dec_cross, \
+            replays(dec_self, dec_cross) as rep, encoder_timer(encdec) as et:
+        reset_counts()
+        res = run_engine_backend(
+            ENCDEC_ARCH, 0.0, 0.0, "magnus", seed=0, reduced=False,
+            device="cuda", dtype=torch.bfloat16, hbm_bytes=hbm,
+            max_len=DENSE_MAX_LEN, max_gen=DENSE_MAX_GEN, requests=reqs)
+        launches = counts("launches")
+    plain = counts("plain_calls")
+    engine, results = res.pop("engine"), res.pop("results")
+    cfg = engine.cfg
+    log(f"enc-dec padded serve {ENCDEC_ARCH} full width bf16 magnus: "
+        f"{time.perf_counter() - t0:.1f} s with set-up; " + json.dumps(res))
+    log(f"enc-dec padded serve batches (size, batch length, G(B), host "
+        f"syncs): " + "; ".join(
+            f"({r.batch_size}, {r.batch_length}, {r.iterations}, "
+            f"{bin(r.iterations).count('1')})" for r in results))
+    log(f"enc-dec padded serve kernel launches {launches}, plain calls "
+        f"{plain}")
+    log(f"phase 22 encoder per batch (rows, card ms from CUDA events): "
+        f"{et.ms()}")
+    nparams = sum(t.numel() for t in _leaves(engine.params))
+    check((cfg.encoder_layers, cfg.num_layers, cfg.d_model, cfg.num_heads,
+           cfg.head_dim, cfg.d_ff, cfg.encoder_seq, cfg.padded_vocab)
+          == (32, 32, 1280, 20, 64, 5120, 1500, 53248),
+          f"phase 22 did not serve {ENCDEC_ARCH} at full width")
+    log(f"phase 22: {nparams / 1e9:.3f} B parameters, "
+        f"{nparams * 2 / 1e9:.2f} GB in bf16")
+    steps = check_padded_serve("phase 22", cfg, res, results, targets)
+    sched = padded_schedule(res, engine, results)
+    check(sched == ENCDEC_SCHEDULE, f"phase 22 schedule {sched}, the CPU "
+          f"rehearsal predicted {ENCDEC_SCHEDULE}")
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=(nenc + 2 * ndec) * len(results),
+                decode_attention=2 * ndec * steps)
+    check(launches == want, f"phase 22 launches {launches}, not {want}")
+    check(not any(plain.values()), f"plain versions ran in phase 22: "
+          f"{plain}")
+    check(enc.steps == self_.steps == cross.steps == len(results)
+          and dec_self.steps == dec_cross.steps == steps,
+          f"phase 22 recorded {enc.steps}/{self_.steps}/{cross.steps} "
+          f"prefills and {dec_self.steps}/{dec_cross.steps} decode steps")
+    check(len(et.events) == len(results),
+          f"phase 22: {len(et.events)} encoder calls for {len(results)} "
+          f"batches")
+    check_captures("enc-dec padded serve", engine, results, rep, steps)
+    frames = -(-cfg.encoder_seq // 512) * 512
+    lens = {r.batch_length for r in results}
+    check(all(tuple(q.shape[1:]) == (frames, 20, 64)
+              and k.shape[1] == frames and kv == cfg.encoder_seq
+              for q, k, _, kv in enc.kept)
+          and all(k.shape[1] == frames and kv == cfg.encoder_seq
+                  and q.shape[1] in lens for q, k, _, kv in cross.kept)
+          and all(q.shape[1] == k.shape[1] and q.shape[1] in lens
+                  and kv is None for q, k, _, kv in self_.kept),
+          "phase 22: prefill shapes " + str(
+              [(tuple(q.shape), k.shape[1], kv) for rec in (enc, self_, cross)
+               for q, k, _, kv in rec.kept]))
+    slots = {_bucket(r.batch_length + r.iterations) for r in results}
+    check(all(kc.shape[1] in slots for _, kc, _, _ in dec_self.kept)
+          and all(kc.shape[1] == frames and int(ln.min()) == int(ln.max())
+                  == cfg.encoder_seq for _, kc, _, ln in dec_cross.kept),
+          f"phase 22: decode caches of "
+          f"{sorted({kc.shape[1] for _, kc, _, _ in dec_self.kept})} and "
+          f"{sorted({kc.shape[1] for _, kc, _, _ in dec_cross.kept})} rows")
+    flash_errs = [hold(torch, "flash_attention (phase 22)",
+                       fops.flash_attention(q, k, v, causal=kv is None,
+                                            kv_len=kv),
+                       fref.flash_attention_ref(q, k, v, causal=kv is None,
+                                                kv_len=kv))
+                  for rec in (enc, self_, cross) for q, k, v, kv in rec.kept]
+    dec_errs = [hold(torch, "decode_attention (phase 22)",
+                     ops.decode_attention(q, kc, vc, ln),
+                     ref.decode_attention_ref(q, kc, vc, ln))
+                for rec in (dec_self, dec_cross) for q, kc, vc, ln in rec.kept]
+    check(all(r.kept for r in recs), "phase 22: nothing kept")
+    log(f"phase 22 held against the plain kernels: {len(flash_errs)} "
+        f"layer-0 flash calls (encoder, self, cross of each batch; max abs "
+        f"err {max(e for e, _ in flash_errs):.3e}), {len(dec_errs)} "
+        f"sampled decode steps' layer-0 self and cross attention (max abs "
+        f"err {max(e for e, _ in dec_errs):.3e})")
+    big = max(results, key=lambda r: r.batch_size)
+    breqs = [r for r in reqs if r.req_id in big.generated]
+    cache_len = _bucket(big.batch_length + big.iterations)
+    profiles = profile_dense_window(torch, engine, breqs, big.batch_length,
+                                    cache_len, label="enc-dec padded")
+    log_profiles(f"enc-dec padded decode step at {big.batch_size} rows",
+                 profiles)
+    ms, wgb, kgb, cgb = encdec_step_bound(engine, breqs, big.batch_length, 8)
+    log(f"phase 22 decode step bound at {big.batch_size} rows: {ms:.3f} ms "
+        f"({wgb:.2f} GB of decoder weights, {kgb:.3f} GB of self K/V, "
+        f"{cgb:.2f} GB of cross K/V at {cfg.encoder_seq} rows, at 3.35 "
+        f"TB/s); graphed busy {profiles['graphed']['busy_ms']:.2f} ms is "
+        f"{profiles['graphed']['busy_ms'] / ms:.2f}x it")
+    log(f"phase 22 serve: {res['token_tp']} tokens/s in {res['wall_s']} s "
+        f"(" + "; ".join(f"{label}: {r['token_tp']} in {r['wall_s']} s"
+                         for label, r in others.items()) + ")")
+    del engine, results, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    t22 = {
+        "flash_attention encoder": summarize(
+            "flash_attention (phase 22, encoder)", *time_flash(
+                torch, fops, fref, [c[:3] for c in enc.kept], spin,
+                kv_len=cfg.encoder_seq)),
+        "flash_attention cross prefill": summarize(
+            "flash_attention (phase 22, cross prefill)", *time_flash(
+                torch, fops, fref, [c[:3] for c in cross.kept], spin,
+                kv_len=cfg.encoder_seq)),
+        "flash_attention self": summarize(
+            "flash_attention (phase 22, decoder self)", *time_flash(
+                torch, fops, fref, [c[:3] for c in self_.kept], spin)),
+        "decode_attention self": summarize(
+            "decode_attention (phase 22, self)", *time_dense_decode(
+                torch, ops, ref, dec_self.kept, spin)),
+        "decode_attention cross": summarize(
+            "decode_attention (phase 22, cross)", *time_dense_decode(
+                torch, ops, ref, dec_cross.kept, spin))}
+    log(f"phase 22 peak: {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        f" GiB allocated; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del recs, enc, self_, cross, dec_self, dec_cross
+    gc.collect()
+    torch.cuda.empty_cache()
+    return t22, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timings at the serve's shapes
 # ---------------------------------------------------------------------------
 
@@ -3838,12 +4275,13 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def hold(torch, name, out, want, tol=5e-2):
+def hold(torch, name, out, want, tol=5e-2, floor=1.0):
     """Max abs error of the kernel against its plain version, held to
     ``tol`` of the output's own scale (its largest magnitude, at least
-    1): bf16's 5e-2 by default (served K/V are not unit-size: random
-    weights leave values of order 10, where one bf16 step is 0.06)."""
-    scale = max(1.0, want.float().abs().max().item())
+    ``floor``): bf16's 5e-2 by default (served K/V are not unit-size:
+    random weights leave values of order 10, where one bf16 step is
+    0.06)."""
+    scale = max(floor, want.float().abs().max().item())
     err = (out.float() - want.float()).abs().max().item()
     check(torch.isfinite(out).all().item(), f"{name}: NaN at the serve's "
           f"inputs")
@@ -4008,8 +4446,9 @@ def profile_dense_window(torch, engine, reqs, bl, cache_len, steps=8,
     profile windows of ``steps`` steps through each (:func:`window_profile`:
     host ms, device busy ms and idle share a step, the readback
     included).  The vlm family's batch carries the engine's zero
-    patches, as ``serve_batch`` feeds them.  Returns {"graphed": ...,
-    "eager": ...}."""
+    patches and the encoder-decoder family's its zero frames, as
+    ``serve_batch`` feeds them.  Returns {"graphed": ..., "eager":
+    ...}."""
     from repro_torch.models import model as M
     from repro_torch.serving.graphs import DecodeGraph
     cfg, params, dtype = engine.cfg, engine.params, engine.dtype
@@ -4018,9 +4457,8 @@ def profile_dense_window(torch, engine, reqs, bl, cache_len, steps=8,
                            dtype=torch.int32, device="cuda")
     tokens = torch.randint(3, cfg.vocab_size, (len(reqs), bl), generator=gen,
                            device="cuda", dtype=torch.int32)
-    batch = {"tokens": tokens, "lengths": lengths}
-    if cfg.family == "vlm":
-        batch["patches"] = engine._patches(len(reqs))
+    batch = engine._frontend({"tokens": tokens, "lengths": lengths},
+                             len(reqs))
     logits, cache = M.prefill(params, cfg, batch, act_dtype=dtype,
                               cache_len=cache_len)
     eager = {"cache": {key: tuple(t.clone() for t in leaves)
@@ -4067,30 +4505,39 @@ def log_profiles(label, profiles):
          for mode, m in profiles.items()}))
 
 
-def time_flash(torch, fops, fref, calls, spin, window=None):
+def time_flash(torch, fops, fref, calls, spin, window=None, kv_len=None):
     """Kernel 3 on each batch's layer-0 prefill of the padded serve, as
-    the model calls it (causal, with the served model's ``window``).
+    the model calls it: causal, with the served model's ``window``; or,
+    given a key bound ``kv_len`` (the encoder-decoder family's encoder
+    and cross attention), in full mode over the first ``kv_len`` keys.
     The library yardstick is SDPA on the same q, k, v in SDPA's [B, H,
     S, D] layout, K and V repeated to the query heads for GQA: with
-    ``is_causal``, or with a boolean mask of the band where the window
-    is shorter than the sequence."""
+    ``is_causal``, with a boolean mask of the band where the window is
+    shorter than the sequence, or unmasked on K and V cut to the bound.
+    The bound reads q and the K/V rows a query can see once and writes
+    the output once."""
     import torch.nn.functional as F
     per = {k: [] for k in ("ms", "plain_ms", "library_ms", "bound")}
     errs = []
+    causal = kv_len is None
     for q, k, v in calls:
         b, s, hq, d = q.shape
         g = hq // k.shape[2]
-        kern = lambda r: fops.flash_attention(q, k, v, causal=True,
-                                              window=window)
-        plain = lambda r: fref.flash_attention_ref(q, k, v, causal=True,
-                                                   window=window)
+        kern = lambda r: fops.flash_attention(q, k, v, causal=causal,
+                                              window=window, kv_len=kv_len)
+        plain = lambda r: fref.flash_attention_ref(
+            q, k, v, causal=causal, window=window, kv_len=kv_len)
         errs.append(hold(torch, "flash_attention", kern(0), plain(0)))
         per["ms"].append(median_ms(torch, kern, PREFILL_REPS, spin))
         per["plain_ms"].append(median_ms(torch, plain, PREFILL_REPS, spin))
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        kt, vt = kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1)
+        keys = k.shape[1] if causal else kv_len
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x[:, :keys].transpose(1, 2).contiguous()
+                  .repeat_interleave(g, 1) for x in (k, v))
         w = s if window is None else min(window, s)
-        if w < s:
+        if not causal:
+            lib = lambda r: F.scaled_dot_product_attention(qt, kt, vt)
+        elif w < s:
             i = torch.arange(s, device="cuda")
             band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
             lib = lambda r: F.scaled_dot_product_attention(
@@ -4102,9 +4549,11 @@ def time_flash(torch, fops, fref, calls, spin, window=None):
         per["library_ms"].append(median_ms(torch, lib, PREFILL_REPS, spin))
         del qt, kt, vt
         e = q.element_size()
-        # every (q, k) pair with k <= q and q - k < w
-        pairs = b * (w * (w + 1) // 2 + (s - w) * w)
-        nbytes = 2 * q.numel() * e + 2 * k.numel() * e
+        # every (q, k) pair a query sees: k <= q and q - k < w, or every
+        # key below the bound
+        pairs = (b * s * kv_len if not causal
+                 else b * (w * (w + 1) // 2 + (s - w) * w))
+        nbytes = 2 * q.numel() * e + 2 * b * keys * k.shape[2] * d * e
         per["bound"].append(bound(nbytes, 4 * d * hq * pairs))
     return per, errs
 
@@ -5110,6 +5559,20 @@ def main() -> int:
                     key: (round(v, 4) if isinstance(v, float) else v)
                     for key, v in row.items()}}
                 for name, row in t21.items()}))
+
+        # 22. whisper-large-v3's enc-dec padded serve uncut: its encoder
+        # and cross-attention prefill through the flash kernel's full
+        # mode with a key bound, both decode attentions through the
+        # dense decode kernel, under the captured decode graph
+        t22, encdec_launches = encdec_phase(
+            torch, np, ops, ref, fops, fref, hbm, spin,
+            {"phase 7 chatglm-6b": res7}, reset_counts, counts)
+        log("phase 22 kernels at whisper-large-v3's inputs (mean of "
+            "per-shape medians, CUDA events, ms): " + json.dumps({
+                name: {"launches": encdec_launches.get(name.split()[0]),
+                       **{key: (round(v, 4) if isinstance(v, float) else v)
+                          for key, v in row.items()}}
+                for name, row in t22.items()}))
 
         source = {"paged_decode_attention":
                   ("src/repro_torch/csrc/paged_decode_attention.cu",

@@ -1,0 +1,59 @@
+"""Run ``chip_smoke.py`` phase 22 alone: whisper-large-v3's enc-dec
+padded serve uncut, with its kernel checks (a), (b) and the reduced
+model on the card against the CPU (c), after building the kernels.
+
+    PYTHONPATH=src python scripts/encdec_phase.py
+
+The quickest rerun of the phase on a card after a change to its path;
+``python3 chip_smoke.py`` runs it after phases 1-21, with phase 7's
+tokens/s beside its own.  Exits 1 if a check fails."""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.ssd_scan import ops as sops
+    t0 = time.perf_counter()
+    build.load_library()
+    cs.log(f"build {time.perf_counter() - t0:.1f} s; "
+           f"{torch.cuda.get_device_name(0)}")
+    kernels = ops.KERNELS + fops.KERNELS + sops.KERNELS
+
+    def reset_counts():
+        for mod in (ops, fops, sops):
+            mod.reset_counts()
+
+    def counts(attr):
+        return {fn.__name__: getattr(fn, attr) for fn in kernels}
+
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    try:
+        t22, launches = cs.encdec_phase(
+            torch, np, ops, ref, fops, fref, hbm, cs.spin_ms(torch), {},
+            reset_counts, counts)
+        cs.log(f"phase 22 alone: launches {launches}; timings {t22}")
+    except Exception:
+        import traceback
+        traceback.print_exc()
+        return 1
+    cs.log(f"phase 22 alone: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,30 +1,39 @@
 // Dense GQA prefill attention for Hopper (sm_90a): every query position of
-// a right-padded prompt batch against the same batch's keys, Sq == Sk = S,
-// with causal, sliding-window or full masks.
+// a right-padded prompt batch against the same batch's keys (Sq == Sk, with
+// causal, sliding-window or full masks), or, in full mode, Sq queries
+// against Sk keys of another sequence (the encoder-decoder family's cross
+// attention) with a key bound: keys at or past kv_len are masked, as the
+// TPU kernel masks keys past its seq_k when K is cut to kv_len.
 //
 // Replaces the TPU kernel `flash_attention_kernel` (body `_kernel`) in
 // src/repro/kernels/flash_attention/kernel.py.
 //
-// What bounds it: at the serving shapes (S up to a few hundred, D = 128)
-// the least time is set by the bytes (q, k, v read once, out written once);
-// the causal triangle's products are ~1/5 of that time at the bf16 tensor
-// core rate.  What both kernels below keep from the TPU kernel is the work
-// it skips: the K/V loop of a block starts at the sliding window's edge
-// and stops at the causal frontier of its last query row, so bytes and
+// What bounds it: at the decoder-only serving shapes (S up to a few
+// hundred, D = 128) the least time is set by the bytes (q, k, v read
+// once, out written once); the causal triangle's products are ~1/5 of
+// that time at the bf16 tensor core rate.  A full-mode encoder over 1,536
+// frames (whisper's) is bound by its operations instead.  What both
+// kernels below keep from the TPU kernel is the work it skips: the K/V
+// loop of a block starts at the sliding window's edge and stops at the
+// causal frontier of its last query row, or at the key bound, so bytes and
 // operations follow the unmasked region (the TPU grid stepped over every
-// KV block and skipped the dead ones with pl.when).  Keys at or past S
-// (the ragged last tile; S need not be a multiple of the tile) are masked,
-// and query rows past S are neither computed nor written.  Rows are packed
-// as the TPU kernel packs them: row r of the S * G rows of a KV head is
-// position r / G, query head h * G + r % G, so the G query heads of one KV
-// head share each K/V tile.
+// KV block and skipped the dead ones with pl.when).  Keys at or past the
+// key bound kv_len (<= Sk; the ragged last tile, as Sk need not be a
+// multiple of the tile) are masked and never read: the f32 kernel stages
+// zeros for them and the tensor maps end at kv_len, so TMA fills them with
+// zeros, and whatever the rows from kv_len to Sk hold cannot reach the
+// output.  Query rows past Sq are neither computed nor written.  Rows are
+// packed as the TPU kernel packs them: row r of the Sq * G rows of a KV
+// head is position r / G, query head h * G + r % G, so the G query heads
+// of one KV head share each K/V tile.
 //
 // bf16 (the serves): `flash_tc_kernel`, on the tensor cores.  One block
 // per (batch row, KV head, 64 packed query rows): one consumer warpgroup
 // and one producer warp.  The producer's lane 0 brings 64-key K and V
-// tiles by TMA (4-D tensor maps over [B, S, Hkv, D], 128-byte swizzle, or
-// 64-byte at D = 32) into a 2-stage ring with full / empty mbarriers;
-// TMA's out-of-bounds zero fill covers the ragged last tile.  The
+// tiles by TMA (4-D tensor maps over the first kv_len keys of [B, Sk, Hkv,
+// D], 128-byte swizzle, or 64-byte at D = 32) into a 2-stage ring with
+// full / empty mbarriers; TMA's out-of-bounds zero fill covers the keys
+// of the last tile at or past kv_len.  The
 // consumers compute S = Q.K^T by wgmma m64n64k16 (Q and K from shared
 // memory, f32 accumulators in registers), run the online softmax in
 // registers (a row's max and sum reduced by shuffles over the 4 lanes
@@ -59,13 +68,14 @@ constexpr int kTileKeys = 32;  // TK: keys staged per step
 template <typename T>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int S, int Hq,
-             int Hkv, int D, int causal, int window, float scale) {
+             const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
+             int Hq, int Hkv, int D, int causal, int window, int kv_len,
+             float scale) {
   extern __shared__ float smem[];
   const int h = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv, ld = D + 1;
   const int r0 = blockIdx.x * kTileRows;
-  const int R = min(kTileRows, S * G - r0);
+  const int R = min(kTileRows, Sq * G - r0);
   float* qs = smem;                    // [TR][ld]  scaled queries
   float* ks = qs + kTileRows * ld;     // [TK][ld]  staged K tile
   float* vs = ks + kTileKeys * ld;     // [TK][ld]  staged V tile
@@ -78,7 +88,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // element offset of query row r (position, query head) in q / out
   auto qoff = [&](int r) {
     const int row = r0 + r;
-    return (((size_t)b * S + row / G) * Hq + (size_t)h * G + row % G) * D;
+    return (((size_t)b * Sq + row / G) * Hq + (size_t)h * G + row % G) * D;
   };
   for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
     const int r = e / D, d = e - r * D;
@@ -92,12 +102,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // keys any row of this tile can see: [k_lo, k_hi)
   const int p_lo = r0 / G, p_hi = (r0 + R - 1) / G;
-  const int k_hi = causal ? min(S, p_hi + 1) : S;
+  const int k_hi = causal ? min(kv_len, p_hi + 1) : kv_len;
   const int k_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
   for (int c0 = k_lo; c0 < k_hi; c0 += kTileKeys) {
     __syncthreads();  // the previous tile is consumed
     auto row_off = [&](int t) {
-      return (((size_t)b * S + c0 + t) * Hkv + h) * D;
+      return (((size_t)b * Sk + c0 + t) * Hkv + h) * D;
     };
     auto ok = [&](int t) { return c0 + t < k_hi; };
     stage_rows(ks, ld, k, kTileKeys, D, row_off, ok);
@@ -122,8 +132,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int Hq, int Hkv, int D, int causal,
-                   int window, cudaStream_t stream) {
+                   int B, int Sq, int Sk, int Hq, int Hkv, int D, int causal,
+                   int window, int kv_len, cudaStream_t stream) {
   const int G = Hq / Hkv, ld = D + 1;
   const size_t smem =
       sizeof(float) * ((size_t)kTileRows * ld + 2 * (size_t)kTileKeys * ld +
@@ -131,11 +141,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                        3 * kTileRows);
   cudaError_t err = set_smem(flash_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S * G + kTileRows - 1) / kTileRows, Hkv, B);
+  const dim3 grid((Sq * G + kTileRows - 1) / kTileRows, Hkv, B);
   flash_kernel<T><<<grid, kFlashThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, Hq, Hkv, D, causal,
-      window, static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
+      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv, D,
+      causal, window, kv_len,
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
 
@@ -157,8 +168,8 @@ __global__ void __launch_bounds__(kTcThreads)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tmap_k,
                 const __grid_constant__ CUtensorMap tmap_v,
                 const __nv_bfloat16* __restrict__ q,
-                __nv_bfloat16* __restrict__ out, int S, int Hq, int Hkv,
-                int causal, int window, float scale_log2) {
+                __nv_bfloat16* __restrict__ out, int Sq, int Hq, int Hkv,
+                int causal, int window, int kv_len, float scale_log2) {
   using Sh = TcShape<D>;
   constexpr int RB = Sh::RB, BN = kTcKeys, NS = kTcStages;
   extern __shared__ unsigned char smem_raw[];
@@ -173,10 +184,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmap_k,
   const int h = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
   const int r0 = blockIdx.x * kTcRows;
-  const int R = min(kTcRows, S * G - r0);
+  const int R = min(kTcRows, Sq * G - r0);
   // keys any row of this tile can see: [k_lo, k_hi)
   const int p_lo = r0 / G, p_hi = (r0 + R - 1) / G;
-  const int k_hi = causal ? min(S, p_hi + 1) : S;
+  const int k_hi = causal ? min(kv_len, p_hi + 1) : kv_len;
   const int k_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
   const int ntiles = (k_hi - k_lo + BN - 1) / BN;
 
@@ -212,7 +223,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmap_k,
   // past the last are zero-filled)
   const int tid = threadIdx.x;
   auto qoff = [&](int r) {  // element offset of packed row r in q / out
-    return (((size_t)b * S + r / G) * Hq + (size_t)h * G + r % G) * D;
+    return (((size_t)b * Sq + r / G) * Hq + (size_t)h * G + r % G) * D;
   };
   constexpr int CPRow = D / 8;  // 16-byte chunks a row
   for (int e = tid; e < kTcRows * CPRow; e += 128) {
@@ -280,17 +291,20 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map over x [B, S, Hkv, D] whose box is one region (RB bytes of
-// D) of 64 consecutive keys of one (row, KV head).
+// A 4-D map over x [B, Sk, Hkv, D] whose box is one region (RB bytes of
+// D) of 64 consecutive keys of one (row, KV head).  The map's key extent
+// is kv_len (<= Sk) over the rows' Sk stride, so a box reaching past
+// kv_len is zero-filled there.
 template <int D>
-bool kv_map(CUtensorMap* map, const void* x, int B, int S, int Hkv) {
+bool kv_map(CUtensorMap* map, const void* x, int B, int Sk, int Hkv,
+            int kv_len) {
   using Sh = TcShape<D>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)S,
-                              (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv,
+                              (cuuint64_t)kv_len, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)Hkv * D * 2,
-                                 (cuuint64_t)S * Hkv * D * 2};
+                                 (cuuint64_t)Sk * Hkv * D * 2};
   const cuuint32_t box[4] = {Sh::RB / 2, 1, kTcKeys, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
@@ -304,36 +318,39 @@ bool kv_map(CUtensorMap* map, const void* x, int B, int S, int Hkv) {
 
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
-                      void* out, int B, int S, int Hq, int Hkv, int causal,
-                      int window, cudaStream_t stream) {
+                      void* out, int B, int Sq, int Sk, int Hq, int Hkv,
+                      int causal, int window, int kv_len,
+                      cudaStream_t stream) {
   CUtensorMap mk, mv;
-  if (!kv_map<D>(&mk, k, B, S, Hkv) || !kv_map<D>(&mv, v, B, S, Hkv))
+  if (!kv_map<D>(&mk, k, B, Sk, Hkv, kv_len) ||
+      !kv_map<D>(&mv, v, B, Sk, Hkv, kv_len))
     return cudaErrorInvalidValue;
   const size_t smem = TcShape<D>::SMEM;
   cudaError_t err = set_smem(flash_tc_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const int G = Hq / Hkv;
-  const dim3 grid((S * G + kTcRows - 1) / kTcRows, Hkv, B);
+  const dim3 grid((Sq * G + kTcRows - 1) / kTcRows, Hkv, B);
   flash_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
       mk, mv, static_cast<const __nv_bfloat16*>(q),
-      static_cast<__nv_bfloat16*>(out), S, Hq, Hkv, causal, window,
+      static_cast<__nv_bfloat16*>(out), Sq, Hq, Hkv, causal, window, kv_len,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))) * kLog2e);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, int B, int S, int Hq, int Hkv, int D,
-                        int causal, int window, cudaStream_t stream) {
+                        void* out, int B, int Sq, int Sk, int Hq, int Hkv,
+                        int D, int causal, int window, int kv_len,
+                        cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_tc<32>(q, k, v, out, B, S, Hq, Hkv, causal, window,
-                           stream);
+      return launch_tc<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
+                           kv_len, stream);
     case 64:
-      return launch_tc<64>(q, k, v, out, B, S, Hq, Hkv, causal, window,
-                           stream);
+      return launch_tc<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
+                           kv_len, stream);
     case 128:
-      return launch_tc<128>(q, k, v, out, B, S, Hq, Hkv, causal, window,
-                            stream);
+      return launch_tc<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
+                            kv_len, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -342,24 +359,29 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace repro
 
-// q, out [B, S, Hq, D]; k, v [B, S, Hkv, D].  All contiguous, of one dtype
-// (0 = f32, 1 = bf16); bf16 takes D in {32, 64, 128} and k, v on 16-byte
-// boundaries (TMA).  causal: 0 or 1; window: 0 for none, else a query
-// at position p sees keys k with p - k < window.  Launches on `stream` and
-// returns cudaGetLastError() after the launch.
+// q, out [B, Sq, Hq, D]; k, v [B, Sk, Hkv, D].  All contiguous, of one
+// dtype (0 = f32, 1 = bf16); bf16 takes D in {32, 64, 128} and k, v on
+// 16-byte boundaries (TMA).  causal: 0 or 1; window: 0 for none, else a
+// query at position p sees keys k with p - k < window; query i sits at
+// position i, so a causal or window mask needs Sq == Sk.  Keys at or past
+// kv_len (1 <= kv_len <= Sk) are masked and not read.  Launches on
+// `stream` and returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int B, int S,
-                                     int Hq, int Hkv, int D, int causal,
-                                     int window, int dtype, void* stream) {
-  if (B == 0 || S == 0) return cudaSuccess;
-  if (B < 0 || S < 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || window < 0)
+                                     const void* v, void* out, int B, int Sq,
+                                     int Sk, int Hq, int Hkv, int D,
+                                     int causal, int window, int kv_len,
+                                     int dtype, void* stream) {
+  if (B == 0 || Sq == 0) return cudaSuccess;
+  if (B < 0 || Sq < 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 ||
+      window < 0 || kv_len < 1 || kv_len > Sk ||
+      ((causal || window > 0) && Sq != Sk))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return repro::launch<float>(q, k, v, out, B, S, Hq, Hkv, D, causal,
-                                window, s);
+    return repro::launch<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal,
+                                window, kv_len, s);
   if (dtype == repro::kBFloat16)
-    return repro::launch_bf16(q, k, v, out, B, S, Hq, Hkv, D, causal,
-                              window, s);
+    return repro::launch_bf16(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal,
+                              window, kv_len, s);
   return cudaErrorInvalidValue;
 }

@@ -4,7 +4,9 @@ through ctypes (source: ``repro_torch/csrc/flash_attention.cu``).
 ``flash_attention_kernel`` replaces the TPU kernel of the same name in
 ``src/repro/kernels/flash_attention/kernel.py`` (body ``_kernel``).  Each
 block loops over keys only from the sliding window's edge to the causal
-frontier of its query tile, so the work follows the unmasked region.  In
+frontier of its query tile, or to the key bound ``kv_len``, so the work
+follows the unmasked region; in full (non-causal, unwindowed) mode the
+queries and keys may be of different lengths (cross attention).  In
 bf16 (the serves) it runs on the tensor cores: K/V tiles by TMA into a
 shared-memory ring, S = Q.K^T and O += P.V by wgmma with the softmax and O
 in registers, bound at the serving shapes by the bytes of q, k, v and out;
@@ -26,9 +28,29 @@ from repro_torch.kernels.build import load_library
 BF16_HEAD_SIZES = (32, 64, 128)   # the tensor-core kernel's D values
 
 
+def check_modes(sq: int, sk: int, causal: bool, window: Optional[int],
+                kv_len: Optional[int]) -> int:
+    """The key bound a call runs with (``kv_len``, or ``sk``); raises a
+    ``ValueError`` for a mode the kernel does not take: a causal or
+    window mask with Sq != Sk (query i sits at position i), a window
+    below 1, or a bound outside [1, Sk]."""
+    if (causal or window is not None) and sq != sk:
+        raise ValueError(f"a causal or window mask needs Sq == Sk (query i "
+                         f"at position i), got Sq {sq}, Sk {sk}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    bound = sk if kv_len is None else int(kv_len)
+    if not 1 <= bound <= sk:
+        raise ValueError(f"kv_len {kv_len} outside [1, Sk = {sk}]")
+    return bound
+
+
 def flash_attention_kernel(q, k, v, *, causal: bool = True,
-                           window: Optional[int] = None) -> torch.Tensor:
-    """q: [B, S, Hq, D]; k, v: [B, S, Hkv, D] (Sq == Sk) -> [B, S, Hq, D]."""
+                           window: Optional[int] = None,
+                           kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D].  Keys
+    at or past ``kv_len`` (default Sk) are masked and never read; Sq !=
+    Sk only in full mode (:func:`check_modes`)."""
     code = dtype_code(q)
     if q.dtype == torch.bfloat16 and q.shape[-1] not in BF16_HEAD_SIZES:
         raise ValueError(f"bf16 prefill head size {q.shape[-1]} not in "
@@ -36,24 +58,23 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
     check_cuda("q", q, dim=4)
     check_cuda("k", k, dtype=q.dtype, dim=4)
     check_cuda("v", v, dtype=q.dtype, dim=4)
-    b, s, hq, d = q.shape
-    if (k.shape[:2] != (b, s) or k.shape[3] != d or v.shape != k.shape
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    if (k.shape[0] != b or k.shape[3] != d or v.shape != k.shape
             or hq % k.shape[2]):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} (the kernel "
-                         f"takes Sq == Sk)")
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    bound = check_modes(sq, sk, causal, window, kv_len)
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:
                 raise ValueError(f"{name} must start on a 16-byte boundary "
                                  f"(TMA and 16-byte loads)")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1 or None, got {window}")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = load_library().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-            hq, k.shape[2], d, int(causal), window or 0, code,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            sk, hq, k.shape[2], d, int(causal), window or 0, bound, code,
             torch.cuda.current_stream(q.device).cuda_stream)
     raise_on(rc, "flash_attention")
     return out

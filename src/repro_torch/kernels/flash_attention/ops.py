@@ -17,15 +17,20 @@ from repro_torch.kernels.flash_attention import kernel, ref
 
 @hot_path
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None):
-    """q: [B, S, Hq, D]; k, v: [B, S, Hkv, D] -> [B, S, Hq, D], for
-    Sq == Sk (prefill)."""
+                    window: Optional[int] = None,
+                    kv_len: Optional[int] = None):
+    """q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D]: a
+    prefill (Sq == Sk, any mask) or, in full mode, cross attention (Sq
+    != Sk).  Keys at or past ``kv_len`` (default Sk) are masked.  A mode
+    the kernel does not take raises a ``ValueError`` on every device."""
+    kernel.check_modes(q.shape[1], k.shape[1], causal, window, kv_len)
     if device_route(q) == "cpu":
         flash_attention.plain_calls += 1
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       kv_len=kv_len)
     out = kernel.flash_attention_kernel(q.contiguous(), k.contiguous(),
                                         v.contiguous(), causal=causal,
-                                        window=window)
+                                        window=window, kv_len=kv_len)
     flash_attention.launches += 1
     return out
 

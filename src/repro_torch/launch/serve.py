@@ -1,25 +1,36 @@
 """Serving launcher: the Magnus service (predict -> bucket -> HRRN)
-drives the PyTorch engines.
+against a Poisson workload, on one of two backends, as in the reference
+launcher:
 
+  --backend sim    : the roofline-priced cluster simulator at paper scale
+                     (``repro_torch.sim``; numpy only, no model runs), the
+                     default; ``--hw`` picks the priced hardware (the
+                     paper's V100 testbed or a TPU v5e) and
+                     ``--instances`` the cluster's LLM instances
+  --backend engine : the PyTorch engines on a reduced config
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm-6b \
+        --strategy magnus --rate 8 --duration 60
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
-        --strategy magnus --rate 3 --duration 6 --device cpu
+        --strategy magnus --backend engine --rate 3 --duration 6 \
+        --device cpu
 
-The padded strategies (``vs vsq ccb glp abp magnus``) serve through the
-paper's padded-batch ``BatchEngine`` (:func:`run_engine_backend`); the
-``-paged`` ones through the ``PagedContinuousEngine``
-(:func:`run_paged_engine_backend`).  The padded path serves the
-decoder-only families: dense, MoE (``--arch olmoe-1b-7b``; with MLA,
-``--arch deepseek-v3-671b``), SSM (``--arch mamba2-780m``), hybrid
-(``--arch hymba-1.5b``) and vlm (``--arch internvl2-26b``, zero
-patches in front of every prompt); the paged one the dense and MoE
-families without MLA (a paged strategy refuses the others with the
-reference's reason).  Runs on the CUDA card unless
-``--device cpu`` is given.  ``--checkpoint-dir`` turns on the paged
-engine's crash-safe serving (a write-ahead journal and a snapshot every
-``--snapshot-every`` windows; a journal left by an earlier process is
-recovered first).  Like the reference launcher, it serves
-``reduced()`` configurations in f32.  The reference's roofline
-simulator backend (``--backend sim``) is not ported yet.
+On the engine backend the padded strategies (``vs vsq ccb glp abp
+magnus``) serve through the paper's padded-batch ``BatchEngine``
+(:func:`run_engine_backend`); the ``-paged`` ones through the
+``PagedContinuousEngine`` (:func:`run_paged_engine_backend`).  The
+padded path serves every family: dense, MoE (``--arch olmoe-1b-7b``;
+with MLA, ``--arch deepseek-v3-671b``), SSM (``--arch mamba2-780m``),
+hybrid (``--arch hymba-1.5b``), vlm (``--arch internvl2-26b``, zero
+patches in front of every prompt) and enc-dec (``--arch
+whisper-large-v3``, zero audio frames through the encoder); the paged
+one the dense and MoE families without MLA (a paged strategy refuses the
+others with the reference's reason).  The engines run on the CUDA card
+unless ``--device cpu`` is given.  ``--checkpoint-dir`` turns on the
+paged engine's crash-safe serving (a write-ahead journal and a snapshot
+every ``--snapshot-every`` windows; a journal left by an earlier process
+is recovered first).  Like the reference launcher, the engine backend
+serves ``reduced()`` configurations in f32.
 """
 from __future__ import annotations
 
@@ -35,6 +46,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import Request
 from repro_torch.device import resolve_device
+from repro_torch.serving.cost_model import TPU_V5E, V100_32G
+from repro_torch.sim.runner import run_strategy
 from repro_torch.workload.apps import make_dataset
 from repro_torch.workload.generator import poisson_workload
 
@@ -311,6 +324,25 @@ def run_paged_engine_backend(arch: str, rate: float, duration: float,
             "device": str(dev), "engine": engine}
 
 
+def run_sim_backend(arch: str, rate: float, duration: float, strategy: str,
+                    seed: int = 0, *, hw: str = "v100", instances: int = 7,
+                    prefix_cache: bool = False) -> dict:
+    """The reference launcher's default backend: the discrete-event
+    cluster simulator (``sim.runner.run_strategy``) on ``arch``'s full
+    config, ``instances`` LLM instances priced on ``hw`` ("v100", the
+    paper's testbed with an f32 cache, or "v5e"), over a Poisson
+    workload at ``rate`` for ``duration`` seconds.  Returns the
+    simulator's ``Metrics.summary()``; nothing runs on a device."""
+    cfg = get_config(arch)
+    wl = poisson_workload(rate, duration, seed=seed)
+    spec = V100_32G if hw == "v100" else TPU_V5E
+    m = run_strategy(strategy, wl, cfg, hw=spec, n_instances=instances,
+                     kv_dtype_bytes=4 if hw == "v100" else 2,
+                     train_requests=make_dataset(100, seed=seed + 1),
+                     prefix_sharing=prefix_cache, seed=seed)
+    return m.summary()
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="chatglm-6b")
@@ -318,10 +350,16 @@ def main(argv: Optional[List[str]] = None) -> None:
                     choices=list(PADDED_STRATEGIES + PAGED_STRATEGIES))
     ap.add_argument("--rate", type=float, default=8.0)
     ap.add_argument("--duration", type=float, default=60.0)
+    ap.add_argument("--instances", type=int, default=7,
+                    help="sim: LLM instances of the simulated cluster")
+    ap.add_argument("--backend", default="sim", choices=["sim", "engine"])
+    ap.add_argument("--hw", default="v100", choices=["v100", "v5e"],
+                    help="sim: the priced hardware (the paper's V100 "
+                         "testbed, or a TPU v5e)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="paged strategies: radix-tree prompt-prefix "
                          "sharing across apps with copy-on-write partial "
-                         "tails")
+                         "tails (engine) / LCP-aware footprints (sim)")
     ap.add_argument("--block-tokens", type=int, default=16,
                     help="paged engine block size; matches shorter than "
                          "one block are misses")
@@ -354,9 +392,16 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="windows between full engine snapshots when "
                          "--checkpoint-dir is set")
     ap.add_argument("--device", default=None,
-                    help="default: the CUDA card (raises without one)")
+                    help="engine: default the CUDA card (raises without "
+                         "one)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.backend == "sim":     # the engine's flags are ignored here
+        print(json.dumps(run_sim_backend(
+            args.arch, args.rate, args.duration, args.strategy, args.seed,
+            hw=args.hw, instances=args.instances,
+            prefix_cache=args.prefix_cache), indent=2))
+        return
     paged_only = {"--prefix-cache": args.prefix_cache,
                   "--ttl-steps": args.ttl_steps is not None,
                   "--swap-blocks": args.swap_blocks > 0,

@@ -19,10 +19,16 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 
 def gqa_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
-                          window: Optional[int] = None) -> torch.Tensor:
-    """q: [B, S, Hq, D]; k, v: [B, S, Hkv, D] -> [B, S, Hq, D], with
-    query i at position i (Sq == Sk)."""
-    return flash_attention(q, k, v, causal=causal, window=window)
+                          window: Optional[int] = None,
+                          kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D], with
+    query i at position i.  Keys at or past ``kv_len`` are masked (the
+    encoder's pad frames, the cross attention's pad rows).  A causal or
+    window mask needs Sq == Sk; full mode (cross attention) takes any
+    Sk, as the reference's signature does (without its ``q_offset``,
+    which no caller passes)."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           kv_len=kv_len)
 
 
 def gqa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,8 +1,11 @@
-"""Numeric primitives of the dense transformer (the reference package's
+"""Numeric primitives of the models (the reference package's
 ``models/layers.py``): RMS norm, rotary embeddings in the split-half
-form, and the SwiGLU MLP."""
+form and the SwiGLU MLP of the decoder-only families; LayerNorm,
+whisper's fixed sinusoidal positions and the GELU MLP of the
+encoder-decoder family."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -14,6 +17,37 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * weight.float()).to(dt)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Normalise in f32 (biased variance), scale and shift, cast back to
+    ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dt)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's fixed positional embeddings [n, d] in f32: the sines of
+    the ``d // 2`` frequencies, then their cosines, computed in float64
+    (numpy) as the reference computes them."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(table.astype(np.float32)).to(device)
+
+
+def gelu_mlp(x: torch.Tensor, p) -> torch.Tensor:
+    """``gelu(x @ up + up_b) @ down + down_b`` with the tanh form of GELU,
+    which is ``jax.nn.gelu``'s default (torch's default is the exact erf
+    form)."""
+    h = F.gelu(x @ p["up"] + p["up_b"], approximate="tanh")
+    return h @ p["down"] + p["down_b"]
 
 
 def rope_freqs(head_dim: int, theta: float,

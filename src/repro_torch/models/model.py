@@ -2,18 +2,22 @@
 reference package's ``models/model.py``).  Batches are dicts of tensors:
 
   prefill            : {"tokens": [B, S], "lengths": [B]}, and for the
-                       vlm family "patches": [B, num_patches, d_model]
+                       vlm family "patches": [B, num_patches, d_model],
+                       for the encoder-decoder family "frames": [B,
+                       encoder_seq, d_model]
   decode_step        : {"tokens": [B], "positions": [B]} against a dense
                        cache: {"kv": (k, v)}, each [L, B, S, Hkv, D];
                        {"kv": (c_kv [L, B, S, R], k_rope [L, B, S, Dr])}
                        (the MLA family's latents); {"kv": (k, v,
                        k_scale, v_scale)} int8 with bf16 scales [L, B,
                        S, Hkv] (``cfg.cache_int8``); {"ssm": (state,
-                       conv)} (the SSM family); or {"kv": (k, v), "ssm":
+                       conv)} (the SSM family); {"kv": (k, v), "ssm":
                        (state, conv)} (the hybrid family: both, written
-                       in place by each step).  The vlm family's
-                       positions are text-relative (the patch prefix is
-                       added inside)
+                       in place by each step); or {"kv": (k, v),
+                       "cross": (ck, cv)} (the encoder-decoder family:
+                       the self K/V, written in place, and the encoder's
+                       cross K/V, read).  The vlm family's positions are
+                       text-relative (the patch prefix is added inside)
   decode_multi       : {"logits": [B, padded_vocab], "positions": [B]}
                        (``decode_step_into``: one of its steps in place)
   prefill_wave       : {"tokens": [B, S], "lengths": [B], "prefix_lens",
@@ -33,12 +37,12 @@ reference package's ``models/model.py``).  Batches are dicts of tensors:
 The functions run where their tensors live; the constructors
 (:func:`init_params`, :func:`init_cache`, :func:`init_paged_cache`)
 take a ``device`` that defaults to the CUDA card and raise without one.
-The decoder-only families have a dense cache in the port: dense, MoE
-(GQA, or MLA for deepseek-v3), SSM (mamba2), hybrid (hymba) and vlm
-(internvl2); the encoder-decoder family (whisper) raises
-``NotImplementedError`` (``transformer.supports_dense`` says why).  The
-paged entry points serve the dense and MoE families without MLA
-(:func:`supports_paged`, the reference's rule).  :func:`batch_invariant` makes their
+Every family has a dense cache: dense, MoE (GQA, or MLA for
+deepseek-v3), SSM (mamba2), hybrid (hymba) and vlm (internvl2) through
+``models/transformer.py``, and the encoder-decoder family (whisper)
+through ``models/encdec.py`` (:func:`_is_encdec` dispatches, as in the
+reference).  The paged entry points serve the dense and MoE families
+without MLA (:func:`supports_paged`, the reference's rule).  :func:`batch_invariant` makes their
 arithmetic of a token independent of its batch, wave or window.
 """
 from __future__ import annotations
@@ -51,9 +55,13 @@ from repro_torch import params as params_lib
 from repro_torch.analysis.sanitizer import hot_path
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 batch_invariant = transformer.batch_invariant
+
+
+def _is_encdec(cfg: ModelConfig) -> bool:
+    return cfg.family == "audio"
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
@@ -63,9 +71,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
     Hkv, D] in ``dtype``; the latents (c_kv, k_rope) in ``dtype`` for
     MLA; int8 values and bf16 scales with ``cfg.cache_int8``; {"ssm":
     (state, conv)} in f32 for the SSM family; both keys for the hybrid
-    family."""
-    return transformer.init_cache(cfg, batch, seq, dtype=dtype,
-                                  device=resolve_device(device))
+    family; {"kv", "cross"} for the encoder-decoder family, the cross
+    K/V of ``encoder_seq`` rows."""
+    mod = encdec if _is_encdec(cfg) else transformer
+    return mod.init_cache(cfg, batch, seq, dtype=dtype,
+                          device=resolve_device(device))
 
 
 @hot_path
@@ -80,7 +90,14 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     below S ring-packs the KV only).  The vlm family's cache holds the
     ``batch["patches"]`` prefix in front of the prompt, so it needs
     ``cache_len`` >= num_patches + S to keep all of it (the reference's
-    ``ContinuousEngine`` sizes it without the patches and ring-packs)."""
+    ``ContinuousEngine`` sizes it without the patches and ring-packs).
+    The encoder-decoder family encodes ``batch["frames"]`` first; its
+    self K/V is zero-padded or cut (not ring-packed) to ``cache_len``,
+    and its cross K/V has the encoder's padded rows."""
+    if _is_encdec(cfg):
+        return encdec.prefill(params, cfg, batch["tokens"], batch["lengths"],
+                              batch["frames"], act_dtype=act_dtype,
+                              cache_len=cache_len)
     return transformer.prefill(params, cfg, batch["tokens"],
                                batch["lengths"],
                                patches=batch.get("patches"),
@@ -92,8 +109,9 @@ def decode_step(params, cfg: ModelConfig, cache, batch: Dict[str, Any], *,
                 act_dtype: torch.dtype = torch.bfloat16):
     """One token per row against the dense cache (updated in place).
     Returns (logits [B, V], cache)."""
-    return transformer.decode_step(params, cfg, cache, batch["tokens"],
-                                   batch["positions"], act_dtype=act_dtype)
+    mod = encdec if _is_encdec(cfg) else transformer
+    return mod.decode_step(params, cfg, cache, batch["tokens"],
+                           batch["positions"], act_dtype=act_dtype)
 
 
 @hot_path
@@ -127,8 +145,8 @@ def decode_step_into(params, cfg: ModelConfig, cache,
     """One step of :func:`decode_multi` written in place, so that a CUDA
     graph can replay it: argmax the carried ``state["logits"]``, run
     :func:`decode_step` at ``state["positions"]`` (the dense cache, the
-    MLA latents, the SSM state, or both for the hybrid family, written
-    in place), copy the new logits into
+    MLA latents, the SSM state, both for the hybrid family, or the self
+    K/V of the encoder-decoder family, written in place), copy the new logits into
     ``state["logits"]``, advance every row's position (the padded batch
     has no idle row) and write the step's token into ``tok_out`` [B].
     ``k`` calls equal ``decode_multi(num_steps=k)``."""
@@ -143,7 +161,7 @@ def decode_step_into(params, cfg: ModelConfig, cache,
 
 
 def supports_paged(cfg: ModelConfig) -> Tuple[bool, str]:
-    if cfg.family == "audio":
+    if _is_encdec(cfg):
         return False, "enc-dec cross-KV caches are not paged"
     return transformer.supports_paged(cfg)
 

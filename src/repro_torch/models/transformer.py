@@ -31,9 +31,10 @@ CUDA kernels on the card, their plain versions on the CPU.  MLA runs in
 plain PyTorch, as the reference runs it in plain ``jnp``.  The dense,
 MoE (``models/moe.py``: the FFN of every row and position of the
 ``[B, S]`` batch, pads and idle slots included, as the reference groups
-them), MLA, SSM, hybrid and vlm families are ported; the
-encoder-decoder family (whisper) raises ``NotImplementedError`` with the
-reason.  Only training reads deepseek-v3's multi-token-prediction
+them), MLA, SSM, hybrid and vlm families are ported here; the
+encoder-decoder family (whisper) has its own entry points in
+``models/encdec.py``, to which ``models/model.py`` dispatches.  Only
+training reads deepseek-v3's multi-token-prediction
 weights (``params["mtp"]``), so no entry point here does.
 
 Where the reference is functional (``.at[].set`` on donated buffers),
@@ -216,22 +217,13 @@ def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # Dense cache
 # ---------------------------------------------------------------------------
 
-def supports_dense(cfg: ModelConfig) -> Tuple[bool, str]:
-    """The dense-cache half covers the decoder-only families: dense and
-    MoE (GQA or MLA attention), the attention-free SSM family, the
-    hybrid family (GQA and SSM heads in every layer) and the vlm family
-    (the dense model behind a patch prefix); the encoder-decoder family
-    (whisper) is not ported yet."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
-        return False, (f"family {cfg.family}: its encoder-decoder layers "
-                       f"are not ported yet")
-    return True, ""
-
-
 def _require_dense(cfg: ModelConfig) -> None:
-    ok, why = supports_dense(cfg)
-    if not ok:
-        raise NotImplementedError(f"{cfg.name}: {why}")
+    """This module's dense entry points take the decoder-only families;
+    the encoder-decoder family's are ``models/encdec.py``'s."""
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name}: the encoder-decoder family's entry "
+                         f"points are models/encdec.py's (models/model.py "
+                         f"dispatches to them)")
 
 
 def _attention(ap: Dict, x: torch.Tensor, cfg: ModelConfig,

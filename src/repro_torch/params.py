@@ -1,11 +1,13 @@
-"""Parameters of the decoder-only models (the dense, MoE, MLA
-(deepseek-v3), SSM (mamba2), hybrid (hymba) and vlm (internvl2)
-families) as nested dicts of tensors, with the reference package's keys
-and layouts (``embed [V, d]``, ``blocks/attn/wq [L, d, Hq, hd]``,
-``blocks/attn/wo [L, Hq, hd, d]``, ``blocks/mla/k_b [L, R, H, Dn]``,
-``blocks/mlp/gate [L, d, d_ff]``, ``blocks/moe/router [L, d, E]``,
-``blocks/moe/gate [L, E, d, f]``, ``blocks/mamba/in_proj [L, d, 2 d_in
-+ 2 N + H]``, ``projector [d, d]``, ``mtp/block/...``, ...).
+"""Parameters of every model family (the dense, MoE, MLA (deepseek-v3),
+SSM (mamba2), hybrid (hymba), vlm (internvl2) and encoder-decoder
+(whisper) families) as nested dicts of tensors, with the reference
+package's keys and layouts (``embed [V, d]``, ``blocks/attn/wq [L, d,
+Hq, hd]``, ``blocks/attn/wo [L, Hq, hd, d]``, ``blocks/mla/k_b [L, R,
+H, Dn]``, ``blocks/mlp/gate [L, d, d_ff]``, ``blocks/moe/router [L, d,
+E]``, ``blocks/moe/gate [L, E, d, f]``, ``blocks/mamba/in_proj [L, d, 2
+d_in + 2 N + H]``, ``projector [d, d]``, ``mtp/block/...``,
+``enc_blocks/attn/bq [L_enc, H, hd]``, ``dec_blocks/cross/wo [L, H, hd,
+d]``, ``dec_blocks/mlp/up_b [L, d_ff]``, ...).
 
 Two sources: :func:`params_from_numpy` carries the reference package's
 weights across (the caller converts them to numpy), and
@@ -125,6 +127,46 @@ def _block_spec(cfg: ModelConfig) -> Dict[str, Any]:
     return spec
 
 
+def _mha_spec(cfg: ModelConfig) -> Dict[str, Spec]:
+    """One whisper attention sub-layer (the reference's
+    ``encdec._mha_spec``): Q, K, V and output projections, biases on Q,
+    V and the output (zeros), none on K."""
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    return {"wq": ((d, h, hd), "normal", 1.0),
+            "bq": ((h, hd), "zeros", 1.0),
+            "wk": ((d, h, hd), "normal", 1.0),
+            "wv": ((d, h, hd), "normal", 1.0),
+            "bv": ((h, hd), "zeros", 1.0),
+            "wo": ((h, hd, d), "normal", 1.0),
+            "bo": ((d,), "zeros", 1.0)}
+
+
+def _ln_spec(d: int) -> Dict[str, Spec]:
+    return {"w": ((d,), "ones", 1.0), "b": ((d,), "zeros", 1.0)}
+
+
+def _encdec_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The encoder-decoder family's parameters (the reference's
+    ``encdec.model_spec``): the embedding (also the LM head), the
+    encoder blocks (``ln1``, ``attn``, ``ln2``, the GELU ``mlp``) and
+    their final LayerNorm, the decoder blocks (``ln1``, ``self``,
+    ``ln_x``, ``cross``, ``ln2``, ``mlp``) and theirs."""
+    d = cfg.d_model
+    mlp = {"up": ((d, cfg.d_ff), "normal", 1.0),
+           "up_b": ((cfg.d_ff,), "zeros", 1.0),
+           "down": ((cfg.d_ff, d), "normal", 1.0),
+           "down_b": ((d,), "zeros", 1.0)}
+    enc = {"ln1": _ln_spec(d), "attn": _mha_spec(cfg), "ln2": _ln_spec(d),
+           "mlp": mlp}
+    dec = {"ln1": _ln_spec(d), "self": _mha_spec(cfg), "ln_x": _ln_spec(d),
+           "cross": _mha_spec(cfg), "ln2": _ln_spec(d), "mlp": mlp}
+    return {"embed": ((cfg.padded_vocab, d), "normal", 1.0),
+            "enc_blocks": _stack(enc, cfg.encoder_layers),
+            "enc_ln": _ln_spec(d),
+            "dec_blocks": _stack(dec, cfg.num_layers),
+            "dec_ln": _ln_spec(d)}
+
+
 def _stack(spec, n: int):
     """Every leaf of ``spec`` with a leading layers axis of ``n``."""
     if isinstance(spec, dict):
@@ -134,17 +176,17 @@ def _stack(spec, n: int):
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """Shapes and initialisers of the decoder-only families' parameters
-    (the reference package's ``transformer.model_spec``): the embedding,
-    one block spec stacked over the layers, the final norm, the LM head
-    unless it is tied, the vlm family's patch ``projector [d, d]`` and,
-    with ``cfg.mtp_depth``, deepseek-v3's multi-token-prediction module
-    ``"mtp"`` (``proj [2d, d]``, one unstacked block, ``norm_h`` and
-    ``norm_e``), which only training reads."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family}: its encoder-decoder layers "
-            f"are not ported yet")
+    """Shapes and initialisers of a config's parameters: for the
+    encoder-decoder family :func:`_encdec_specs`; for the decoder-only
+    families the reference package's ``transformer.model_spec``: the
+    embedding, one block spec stacked over the layers, the final norm,
+    the LM head unless it is tied, the vlm family's patch ``projector
+    [d, d]`` and, with ``cfg.mtp_depth``, deepseek-v3's
+    multi-token-prediction module ``"mtp"`` (``proj [2d, d]``, one
+    unstacked block, ``norm_h`` and ``norm_e``), which only training
+    reads."""
+    if cfg.family == "audio":
+        return _encdec_specs(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
     spec: Dict[str, Any] = {
         "embed": ((v, d), "normal", 1.0),

@@ -49,12 +49,13 @@
 Generation is length-scripted replay (DESIGN.md §7): logits come from the
 real model, and a request stops at its ground-truth generation length.
 
-The padded engines serve the decoder-only families with a float cache:
-dense, MoE (with GQA, or MLA's latent cache for deepseek-v3), SSM
-(mamba2), hybrid (hymba: KV and recurrent state in one cache) and vlm
-(internvl2: zero patches in front of every prompt, as in the
-reference); the paged engine serves the dense and MoE families without
-MLA.
+The padded engines serve every family with a float cache: dense, MoE
+(with GQA, or MLA's latent cache for deepseek-v3), SSM (mamba2), hybrid
+(hymba: KV and recurrent state in one cache), vlm (internvl2: zero
+patches in front of every prompt, as in the reference) and
+encoder-decoder (whisper: zero audio frames through the encoder, the
+self and cross K/V in one cache); the paged engine serves the dense and
+MoE families without MLA.
 """
 from __future__ import annotations
 
@@ -74,7 +75,7 @@ from repro_torch.core.types import Batch, Request
 from repro_torch.core.wma import batch_wma
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.models.transformer import cast_params, supports_dense
+from repro_torch.models.transformer import cast_params
 from repro_torch.serving.faults import FaultInjector, Shed
 from repro_torch.serving.paged_cache import (BlockAllocator, HostSwapTier,
                                              MispredictionEWMA, NULL_SEQ,
@@ -181,9 +182,6 @@ class _DenseEngine:
 
     def __init__(self, cfg: ModelConfig, params, seed: int,
                  dtype: torch.dtype, device):
-        ok, why = supports_dense(cfg)
-        if not ok:
-            raise NotImplementedError(f"{cfg.name}: {why}")
         if cfg.cache_int8:
             raise NotImplementedError(
                 f"{cfg.name}: the padded engines cannot serve an int8 KV "
@@ -205,6 +203,21 @@ class _DenseEngine:
         tower is a stub there too)."""
         return torch.zeros((rows, self.cfg.num_patches, self.cfg.d_model),
                            dtype=self.dtype, device=self.device)
+
+    def _frontend(self, batch_in: Dict[str, torch.Tensor],
+                  rows: int) -> Dict[str, torch.Tensor]:
+        """``batch_in`` with the family's stubbed front-end input: the
+        vlm family's patches (:meth:`_patches`), the encoder-decoder
+        family's audio frames, zeros [rows, encoder_seq, d] in the
+        engine's dtype, as the reference's engines feed (the codec front
+        end is a stub there too)."""
+        if self.cfg.family == "vlm":
+            batch_in["patches"] = self._patches(rows)
+        if self.cfg.family == "audio":
+            batch_in["frames"] = torch.zeros(
+                (rows, self.cfg.encoder_seq, self.cfg.d_model),
+                dtype=self.dtype, device=self.device)
+        return batch_in
 
 
 def _encode_prompt(req: Request, vocab_size: int) -> List[int]:
@@ -277,9 +290,8 @@ class BatchEngine(_DenseEngine):
         cache_len = _bucket(bl + bg + (self.cfg.num_patches if vlm else 0))
         tokens, positions = _upload(self.device, self._tokens(reqs, bl),
                                     lengths)
-        batch_in = {"tokens": tokens, "lengths": positions}
-        if vlm:
-            batch_in["patches"] = self._patches(len(reqs))
+        batch_in = self._frontend({"tokens": tokens, "lengths": positions},
+                                  len(reqs))
         logits, cache = M.prefill(self.params, self.cfg, batch_in,
                                   act_dtype=self.dtype, cache_len=cache_len)
         # gen_targets are known up front, so the whole decode loop fuses
@@ -361,8 +373,9 @@ class ContinuousEngine(_DenseEngine):
     def _merge_cache_slot(self, slot: int, single_cache) -> None:
         """Copy a single-request prefill cache into slot ``slot``, leaf by
         leaf, each cut or zero-padded along axis 2 to the slot's (a KV
-        leaf's capacity; an SSM leaf's axis 2 is equal on both sides, so
-        it is copied whole)."""
+        leaf's capacity; the encoder-decoder family's cross leaves, from
+        the encoder's padded rows to ``encoder_seq``; an SSM leaf's axis
+        2 is equal on both sides, so it is copied whole)."""
         for key, leaves in self.cache.items():
             for dst, src in zip(leaves, single_cache[key]):
                 n = min(src.shape[2], dst.shape[2])
@@ -385,9 +398,8 @@ class ContinuousEngine(_DenseEngine):
         tokens[0, :len(ids)] = ids
         tokens_t, lengths_t = _upload(self.device, tokens,
                                       np.array([len(ids)], np.int32))
-        batch_in = {"tokens": tokens_t, "lengths": lengths_t}
-        if self.cfg.family == "vlm":
-            batch_in["patches"] = self._patches(1)
+        batch_in = self._frontend({"tokens": tokens_t,
+                                   "lengths": lengths_t}, 1)
         logits, single_cache = M.prefill(
             self.params, self.cfg, batch_in, act_dtype=self.dtype,
             cache_len=self.max_len + self.max_gen)

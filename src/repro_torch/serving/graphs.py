@@ -19,8 +19,10 @@ capture one:
   ``slots``, so it captures once per engine, at its first window or in
   ``warmup()``.
 - :meth:`DecodeGraph.padded`: ``decode_step_into`` on one padded batch's
-  dense cache (the MLA family's latents, the SSM state, or both KV and
-  state for the hybrid family) and logits, with positions of its own.  A ``BatchEngine`` allocates that
+  dense cache (the MLA family's latents, the SSM state, both KV and
+  state for the hybrid family, or the self and cross K/V of the
+  encoder-decoder family, the cross cache only read) and logits, with
+  positions of its own.  A ``BatchEngine`` allocates that
   cache in each batch's prefill, so it captures once per batch, and the
   graph is dropped with the batch.
 
@@ -94,7 +96,12 @@ def _query_heads(params) -> int:
     """Query heads a decode launch plans split counters for; 0 for a
     model whose layers have no ``"attn"`` weights, which launches no
     decode kernel: the SSM family (no attention) and the MLA family
-    (its absorbed decode is plain PyTorch, as in the reference)."""
+    (its absorbed decode is plain PyTorch, as in the reference).  The
+    encoder-decoder family's two decode launches a layer (self and
+    cross) have the decoder's heads each, and run one after the other
+    on the same counters."""
+    if "dec_blocks" in params:
+        return params["dec_blocks"]["self"]["wq"].shape[2]
     attn = params["blocks"].get("attn")
     return 0 if attn is None else attn["wq"].shape[2]
 

@@ -441,7 +441,8 @@ def test_queue_cap_and_max_retries_shed_like_jax():
 
 def test_launcher_lifecycle_flags_match_jax(monkeypatch, capsys):
     """``python -m repro_torch.launch.serve --strategy magnus-paged
-    --ttl-steps ... --swap-blocks ... --device cpu`` serves the requests
+    --ttl-steps ... --swap-blocks ... --backend engine --device cpu``
+    serves the requests
     the reference's launcher serves with the same flags (``--backend
     engine``), with equal schedule, lifecycle and swap counters."""
     import json
@@ -453,7 +454,7 @@ def test_launcher_lifecycle_flags_match_jax(monkeypatch, capsys):
     flags = ["--arch", "smollm-135m", "--strategy", "magnus-paged",
              "--rate", "3", "--duration", "4", "--ttl-steps", "12",
              "--swap-blocks", "32"]
-    serve.main(flags + ["--device", "cpu"])
+    serve.main(flags + ["--backend", "engine", "--device", "cpu"])
     got = json.loads(capsys.readouterr().out)
     monkeypatch.setattr(sys, "argv",
                         ["serve"] + flags + ["--backend", "engine"])

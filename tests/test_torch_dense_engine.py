@@ -219,6 +219,6 @@ def test_main_routes_strategies(monkeypatch, capsys, strategy, target):
     for name in ("run_engine_backend", "run_paged_engine_backend"):
         monkeypatch.setattr(serve, name, fake(name))
     serve.main(["--arch", "smollm-135m", "--strategy", strategy,
-                "--device", "cpu"])
+                "--backend", "engine", "--device", "cpu"])
     assert calls == [(target, strategy, "cpu")]
     assert '"requests": 0' in capsys.readouterr().out

@@ -168,26 +168,20 @@ UNSUPPORTED = ("deepseek-v3-671b", "internvl2-26b", "whisper-large-v3")
 
 @pytest.mark.parametrize("arch", UNSUPPORTED)
 def test_unported_families_raise(arch):
-    """The encoder-decoder family (whisper) has no dense cache in the
-    port yet: its dense entry points raise.  The MLA (deepseek-v3) and
-    vlm (internvl2) families have one (``tests/test_torch_mla.py``,
-    ``tests/test_torch_vlm.py``) but, as in the reference, no paged
-    cache: their paged entry points raise."""
+    """The MLA (deepseek-v3), vlm (internvl2) and encoder-decoder
+    (whisper) families have a dense cache in the port
+    (``tests/test_torch_mla.py``, ``tests/test_torch_vlm.py``,
+    ``tests/test_torch_encdec.py``) but, as in the reference, no paged
+    cache: their paged entry points raise, the encoder-decoder family's
+    engine with the reference's words."""
     cfg = get_config(arch).reduced()
-    if cfg.family != "audio":
-        with pytest.raises(NotImplementedError, match="paged"):
-            M.init_paged_cache(cfg, 4, 4, device="cpu")
-        with pytest.raises(NotImplementedError, match="paged"):
-            PagedContinuousEngine(cfg, device="cpu")
-        return
-    batch = {"tokens": torch.zeros(1, 8, dtype=torch.int32),
-             "lengths": torch.ones(1, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        M.prefill(None, cfg, batch, act_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        M.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        BatchEngine(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="paged"):
+        M.init_paged_cache(cfg, 4, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="paged") as err:
+        PagedContinuousEngine(cfg, device="cpu")
+    if cfg.family == "audio":
+        assert str(err.value) == (f"{cfg.name}: enc-dec cross-KV caches "
+                                  f"are not paged")
 
 
 @pytest.mark.parametrize("flag", ["cache_int8", "decode_cp"])

@@ -4,7 +4,11 @@ On the CPU the port's ``ops.flash_attention`` runs its plain PyTorch
 version; it is held against the JAX oracle (``flash_attention_ref``) and
 the JAX Pallas kernel in interpret mode, on the shapes of the reference's
 own kernel test in its three masks (causal, sliding window, full), plus
-S = 200, which is a multiple of no power-of-two tile.  Tolerances are the
+S = 200, which is a multiple of no power-of-two tile.  Its full mode
+also takes Sq != Sk and a key bound ``kv_len`` (the encoder-decoder
+family's encoder and cross attention), held against the reference's
+``gqa_prefill_attention(..., kv_len=...)`` and the Pallas kernel on K
+cut to the bound.  Tolerances are the
 reference's: 2e-4 in f32, 5e-2 in bf16.  The hand-written CUDA kernel is
 compared with the plain version by the ``cuda``-marked test, which runs
 only where a card is present (``chip_smoke.py`` makes the same comparison
@@ -17,6 +21,7 @@ import torch
 
 from repro.kernels.flash_attention.kernel import flash_attention_kernel
 from repro.kernels.flash_attention.ref import flash_attention_ref
+from repro.models.attention import gqa_prefill_attention
 from repro_torch.kernels.flash_attention import ops, ref
 
 SHAPES = [(128, 4, 4, 64), (256, 4, 2, 64), (192, 6, 2, 32),
@@ -179,3 +184,114 @@ def test_flash_kernel_refuses_other_bf16_head_sizes():
     q = torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head size 96"):
         kernel.flash_attention_kernel(q, q, q)
+
+
+# full mode with a key bound: (B, Sq, Sk, kv_len, Hq, Hkv, D); bounds off
+# every 64-key tile, Sq != Sk (cross attention) and Sq == Sk (the
+# encoder over padded frames)
+BOUNDED = [(2, 8, 64, 37, 4, 4, 64), (2, 16, 130, 100, 6, 2, 32),
+           (1, 64, 96, 64, 4, 1, 128), (2, 40, 130, 130, 4, 4, 64),
+           (2, 72, 72, 50, 4, 2, 64)]
+
+
+def _bounded(b, sq, sk, hq, hkv, d, seed=5):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, sq, hq, d)).astype(np.float32),
+            rng.normal(size=(b, sk, hkv, d)).astype(np.float32),
+            rng.normal(size=(b, sk, hkv, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,sq,sk,kv_len,hq,hkv,d", BOUNDED)
+def test_flash_plain_key_bound_matches_jax(b, sq, sk, kv_len, hq, hkv, d,
+                                           dtype):
+    """The plain version in full mode with Sq != Sk and ``kv_len``
+    against the reference's ``gqa_prefill_attention(causal=False,
+    kv_len=...)`` and the Pallas kernel (interpret mode) on K and V cut
+    to the bound; NaN in the K/V rows from the bound to Sk changes the
+    output by exactly 0."""
+    tdt, jdt, tol = DTYPES[dtype]
+    arrays = _bounded(b, sq, sk, hq, hkv, d)
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in arrays)
+    n0 = ops.flash_attention.plain_calls
+    out = ops.flash_attention(q, k, v, causal=False, kv_len=kv_len)
+    assert ops.flash_attention.plain_calls == n0 + 1
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in arrays)
+    want = np.asarray(gqa_prefill_attention(jq, jk, jv, causal=False,
+                                            kv_len=kv_len), np.float32)
+    want_pallas = np.asarray(flash_attention_kernel(
+        jq, jk[:, :kv_len], jv[:, :kv_len], causal=False, block_q=64,
+        block_k=64, interpret=True), np.float32)
+    np.testing.assert_allclose(out.float().numpy(), want, atol=tol, rtol=0)
+    np.testing.assert_allclose(out.float().numpy(), want_pallas, atol=tol,
+                               rtol=0)
+    kp, vp = k.clone(), v.clone()
+    kp[:, kv_len:], vp[:, kv_len:] = float("nan"), float("nan")
+    assert torch.equal(ops.flash_attention(q, kp, vp, causal=False,
+                                           kv_len=kv_len), out)
+
+
+def test_flash_refuses_masks_across_lengths():
+    """Query i sits at position i, so a causal or window mask with Sq !=
+    Sk raises, as does a key bound outside [1, Sk]; each before any
+    launch or plain call, on every device."""
+    q = torch.zeros(1, 8, 2, 32)
+    k = torch.zeros(1, 16, 2, 32)
+    n0 = ops.flash_attention.plain_calls
+    for kw in (dict(causal=True), dict(causal=False, window=4)):
+        with pytest.raises(ValueError, match="Sq == Sk"):
+            ops.flash_attention(q, k, k, **kw)
+    for bound in (0, 17):
+        with pytest.raises(ValueError, match="kv_len"):
+            ops.flash_attention(q, k, k, causal=False, kv_len=bound)
+    assert ops.flash_attention.plain_calls == n0
+    from repro_torch.kernels.flash_attention import kernel
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        kernel.check_modes(8, 16, True, None, None)
+    assert kernel.check_modes(8, 16, False, None, None) == 16
+
+
+# whisper-large-v3's shapes (20 heads of 64, G 1): the encoder over 1,536
+# padded frames with 1,500 real, the cross prefill at prompt buckets 64
+# and 256 against them, and small bounds off the tile
+WHISPER_BOUNDED = [(2, 1536, 1536, 1500, 20, 20, 64),
+                   (4, 64, 1536, 1500, 20, 20, 64),
+                   (1, 256, 1536, 1500, 20, 20, 64)] + BOUNDED
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,sq,sk,kv_len,hq,hkv,d", WHISPER_BOUNDED)
+def test_cuda_flash_key_bound_matches_plain_version(b, sq, sk, kv_len, hq,
+                                                    hkv, d, dtype):
+    """The kernel's full mode with Sq != Sk and a key bound against its
+    plain version on the card, one launch a call: 2e-4 in f32 (TF32
+    off); in bf16, 2e-2 of the output's own largest magnitude (averages
+    over many random keys are far below 1, where an absolute 5e-2 would
+    hide a key let in past the bound).  The call equals, bit for bit,
+    the call on K and V cut to the bound (the same tiles run, so a wrong
+    bound mask shows even where the bf16 tensor maps zero-fill past the
+    bound), and NaN in the K/V rows from the bound to Sk changes the
+    kernel's output by exactly 0 (the f32 kernel stages zeros there and
+    the bf16 kernel's tensor maps end at the bound)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt, _, tol = DTYPES[dtype]
+    q, k, v = (torch.from_numpy(a).to("cuda", tdt)
+               for a in _bounded(b, sq, sk, hq, hkv, d))
+    n0 = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=False, kv_len=kv_len)
+    assert ops.flash_attention.launches == n0 + 1
+    want = ref.flash_attention_ref(q, k, v, causal=False, kv_len=kv_len)
+    assert torch.isfinite(out).all()
+    if tdt == torch.bfloat16:
+        tol = 2e-2 * want.float().abs().max().item()
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
+    assert torch.equal(ops.flash_attention(
+        q, k[:, :kv_len].contiguous(), v[:, :kv_len].contiguous(),
+        causal=False), out)
+    kp, vp = k.clone(), v.clone()
+    kp[:, kv_len:], vp[:, kv_len:] = float("nan"), float("nan")
+    assert torch.equal(ops.flash_attention(q, kp, vp, causal=False,
+                                           kv_len=kv_len), out)

@@ -19,7 +19,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [
     ROOT / "scripts" / name for name in (
-        "eager_step_compare.py", "f32_invariance.py", "first_swap_out.py",
+        "eager_step_compare.py", "encdec_phase.py", "encdec_rehearsal.py",
+        "f32_invariance.py", "first_swap_out.py",
         "hybrid_phase.py", "hybrid_rehearsal.py", "mla_vlm_phases.py",
         "mla_vlm_rehearsal.py", "moe_rehearsal.py",
         "padded_graph_breakeven.py", "recovery_rehearsal.py",
@@ -53,6 +54,11 @@ def test_port_files_found():
     for name in ("flash_attention.cu", "decode_attention.cu",
                  "ssd_scan.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / name).is_file()
+    # the encoder-decoder family and the simulator backend are among the
+    # files the import guard reads
+    for rel in ("models/encdec.py", "sim/events.py", "sim/runner.py",
+                "serving/cost_model.py"):
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
 
 
 @pytest.fixture
@@ -102,6 +108,13 @@ def test_dense_entry_points_without_device_raise(no_cuda):
         BatchEngine(ssm)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         M.init_cache(ssm, 1, 8)
+    whisper = get_config("whisper-large-v3").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_engine_backend("whisper-large-v3", 1.0, 1.0, "magnus")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BatchEngine(whisper)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        M.init_cache(whisper, 1, 8)
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():

@@ -22,7 +22,6 @@ weights carried across by ``params_from_numpy``:
   launcher's batches and WMA equal JAX's; a paged strategy refuses the
   family with the reference's reason in both packages.
 """
-import dataclasses
 import functools
 
 import jax
@@ -505,7 +504,8 @@ def test_paged_strategy_refuses_mla_as_jax():
     """The reference pages no latent cache: a paged strategy through the
     port's launcher refuses the family with the reason the reference's
     paged engine gives (its launcher builds that engine, which raises
-    first); the padded half takes the family, at full width too."""
+    first); the padded half takes the family
+    (``test_launcher_serves_deepseek_as_jax`` serves it)."""
     with pytest.raises(NotImplementedError) as want:
         JaxPagedEngine(JCFG)          # where the reference launcher refuses
     with pytest.raises(NotImplementedError) as got:
@@ -514,6 +514,3 @@ def test_paged_strategy_refuses_mla_as_jax():
     assert str(got.value) == str(want.value)
     assert "MLA latent caches are not paged" in str(got.value)
     assert M.supports_paged(CFG) == JM.supports_paged(JCFG)
-    assert T.supports_dense(CFG) == (True, "")
-    full = dataclasses.replace(get_config(ARCH), num_layers=2)
-    assert T.supports_dense(full) == (True, "")

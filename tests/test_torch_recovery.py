@@ -476,8 +476,18 @@ def test_journal_midfile_corruption_is_fatal(tmp_path):
 
 def test_downtime_expires_journaled_requests(tmp_path):
     """TTL'd requests whose deadline elapsed while the process was dead
-    are typed ``journal_expired`` sheds, not replays."""
+    are typed ``journal_expired`` sheds, not replays, and the reason is
+    a first-class ShedReason that the port's sim Metrics accept, as the
+    reference's do."""
+    from repro.sim.events import Metrics as JaxMetrics
+    from repro_torch.sim.events import Metrics
+
     assert "journal_expired" in SHED_REASONS
+    for metrics in (Metrics(), JaxMetrics()):
+        metrics.record_shed("journal_expired")
+        assert metrics.shed_reasons["journal_expired"] == 1
+        with pytest.raises(ValueError):
+            metrics.record_shed("journal_imploded")
     ckpt = str(tmp_path / "ckpt-ttl")
     reqs = _reqs("torch", seed=2)
     for r in reqs:
@@ -752,7 +762,8 @@ def test_spec_engines_are_refused(tmp_path):
                                  device="cpu", spec_decode=True,
                                  checkpoint_dir=str(tmp_path / "c"))
     with pytest.raises(SystemExit):
-        main(["--strategy", "magnus-paged", "--spec-decode",
+        main(["--strategy", "magnus-paged", "--backend", "engine",
+              "--spec-decode",
               "--checkpoint-dir", str(tmp_path / "c"), "--device", "cpu"])
     spec = _engine("torch", spec_decode=True, draft_k=2)
     with pytest.raises(snaplib.SnapshotError, match="speculative"):
