@@ -312,10 +312,29 @@ CUDA toolkit.  Phases, each fatal on failure:
    Logged: each batch's encoder card ms, both kernels timed at these
    inputs, the step's bound, tokens/s beside phase 7's, the peak.
 
+23. training (``train_phase``): (a) the f32 flash forward's log-sum-exp
+   and the backward kernel (``csrc/flash_attention_bwd.cu``) against
+   their plain versions at smollm-135m's call and in every mode (a
+   window, a key bound with NaN past it, G 1 and 3, D 32/64/128,
+   whisper-large-v3's encoder, cross and decoder calls), f32 at 2e-4;
+   the autograd wrapper; a bf16 training call must raise.  (b) One
+   train step of smollm-135m at full width cut to 2 layers on the card
+   against the CPU on the same weights and batch: loss and lr at 2e-4
+   of scale, card against CPU f32; the grad norm, and every gradient
+   leaf, no farther from the CPU's f64 run than the CPU's own f32 run
+   is (a leaf also passes within 2e-4 of its own scale).  (c) ``repro_torch.launch.train`` on smollm-135m uncut (B 8, S
+   256, f32, TF32 off) for 10 steps: the flash forward 60 launches a
+   step (remat recomputes each layer), the backward 30, finite losses,
+   the first batch's loss lower after training.  Logged: tokens/s, step
+   ms, peak memory, both kernels timed at that call beside their plain
+   versions and SDPA's backward, and the step's breakdown (flash
+   forward, backward, GEMMs, the AdamW update).
+
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves; phase 14 runs right after
-phase 5, then phases 15 to 22 last.  The line before the
-last is a JSON object with one entry per kernel (six); the last line is
+phase 5, then phases 15 to 23 last.  The line before the
+last is a JSON object with one entry per kernel (seven: the six TPU
+kernels' counterparts and the flash backward); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is missing or the port's sources are not beside
 this script.
@@ -4217,6 +4236,402 @@ def encdec_phase(torch, np, ops, ref, fops, fref, hbm, spin, others,
 
 
 # ---------------------------------------------------------------------------
+# phase 23: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "smollm-135m"
+TRAIN_STEPS = 10
+TRAIN_TOL = 2e-4               # f32 with TF32 off, of the value's scale
+TRAIN_CPU_LAYERS = 2           # the card-against-CPU step's depth
+TRAIN_REPS = 7                 # timed calls per kernel
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, kv_len): smollm-135m's training
+# call first (the timed one), then the other modes (a window, G 1 and 3,
+# D 32 and 128, a key bound) and whisper-large-v3's encoder, cross and
+# decoder calls (20 heads of 64, 1,500 of 1,536 frames, 448 text rows)
+TRAIN_BWD = [(8, 256, 256, 9, 3, 64, True, None, None),
+             (2, 200, 200, 6, 2, 32, True, 64, None),
+             (2, 100, 100, 4, 4, 128, True, 7, None),
+             (3, 70, 70, 6, 2, 64, False, None, 45),
+             (1, 1536, 1536, 20, 20, 64, False, None, 1500),
+             (2, 448, 1536, 20, 20, 64, False, None, 1500),
+             (2, 448, 448, 20, 20, 64, True, None, None)]
+
+
+def train_kernel_checks(torch, fops, fref):
+    """Phase 23 (a): the f32 flash forward's log-sum-exp and the backward
+    kernel against their plain versions on ``TRAIN_BWD``'s calls (dq, dk
+    and dv each to ``TRAIN_TOL`` of its own largest magnitude, no
+    floor); where a key bound is given, NaN written into K and V past it
+    must leave dq and the bounded rows of dk and dv unchanged bit for bit
+    and the rows past it zero.  The autograd wrapper at smollm-135m's
+    call against autograd of the plain version.  A bf16 call that needs
+    a gradient must raise a ValueError.  Returns the largest error over
+    scale of each output."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    errs = {}
+    for b, sq, sk, hq, hkv, d, causal, window, kv in TRAIN_BWD:
+        mode = dict(causal=causal, window=window, kv_len=kv)
+        q, dout = rand(b, sq, hq, d), rand(b, sq, hq, d)
+        k, v = rand(b, sk, hkv, d), rand(b, sk, hkv, d)
+        label = (f"flash backward (B {b}, Sq {sq}, Sk {sk}, {hq}/{hkv} "
+                 f"heads of {d}, {mode})")
+        out, lse = fkernel.flash_attention_kernel(q, k, v, with_lse=True,
+                                                  **mode)
+        want_out, want_lse = fref.flash_attention_ref(q, k, v,
+                                                      with_lse=True, **mode)
+        for name, got, want in (("out", out, want_out),
+                                ("lse", lse, want_lse)):
+            err, scale = hold(torch, f"{label} {name}", got, want,
+                              tol=TRAIN_TOL, floor=0.0)
+            errs[name] = max(errs.get(name, 0.0), err / scale)
+        got = fkernel.flash_attention_bwd_kernel(q, k, v, out, dout, lse,
+                                                 **mode)
+        want = fref.flash_attention_bwd_ref(q, k, v, want_out, dout,
+                                            want_lse, **mode)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, scale = hold(torch, f"{label} {name}", g, w, tol=TRAIN_TOL,
+                              floor=0.0)
+            errs[name] = max(errs.get(name, 0.0), err / scale)
+        if kv is not None:
+            kp, vp = k.clone(), v.clone()
+            kp[:, kv:], vp[:, kv:] = float("nan"), float("nan")
+            out_p, lse_p = fkernel.flash_attention_kernel(
+                q, kp, vp, with_lse=True, **mode)
+            dq, dk, dv = fkernel.flash_attention_bwd_kernel(
+                q, kp, vp, out_p, dout, lse_p, **mode)
+            check(torch.equal(out_p, out) and torch.equal(lse_p, lse)
+                  and torch.equal(dq, got[0])
+                  and torch.equal(dk[:, :kv], got[1][:, :kv])
+                  and torch.equal(dv[:, :kv], got[2][:, :kv]),
+                  f"{label}: NaN past the key bound changed an output")
+            check(not dk[:, kv:].any() and not dv[:, kv:].any(),
+                  f"{label}: a key past the bound got a gradient")
+    b, sq, sk, hq, hkv, d, causal, window, kv = TRAIN_BWD[0]
+    leaves = [rand(b, sq, hq, d), rand(b, sk, hkv, d), rand(b, sk, hkv, d)]
+    dout = rand(b, sq, hq, d)
+    n0 = (fops.flash_attention.launches, fops.flash_attention_bwd.launches)
+    got = torch.autograd.grad(fops.flash_attention(
+        *(t.requires_grad_() for t in leaves), causal=True), leaves, dout)
+    check((fops.flash_attention.launches, fops.flash_attention_bwd.launches)
+          == (n0[0] + 1, n0[1] + 1),
+          "the autograd call did not launch the forward and backward once")
+    want = torch.autograd.grad(fref.flash_attention_ref(*leaves, causal=True),
+                               leaves, dout)
+    for name, g, w in zip(("autograd dq", "autograd dk", "autograd dv"), got,
+                          want):
+        err, scale = hold(torch, f"flash {name} at {TRAIN_ARCH}'s call", g,
+                          w, tol=TRAIN_TOL, floor=0.0)
+        errs[name] = err / scale
+    try:
+        fops.flash_attention(*(t.detach().bfloat16().requires_grad_()
+                               for t in leaves), causal=True)
+    except ValueError:
+        pass
+    else:
+        check(False, "a bf16 flash call that needs a gradient did not raise")
+    log(f"phase 23 (a): the f32 flash forward's lse and the backward kernel "
+        f"held against their plain versions at {len(TRAIN_BWD)} calls "
+        f"{TRAIN_BWD} (max abs err over each output's largest magnitude "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; "
+        f"tol {TRAIN_TOL}); NaN past a key bound changed no bit and left "
+        f"those keys' dk and dv zero; the autograd wrapper launched each "
+        f"kernel once; a bf16 training call raised")
+    return errs
+
+
+def train_cpu_check(torch, fops):
+    """Phase 23 (b): one train step of smollm-135m at full width cut to
+    ``TRAIN_CPU_LAYERS`` layers, on the same weights (drawn on the CPU,
+    copied to the card) and the trainer's first batch, on the card
+    (kernels, f32) and on the CPU (plain versions) in f32 and in f64.
+    The loss and the lr are held at ``TRAIN_TOL`` of their scale, card
+    against CPU f32.  The gradient is held another way: at this init
+    the embedding's gradient passes layer 0's RMS norm of rows of scale
+    1/sqrt(49,152), which multiplies it by ~220 and cancels most of it,
+    so two f32 runs that sum in different orders differ by ~1e-3 of the
+    grad norm (the CPU f32 run lands 7.41e-4 from the f64 one).  So the
+    card's f32 grad norm must be no farther from the CPU's f64 run than
+    the CPU's own f32 run is, and so must each gradient leaf (the
+    largest absolute error over the leaf), unless it lies within
+    ``TRAIN_TOL`` of the leaf's own largest f64 magnitude.  The card's
+    step launches the flash forward twice a layer (the remat recompute)
+    and the backward once."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as T
+    from repro_torch.train.checkpoint import flatten_tree
+    from repro_torch.train.data import DataConfig, batches
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_CPU_LAYERS)
+    opt = O.AdamWConfig(total_steps=TRAIN_STEPS)
+    raw = next(batches(cfg, DataConfig()))
+    params = M.init_params(cfg, seed=0, device="cpu")
+    metrics, grads = {}, {}
+    for dev, dt in (("cpu", torch.float64), ("cpu", torch.float32),
+                    ("cuda", torch.float32)):
+        p = O.tree_map(lambda t: t.to(dev, dt), params)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        fops.reset_counts()
+        t0 = time.perf_counter()
+        _, _, m = T.make_train_step(cfg, opt, act_dtype=dt)(
+            p, O.init(opt, p), batch)
+        name = f"{dev} {str(dt).rsplit('.', 1)[-1]}"
+        metrics[name] = T.read_metrics(m)
+        metrics[name]["s"] = round(time.perf_counter() - t0, 2)
+        if dev == "cuda":
+            want = (2 * cfg.num_layers, cfg.num_layers)
+            got = (fops.flash_attention.launches,
+                   fops.flash_attention_bwd.launches)
+            check(got == want, f"phase 23 (b): flash launches {got}, not "
+                  f"{want}")
+        p = O.tree_map(lambda t: t.detach().requires_grad_(True), p)
+        leaves = O.tree_leaves(p)
+        loss = M.loss_fn(p, cfg, batch, act_dtype=dt)[0]
+        g = iter(torch.autograd.grad(loss, leaves))
+        grads[name] = {k: v.double() for k, v in flatten_tree(
+            O.tree_map(lambda _: next(g), p)).items()}
+    card, cpu, exact = (metrics[k] for k in ("cuda float32", "cpu float32",
+                                             "cpu float64"))
+    for key in ("loss", "lr"):
+        check(abs(card[key] - cpu[key]) <= TRAIN_TOL * max(1.0,
+                                                           abs(cpu[key])),
+              f"phase 23 (b): {key} on the card {card[key]}, on the CPU "
+              f"{cpu[key]}")
+    card_err = abs(card["grad_norm"] - exact["grad_norm"])
+    cpu_err = abs(cpu["grad_norm"] - exact["grad_norm"])
+    check(card_err <= cpu_err,
+          f"phase 23 (b): the card's f32 grad norm is {card_err:.3e} from "
+          f"the CPU's f64 run, the CPU's f32 one {cpu_err:.3e}")
+    g64 = grads["cpu float64"]
+    check(sorted(grads["cuda float32"]) == sorted(g64),
+          "phase 23 (b): the card's gradient tree has other leaves")
+    leaf_errs = {}
+    for k, w in g64.items():
+        scale = w.abs().max().item()
+        ec, ep = ((grads[n][k] - w).abs().max().item() / scale
+                  for n in ("cuda float32", "cpu float32"))
+        leaf_errs[k] = (float(f"{ec:.3e}"), float(f"{ep:.3e}"))
+        check(ec <= max(TRAIN_TOL, ep),
+              f"phase 23 (b): gradient leaf {k} on the card is {ec:.3e} of "
+              f"its scale {scale:.4g} from the CPU's f64 run, the CPU's "
+              f"f32 one {ep:.3e}")
+    log(f"phase 23 (b): {TRAIN_ARCH} at full width cut to "
+        f"{TRAIN_CPU_LAYERS} layers, one train step on the same weights and "
+        f"batch (B 8, S 256, TF32 off): {json.dumps(metrics)}; loss and lr "
+        f"within {TRAIN_TOL} of scale, card against CPU f32; grad norm "
+        f"from the CPU's f64 run: card f32 {card_err:.3e} "
+        f"({card_err / exact['grad_norm']:.2e} of it), CPU f32 "
+        f"{cpu_err:.3e} ({cpu_err / exact['grad_norm']:.2e}); each "
+        f"gradient leaf's largest error from the CPU's f64 run over the "
+        f"leaf's largest magnitude, (card f32, CPU f32): "
+        f"{json.dumps(leaf_errs)}")
+    return metrics
+
+
+def train_step_profile(torch, cfg, params, batch):
+    """Where a full-width train step's card time goes: one warm step,
+    then CUDA events around the loss and its gradient and around the
+    AdamW update, and a profile of one more step: device time of the
+    flash forward (``flash_kernel``), the backward kernels
+    (``flash_bwd``), the GEMMs (kernels named ``gemm``) and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    opt = O.AdamWConfig(total_steps=TRAIN_STEPS)
+    state = O.init(opt, params)
+
+    def step():
+        p = O.tree_map(lambda t: t.detach().requires_grad_(True), params)
+        leaves = O.tree_leaves(p)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss, _ = M.loss_fn(p, cfg, batch, act_dtype=torch.float32)
+        grads = iter(torch.autograd.grad(loss, leaves))
+        ev[1].record()
+        with torch.no_grad():
+            O.update(opt, O.tree_map(lambda _: next(grads), p), state,
+                     params)
+        ev[2].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+
+    step()
+    fwd_bwd, update = step()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+    dev = lambda e: (getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0))
+    parts = {"flash forward": 0.0, "flash backward": 0.0, "gemm": 0.0,
+             "other": 0.0}
+    for e in prof.key_averages():
+        key = e.key.lower()
+        part = ("flash backward" if "flash_bwd" in key else
+                "flash forward" if "flash_kernel" in key else
+                "gemm" if "gemm" in key else "other")
+        parts[part] += dev(e) / 1e3
+    busy = sum(parts.values())
+    check(parts["flash forward"] > 0 and parts["flash backward"] > 0,
+          f"the profile attributed no flash kernel: {parts}")
+    top = sorted(prof.key_averages(), key=dev, reverse=True)[:8]
+    log(f"phase 23 train step breakdown ({TRAIN_ARCH}, B 8, S 256, f32): "
+        f"loss and gradient {fwd_bwd:.2f} ms, AdamW update {update:.2f} ms "
+        f"(CUDA events); profiled step device busy {busy:.2f} ms: "
+        + json.dumps({k: round(v, 3) for k, v in parts.items()})
+        + "; top kernels: " + "; ".join(
+            f"{e.key[:60]} {dev(e) / 1e3:.3f} ms" for e in top))
+    return {"fwd_bwd_ms": fwd_bwd, "update_ms": update, "busy_ms": busy,
+            **{f"{k}_ms": v for k, v in parts.items()}}
+
+
+def time_train_kernels(torch, fops, fref, spin):
+    """The f32 flash forward with its log-sum-exp and the backward kernel
+    at smollm-135m's training call (``TRAIN_BWD[0]``), each against its
+    plain version; the library yardstick of the backward is SDPA's
+    backward (autograd of ``scaled_dot_product_attention`` with
+    ``is_causal``, K and V repeated to the query heads outside the
+    graph).  The backward's bound: q, k, v, out, dout, lse read and dq,
+    dk, dv written once, or its five products over the causal pairs
+    (2 D operations each a pair and query head) at the f32 rate outside
+    the tensor cores, whichever is larger."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    b, sq, sk, hq, hkv, d, causal, _, _ = TRAIN_BWD[0]
+    gen = torch.Generator(device="cuda").manual_seed(230)
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    q, dout = rand(b, sq, hq, d), rand(b, sq, hq, d)
+    k, v = rand(b, sk, hkv, d), rand(b, sk, hkv, d)
+    out, lse = fkernel.flash_attention_kernel(q, k, v, causal=True,
+                                              with_lse=True)
+    fwd = lambda r: fkernel.flash_attention_kernel(q, k, v, causal=True,
+                                                   with_lse=True)
+    fwd_plain = lambda r: fref.flash_attention_ref(q, k, v, causal=True,
+                                                   with_lse=True)
+    bwd = lambda r: fkernel.flash_attention_bwd_kernel(q, k, v, out, dout,
+                                                       lse, causal=True)
+    bwd_plain = lambda r: fref.flash_attention_bwd_ref(q, k, v, out, dout,
+                                                       lse, causal=True)
+    errs = [hold(torch, "flash backward dq", bwd(0)[0], bwd_plain(0)[0],
+                 tol=TRAIN_TOL, floor=0.0)]
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(hq // hkv, 1).contiguous()
+              .requires_grad_() for x in (k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = dout.transpose(1, 2).contiguous()
+    lib = lambda r: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                        retain_graph=True)
+    lib(0)
+    row = {"ms": median_ms(torch, bwd, TRAIN_REPS, spin),
+           "plain_ms": median_ms(torch, bwd_plain, TRAIN_REPS, spin),
+           "library_ms": median_ms(torch, lib, TRAIN_REPS, spin)}
+    fwd_ms = median_ms(torch, fwd, TRAIN_REPS, spin)
+    fwd_plain_ms = median_ms(torch, fwd_plain, TRAIN_REPS, spin)
+    pairs = b * hq * sq * (sq + 1) // 2
+    nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 10 * d * pairs / F32_FLOPS * 1e3
+    row.update(bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               max_abs_err=errs[0][0])
+    fwd_bytes = 4 * (2 * q.numel() + 2 * k.numel() + lse.numel())
+    log(f"time flash_attention_bwd at {TRAIN_ARCH}'s call (B {b}, S {sq}, "
+        f"{hq}/{hkv} heads of {d}, causal, f32; median of {TRAIN_REPS} "
+        f"CUDA-event times, ms): kernel {row['ms']:.4f}, plain "
+        f"{row['plain_ms']:.4f}, SDPA backward {row['library_ms']:.4f}, "
+        f"bound {row['bound_ms']:.4f} ({row['bound_by']}: {nbytes / 1e6:.2f}"
+        f" MB at 3.35 TB/s is {t_bytes:.4f} ms, {10 * d * pairs / 1e9:.3f} "
+        f"GFLOP at the 67 TFLOP/s f32 rate {t_ops:.4f} ms, at the 989 "
+        f"TFLOP/s bf16 convention {10 * d * pairs / BF16_FLOPS * 1e3:.4f} "
+        f"ms); f32 forward with lse: kernel {fwd_ms:.4f}, plain "
+        f"{fwd_plain_ms:.4f}, bytes bound "
+        f"{fwd_bytes / HBM_BYTES_PER_S * 1e3:.4f}, operations at 67 "
+        f"TFLOP/s {4 * d * pairs / F32_FLOPS * 1e3:.4f}")
+    return row
+
+
+def train_phase(torch, np, fops, fref, spin, reset_counts, counts):
+    """Phase 23: training.  (a) :func:`train_kernel_checks`; (b)
+    :func:`train_cpu_check`; (c) ``repro_torch.launch.train.main`` on
+    smollm-135m at full width (30 layers, d_model 576, 9/3 heads of 64,
+    d_ff 1536, vocab 49,152, tied) at the launcher's defaults (B 8, S
+    256, f32, TF32 off) for ``TRAIN_STEPS`` steps, counts zeroed just
+    before and read just after: the flash forward 60 times a step (30
+    layers, each recomputed by the remat), the backward 30, nothing else
+    and no plain call; every logged loss finite, and the first batch's
+    loss under the trained weights below its first-step loss.  Logged:
+    tokens/s, step ms, peak memory; (d) the kernels timed at smollm-135m's
+    call and the step's breakdown.  Returns (the backward's kernels-line
+    row, its launches in (c))."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.train.data import DataConfig, batches
+    train_kernel_checks(torch, fops, fref)
+    train_cpu_check(torch, fops)
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.padded_vocab, cfg.tie_embeddings,
+           cfg.remat_mode)
+          == (30, 576, 9, 3, 64, 1536, 49152, True, "full"),
+          f"phase 23 does not train {TRAIN_ARCH} at full width")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = launch_train.main(["--arch", TRAIN_ARCH, "--full", "--steps",
+                             str(TRAIN_STEPS), "--log-every", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = counts("launches"), counts("plain_calls")
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=2 * cfg.num_layers * TRAIN_STEPS,
+                flash_attention_bwd=cfg.num_layers * TRAIN_STEPS)
+    check(launches == want, f"phase 23 launches {launches}, not {want}")
+    check(not any(plain.values()), f"plain versions ran in phase 23: "
+          f"{plain}")
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"phase 23 losses {losses}")
+    dc = DataConfig()
+    first = {k: torch.from_numpy(v).cuda()
+             for k, v in next(batches(cfg, dc)).items()}
+    with torch.no_grad():
+        after = M.loss_fn(out["params"], cfg, first,
+                          act_dtype=torch.float32)[0].item()
+    check(after < losses[0], f"phase 23: the first batch's loss {after} "
+          f"after {TRAIN_STEPS} steps is not below its first-step loss "
+          f"{losses[0]}")
+    walls = [h["wall"] for h in hist]
+    steps_ms = [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
+    tokens = dc.batch_size * dc.seq_len
+    tok_s = tokens * (TRAIN_STEPS - 1) / (walls[-1] - walls[0])
+    log(f"phase 23 (c): {TRAIN_ARCH} full width through launch/train.py, "
+        f"{TRAIN_STEPS} steps in {wall:.2f} s (first step "
+        f"{walls[0] * 1e3:.1f} ms); step ms after the first (host clock, "
+        f"each ending in its metrics' readback) median "
+        f"{statistics.median(steps_ms):.2f}, range {min(steps_ms):.2f}-"
+        f"{max(steps_ms):.2f}; {tok_s:.0f} tokens/s; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; losses {[round(x, 4) for x in losses]};"
+        f" the first batch's loss {losses[0]:.4f} -> {after:.4f}; "
+        f"launches {launches}")
+    row = time_train_kernels(torch, fops, fref, spin)
+    params = out.pop("params")
+    del out
+    torch.cuda.empty_cache()
+    train_step_profile(torch, cfg, params, first)
+    del params
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timings at the serve's shapes
 # ---------------------------------------------------------------------------
 
@@ -5204,7 +5619,8 @@ def main() -> int:
             sops.reset_counts()
 
         def counts(attr):
-            return {fn.__name__: getattr(fn, attr) for fn in all_kernels}
+            # the backward kernel has no plain route: no plain_calls
+            return {fn.__name__: getattr(fn, attr, 0) for fn in all_kernels}
 
         # 4. the paged and dense models on the card against the CPU
         model_check(torch, np)
@@ -5574,6 +5990,11 @@ def main() -> int:
                           for key, v in row.items()}}
                 for name, row in t22.items()}))
 
+        # 23. training: the flash kernel's backward, then smollm-135m at
+        # full width through launch/train.py
+        t["flash_attention_bwd"], train_launches = train_phase(
+            torch, np, fops, fref, spin, reset_counts, counts)
+
         source = {"paged_decode_attention":
                   ("src/repro_torch/csrc/paged_decode_attention.cu",
                    "src/repro/kernels/decode_attention/kernel.py:298",
@@ -5597,7 +6018,12 @@ def main() -> int:
                   "ssd_scan":
                   ("src/repro_torch/csrc/ssd_scan.cu",
                    "src/repro/kernels/ssd_scan/kernel.py:76",
-                   slaunches)}
+                   slaunches),
+                  "flash_attention_bwd":
+                  ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                   "none: the JAX package differentiates its plain jnp "
+                   "attention (src/repro/models/attention.py:26)",
+                   train_launches)}
         rows = []
         for name, (path, tpu, count) in source.items():
             rows.append({"name": name, "route": "cuda", "source": path,

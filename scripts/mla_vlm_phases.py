@@ -44,7 +44,7 @@ def main(argv=None) -> int:
             mod.reset_counts()
 
     def counts(attr):
-        return {fn.__name__: getattr(fn, attr) for fn in kernels}
+        return {fn.__name__: getattr(fn, attr, 0) for fn in kernels}
 
     hbm = torch.cuda.get_device_properties(0).total_memory
     try:

@@ -44,12 +44,16 @@
 // That consumer step is attention_tc.cuh's, shared with the paged prefix
 // prefill kernel.  Head sizes 32, 64 and 128.
 //
-// f32: `flash_kernel`, the scalar kernel of the first port, unchanged.
-// Its callers hold it to 2e-4 of the plain f32 version, which needs true
-// f32 products; TF32 tensor cores would give ~1e-3.  It computes in f32 on
-// the CUDA cores out of shared memory (one block per (row, KV head, 64
-// query rows), running max, sum and [64, D] accumulator in shared memory),
-// so it is bound by shared-memory loads, not by either floor.
+// f32: `flash_kernel`, the scalar kernel of the first port.  Its callers
+// hold it to 2e-4 of the plain f32 version, which needs true f32 products;
+// TF32 tensor cores would give ~1e-3.  It computes in f32 on the CUDA cores
+// out of shared memory (one block per (row, KV head, 64 query rows),
+// running max, sum and [64, D] accumulator in shared memory), so it is
+// bound by shared-memory loads, not by either floor.  For training it also
+// writes each query row's log-sum-exp of its scaled scores (lse [B, Sq,
+// Hq], natural log), which the backward kernel (flash_attention_bwd.cu)
+// reads to recompute the probabilities; a null lse pointer skips that
+// store, so the serving launches are unchanged.
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 
 #include <cmath>
@@ -68,9 +72,9 @@ constexpr int kTileKeys = 32;  // TK: keys staged per step
 template <typename T>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-             int Hq, int Hkv, int D, int causal, int window, int kv_len,
-             float scale) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int D,
+             int causal, int window, int kv_len, float scale) {
   extern __shared__ float smem[];
   const int h = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv, ld = D + 1;
@@ -128,12 +132,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = e / D, d = e - r * D;
     out[qoff(r) + d] = from_f32<T>(acc[e] / fmaxf(l[r], 1e-30f));
   }
+  if (lse != nullptr) {  // a row with no visible key gets +inf: P = 0
+    for (int r = threadIdx.x; r < R; r += blockDim.x)
+      lse[qoff(r) / D] = l[r] > 0.f ? m[r] + logf(l[r]) : CUDART_INF_F;
+  }
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Sk, int Hq, int Hkv, int D, int causal,
-                   int window, int kv_len, cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int D,
+                   int causal, int window, int kv_len, cudaStream_t stream) {
   const int G = Hq / Hkv, ld = D + 1;
   const size_t smem =
       sizeof(float) * ((size_t)kTileRows * ld + 2 * (size_t)kTileKeys * ld +
@@ -144,8 +152,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Sq * G + kTileRows - 1) / kTileRows, Hkv, B);
   flash_kernel<T><<<grid, kFlashThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv, D,
-      causal, window, kv_len,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, Hq, Hkv,
+      D, causal, window, kv_len,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
@@ -364,22 +372,24 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // 16-byte boundaries (TMA).  causal: 0 or 1; window: 0 for none, else a
 // query at position p sees keys k with p - k < window; query i sits at
 // position i, so a causal or window mask needs Sq == Sk.  Keys at or past
-// kv_len (1 <= kv_len <= Sk) are masked and not read.  Launches on
-// `stream` and returns cudaGetLastError() after the launch.
+// kv_len (1 <= kv_len <= Sk) are masked and not read.  lse: null, or
+// (f32 only) f32 [B, Sq, Hq] that receives each query row's log-sum-exp.
+// Launches on `stream` and returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int B, int Sq,
-                                     int Sk, int Hq, int Hkv, int D,
-                                     int causal, int window, int kv_len,
-                                     int dtype, void* stream) {
+                                     const void* v, void* out, void* lse,
+                                     int B, int Sq, int Sk, int Hq, int Hkv,
+                                     int D, int causal, int window,
+                                     int kv_len, int dtype, void* stream) {
   if (B == 0 || Sq == 0) return cudaSuccess;
   if (B < 0 || Sq < 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 ||
       window < 0 || kv_len < 1 || kv_len > Sk ||
-      ((causal || window > 0) && Sq != Sk))
+      ((causal || window > 0) && Sq != Sk) ||
+      (lse != nullptr && dtype != repro::kFloat32))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return repro::launch<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal,
-                                window, kv_len, s);
+    return repro::launch<float>(q, k, v, out, static_cast<float*>(lse), B, Sq,
+                                Sk, Hq, Hkv, D, causal, window, kv_len, s);
   if (dtype == repro::kBFloat16)
     return repro::launch_bf16(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal,
                               window, kv_len, s);

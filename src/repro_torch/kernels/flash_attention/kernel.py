@@ -11,7 +11,13 @@ bf16 (the serves) it runs on the tensor cores: K/V tiles by TMA into a
 shared-memory ring, S = Q.K^T and O += P.V by wgmma with the softmax and O
 in registers, bound at the serving shapes by the bytes of q, k, v and out;
 head sizes 32, 64 and 128.  In f32 it is a scalar kernel on the CUDA
-cores, which keeps true f32 products (the source says more).
+cores, which keeps true f32 products (the source says more), and can also
+write each query row's log-sum-exp for the backward.
+
+``flash_attention_bwd_kernel`` (source ``csrc/flash_attention_bwd.cu``)
+is that forward's gradient in f32, dQ, dK and dV from the forward's
+log-sum-exp; it replaces no TPU kernel (the JAX package differentiates
+plain ``jnp``).
 
 Takes CUDA tensors only; validates device, dtype, shape and contiguity,
 allocates the output, launches on the current stream and raises if the
@@ -47,11 +53,17 @@ def check_modes(sq: int, sk: int, causal: bool, window: Optional[int],
 
 def flash_attention_kernel(q, k, v, *, causal: bool = True,
                            window: Optional[int] = None,
-                           kv_len: Optional[int] = None) -> torch.Tensor:
+                           kv_len: Optional[int] = None,
+                           with_lse: bool = False):
     """q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D].  Keys
     at or past ``kv_len`` (default Sk) are masked and never read; Sq !=
-    Sk only in full mode (:func:`check_modes`)."""
+    Sk only in full mode (:func:`check_modes`).  ``with_lse`` (f32 only)
+    returns (out, lse [B, Sq, Hq] f32): each query row's log-sum-exp of
+    its scaled scores, which :func:`flash_attention_bwd_kernel` reads."""
     code = dtype_code(q)
+    if with_lse and q.dtype != torch.float32:
+        raise ValueError(f"the log-sum-exp (training) takes f32, got "
+                         f"{q.dtype}")
     if q.dtype == torch.bfloat16 and q.shape[-1] not in BF16_HEAD_SIZES:
         raise ValueError(f"bf16 prefill head size {q.shape[-1]} not in "
                          f"{BF16_HEAD_SIZES}")
@@ -71,10 +83,50 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
                 raise ValueError(f"{name} must start on a 16-byte boundary "
                                  f"(TMA and 16-byte loads)")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         rc = load_library().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            sk, hq, k.shape[2], d, int(causal), window or 0, bound, code,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, sq, sk, hq,
+            k.shape[2], d, int(causal), window or 0, bound, code,
             torch.cuda.current_stream(q.device).cuda_stream)
     raise_on(rc, "flash_attention")
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *,
+                               causal: bool = True,
+                               window: Optional[int] = None,
+                               kv_len: Optional[int] = None):
+    """The gradient of :func:`flash_attention_kernel` in f32: q, out,
+    dout [B, Sq, Hq, D]; k, v [B, Sk, Hkv, D]; lse [B, Sq, Hq] from the
+    forward's ``with_lse`` launch with the same mask -> (dq, dk, dv),
+    dk and dv summed over each KV head's query heads and zero for the
+    keys at or past ``kv_len``.  Two CUDA kernels a call (dQ with each
+    row's rowsum(dout * out) into a scratch, then dK and dV)."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        check_cuda(name, t, dtype=torch.float32, dim=4)
+    check_cuda("lse", lse, dtype=torch.float32, dim=3)
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    if (k.shape[0] != b or k.shape[3] != d or v.shape != k.shape
+            or hq % k.shape[2] or out.shape != q.shape
+            or dout.shape != q.shape or lse.shape != (b, sq, hq)):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, out "
+                         f"{tuple(out.shape)}, dout {tuple(dout.shape)}, "
+                         f"lse {tuple(lse.shape)}")
+    bound = check_modes(sq, sk, causal, window, kv_len)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        rc = load_library().repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, k.shape[2], d,
+            int(causal), window or 0, bound,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    raise_on(rc, "flash_attention_bwd")
+    return dq, dk, dv

@@ -8,8 +8,11 @@ launches in ``.launches`` (and its plain-version calls in
 ``.plain_calls``), plain ints a run can reset and read to show that its
 main path went through the kernel.  A launch is one call of the kernel
 wrapper, which runs two CUDA kernels (C.B^T once per row and chunk, then
-the scan on the tensor cores in 3xTF32) and counts once."""
+the scan on the tensor cores in 3xTF32) and counts once.  The kernel has
+no backward: a CUDA call whose inputs need a gradient raises."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.analysis.sanitizer import hot_path
 from repro_torch.kernels import device_route
@@ -23,6 +26,12 @@ def ssd_scan(x, dt, a, b, c, chunk: int):
     if device_route(x) == "cpu":
         ssd_scan.plain_calls += 1
         return ref.ssd_chunked_ref(x, dt, a, b, c, chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, b, c)):
+        raise NotImplementedError(
+            "the SSD scan kernel has no backward yet, so the SSM and hybrid "
+            "families do not train on the card (ROADMAP §1 item 11); on "
+            "the CPU they train through the plain scan")
     out = kernel.ssd_scan_kernel(x.contiguous(), dt.contiguous(),
                                  a.contiguous(), b.contiguous(),
                                  c.contiguous(), chunk=chunk)

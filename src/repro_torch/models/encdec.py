@@ -28,7 +28,11 @@ rows and a position past it reads row S - 1 (ROADMAP §3).
 
 Where the reference is functional, :func:`decode_step` writes the self
 cache in place (the cross cache is only read), so a CUDA graph can
-replay it on the same tensors."""
+replay it on the same tensors.
+
+Training: :func:`lm_loss`, the decoder's next-token CE over the encoder's
+output (aux 0), each encoder and decoder layer recomputed in the
+backward pass as the reference's remat does."""
 from __future__ import annotations
 
 import functools
@@ -41,8 +45,8 @@ from repro_torch.models.attention import (gqa_decode_attention,
                                          gqa_prefill_attention)
 from repro_torch.models.layers import (gelu_mlp, layer_norm,
                                       sinusoidal_positions)
-from repro_torch.models.transformer import (_layer, _out_proj, _proj,
-                                           cast_params)
+from repro_torch.models.transformer import (_layer, _out_proj, _proj, _run,
+                                           cast_params, cross_entropy)
 
 # the encoder's frames are right-padded to a multiple of this (1500 ->
 # 1536), the pad keys masked by kv_len
@@ -94,22 +98,42 @@ def _pad_frames(frames: torch.Tensor, mult: int = FRAME_MULTIPLE):
     return frames, f
 
 
+def _enc_layer(bp: Dict, x: torch.Tensor, kv_len: int) -> torch.Tensor:
+    hn = _ln(x, bp["ln1"])
+    a, _ = _mha(bp["attn"], hn, hn, causal=False, kv_len=kv_len)
+    x = x + a
+    return x + gelu_mlp(_ln(x, bp["ln2"]), bp["mlp"])
+
+
 def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor, *,
-           act_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+           act_dtype: torch.dtype = torch.bfloat16,
+           remat: bool = False) -> torch.Tensor:
     """frames [B, F, d] -> encoder output [B, F', d], F' = F padded to a
     multiple of 512; the pad frames run through every layer as queries
-    and are masked as keys."""
+    and are masked as keys.  ``remat`` recomputes each layer in the
+    backward pass (training)."""
     params = cast_params(params, act_dtype)
     frames, kv_len = _pad_frames(frames)
     x = frames.to(act_dtype)
     x = x + _positions(x.shape[1], cfg.d_model, x.device).to(act_dtype)
     for i in range(cfg.encoder_layers):
-        bp = _layer(params["enc_blocks"], i)
-        hn = _ln(x, bp["ln1"])
-        a, _ = _mha(bp["attn"], hn, hn, causal=False, kv_len=kv_len)
-        x = x + a
-        x = x + gelu_mlp(_ln(x, bp["ln2"]), bp["mlp"])
+        x = _run(_enc_layer, remat, _layer(params["enc_blocks"], i), x,
+                 kv_len)
     return _ln(x, params["enc_ln"])
+
+
+def _dec_layer(bp: Dict, x: torch.Tensor, enc_out: torch.Tensor,
+               encoder_seq: int):
+    """One decoder layer over the prompt: causal self-attention, cross
+    attention over ``enc_out``'s first ``encoder_seq`` rows, the MLP.
+    Returns (x, self (k, v), cross (k, v))."""
+    hn = _ln(x, bp["ln1"])
+    a, kv = _mha(bp["self"], hn, hn, causal=True)
+    x = x + a
+    a, cross = _mha(bp["cross"], _ln(x, bp["ln_x"]), enc_out, causal=False,
+                    kv_len=encoder_seq)
+    x = x + a
+    return x + gelu_mlp(_ln(x, bp["ln2"]), bp["mlp"]), kv, cross
 
 
 def _decoder(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -134,14 +158,8 @@ def _decoder(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                             for _ in range(2))}
     n = min(s, cl)
     for i in range(n_layers):
-        bp = _layer(params["dec_blocks"], i)
-        hn = _ln(x, bp["ln1"])
-        a, kv = _mha(bp["self"], hn, hn, causal=True)
-        x = x + a
-        a, cross = _mha(bp["cross"], _ln(x, bp["ln_x"]), enc_out,
-                        causal=False, kv_len=cfg.encoder_seq)
-        x = x + a
-        x = x + gelu_mlp(_ln(x, bp["ln2"]), bp["mlp"])
+        x, kv, cross = _dec_layer(_layer(params["dec_blocks"], i), x,
+                                  enc_out, cfg.encoder_seq)
         for leaf, t in zip(cache["kv"], kv):
             leaf[i, :, :n] = t[:, :n]
         for leaf, t in zip(cache["cross"], cross):
@@ -149,6 +167,33 @@ def _decoder(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     rows = torch.arange(b, device=dev)
     last = _ln(x[rows, lengths.long() - 1], params["dec_ln"])
     return last @ params["embed"].T.to(last.dtype), cache
+
+
+def _dec_train_layer(bp: Dict, x: torch.Tensor, enc_out: torch.Tensor,
+                     encoder_seq: int) -> torch.Tensor:
+    return _dec_layer(bp, x, enc_out, encoder_seq)[0]
+
+
+def lm_loss(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+            frames: torch.Tensor, *,
+            act_dtype: torch.dtype = torch.bfloat16):
+    """Next-token CE of the decoder over ``tokens`` [B, S] (labels
+    shifted by one), given the encoder's output for ``frames`` [B, F, d]:
+    the logits of every position (the tied embedding as the head).
+    Returns (ce, {"ce", "aux": 0}), as the reference's."""
+    params = cast_params(params, act_dtype)
+    enc = encode(params, cfg, frames, act_dtype=act_dtype, remat=True)
+    s = tokens.shape[1]
+    x = params["embed"][tokens.long()].to(act_dtype)
+    x = x + _positions(s, cfg.d_model, x.device).to(act_dtype)
+    for i in range(cfg.num_layers):
+        x = _run(_dec_train_layer, True, _layer(params["dec_blocks"], i), x,
+                 enc, cfg.encoder_seq)
+    x = _ln(x, params["dec_ln"])
+    logits = x @ params["embed"].T.to(x.dtype)
+    ce = cross_entropy(logits[:, :-1], tokens[:, 1:])
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                             device=ce.device)}
 
 
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,

@@ -10,25 +10,33 @@ import torch
 import torch.nn.functional as F
 
 
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in at least f32: bf16 and f32 compute in f32, as the
+    reference's ``astype(float32)``; f64 stays f64, so that a run given
+    f64 weights is f64 throughout."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    """Normalise in f32, scale, cast back to ``x``'s dtype."""
+    """Normalise in f32 (:func:`upcast`), scale, cast back to ``x``'s
+    dtype."""
     dt = x.dtype
-    x = x.float()
+    x = upcast(x)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * weight.float()).to(dt)
+    return (x * weight.to(x.dtype)).to(dt)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    """Normalise in f32 (biased variance), scale and shift, cast back to
-    ``x``'s dtype."""
+    """Normalise in f32 (:func:`upcast`; biased variance), scale and
+    shift, cast back to ``x``'s dtype."""
     dt = x.dtype
-    x = x.float()
+    x = upcast(x)
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
     x = (x - mu) * torch.rsqrt(var + eps)
-    return (x * weight.float() + bias.float()).to(dt)
+    return (x * weight.to(x.dtype) + bias.to(x.dtype)).to(dt)
 
 
 def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
@@ -64,7 +72,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(d, theta, device=x.device)              # [D/2]
     ang = positions[..., None].float() * freqs                 # [..., S, D/2]
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = upcast(x).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 

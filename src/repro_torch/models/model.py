@@ -1,6 +1,8 @@
 """Model facade for the dense-cache and paged serving paths (the
 reference package's ``models/model.py``).  Batches are dicts of tensors:
 
+  loss_fn (training) : {"tokens": [B, S]}, with "patches" or "frames"
+                       as prefill's
   prefill            : {"tokens": [B, S], "lengths": [B]}, and for the
                        vlm family "patches": [B, num_patches, d_model],
                        for the encoder-decoder family "frames": [B,
@@ -76,6 +78,19 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
     mod = encdec if _is_encdec(cfg) else transformer
     return mod.init_cache(cfg, batch, seq, dtype=dtype,
                           device=resolve_device(device))
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any], *,
+            act_dtype: torch.dtype = torch.bfloat16):
+    """The training loss of a batch {"tokens": [B, S], and "patches" or
+    "frames" for the vlm and encoder-decoder families}: (loss, {"ce",
+    "aux"}), as the reference's ``loss_fn``."""
+    if _is_encdec(cfg):
+        return encdec.lm_loss(params, cfg, batch["tokens"], batch["frames"],
+                              act_dtype=act_dtype)
+    return transformer.lm_loss(params, cfg, batch["tokens"],
+                               patches=batch.get("patches"),
+                               act_dtype=act_dtype)
 
 
 @hot_path

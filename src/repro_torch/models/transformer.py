@@ -33,9 +33,18 @@ MoE (``models/moe.py``: the FFN of every row and position of the
 ``[B, S]`` batch, pads and idle slots included, as the reference groups
 them), MLA, SSM, hybrid and vlm families are ported here; the
 encoder-decoder family (whisper) has its own entry points in
-``models/encdec.py``, to which ``models/model.py`` dispatches.  Only
-training reads deepseek-v3's multi-token-prediction
-weights (``params["mtp"]``), so no entry point here does.
+``models/encdec.py``, to which ``models/model.py`` dispatches.
+
+Training: :func:`forward_train` (full-sequence logits, the MoE aux loss
+and the last hidden state), :func:`cross_entropy` and :func:`lm_loss`
+(next-token CE, plus the aux loss and deepseek-v3's multi-token
+prediction over ``params["mtp"]``, which only training reads).  Each
+block is recomputed in the backward pass (``torch.utils.checkpoint``,
+the reference's ``nothing_saveable`` remat) unless ``cfg.remat_mode`` is
+``"none"``; it changes memory, not values.  On the card the attention's
+gradient is the flash kernel's backward kernel; the SSD scan has no
+backward kernel yet, so training the SSM and hybrid families on the card
+raises (``kernels/ssd_scan/ops.py``).
 
 Where the reference is functional (``.at[].set`` on donated buffers),
 this port writes into the caches, the pools and the engine's state
@@ -50,6 +59,7 @@ import dataclasses
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import (
@@ -57,7 +67,7 @@ from repro_torch.kernels.decode_attention.ops import (
     paged_prefix_prefill_attention)
 from repro_torch.models.attention import (gqa_decode_attention,
                                          gqa_prefill_attention)
-from repro_torch.models.layers import apply_rope, rms_norm, swiglu
+from repro_torch.models.layers import apply_rope, rms_norm, swiglu, upcast
 from repro_torch.models.mla import mla_decode, mla_prefill
 from repro_torch.models.moe import moe_forward, moe_forward_ragged
 from repro_torch.models.ssm import (mamba_decode, mamba_forward,
@@ -174,9 +184,11 @@ def _qkv(ap: Dict, x: torch.Tensor, cfg: ModelConfig):
     return q, k, v
 
 
-def _ffn(bp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The FFN sub-layer with its residual.  A MoE FFN runs on the whole
-    ``[B, S, d]`` at once (serving discards its aux loss)."""
+def _ffn_aux(bp: Dict, x: torch.Tensor, cfg: ModelConfig):
+    """The FFN sub-layer with its residual, and its aux loss (the MoE
+    load-balance loss, an f32 scalar; None for an MLP, so that serving
+    makes no zero tensor).  A MoE FFN runs on the whole ``[B, S, d]`` at
+    once."""
     if cfg.moe is not None:
         if _INVARIANT[0]:
             raise NotImplementedError(
@@ -185,15 +197,20 @@ def _ffn(bp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                 f"so a token's output depends on its batch-mates")
         h = rms_norm(x, bp["norm2"], cfg.norm_eps)
         if cfg.moe_ragged:
-            y, _ = moe_forward_ragged(bp["moe"], h, cfg.moe)
+            y, aux = moe_forward_ragged(bp["moe"], h, cfg.moe)
         else:
-            y, _ = moe_forward(bp["moe"], h, cfg.moe,
-                               group_size=cfg.moe_group_size)
-        return x + y
+            y, aux = moe_forward(bp["moe"], h, cfg.moe,
+                                 group_size=cfg.moe_group_size)
+        return x + y, aux
     h = _norm(x, bp["norm2"], cfg.norm_eps)
     mlp = bp["mlp"]
-    return x + _by_rows(
-        lambda r: swiglu(r, mlp["gate"], mlp["up"], mlp["down"]), h)
+    y = _by_rows(lambda r: swiglu(r, mlp["gate"], mlp["up"], mlp["down"]), h)
+    return x + y, None
+
+
+def _ffn(bp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`_ffn_aux` without the aux loss, which serving discards."""
+    return _ffn_aux(bp, x, cfg)[0]
 
 
 def _embed_in(params: Dict, tokens: torch.Tensor, act_dtype: torch.dtype,
@@ -297,17 +314,18 @@ def d_inner(cfg: ModelConfig) -> int:
 
 def block_forward(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor, *, window: Optional[int] = None):
-    """Full-sequence block.  Returns (x, the layer's cache entry):
-    {"kv": (k, v)}, {"kv": (c_kv, k_rope)} for MLA (which ignores
-    ``window``, as the reference's does), {"ssm": (SSD state, conv
-    state)}, or both "kv" and "ssm" for the hybrid family, whose
-    attention and SSM sub-layers read the same normed input and are
-    averaged: ``x + (attn(h) + mamba(h)) / 2``."""
+    """Full-sequence block.  Returns (x, aux loss (an f32 scalar, or None
+    without a MoE FFN), the layer's cache entry): {"kv": (k, v)},
+    {"kv": (c_kv, k_rope)} for MLA (which ignores ``window``, as the
+    reference's does), {"ssm": (SSD state, conv state)}, or both "kv"
+    and "ssm" for the hybrid family, whose attention and SSM sub-layers
+    read the same normed input and are averaged: ``x + (attn(h) +
+    mamba(h)) / 2``."""
     h = _norm(x, bp["norm1"], cfg.norm_eps)
     if cfg.family == "ssm":
         y, state = mamba_forward(bp["mamba"], h, cfg.ssm, d_inner(cfg),
                                  return_state=True)
-        return x + y, {"ssm": state}
+        return x + y, None, {"ssm": state}
     if cfg.uses_mla:
         y, kv = mla_prefill(bp["mla"], h, cfg.mla, cfg.num_heads, positions,
                             cfg.rope_theta)
@@ -318,7 +336,8 @@ def block_forward(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
         ym, entry["ssm"] = mamba_forward(bp["mamba"], h, cfg.ssm,
                                          d_inner(cfg), return_state=True)
         y = (y + ym) * 0.5
-    return _ffn(bp, x + y, cfg), entry
+    x, aux = _ffn_aux(bp, x + y, cfg)
+    return x, aux, entry
 
 
 def block_decode(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -405,8 +424,8 @@ def prefill(params: Dict, cfg: ModelConfig, tokens, lengths, *,
                         for shape, dt in leaves)
              for key, leaves in shapes.items()}
     for i in range(cfg.num_layers):
-        x, entry = block_forward(_layer(params["blocks"], i), x, cfg,
-                                 positions, window=cfg.sliding_window)
+        x, _, entry = block_forward(_layer(params["blocks"], i), x, cfg,
+                                    positions, window=cfg.sliding_window)
         for leaf, new in zip(cache.get("kv", ()), entry.get("kv", ())):
             if cl >= s:              # pad: the zero tail is already there
                 leaf[i, :, :s] = new
@@ -419,6 +438,99 @@ def prefill(params: Dict, cfg: ModelConfig, tokens, lengths, *,
     last = x[rows, offs + lengths.long() - 1]
     logits = _logits(params, cfg, last[:, None])[:, 0]
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def _run(layer, remat: bool, *args):
+    """``layer(*args)``, recomputed in the backward pass with ``remat``
+    (``torch.utils.checkpoint``, the reference's ``nothing_saveable``
+    policy: nothing of the layer is kept but its inputs)."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(layer, *args,
+                                                 use_reentrant=False)
+    return layer(*args)
+
+
+def _train_block(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """One block of :func:`forward_train`: (x, aux); the cache entry the
+    block computes on the way is dropped."""
+    x, aux, _ = block_forward(bp, x, cfg, positions,
+                              window=cfg.sliding_window)
+    return x, aux
+
+
+def forward_train(params: Dict, cfg: ModelConfig, tokens, *, patches=None,
+                  act_dtype: torch.dtype = torch.bfloat16,
+                  remat: bool = True):
+    """tokens: [B, S] -> (logits [B, S', V], aux loss (f32 scalar, the
+    layers' sum), hidden [B, S', d]), S' = S, or P + S for the vlm
+    family's ``patches`` [B, P, d].  With ``remat`` and
+    ``cfg.remat_mode != "none"`` each block is recomputed in the
+    backward pass instead of keeping its activations."""
+    _require_dense(cfg)
+    params = cast_params(params, act_dtype)
+    x = _embed_in(params, tokens, act_dtype,
+                  patches if cfg.family == "vlm" else None)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat and cfg.remat_mode != "none"
+    for i in range(cfg.num_layers):
+        x, a = _run(_train_block, remat, _layer(params["blocks"], i), x,
+                    cfg, positions)
+        if a is not None:
+            aux = aux + a
+    return _logits(params, cfg, x), aux, x
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE, ``logsumexp(logits) - logits[target]`` in f32
+    (:func:`layers.upcast`).  With ``mask`` [1, S] (or [B, S]) the
+    reference's masked mean: ``sum(ce * mask) / max(sum(mask) * B /
+    mask.shape[0], 1)``."""
+    lse = torch.logsumexp(upcast(logits), dim=-1)
+    correct = upcast(logits.gather(-1, targets.long()[..., None])[..., 0])
+    ce = lse - correct
+    if mask is not None:
+        return (ce * mask).sum() / torch.clamp(
+            mask.sum() * ce.shape[0] / mask.shape[0], min=1.0)
+    return ce.mean()
+
+
+def lm_loss(params: Dict, cfg: ModelConfig, tokens, *, patches=None,
+            act_dtype: torch.dtype = torch.bfloat16, mtp_coef: float = 0.3):
+    """Next-token CE over ``tokens`` [B, S] (labels shifted by one), plus
+    the MoE aux loss, plus with ``cfg.mtp_depth`` ``mtp_coef`` times the
+    multi-token-prediction CE (position t predicts t + 2 from the last
+    hidden state and token t + 1's embedding, through ``params["mtp"]``;
+    the last two positions masked).  The vlm family's patch positions
+    are dropped first.  Returns (loss, {"ce", "aux"})."""
+    logits, aux, hidden = forward_train(params, cfg, tokens, patches=patches,
+                                        act_dtype=act_dtype)
+    s = tokens.shape[1]
+    if cfg.family == "vlm":
+        logits, hidden = logits[:, -s:], hidden[:, -s:]
+    ce = cross_entropy(logits[:, :-1], tokens[:, 1:])
+    loss = ce + aux
+    if cfg.mtp_depth:
+        mp = params["mtp"]
+        h = rms_norm(hidden, mp["norm_h"], cfg.norm_eps)
+        shifted = torch.roll(tokens, -1, dims=1)          # t + 1 (tail junk)
+        e = rms_norm(params["embed"][shifted.long()].to(h.dtype),
+                     mp["norm_e"], cfg.norm_eps)
+        hm = torch.cat([h, e], dim=-1) @ mp["proj"].to(h.dtype)
+        pos = torch.arange(hm.shape[1], device=hm.device)
+        hm, _, _ = block_forward(cast_params(mp["block"], h.dtype), hm, cfg,
+                                 pos, window=cfg.sliding_window)
+        mtp_logits = _logits(params, cfg, hm)
+        mask = (torch.arange(s, device=hm.device) < s - 2).float()[None]
+        loss = loss + mtp_coef * cross_entropy(
+            mtp_logits, torch.roll(tokens, -2, dims=1), mask=mask)
+    return loss, {"ce": ce, "aux": aux}
 
 
 def decode_step(params: Dict, cfg: ModelConfig, cache: Dict, tokens,

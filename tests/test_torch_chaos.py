@@ -21,6 +21,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 try:
     from hypothesis import given, settings
@@ -43,6 +44,11 @@ from repro_torch.serving import paged_cache as torch_cache
 from repro_torch.serving.engine import EngineFull, PoolExhausted, drive_paged
 from repro_torch.serving.faults import FAULT_SEQ, FaultEvent, Shed
 from repro_torch.workload import apps
+
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
 
 JCFG = jax_config("smollm-135m").reduced(num_layers=2, d_model=64)
 CFG = get_config("smollm-135m").reduced(num_layers=2, d_model=64)

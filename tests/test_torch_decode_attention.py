@@ -19,6 +19,11 @@ from repro.kernels.decode_attention import ops as jax_ops
 from repro.kernels.decode_attention import ref as jax_ref
 from repro_torch.kernels.decode_attention import ops, ref
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 TOL = 2e-4
 
 

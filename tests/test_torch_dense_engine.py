@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_config
 from repro.core.types import Batch as JaxBatch
@@ -38,6 +39,11 @@ from repro_torch.launch import serve
 from repro_torch.params import params_from_numpy
 from repro_torch.serving.engine import BatchEngine, ContinuousEngine
 from repro_torch.workload import apps
+
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
 
 JCFG = jax_config("smollm-135m").reduced()
 CFG = get_config("smollm-135m").reduced()

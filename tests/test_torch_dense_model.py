@@ -26,6 +26,11 @@ from repro_torch.params import params_from_numpy
 from repro_torch.serving.engine import (BatchEngine, ContinuousEngine,
                                         PagedContinuousEngine)
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 TOL = 2e-4     # f32, relative to each tensor's scale (see _allclose)
 ARCHS = ("chatglm-6b", "qwen2.5-14b")
 

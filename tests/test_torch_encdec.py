@@ -50,6 +50,11 @@ from repro_torch.params import param_specs, params_from_numpy
 from repro_torch.serving.engine import BatchEngine, ContinuousEngine, _bucket
 from repro_torch.workload import apps
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 ARCH = "whisper-large-v3"
 TOL = 2e-4           # f32, of the reference's largest magnitude
 FORWARD_TOL = 2e-3   # decode against the full forward (test_arch_smoke.py)
@@ -210,25 +215,65 @@ def test_encode_matches_jax():
     _close(got.numpy(), want)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_prefill_f64(cache_len):
+    """The reference's prefill on the same weights and inputs at f64
+    (``jax.enable_x64``; its LayerNorm and attention still round to f32
+    inside, as the port's do), as numpy: the run both packages' f32
+    self caches are measured against."""
+    jp, _ = _params()
+    tokens, frames = _tokens(S)[:, :S], _frames()   # drawn outside x64
+    with jax.enable_x64(True):
+        jp64 = jax.tree.map(lambda a: jnp.asarray(np.asarray(a, np.float64)),
+                            jp)
+        logits, cache = JM.prefill(jp64, JCFG, {
+            "tokens": jnp.asarray(tokens),
+            "lengths": jnp.asarray(LENGTHS, np.int32),
+            "frames": jnp.asarray(frames.astype(np.float64))},
+            act_dtype=jnp.float64, cache_len=cache_len)
+        return jax.tree.map(np.asarray, (logits, cache))
+
+
 @pytest.mark.parametrize("cache_len", [None, 24, 8],
                          ids=["S", "grown", "cut"])
 def test_prefill_matches_jax(cache_len):
-    """Logits at ``lengths - 1`` and both caches at 2e-4 of scale: the
-    self K/V zero-padded or cut (not ring-packed) to ``cache_len``, the
-    cross K/V of all 512 encoder rows; an encoder call a layer and two
+    """Logits at ``lengths - 1`` and the cross K/V of all 512 encoder
+    rows at 2e-4 of scale; the self K/V zero-padded or cut (not
+    ring-packed) to ``cache_len``; an encoder call a layer and two
     decoder calls a layer (causal self, cross at Sq 16, Sk 512, key
-    bound 16) through flash."""
+    bound 16) through flash.
+
+    The self K/V of layer 1 is held another way.  Both packages compute
+    the same operations (compared one by one at f32: LayerNorm, Q/K/V,
+    attention, cross attention, GELU MLP, residuals), but with random
+    weights the cross attention's scores reach ~540, so its softmax
+    amplifies the f32 rounding of a 64-term dot product (the two
+    packages sum it in different orders) to ~4e-4 of scale in layer 0's
+    output, which layer 1's K/V inherit.  So the whole self cache is
+    held so that the port's f32 error against the reference's f64 run
+    is no larger than the reference's own f32 error against it, and
+    layer 0's self K/V, before any softmax, at 2e-4 of scale."""
     flash_ops.reset_counts()
     tl, tc = _port_prefill(cache_len)
     assert flash_ops.flash_attention.plain_calls == \
         CFG.encoder_layers + 2 * CFG.num_layers
     jl, jc = _jax_prefill(cache_len)
+    _, jc64 = _jax_prefill_f64(cache_len)
     _close(tl.numpy(), jl)
     for key, rows in (("kv", cache_len or S), ("cross", F_PAD)):
-        for got, want in zip(tc[key], jc[key]):
+        for got, want, exact in zip(tc[key], jc[key], jc64[key]):
             assert got.shape == (CFG.num_layers, 2, rows, CFG.num_heads,
                                  CFG.head_dim)
-            _close(got.numpy(), want)
+            if key == "cross":
+                _close(got.numpy(), want)
+                continue
+            _close(got[0].numpy(), want[0])
+            port_err, _ = _err(got, exact)
+            ref_err, _ = _err(want, exact)
+            assert port_err <= ref_err, (
+                f"self {key}: the port's f32 error {port_err:.3e} against "
+                f"the reference's f64 run exceeds the reference's own f32 "
+                f"error {ref_err:.3e}")
 
 
 @pytest.mark.parametrize("cache_len", [24, 16], ids=["room", "ring"])

@@ -39,6 +39,11 @@ from repro_torch.params import params_from_numpy
 from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
 from repro_torch.workload import apps
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 JCFG = jax_config("smollm-135m").reduced(num_layers=2, d_model=64)
 CFG = get_config("smollm-135m").reduced(num_layers=2, d_model=64)
 COUNTERS = ("prefill_dispatches", "prefill_tokens", "cow_copies",

@@ -13,7 +13,15 @@ reference's: 2e-4 in f32, 5e-2 in bf16.  The hand-written CUDA kernel is
 compared with the plain version by the ``cuda``-marked test, which runs
 only where a card is present (``chip_smoke.py`` makes the same comparison
 at chatglm-6b's shapes).
+
+The gradient: ``flash_attention_bwd_ref`` (the backward kernel's
+formulas) against autograd of the plain forward and JAX's gradient of
+``gqa_prefill_attention`` on the CPU, in the causal, window and bounded
+full modes at GQA groups of 1 and 3; on the card the f32 forward's
+log-sum-exp and the backward kernel against their plain versions at
+smollm-135m's and whisper-large-v3's calls too (2e-4 of scale).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +31,11 @@ from repro.kernels.flash_attention.kernel import flash_attention_kernel
 from repro.kernels.flash_attention.ref import flash_attention_ref
 from repro.models.attention import gqa_prefill_attention
 from repro_torch.kernels.flash_attention import ops, ref
+
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
 
 SHAPES = [(128, 4, 4, 64), (256, 4, 2, 64), (192, 6, 2, 32),
           (256, 8, 1, 128), (200, 5, 1, 32)]
@@ -295,3 +308,162 @@ def test_cuda_flash_key_bound_matches_plain_version(b, sq, sk, kv_len, hq,
     kp[:, kv_len:], vp[:, kv_len:] = float("nan"), float("nan")
     assert torch.equal(ops.flash_attention(q, kp, vp, causal=False,
                                            kv_len=kv_len), out)
+
+
+# ---------------------------------------------------------------------------
+# the gradient: the backward kernel's plain version and the kernel
+# ---------------------------------------------------------------------------
+
+# (b, sq, sk, hq, hkv, d, mode): causal, a window and full mode with a key
+# bound and Sq != Sk, each at GQA groups of 1 and 3
+BWD_CASES = {
+    "causal-g1": (2, 40, 40, 4, 4, 32, dict(causal=True)),
+    "causal-g3": (2, 40, 40, 6, 2, 32, dict(causal=True)),
+    "window-g1": (2, 50, 50, 2, 2, 64, dict(causal=True, window=7)),
+    "window-g3": (2, 50, 50, 3, 1, 64, dict(causal=True, window=7)),
+    "bound-g1": (2, 9, 37, 4, 4, 32, dict(causal=False, kv_len=23)),
+    "bound-g3": (2, 9, 37, 6, 2, 32, dict(causal=False, kv_len=23)),
+}
+
+
+def _bwd_inputs(b, sq, sk, hq, hkv, d, seed=7):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d),
+                          (b, sq, hq, d))]
+
+
+def _hold(got, want, tol=2e-4):
+    """Max abs error within ``tol`` of the want's largest magnitude."""
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_bwd_plain_matches_autograd(case):
+    """``flash_attention_bwd_ref`` (the backward kernel's formulas from
+    the forward's log-sum-exp) against ``torch.autograd`` of
+    ``flash_attention_ref`` and against JAX's gradient of the reference's
+    ``gqa_prefill_attention``, dq, dk and dv each at 2e-4 of its largest
+    magnitude; dk and dv are summed over the G query heads of each KV
+    head.  The log-sum-exp equals ``logsumexp`` of the scaled scores in
+    f64.  A key past the bound gets dk = dv = 0 exactly, whatever K and
+    V hold there (NaN included).  On the CPU autograd through
+    ``ops.flash_attention`` is autograd of the plain forward."""
+    b, sq, sk, hq, hkv, d, mode = BWD_CASES[case]
+    q, k, v, dout = _bwd_inputs(b, sq, sk, hq, hkv, d)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, **mode)
+    want = torch.autograd.grad(out, leaves, dout)
+    out2, lse = ref.flash_attention_ref(q, k, v, with_lse=True, **mode)
+    assert torch.equal(out2, out.detach()) and lse.shape == (b, sq, hq)
+    got = ref.flash_attention_bwd_ref(q, k, v, out2, dout, lse, **mode)
+    jq, jk, jv, jdo = (jnp.asarray(t.numpy()) for t in (q, k, v, dout))
+    _, vjp = jax.vjp(lambda a, c, e: gqa_prefill_attention(a, c, e, **mode),
+                     jq, jk, jv)
+    jgrads = [torch.from_numpy(np.array(g)) for g in vjp(jdo)]
+    for g, w, jw in zip(got, want, jgrads):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        _hold(g, w)
+        _hold(g, jw)
+    q64, k64 = q.double(), k.double()
+    s = torch.einsum("bqhgd,bkhd->bhgqk",
+                     q64.reshape(b, sq, hkv, hq // hkv, d) * d ** -0.5, k64)
+    qp = torch.arange(sq)[:, None] + (sk - sq)
+    kp = torch.arange(sk)[None, :]
+    mask = kp < mode.get("kv_len", sk)
+    if mode["causal"]:
+        mask = mask & (qp >= kp)
+    if mode.get("window"):
+        mask = mask & (qp - kp < mode["window"])
+    s = s.masked_fill(~mask, -float("inf"))
+    want_lse = torch.logsumexp(s, -1).permute(0, 3, 1, 2).reshape(b, sq, hq)
+    _hold(lse.double(), want_lse)
+    kv_len = mode.get("kv_len")
+    if kv_len is not None:
+        kp_, vp_ = k.clone(), v.clone()
+        kp_[:, kv_len:], vp_[:, kv_len:] = float("nan"), float("nan")
+        dq, dk, dv = ref.flash_attention_bwd_ref(q, kp_, vp_, out2, dout, lse,
+                                                 **mode)
+        assert torch.equal(dq, got[0])
+        assert torch.equal(dk[:, :kv_len], got[1][:, :kv_len])
+        assert not dk[:, kv_len:].any() and not dv[:, kv_len:].any()
+
+
+# smollm-135m's training call, whisper-large-v3's encoder, cross and
+# decoder calls (20 heads of 64, 1,500 of 1,536 frames, 448 text rows),
+# then the modes above
+CUDA_BWD = {"smollm": (8, 256, 256, 9, 3, 64, dict(causal=True)),
+            "whisper-encoder": (1, 1536, 1536, 20, 20, 64,
+                                dict(causal=False, kv_len=1500)),
+            "whisper-cross": (2, 448, 1536, 20, 20, 64,
+                              dict(causal=False, kv_len=1500)),
+            "whisper-decoder": (2, 448, 448, 20, 20, 64, dict(causal=True)),
+            **BWD_CASES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_BWD))
+def test_cuda_flash_bwd_matches_plain_version(case):
+    """The f32 forward kernel's log-sum-exp and the backward kernel against
+    their plain versions on the card at 2e-4 of each output's largest
+    magnitude (TF32 off); the autograd wrapper launches the forward and
+    the backward once each and gives the plain version's gradient; NaN
+    in K and V past a key bound changes no bit of dq, or of dk and dv
+    before the bound, and leaves them zero after it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, sq, sk, hq, hkv, d, mode = CUDA_BWD[case]
+    q, k, v, dout = (t.cuda() for t in _bwd_inputs(b, sq, sk, hq, hkv, d))
+    out, lse = kernel.flash_attention_kernel(q, k, v, with_lse=True, **mode)
+    want_out, want_lse = ref.flash_attention_ref(q, k, v, with_lse=True,
+                                                 **mode)
+    _hold(out, want_out)
+    _hold(lse, want_lse)
+    n0 = ops.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, out, dout, lse, **mode)
+    assert ops.flash_attention_bwd.launches == n0 + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, want_out, dout, want_lse,
+                                       **mode)
+    for g, w in zip(got, want):
+        _hold(g, w)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n = (ops.flash_attention.launches, ops.flash_attention_bwd.launches)
+    auto = torch.autograd.grad(ops.flash_attention(*leaves, **mode), leaves,
+                               dout)
+    assert (ops.flash_attention.launches,
+            ops.flash_attention_bwd.launches) == (n[0] + 1, n[1] + 1)
+    for g, w in zip(auto, want):
+        _hold(g, w)
+    kv_len = mode.get("kv_len")
+    if kv_len is not None:
+        kp, vp = k.clone(), v.clone()
+        kp[:, kv_len:], vp[:, kv_len:] = float("nan"), float("nan")
+        out_p, lse_p = kernel.flash_attention_kernel(q, kp, vp, with_lse=True,
+                                                     **mode)
+        dq, dk, dv = ops.flash_attention_bwd(q, kp, vp, out_p, dout, lse_p,
+                                             **mode)
+        assert torch.equal(out_p, out) and torch.equal(dq, got[0])
+        assert torch.equal(dk[:, :kv_len], got[1][:, :kv_len])
+        assert torch.equal(dv[:, :kv_len], got[2][:, :kv_len])
+        assert not dk[:, kv_len:].any() and not dv[:, kv_len:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_training_call_raises():
+    """A bf16 call that needs a gradient raises a ``ValueError`` before
+    any launch (the backward kernel is f32); without a gradient the bf16
+    kernel serves as before."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v, _ = (t.cuda().bfloat16() for t in _bwd_inputs(2, 64, 64, 4, 2,
+                                                            64))
+    n0 = ops.flash_attention.launches
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.requires_grad_(), k, v, causal=True)
+    assert ops.flash_attention.launches == n0
+    with torch.no_grad():
+        ops.flash_attention(q, k, v, causal=True)
+    assert ops.flash_attention.launches == n0 + 1

@@ -42,6 +42,11 @@ from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
 from repro_torch.serving.faults import FaultEvent, FaultInjector
 from repro_torch.workload.apps import make_dataset
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 TOL = 2e-4          # f32, of the reference's largest magnitude
 CFG = get_config("chatglm-6b").reduced()
 ENGINE_KW = dict(max_concurrency=4, num_blocks=64, block_tokens=16,

@@ -50,6 +50,11 @@ from repro_torch.params import init_params, param_specs, params_from_numpy
 from repro_torch.serving.engine import BatchEngine, ContinuousEngine
 from repro_torch.workload import apps
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 ARCH = "hymba-1.5b"
 TOL = 2e-4        # f32, of the reference's largest magnitude
 FORWARD_TOL = 2e-3   # decode against the full forward (test_arch_smoke.py)

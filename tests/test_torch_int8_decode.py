@@ -47,6 +47,11 @@ from repro_torch.models import transformer as T
 from repro_torch.params import params_from_numpy
 from repro_torch.serving.engine import BatchEngine, ContinuousEngine
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 PLAIN_TOL = 2e-4       # f32 dequantisation on both sides
 QUANT_TOL = 0.05       # the reference's int8-vs-float bound
 MODEL_TOL = 1e-4       # port int8 decode_step vs JAX int8 decode_step

@@ -52,6 +52,11 @@ from repro_torch.serving.engine import (BatchEngine, PagedContinuousEngine,
                                         drive_paged)
 from repro_torch.workload import apps
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 TOL = 2e-4     # f32, of the reference's largest magnitude
 BF16_GATES = 4e-3   # capacity against ragged: bf16 combine gates, 2^-9
 ARCH = "olmoe-1b-7b"

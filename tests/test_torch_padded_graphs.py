@@ -51,6 +51,11 @@ from repro_torch.serving import graphs
 from repro_torch.serving.engine import BatchEngine
 from repro_torch.workload import apps
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 TOL = 2e-4          # f32, of the reference's largest magnitude
 ARCHS = ("chatglm-6b", "mamba2-780m", "olmoe-1b-7b", "hymba-1.5b",
          "deepseek-v3-671b", "internvl2-26b")
@@ -204,7 +209,7 @@ def _launches():
 
 
 def _plain_calls():
-    return sum(fn.plain_calls for fn in KERNELS)
+    return sum(getattr(fn, "plain_calls", 0) for fn in KERNELS)
 
 
 @pytest.mark.cuda

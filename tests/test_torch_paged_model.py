@@ -18,6 +18,11 @@ from repro_torch.configs import get_config
 from repro_torch.models import model as M
 from repro_torch.params import params_from_numpy
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 TOL = 2e-4     # f32, relative to each tensor's scale (see _allclose)
 CONFIGS = {"smollm": dict(arch="smollm-135m", num_layers=2, d_model=64),
            "chatglm": dict(arch="chatglm-6b"),      # MHA: G = 1

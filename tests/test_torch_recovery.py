@@ -68,6 +68,11 @@ from repro_torch.workload import apps
 
 from test_torch_chaos import CFG, JCFG, params
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 MAX_GEN = 10
 BT = 4
 N = 6

@@ -55,6 +55,11 @@ from repro_torch.serving import engine as torch_engine
 from repro_torch.serving import paged_cache as torch_cache
 from repro_torch.workload import apps
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 JCFG = jax_config("smollm-135m").reduced(num_layers=2, d_model=64)
 CFG = get_config("smollm-135m").reduced(num_layers=2, d_model=64)
 JDRAFT = JCFG.reduced(num_layers=1, d_model=32)

@@ -25,6 +25,11 @@ from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ref
 from repro.models.ssm import ssd_chunked as jax_chunked
 from repro_torch.kernels.ssd_scan import kernel, ops, ref
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 ORACLE_TOL = 5e-3      # the reference's test_ssd_scan
 CHUNKED_TOL = 2e-4     # f32, same algorithm
 

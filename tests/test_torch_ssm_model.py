@@ -37,6 +37,11 @@ from repro_torch.params import init_params, param_specs, params_from_numpy
 from repro_torch.serving.engine import BatchEngine, ContinuousEngine
 from repro_torch.workload import apps
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 ARCH = "mamba2-780m"
 TOL = 2e-4        # f32, relative to each tensor's scale (see _allclose)
 JCFG, CFG = jax_config(ARCH).reduced(), get_config(ARCH).reduced()

@@ -48,6 +48,11 @@ from repro_torch.serving.paged_cache import BlockAllocator, HostSwapTier
 from test_torch_chaos import (CFG, SIDES, SPEC_COUNTERS, assert_parity,
                               make_engine, run_pair)
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 MAX_GEN = 10
 BT = 4
 TYPES = {"jax": jax_types, "torch": torch_types}

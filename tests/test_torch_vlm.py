@@ -47,6 +47,11 @@ from repro_torch.serving.engine import BatchEngine, ContinuousEngine, _bucket
 from repro_torch.workload import apps
 from repro_torch.workload.tokenizer import encode
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one machine, where PyTorch's default pool (a thread per core) in every
+# worker makes these tests' small CPU ops a hundred times slower.
+torch.set_num_threads(1)
+
 ARCH = "internvl2-26b"
 TOL = 2e-4           # f32, of the reference's largest magnitude
 FORWARD_TOL = 2e-3   # decode against the full forward (test_arch_smoke.py)
