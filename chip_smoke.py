@@ -12,8 +12,9 @@ CUDA toolkit.  Phases, each fatal on failure:
    shared memory and spills from the ``-Xptxas -v`` log, and its
    tensor-core instructions (HGMMA, HMMA) from ``cuobjdump -sass`` where
    the toolkit has it; fails if the bf16 flash or bf16 prefix-prefill
-   kernel, or either SSD scan kernel (C.B^T and the scan, every
-   instance), has none;
+   kernel, the f32 flash forward (3xTF32), the flash backward (every
+   f32 and bf16 instance) or either SSD scan kernel (C.B^T and the
+   scan, every instance) has none;
 3. kernels: each hand-written kernel against its plain PyTorch version
    on the card, on chatglm-6b's shapes, GQA shapes and edge shapes, in
    f32 (TF32 off, tolerance 2e-4) and bf16 (5e-2): paged decode with
@@ -312,12 +313,13 @@ CUDA toolkit.  Phases, each fatal on failure:
    Logged: each batch's encoder card ms, both kernels timed at these
    inputs, the step's bound, tokens/s beside phase 7's, the peak.
 
-23. training (``train_phase``): (a) the f32 flash forward's log-sum-exp
-   and the backward kernel (``csrc/flash_attention_bwd.cu``) against
-   their plain versions at smollm-135m's call and in every mode (a
-   window, a key bound with NaN past it, G 1 and 3, D 32/64/128,
-   whisper-large-v3's encoder, cross and decoder calls), f32 at 2e-4;
-   the autograd wrapper; a bf16 training call must raise.  (b) One
+23. training (``train_phase``): (a) the flash forward (out and its
+   log-sum-exp) and the backward kernel (``csrc/flash_attention_bwd.cu``)
+   against their plain versions at smollm-135m's call and in every mode
+   (a window, a key bound with NaN past it, G 1 and 3, D 32/64/128,
+   whisper-large-v3's encoder, cross and decoder calls), f32 at 2e-4
+   (TF32 off) and bf16 at 5e-2, two launches bit-equal; the autograd
+   wrapper in both dtypes.  (b) One
    train step of smollm-135m at full width cut to 2 layers on the card
    against the CPU on the same weights and batch: loss and lr at 2e-4
    of scale, card against CPU f32; the grad norm, and every gradient
@@ -326,9 +328,15 @@ CUDA toolkit.  Phases, each fatal on failure:
    256, f32, TF32 off) for 10 steps: the flash forward 60 launches a
    step (remat recomputes each layer), the backward 30, finite losses,
    the first batch's loss lower after training.  Logged: tokens/s, step
-   ms, peak memory, both kernels timed at that call beside their plain
-   versions and SDPA's backward, and the step's breakdown (flash
-   forward, backward, GEMMs, the AdamW update).
+   ms, peak memory.  (d) Both kernels timed at that call in f32 and
+   bf16 beside their plain versions and SDPA's forward or backward, and
+   the f32 step's breakdown (flash forward, backward, GEMMs, the AdamW
+   update).  (e) bf16 training: the 2-layer step of (b) in bf16
+   (``make_train_step``'s default) on the card against the CPU's bf16
+   step, each gradient leaf, the loss and the grad norm within twice
+   the CPU's bf16 distance from its f32 step; then ``trainer.train``
+   on smollm-135m uncut with bf16 activations for 10 steps, held as
+   (c), and the bf16 step's breakdown.
 
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves; phase 14 runs right after
@@ -453,9 +461,10 @@ def build_report(build, lib):
     build's ``-Xptxas -v`` log, and its tensor-core instructions (HGMMA,
     HMMA) in the library's SASS where the toolkit has ``cuobjdump``.
     Fails if the bf16 flash or bf16 prefix-prefill kernel, or an
-    instance of either SSD scan kernel (``ssd_cb_kernel``,
-    ``ssd_scan_kernel``: 3xTF32 mma.sync), has no tensor-core
-    instruction."""
+    instance of the f32 flash forward (``flash_mma_kernel``), of the
+    flash backward (``flash_bwd_kernel``, f32 and bf16) or of either SSD scan
+    kernel (``ssd_cb_kernel``, ``ssd_scan_kernel``; the f32 ones 3xTF32
+    on mma.sync), has no tensor-core instruction."""
     import re
     kern = {}
     name = None
@@ -503,7 +512,8 @@ def build_report(build, lib):
             f"{k.get('smem', '?')} smem, spills {k.get('spill', '?')}, "
             f"HGMMA {hg}, HMMA {hm}")
     if tc:
-        for kind in ("flash_tc_kernel", "prefix_prefill_tc_kernel",
+        for kind in ("flash_tc_kernel", "flash_mma_kernel",
+                     "flash_bwd_kernel", "prefix_prefill_tc_kernel",
                      "ssd_cb_kernel", "ssd_scan_kernel"):
             fns = [n for n in tc if kind in n]
             check(fns and all(tc[n][0] + tc[n][1] > 0 for n in fns),
@@ -4242,6 +4252,13 @@ def encdec_phase(torch, np, ops, ref, fops, fref, hbm, spin, others,
 TRAIN_ARCH = "smollm-135m"
 TRAIN_STEPS = 10
 TRAIN_TOL = 2e-4               # f32 with TF32 off, of the value's scale
+TRAIN_TOLS = {"float32": TRAIN_TOL,   # the reference's holds by dtype
+              "bfloat16": 5e-2}
+TRAIN_BF16_FACTOR = 2.0        # (e): a leaf of the card's bf16 step from
+#                                the CPU's bf16 step, against the CPU's
+#                                bf16 distance from its f32 step (two bf16
+#                                runs each that far from f32 are at most
+#                                twice as far from each other)
 TRAIN_CPU_LAYERS = 2           # the card-against-CPU step's depth
 TRAIN_REPS = 7                 # timed calls per kernel
 # (B, Sq, Sk, Hq, Hkv, D, causal, window, kv_len): smollm-135m's training
@@ -4258,107 +4275,110 @@ TRAIN_BWD = [(8, 256, 256, 9, 3, 64, True, None, None),
 
 
 def train_kernel_checks(torch, fops, fref):
-    """Phase 23 (a): the f32 flash forward's log-sum-exp and the backward
-    kernel against their plain versions on ``TRAIN_BWD``'s calls (dq, dk
-    and dv each to ``TRAIN_TOL`` of its own largest magnitude, no
-    floor); where a key bound is given, NaN written into K and V past it
-    must leave dq and the bounded rows of dk and dv unchanged bit for bit
-    and the rows past it zero.  The autograd wrapper at smollm-135m's
-    call against autograd of the plain version.  A bf16 call that needs
-    a gradient must raise a ValueError.  Returns the largest error over
-    scale of each output."""
+    """Phase 23 (a): the flash forward (out and its log-sum-exp) and the
+    backward kernel against their plain versions on ``TRAIN_BWD``'s
+    calls, in f32 (TF32 off) and bf16: out, dq, dk and dv each to
+    ``TRAIN_TOLS`` of its own largest magnitude (no floor), lse (f32 in
+    both) to ``TRAIN_TOL``; a second launch of the backward must give
+    the same bits; where a key bound is given, NaN written into K and V
+    past it must leave out, lse, dq and the bounded rows of dk and dv
+    unchanged bit for bit and the rows past it zero.  The autograd
+    wrapper at smollm-135m's call, in both dtypes, launches the forward
+    and the backward once each and matches autograd of the plain
+    version.  Returns the largest error over scale of each output."""
     from repro_torch.kernels.flash_attention import kernel as fkernel
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(23)
-    rand = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
     errs = {}
-    for b, sq, sk, hq, hkv, d, causal, window, kv in TRAIN_BWD:
-        mode = dict(causal=causal, window=window, kv_len=kv)
-        q, dout = rand(b, sq, hq, d), rand(b, sq, hq, d)
-        k, v = rand(b, sk, hkv, d), rand(b, sk, hkv, d)
-        label = (f"flash backward (B {b}, Sq {sq}, Sk {sk}, {hq}/{hkv} "
-                 f"heads of {d}, {mode})")
-        out, lse = fkernel.flash_attention_kernel(q, k, v, with_lse=True,
-                                                  **mode)
-        want_out, want_lse = fref.flash_attention_ref(q, k, v,
-                                                      with_lse=True, **mode)
-        for name, got, want in (("out", out, want_out),
-                                ("lse", lse, want_lse)):
-            err, scale = hold(torch, f"{label} {name}", got, want,
-                              tol=TRAIN_TOL, floor=0.0)
-            errs[name] = max(errs.get(name, 0.0), err / scale)
-        got = fkernel.flash_attention_bwd_kernel(q, k, v, out, dout, lse,
-                                                 **mode)
-        want = fref.flash_attention_bwd_ref(q, k, v, want_out, dout,
-                                            want_lse, **mode)
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            err, scale = hold(torch, f"{label} {name}", g, w, tol=TRAIN_TOL,
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).rsplit(".", 1)[-1]
+        tol = TRAIN_TOLS[dname]
+        rand = lambda *shape: torch.randn(*shape, generator=gen,
+                                          device="cuda").to(dtype)
+
+        def held(label, name, got, want, tol=tol):
+            err, scale = hold(torch, f"{label} {name}", got, want, tol=tol,
                               floor=0.0)
-            errs[name] = max(errs.get(name, 0.0), err / scale)
-        if kv is not None:
-            kp, vp = k.clone(), v.clone()
-            kp[:, kv:], vp[:, kv:] = float("nan"), float("nan")
-            out_p, lse_p = fkernel.flash_attention_kernel(
-                q, kp, vp, with_lse=True, **mode)
-            dq, dk, dv = fkernel.flash_attention_bwd_kernel(
-                q, kp, vp, out_p, dout, lse_p, **mode)
-            check(torch.equal(out_p, out) and torch.equal(lse_p, lse)
-                  and torch.equal(dq, got[0])
-                  and torch.equal(dk[:, :kv], got[1][:, :kv])
-                  and torch.equal(dv[:, :kv], got[2][:, :kv]),
-                  f"{label}: NaN past the key bound changed an output")
-            check(not dk[:, kv:].any() and not dv[:, kv:].any(),
-                  f"{label}: a key past the bound got a gradient")
-    b, sq, sk, hq, hkv, d, causal, window, kv = TRAIN_BWD[0]
-    leaves = [rand(b, sq, hq, d), rand(b, sk, hkv, d), rand(b, sk, hkv, d)]
-    dout = rand(b, sq, hq, d)
-    n0 = (fops.flash_attention.launches, fops.flash_attention_bwd.launches)
-    got = torch.autograd.grad(fops.flash_attention(
-        *(t.requires_grad_() for t in leaves), causal=True), leaves, dout)
-    check((fops.flash_attention.launches, fops.flash_attention_bwd.launches)
-          == (n0[0] + 1, n0[1] + 1),
-          "the autograd call did not launch the forward and backward once")
-    want = torch.autograd.grad(fref.flash_attention_ref(*leaves, causal=True),
-                               leaves, dout)
-    for name, g, w in zip(("autograd dq", "autograd dk", "autograd dv"), got,
-                          want):
-        err, scale = hold(torch, f"flash {name} at {TRAIN_ARCH}'s call", g,
-                          w, tol=TRAIN_TOL, floor=0.0)
-        errs[name] = err / scale
-    try:
-        fops.flash_attention(*(t.detach().bfloat16().requires_grad_()
-                               for t in leaves), causal=True)
-    except ValueError:
-        pass
-    else:
-        check(False, "a bf16 flash call that needs a gradient did not raise")
-    log(f"phase 23 (a): the f32 flash forward's lse and the backward kernel "
-        f"held against their plain versions at {len(TRAIN_BWD)} calls "
-        f"{TRAIN_BWD} (max abs err over each output's largest magnitude "
+            key = f"{dname} {name}"
+            errs[key] = max(errs.get(key, 0.0), err / scale)
+
+        for b, sq, sk, hq, hkv, d, causal, window, kv in TRAIN_BWD:
+            mode = dict(causal=causal, window=window, kv_len=kv)
+            q, dout = rand(b, sq, hq, d), rand(b, sq, hq, d)
+            k, v = rand(b, sk, hkv, d), rand(b, sk, hkv, d)
+            label = (f"flash backward {dname} (B {b}, Sq {sq}, Sk {sk}, "
+                     f"{hq}/{hkv} heads of {d}, {mode})")
+            out, lse = fkernel.flash_attention_kernel(q, k, v, with_lse=True,
+                                                      **mode)
+            want_out, want_lse = fref.flash_attention_ref(
+                q, k, v, with_lse=True, **mode)
+            held(label, "out", out, want_out)
+            held(label, "lse", lse, want_lse, tol=TRAIN_TOL)
+            got = fkernel.flash_attention_bwd_kernel(q, k, v, out, dout, lse,
+                                                     **mode)
+            want = fref.flash_attention_bwd_ref(q, k, v, want_out, dout,
+                                                want_lse, **mode)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                held(label, name, g, w)
+            again = fkernel.flash_attention_bwd_kernel(q, k, v, out, dout,
+                                                       lse, **mode)
+            check(all(torch.equal(x, y) for x, y in zip(again, got)),
+                  f"{label}: two launches gave different gradients")
+            if kv is not None:
+                kp, vp = k.clone(), v.clone()
+                kp[:, kv:], vp[:, kv:] = float("nan"), float("nan")
+                out_p, lse_p = fkernel.flash_attention_kernel(
+                    q, kp, vp, with_lse=True, **mode)
+                dq, dk, dv = fkernel.flash_attention_bwd_kernel(
+                    q, kp, vp, out_p, dout, lse_p, **mode)
+                check(torch.equal(out_p, out) and torch.equal(lse_p, lse)
+                      and torch.equal(dq, got[0])
+                      and torch.equal(dk[:, :kv], got[1][:, :kv])
+                      and torch.equal(dv[:, :kv], got[2][:, :kv]),
+                      f"{label}: NaN past the key bound changed an output")
+                check(not dk[:, kv:].any() and not dv[:, kv:].any(),
+                      f"{label}: a key past the bound got a gradient")
+        b, sq, sk, hq, hkv, d, causal, window, kv = TRAIN_BWD[0]
+        leaves = [rand(b, sq, hq, d), rand(b, sk, hkv, d),
+                  rand(b, sk, hkv, d)]
+        dout = rand(b, sq, hq, d)
+        n0 = (fops.flash_attention.launches,
+              fops.flash_attention_bwd.launches)
+        got = torch.autograd.grad(fops.flash_attention(
+            *(t.requires_grad_() for t in leaves), causal=True), leaves,
+            dout)
+        check((fops.flash_attention.launches,
+               fops.flash_attention_bwd.launches) == (n0[0] + 1, n0[1] + 1),
+              f"the {dname} autograd call did not launch the forward and "
+              f"backward once")
+        want = torch.autograd.grad(fref.flash_attention_ref(
+            *leaves, causal=True), leaves, dout)
+        for name, g, w in zip(("autograd dq", "autograd dk", "autograd dv"),
+                              got, want):
+            check(g.dtype == dtype, f"{dname} autograd {name} is {g.dtype}")
+            held(f"flash at {TRAIN_ARCH}'s call", name, g, w)
+    log(f"phase 23 (a): the flash forward (out, lse) and the backward "
+        f"kernel held against their plain versions in f32 and bf16 at "
+        f"{len(TRAIN_BWD)} calls {TRAIN_BWD} (max abs err over each "
+        f"output's largest magnitude "
         f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; "
-        f"tol {TRAIN_TOL}); NaN past a key bound changed no bit and left "
-        f"those keys' dk and dv zero; the autograd wrapper launched each "
-        f"kernel once; a bf16 training call raised")
+        f"tol {TRAIN_TOLS}, lse {TRAIN_TOL}); two launches bit-equal; NaN "
+        f"past a key bound changed no bit and left those keys' dk and dv "
+        f"zero; the autograd wrapper launched each kernel once in both "
+        f"dtypes")
     return errs
 
 
-def train_cpu_check(torch, fops):
-    """Phase 23 (b): one train step of smollm-135m at full width cut to
-    ``TRAIN_CPU_LAYERS`` layers, on the same weights (drawn on the CPU,
-    copied to the card) and the trainer's first batch, on the card
-    (kernels, f32) and on the CPU (plain versions) in f32 and in f64.
-    The loss and the lr are held at ``TRAIN_TOL`` of their scale, card
-    against CPU f32.  The gradient is held another way: at this init
-    the embedding's gradient passes layer 0's RMS norm of rows of scale
-    1/sqrt(49,152), which multiplies it by ~220 and cancels most of it,
-    so two f32 runs that sum in different orders differ by ~1e-3 of the
-    grad norm (the CPU f32 run lands 7.41e-4 from the f64 one).  So the
-    card's f32 grad norm must be no farther from the CPU's f64 run than
-    the CPU's own f32 run is, and so must each gradient leaf (the
-    largest absolute error over the leaf), unless it lies within
-    ``TRAIN_TOL`` of the leaf's own largest f64 magnitude.  The card's
-    step launches the flash forward twice a layer (the remat recompute)
-    and the backward once."""
+def train_two_layer_steps(torch, fops, label, runs):
+    """One train step of smollm-135m at full width cut to
+    ``TRAIN_CPU_LAYERS`` layers, on the same weights (drawn on the CPU)
+    and the trainer's first batch, for each (device, the weights' dtype,
+    the activations' dtype) of ``runs``; activations None take
+    ``make_train_step``'s default (bf16).  Each step on the card must
+    launch the flash forward twice a layer (the remat recompute) and the
+    backward once.  Returns ({name: the step's metrics and host s},
+    {name: {leaf: its gradient in f64 on the CPU}}), each run named
+    "<device> <activations' dtype>"."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
@@ -4372,29 +4392,48 @@ def train_cpu_check(torch, fops):
     raw = next(batches(cfg, DataConfig()))
     params = M.init_params(cfg, seed=0, device="cpu")
     metrics, grads = {}, {}
-    for dev, dt in (("cpu", torch.float64), ("cpu", torch.float32),
-                    ("cuda", torch.float32)):
-        p = O.tree_map(lambda t: t.to(dev, dt), params)
+    for dev, wdt, adt in runs:
+        p = O.tree_map(lambda t: t.to(dev, wdt), params)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        step = (T.make_train_step(cfg, opt) if adt is None else
+                T.make_train_step(cfg, opt, act_dtype=adt))
+        adt = adt or torch.bfloat16
         fops.reset_counts()
         t0 = time.perf_counter()
-        _, _, m = T.make_train_step(cfg, opt, act_dtype=dt)(
-            p, O.init(opt, p), batch)
-        name = f"{dev} {str(dt).rsplit('.', 1)[-1]}"
+        _, _, m = step(p, O.init(opt, p), batch)
+        name = f"{dev} {str(adt).rsplit('.', 1)[-1]}"
         metrics[name] = T.read_metrics(m)
         metrics[name]["s"] = round(time.perf_counter() - t0, 2)
         if dev == "cuda":
             want = (2 * cfg.num_layers, cfg.num_layers)
             got = (fops.flash_attention.launches,
                    fops.flash_attention_bwd.launches)
-            check(got == want, f"phase 23 (b): flash launches {got}, not "
-                  f"{want}")
+            check(got == want, f"{label}: flash launches {got}, not {want}")
         p = O.tree_map(lambda t: t.detach().requires_grad_(True), p)
-        leaves = O.tree_leaves(p)
-        loss = M.loss_fn(p, cfg, batch, act_dtype=dt)[0]
-        g = iter(torch.autograd.grad(loss, leaves))
-        grads[name] = {k: v.double() for k, v in flatten_tree(
+        loss = M.loss_fn(p, cfg, batch, act_dtype=adt)[0]
+        g = iter(torch.autograd.grad(loss, O.tree_leaves(p)))
+        grads[name] = {k: v.double().cpu() for k, v in flatten_tree(
             O.tree_map(lambda _: next(g), p)).items()}
+    return metrics, grads
+
+
+def train_cpu_check(torch, fops):
+    """Phase 23 (b): :func:`train_two_layer_steps` in f32 on the card
+    (kernels) and on the CPU (plain versions) in f32 and in f64.  The
+    loss and the lr are held at ``TRAIN_TOL`` of their scale, card
+    against CPU f32.  The gradient is held another way: at this init
+    the embedding's gradient passes layer 0's RMS norm of rows of scale
+    1/sqrt(49,152), which multiplies it by ~220 and cancels most of it,
+    so two f32 runs that sum in different orders differ by ~1e-3 of the
+    grad norm (the CPU f32 run lands 7.41e-4 from the f64 one).  So the
+    card's f32 grad norm must be no farther from the CPU's f64 run than
+    the CPU's own f32 run is, and so must each gradient leaf (the
+    largest absolute error over the leaf), unless it lies within
+    ``TRAIN_TOL`` of the leaf's own largest f64 magnitude."""
+    f32, f64 = torch.float32, torch.float64
+    metrics, grads = train_two_layer_steps(
+        torch, fops, "phase 23 (b)",
+        [("cpu", f64, f64), ("cpu", f32, f32), ("cuda", f32, f32)])
     card, cpu, exact = (metrics[k] for k in ("cuda float32", "cpu float32",
                                              "cpu float64"))
     for key in ("loss", "lr"):
@@ -4433,24 +4472,70 @@ def train_cpu_check(torch, fops):
     return metrics
 
 
-def train_step_profile(torch, cfg, params, batch):
-    """Where a full-width train step's card time goes: one warm step,
-    then CUDA events around the loss and its gradient and around the
-    AdamW update, and a profile of one more step: device time of the
-    flash forward (``flash_kernel``), the backward kernels
-    (``flash_bwd``), the GEMMs (kernels named ``gemm``) and the rest."""
+def train_bf16_cpu_check(torch, fops):
+    """Phase 23 (e), its hold: :func:`train_two_layer_steps` at
+    ``make_train_step``'s default activations (bf16; the weights f32,
+    cast inside the loss) on the card (kernels) and on the CPU (plain
+    versions), beside the CPU's f32 step.  Each gradient leaf's largest
+    error on the card from the CPU's bf16 step, and the loss's and the
+    grad norm's, must be no more than ``TRAIN_BF16_FACTOR`` times the
+    CPU's bf16 step's distance from its f32 step: bf16 rounding sets how
+    far two bf16 runs may part."""
+    f32 = torch.float32
+    metrics, grads = train_two_layer_steps(
+        torch, fops, "phase 23 (e)",
+        [("cpu", f32, f32), ("cpu", f32, None), ("cuda", f32, None)])
+    card, cpu, cpu32 = (metrics[k] for k in ("cuda bfloat16",
+                                             "cpu bfloat16", "cpu float32"))
+    for key in ("loss", "grad_norm"):
+        ec, ep = abs(card[key] - cpu[key]), abs(cpu[key] - cpu32[key])
+        check(ec <= TRAIN_BF16_FACTOR * ep,
+              f"phase 23 (e): bf16 {key} on the card {card[key]}, on the "
+              f"CPU {cpu[key]} ({ec:.3e} apart), CPU f32 {cpu32[key]} "
+              f"({ep:.3e} from the CPU's bf16)")
+    c16, p16, p32 = (grads[k] for k in ("cuda bfloat16", "cpu bfloat16",
+                                        "cpu float32"))
+    check(sorted(c16) == sorted(p16), "phase 23 (e): the card's gradient "
+          "tree has other leaves")
+    leaf_errs = {}
+    for k, w in p16.items():
+        scale = w.abs().max().item()
+        ec = (c16[k] - w).abs().max().item() / scale
+        ep = (p32[k] - w).abs().max().item() / scale
+        leaf_errs[k] = (float(f"{ec:.3e}"), float(f"{ep:.3e}"))
+        check(ec <= TRAIN_BF16_FACTOR * ep,
+              f"phase 23 (e): bf16 gradient leaf {k} on the card is "
+              f"{ec:.3e} of its scale {scale:.4g} from the CPU's bf16 "
+              f"step, which is {ep:.3e} from the CPU's f32 step")
+    log(f"phase 23 (e) hold: {TRAIN_ARCH} at full width cut to "
+        f"{TRAIN_CPU_LAYERS} layers, one bf16 train step on the same "
+        f"weights and batch, card against CPU: {json.dumps(metrics)}; each "
+        f"gradient leaf's largest error over its largest magnitude, (card "
+        f"bf16 from CPU bf16, CPU f32 from CPU bf16), held at "
+        f"{TRAIN_BF16_FACTOR}x the second: {json.dumps(leaf_errs)}")
+    return metrics
+
+
+def train_step_profile(torch, cfg, params, batch, dtype):
+    """Where a full-width train step's card time goes, activations in
+    ``dtype``: one warm step, then CUDA events around the loss and its
+    gradient and around the AdamW update, and a profile of one more
+    step: device time of the flash forward (``flash_mma_kernel`` in f32,
+    ``flash_tc_kernel`` in bf16), the backward kernels (``flash_bwd``),
+    the GEMMs (kernels named ``gemm`` or ``nvjet``) and the rest."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import model as M
     from repro_torch.train import optimizer as O
     opt = O.AdamWConfig(total_steps=TRAIN_STEPS)
     state = O.init(opt, params)
+    dname = str(dtype).rsplit(".", 1)[-1]
 
     def step():
         p = O.tree_map(lambda t: t.detach().requires_grad_(True), params)
         leaves = O.tree_leaves(p)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-        loss, _ = M.loss_fn(p, cfg, batch, act_dtype=torch.float32)
+        loss, _ = M.loss_fn(p, cfg, batch, act_dtype=dtype)
         grads = iter(torch.autograd.grad(loss, leaves))
         ev[1].record()
         with torch.no_grad():
@@ -4471,16 +4556,18 @@ def train_step_profile(torch, cfg, params, batch):
     for e in prof.key_averages():
         key = e.key.lower()
         part = ("flash backward" if "flash_bwd" in key else
-                "flash forward" if "flash_kernel" in key else
-                "gemm" if "gemm" in key else "other")
+                "flash forward" if ("flash_mma_kernel" in key
+                                    or "flash_tc_kernel" in key) else
+                "gemm" if ("gemm" in key or "nvjet" in key) else "other")
         parts[part] += dev(e) / 1e3
     busy = sum(parts.values())
     check(parts["flash forward"] > 0 and parts["flash backward"] > 0,
           f"the profile attributed no flash kernel: {parts}")
     top = sorted(prof.key_averages(), key=dev, reverse=True)[:8]
-    log(f"phase 23 train step breakdown ({TRAIN_ARCH}, B 8, S 256, f32): "
-        f"loss and gradient {fwd_bwd:.2f} ms, AdamW update {update:.2f} ms "
-        f"(CUDA events); profiled step device busy {busy:.2f} ms: "
+    log(f"phase 23 train step breakdown ({TRAIN_ARCH}, B 8, S 256, "
+        f"{dname}): loss and gradient {fwd_bwd:.2f} ms, AdamW update "
+        f"{update:.2f} ms (CUDA events); profiled step device busy "
+        f"{busy:.2f} ms: "
         + json.dumps({k: round(v, 3) for k, v in parts.items()})
         + "; top kernels: " + "; ".join(
             f"{e.key[:60]} {dev(e) / 1e3:.3f} ms" for e in top))
@@ -4489,68 +4576,140 @@ def train_step_profile(torch, cfg, params, batch):
 
 
 def time_train_kernels(torch, fops, fref, spin):
-    """The f32 flash forward with its log-sum-exp and the backward kernel
-    at smollm-135m's training call (``TRAIN_BWD[0]``), each against its
-    plain version; the library yardstick of the backward is SDPA's
-    backward (autograd of ``scaled_dot_product_attention`` with
-    ``is_causal``, K and V repeated to the query heads outside the
-    graph).  The backward's bound: q, k, v, out, dout, lse read and dq,
-    dk, dv written once, or its five products over the causal pairs
-    (2 D operations each a pair and query head) at the f32 rate outside
-    the tensor cores, whichever is larger."""
+    """The flash forward with its log-sum-exp and the backward kernel at
+    smollm-135m's training call (``TRAIN_BWD[0]``), in f32 and bf16,
+    each against its plain version and SDPA (autograd of
+    ``scaled_dot_product_attention`` with ``is_causal``, K and V
+    repeated to the query heads outside the timing: its forward, and its
+    backward from a saved graph).  Bounds: inputs read and outputs
+    written once (the backward: q, k, v, out, dout, lse in, dq, dk, dv
+    out; the forward: q, k, v in, out and lse out), or the products
+    over the causal pairs (2 D operations each a pair and query head:
+    five in the backward, two in the forward) at the rate the kernel
+    computes them: bf16 at 989 TFLOP/s, f32 in 3xTF32 at 495 / 3, each
+    f32 one also at the CUDA cores' 67 for reference.  Returns the f32
+    backward's kernels-line row."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fkernel
     b, sq, sk, hq, hkv, d, causal, _, _ = TRAIN_BWD[0]
-    gen = torch.Generator(device="cuda").manual_seed(230)
-    rand = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
-    q, dout = rand(b, sq, hq, d), rand(b, sq, hq, d)
-    k, v = rand(b, sk, hkv, d), rand(b, sk, hkv, d)
-    out, lse = fkernel.flash_attention_kernel(q, k, v, causal=True,
-                                              with_lse=True)
-    fwd = lambda r: fkernel.flash_attention_kernel(q, k, v, causal=True,
-                                                   with_lse=True)
-    fwd_plain = lambda r: fref.flash_attention_ref(q, k, v, causal=True,
-                                                   with_lse=True)
-    bwd = lambda r: fkernel.flash_attention_bwd_kernel(q, k, v, out, dout,
-                                                       lse, causal=True)
-    bwd_plain = lambda r: fref.flash_attention_bwd_ref(q, k, v, out, dout,
-                                                       lse, causal=True)
-    errs = [hold(torch, "flash backward dq", bwd(0)[0], bwd_plain(0)[0],
-                 tol=TRAIN_TOL, floor=0.0)]
-    qt = q.transpose(1, 2).contiguous().requires_grad_()
-    kt, vt = (x.transpose(1, 2).repeat_interleave(hq // hkv, 1).contiguous()
-              .requires_grad_() for x in (k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = dout.transpose(1, 2).contiguous()
-    lib = lambda r: torch.autograd.grad(ot, (qt, kt, vt), dot,
-                                        retain_graph=True)
-    lib(0)
-    row = {"ms": median_ms(torch, bwd, TRAIN_REPS, spin),
-           "plain_ms": median_ms(torch, bwd_plain, TRAIN_REPS, spin),
-           "library_ms": median_ms(torch, lib, TRAIN_REPS, spin)}
-    fwd_ms = median_ms(torch, fwd, TRAIN_REPS, spin)
-    fwd_plain_ms = median_ms(torch, fwd_plain, TRAIN_REPS, spin)
     pairs = b * hq * sq * (sq + 1) // 2
-    nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 10 * d * pairs / F32_FLOPS * 1e3
-    row.update(bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               max_abs_err=errs[0][0])
-    fwd_bytes = 4 * (2 * q.numel() + 2 * k.numel() + lse.numel())
-    log(f"time flash_attention_bwd at {TRAIN_ARCH}'s call (B {b}, S {sq}, "
-        f"{hq}/{hkv} heads of {d}, causal, f32; median of {TRAIN_REPS} "
-        f"CUDA-event times, ms): kernel {row['ms']:.4f}, plain "
-        f"{row['plain_ms']:.4f}, SDPA backward {row['library_ms']:.4f}, "
-        f"bound {row['bound_ms']:.4f} ({row['bound_by']}: {nbytes / 1e6:.2f}"
-        f" MB at 3.35 TB/s is {t_bytes:.4f} ms, {10 * d * pairs / 1e9:.3f} "
-        f"GFLOP at the 67 TFLOP/s f32 rate {t_ops:.4f} ms, at the 989 "
-        f"TFLOP/s bf16 convention {10 * d * pairs / BF16_FLOPS * 1e3:.4f} "
-        f"ms); f32 forward with lse: kernel {fwd_ms:.4f}, plain "
-        f"{fwd_plain_ms:.4f}, bytes bound "
-        f"{fwd_bytes / HBM_BYTES_PER_S * 1e3:.4f}, operations at 67 "
-        f"TFLOP/s {4 * d * pairs / F32_FLOPS * 1e3:.4f}")
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).rsplit(".", 1)[-1]
+        gen = torch.Generator(device="cuda").manual_seed(230)
+        rand = lambda *shape: torch.randn(*shape, generator=gen,
+                                          device="cuda").to(dtype)
+        q, dout = rand(b, sq, hq, d), rand(b, sq, hq, d)
+        k, v = rand(b, sk, hkv, d), rand(b, sk, hkv, d)
+        out, lse = fkernel.flash_attention_kernel(q, k, v, causal=True,
+                                                  with_lse=True)
+        fwd = lambda r: fkernel.flash_attention_kernel(q, k, v, causal=True,
+                                                       with_lse=True)
+        fwd_plain = lambda r: fref.flash_attention_ref(q, k, v, causal=True,
+                                                       with_lse=True)
+        bwd = lambda r: fkernel.flash_attention_bwd_kernel(
+            q, k, v, out, dout, lse, causal=True)
+        bwd_plain = lambda r: fref.flash_attention_bwd_ref(
+            q, k, v, out, dout, lse, causal=True)
+        err = hold(torch, f"flash backward {dname} dq", bwd(0)[0],
+                   bwd_plain(0)[0], tol=TRAIN_TOLS[dname], floor=0.0)[0]
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt, vt = (x.transpose(1, 2).repeat_interleave(hq // hkv, 1)
+                  .contiguous().requires_grad_() for x in (k, v))
+        lib_fwd = lambda r: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True)
+        ot = lib_fwd(0)
+        dot = dout.transpose(1, 2).contiguous()
+        lib_bwd = lambda r: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                retain_graph=True)
+        lib_bwd(0)
+        size = q.element_size()
+        nbytes = {"bwd": size * (4 * q.numel() + 4 * k.numel())
+                  + 4 * lse.numel(),
+                  "fwd": size * (2 * q.numel() + 2 * k.numel())
+                  + 4 * lse.numel()}
+        flops = {"bwd": 10 * d * pairs, "fwd": 4 * d * pairs}
+        for part, fn, plain, lib in (("fwd", fwd, fwd_plain, lib_fwd),
+                                     ("bwd", bwd, bwd_plain, lib_bwd)):
+            t_bytes = nbytes[part] / HBM_BYTES_PER_S * 1e3
+            t_ops = (flops[part] / BF16_FLOPS * 1e3 if dtype == torch.bfloat16
+                     else 3 * flops[part] / TF32_FLOPS * 1e3)
+            rows[f"{dname} {part}"] = {
+                "ms": median_ms(torch, fn, TRAIN_REPS, spin),
+                "plain_ms": median_ms(torch, plain, TRAIN_REPS, spin),
+                "library_ms": median_ms(torch, lib, TRAIN_REPS, spin),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes_ms": t_bytes, "ops_ms": t_ops,
+                "f32_cores_ms": flops[part] / F32_FLOPS * 1e3,
+                "MB": nbytes[part] / 1e6, "GFLOP": flops[part] / 1e9}
+        rows[f"{dname} bwd"]["max_abs_err"] = err
+    log(f"time flash forward (with lse) and backward at {TRAIN_ARCH}'s call "
+        f"(B {b}, S {sq}, {hq}/{hkv} heads of {d}, causal; median of "
+        f"{TRAIN_REPS} CUDA-event times, ms; library: SDPA's forward, or "
+        f"its backward; ops_ms at the rate the kernel computes: bf16 989 "
+        f"TFLOP/s, f32 3xTF32 495 / 3; f32_cores_ms at the f32 CUDA "
+        f"cores' 67): " + json.dumps({
+            name: {k: (float(f"{x:.4g}") if isinstance(x, float) else x)
+                   for k, x in row.items()} for name, row in rows.items()}))
+    row = dict(rows["float32 bwd"])
+    for key in ("bytes_ms", "ops_ms", "f32_cores_ms", "MB", "GFLOP"):
+        row.pop(key)
     return row
+
+
+def train_run(torch, np, cfg, label, run, dtype, reset_counts, counts):
+    """``run()`` trains ``cfg`` uncut for ``TRAIN_STEPS`` steps (logging
+    every step), counts zeroed just before and read just after: the
+    flash forward 60 times a step (30 layers, each recomputed by the
+    remat), the backward 30, nothing else and no plain call; every
+    logged loss finite, and the first batch's loss (activations in
+    ``dtype``) under the trained weights below its first-step loss.
+    Logged: tokens/s, step ms, peak memory.  Returns (the trained
+    params, the first batch, the launches)."""
+    from repro_torch.models import model as M
+    from repro_torch.train.data import DataConfig, batches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = counts("launches"), counts("plain_calls")
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=2 * cfg.num_layers * TRAIN_STEPS,
+                flash_attention_bwd=cfg.num_layers * TRAIN_STEPS)
+    check(launches == want, f"{label} launches {launches}, not {want}")
+    check(not any(plain.values()), f"plain versions ran in {label}: "
+          f"{plain}")
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"{label} losses {losses}")
+    dc = DataConfig()
+    first = {k: torch.from_numpy(v).cuda()
+             for k, v in next(batches(cfg, dc)).items()}
+    with torch.no_grad():
+        after = M.loss_fn(out["params"], cfg, first,
+                          act_dtype=dtype)[0].item()
+    check(after < losses[0], f"{label}: the first batch's loss {after} "
+          f"after {TRAIN_STEPS} steps is not below its first-step loss "
+          f"{losses[0]}")
+    walls = [h["wall"] for h in hist]
+    steps_ms = [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
+    tokens = dc.batch_size * dc.seq_len
+    tok_s = tokens * (TRAIN_STEPS - 1) / (walls[-1] - walls[0])
+    log(f"{label}: {TRAIN_STEPS} steps in {wall:.2f} s (first step "
+        f"{walls[0] * 1e3:.1f} ms); step ms after the first (host clock, "
+        f"each ending in its metrics' readback) median "
+        f"{statistics.median(steps_ms):.2f}, range {min(steps_ms):.2f}-"
+        f"{max(steps_ms):.2f}; {tok_s:.0f} tokens/s; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; losses {[round(x, 4) for x in losses]};"
+        f" the first batch's loss {losses[0]:.4f} -> {after:.4f}; "
+        f"launches {launches}")
+    return out.pop("params"), first, launches
 
 
 def train_phase(torch, np, fops, fref, spin, reset_counts, counts):
@@ -4558,18 +4717,17 @@ def train_phase(torch, np, fops, fref, spin, reset_counts, counts):
     :func:`train_cpu_check`; (c) ``repro_torch.launch.train.main`` on
     smollm-135m at full width (30 layers, d_model 576, 9/3 heads of 64,
     d_ff 1536, vocab 49,152, tied) at the launcher's defaults (B 8, S
-    256, f32, TF32 off) for ``TRAIN_STEPS`` steps, counts zeroed just
-    before and read just after: the flash forward 60 times a step (30
-    layers, each recomputed by the remat), the backward 30, nothing else
-    and no plain call; every logged loss finite, and the first batch's
-    loss under the trained weights below its first-step loss.  Logged:
-    tokens/s, step ms, peak memory; (d) the kernels timed at smollm-135m's
-    call and the step's breakdown.  Returns (the backward's kernels-line
-    row, its launches in (c))."""
+    256, f32, TF32 off) for ``TRAIN_STEPS`` steps, held by
+    :func:`train_run`; (d) the kernels timed at smollm-135m's call in
+    both dtypes and the f32 step's breakdown; (e) bf16 training:
+    :func:`train_bf16_cpu_check`, then ``trainer.train`` on the same
+    config uncut with ``act_dtype=torch.bfloat16`` on the card for
+    ``TRAIN_STEPS`` steps (held by :func:`train_run`) and the bf16
+    step's breakdown.  Returns (the f32 backward's kernels-line row, its
+    launches in (c))."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import model as M
-    from repro_torch.train.data import DataConfig, batches
+    from repro_torch.train import trainer as T
     train_kernel_checks(torch, fops, fref)
     train_cpu_check(torch, fops)
     torch.cuda.empty_cache()
@@ -4579,53 +4737,27 @@ def train_phase(torch, np, fops, fref, spin, reset_counts, counts):
            cfg.remat_mode)
           == (30, 576, 9, 3, 64, 1536, 49152, True, "full"),
           f"phase 23 does not train {TRAIN_ARCH} at full width")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    out = launch_train.main(["--arch", TRAIN_ARCH, "--full", "--steps",
-                             str(TRAIN_STEPS), "--log-every", "1"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, plain = counts("launches"), counts("plain_calls")
-    peak = torch.cuda.max_memory_allocated()
-    want = {name: 0 for name in launches}
-    want.update(flash_attention=2 * cfg.num_layers * TRAIN_STEPS,
-                flash_attention_bwd=cfg.num_layers * TRAIN_STEPS)
-    check(launches == want, f"phase 23 launches {launches}, not {want}")
-    check(not any(plain.values()), f"plain versions ran in phase 23: "
-          f"{plain}")
-    hist = out["history"]
-    losses = [h["loss"] for h in hist]
-    check(len(hist) == TRAIN_STEPS and all(np.isfinite(losses)),
-          f"phase 23 losses {losses}")
-    dc = DataConfig()
-    first = {k: torch.from_numpy(v).cuda()
-             for k, v in next(batches(cfg, dc)).items()}
-    with torch.no_grad():
-        after = M.loss_fn(out["params"], cfg, first,
-                          act_dtype=torch.float32)[0].item()
-    check(after < losses[0], f"phase 23: the first batch's loss {after} "
-          f"after {TRAIN_STEPS} steps is not below its first-step loss "
-          f"{losses[0]}")
-    walls = [h["wall"] for h in hist]
-    steps_ms = [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
-    tokens = dc.batch_size * dc.seq_len
-    tok_s = tokens * (TRAIN_STEPS - 1) / (walls[-1] - walls[0])
-    log(f"phase 23 (c): {TRAIN_ARCH} full width through launch/train.py, "
-        f"{TRAIN_STEPS} steps in {wall:.2f} s (first step "
-        f"{walls[0] * 1e3:.1f} ms); step ms after the first (host clock, "
-        f"each ending in its metrics' readback) median "
-        f"{statistics.median(steps_ms):.2f}, range {min(steps_ms):.2f}-"
-        f"{max(steps_ms):.2f}; {tok_s:.0f} tokens/s; peak memory "
-        f"{peak / 2 ** 30:.2f} GiB; losses {[round(x, 4) for x in losses]};"
-        f" the first batch's loss {losses[0]:.4f} -> {after:.4f}; "
-        f"launches {launches}")
+    params, first, launches = train_run(
+        torch, np, cfg, f"phase 23 (c): {TRAIN_ARCH} full width through "
+        f"launch/train.py (f32)",
+        lambda: launch_train.main(["--arch", TRAIN_ARCH, "--full",
+                                   "--steps", str(TRAIN_STEPS),
+                                   "--log-every", "1"]),
+        torch.float32, reset_counts, counts)
     row = time_train_kernels(torch, fops, fref, spin)
-    params = out.pop("params")
-    del out
     torch.cuda.empty_cache()
-    train_step_profile(torch, cfg, params, first)
+    train_step_profile(torch, cfg, params, first, torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    train_bf16_cpu_check(torch, fops)
+    torch.cuda.empty_cache()
+    params, first, _ = train_run(
+        torch, np, cfg, f"phase 23 (e): {TRAIN_ARCH} full width through "
+        f"trainer.train, bf16 activations",
+        lambda: T.train(cfg, T.TrainConfig(steps=TRAIN_STEPS, log_every=1),
+                        act_dtype=torch.bfloat16, device="cuda"),
+        torch.bfloat16, reset_counts, counts)
+    train_step_profile(torch, cfg, params, first, torch.bfloat16)
     del params
     torch.cuda.empty_cache()
     return row, launches

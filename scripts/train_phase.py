@@ -1,7 +1,9 @@
-"""Run ``chip_smoke.py`` phase 23 alone: the flash kernel's backward
-against its plain version, one full-width train step of smollm-135m
-(cut to 2 layers) on the card against the CPU, and smollm-135m trained
-uncut through ``repro_torch.launch.train``, after building the kernels.
+"""Run ``chip_smoke.py`` phase 23 alone: the flash forward and backward
+kernels against their plain versions in f32 and bf16, one full-width
+train step of smollm-135m (cut to 2 layers) on the card against the CPU
+in f32 and in bf16, and smollm-135m trained uncut through
+``repro_torch.launch.train`` (f32) and ``trainer.train`` with bf16
+activations, after building the kernels.
 
     PYTHONPATH=src python scripts/train_phase.py
 

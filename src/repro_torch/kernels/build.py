@@ -104,7 +104,7 @@ def load_library() -> ctypes.CDLL:
     lib.repro_paged_prefix_prefill_attention.restype = i
     lib.repro_flash_attention.argtypes = [p] * 5 + [i] * 10 + [p]
     lib.repro_flash_attention.restype = i
-    lib.repro_flash_attention_bwd.argtypes = [p] * 10 + [i] * 9 + [p]
+    lib.repro_flash_attention_bwd.argtypes = [p] * 10 + [i] * 10 + [p]
     lib.repro_flash_attention_bwd.restype = i
     lib.repro_decode_attention.argtypes = \
         [p] * 5 + [i] * 6 + [p, i, p, p, p]

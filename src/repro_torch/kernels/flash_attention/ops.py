@@ -10,10 +10,9 @@ that its main path went through the kernel.
 
 Training: on the CPU autograd runs through the plain forward.  On the
 card, a call whose inputs need a gradient goes through
-:class:`FlashAttentionFn`: the f32 forward kernel with its log-sum-exp,
-and :func:`flash_attention_bwd` (the backward kernel, CUDA only) for the
-gradient.  It takes f32 only, as the trainer runs f32; a bf16 call that
-needs a gradient raises a ``ValueError``."""
+:class:`FlashAttentionFn`: the forward kernel with its log-sum-exp, and
+:func:`flash_attention_bwd` (the backward kernel, CUDA only) for the
+gradient, in f32 or bf16."""
 from __future__ import annotations
 
 from typing import Optional
@@ -26,8 +25,8 @@ from repro_torch.kernels.flash_attention import kernel, ref
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """The f32 flash kernel with its log-sum-exp saved, and the backward
-    kernel as its gradient (CUDA tensors only)."""
+    """The flash kernel with its log-sum-exp saved, and the backward
+    kernel as its gradient (CUDA tensors, f32 or bf16)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, kv_len):
@@ -65,10 +64,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q.dtype != torch.float32:
-            raise ValueError(f"the flash kernel's gradient takes f32 (the "
-                             f"trainer's dtype), got {q.dtype}: a bf16 "
-                             f"backward is not written yet")
         return FlashAttentionFn.apply(q, k, v, causal, window, kv_len)
     out = kernel.flash_attention_kernel(q, k, v, causal=causal,
                                         window=window, kv_len=kv_len)

@@ -23,12 +23,15 @@ from repro_torch.train.data import DataConfig, batches
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig,
-                    act_dtype: torch.dtype = torch.float32) -> Callable:
+                    act_dtype: torch.dtype = torch.bfloat16) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``: metrics {"loss", "ce", "aux", "grad_norm",
-    "lr"} as tensors on the parameters' device.  ``params`` is a tree of
-    tensors, which the step leaves as they are (it differentiates
-    detached views of them) and returns anew, as the reference's."""
+    "lr"} as tensors on the parameters' device.  Activations are
+    ``act_dtype``, bf16 unless the caller says otherwise, as the
+    reference's; :func:`train` passes its own (f32 by default).
+    ``params`` is a tree of tensors, which the step leaves as they are
+    (it differentiates detached views of them) and returns anew, as the
+    reference's."""
 
     def train_step(params, opt_state, batch):
         params = opt_lib.tree_map(lambda p: p.detach().requires_grad_(True),

@@ -17,9 +17,13 @@ at chatglm-6b's shapes).
 The gradient: ``flash_attention_bwd_ref`` (the backward kernel's
 formulas) against autograd of the plain forward and JAX's gradient of
 ``gqa_prefill_attention`` on the CPU, in the causal, window and bounded
-full modes at GQA groups of 1 and 3; on the card the f32 forward's
-log-sum-exp and the backward kernel against their plain versions at
-smollm-135m's and whisper-large-v3's calls too (2e-4 of scale).
+full modes at GQA groups of 1 and 3, in f32 (2e-4 of scale) and bf16
+(autograd of the plain forward on bf16 inputs against JAX's gradient on
+the same bf16 inputs, 5e-2 of scale); on the card the forward's
+log-sum-exp and the backward kernel against their plain versions in both
+dtypes, at G 1, 3, 5 and 6, D 32, 64 and 128, ragged S, smollm-135m's
+and whisper-large-v3's calls, with NaN past a key bound and two
+launches held bit for bit.
 """
 import jax
 import jax.numpy as jnp
@@ -189,14 +193,18 @@ def test_cuda_flash_at_internvl2_heads(b, s, dtype):
 
 
 def test_flash_kernel_refuses_other_bf16_head_sizes():
-    """The tensor-core kernel takes D in {32, 64, 128}; the wrapper raises
-    on any other bf16 head size before it reaches the card (f32 keeps
-    the scalar kernel, which takes any D)."""
+    """The tensor-core kernels take D in {32, 64, 128} in both dtypes; the
+    forward and backward wrappers raise on any other head size, bf16 or
+    f32, before they reach the card."""
     from repro_torch.kernels.flash_attention import kernel
-    assert kernel.BF16_HEAD_SIZES == (32, 64, 128)
-    q = torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head size 96"):
-        kernel.flash_attention_kernel(q, q, q)
+    assert kernel.HEAD_SIZES == (32, 64, 128)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(1, 8, 2, 96, dtype=dtype)
+        lse = torch.zeros(1, 8, 2)
+        with pytest.raises(ValueError, match="head size 96"):
+            kernel.flash_attention_kernel(q, q, q)
+        with pytest.raises(ValueError, match="head size 96"):
+            kernel.flash_attention_bwd_kernel(q, q, q, q, q, lse)
 
 
 # full mode with a key bound: (B, Sq, Sk, kv_len, Hq, Hkv, D); bounds off
@@ -390,6 +398,30 @@ def test_flash_bwd_plain_matches_autograd(case):
         assert not dk[:, kv_len:].any() and not dv[:, kv_len:].any()
 
 
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_bwd_plain_bf16_matches_jax(case):
+    """In bf16: ``torch.autograd`` of the plain forward on bf16 inputs
+    (what the CPU's bf16 training step differentiates) against
+    ``jax.vjp`` of the reference's ``gqa_prefill_attention`` on the same
+    bf16 inputs and cotangent, dq, dk and dv (bf16, as both give them)
+    each at the reference's bf16 tolerance, 5e-2 of its largest
+    magnitude."""
+    b, sq, sk, hq, hkv, d, mode = BWD_CASES[case]
+    q, k, v, dout = (t.bfloat16() for t in _bwd_inputs(b, sq, sk, hq, hkv,
+                                                      d))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ref.flash_attention_ref(*leaves, **mode)
+    got = torch.autograd.grad(out, leaves, dout)
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                       for t in (q, k, v, dout))
+    _, vjp = jax.vjp(lambda a, c, e: gqa_prefill_attention(a, c, e, **mode),
+                     jq, jk, jv)
+    for g, jw in zip(got, vjp(jdo)):
+        assert g.dtype == torch.bfloat16 and jw.dtype == jnp.bfloat16
+        _hold(g.float(), torch.from_numpy(np.asarray(jw, np.float32)),
+              tol=5e-2)
+
+
 # smollm-135m's training call, whisper-large-v3's encoder, cross and
 # decoder calls (20 heads of 64, 1,500 of 1,536 frames, 448 text rows),
 # then the modes above
@@ -451,19 +483,112 @@ def test_cuda_flash_bwd_matches_plain_version(case):
         assert not dk[:, kv_len:].any() and not dv[:, kv_len:].any()
 
 
+# (b, s, hq, hkv, d, mode): G 1, 3, 5 and 6, D 32, 64 and 128, S a multiple
+# of no tile, in every mode of the training calls (causal, a window, full
+# mode with a key bound)
+TC_BWD = {
+    "g1-d32-causal": (2, 77, 4, 4, 32, dict(causal=True)),
+    "g3-d64-window": (2, 133, 9, 3, 64, dict(causal=True, window=40)),
+    "g5-d128-causal": (1, 90, 10, 2, 128, dict(causal=True)),
+    "g6-d64-bound": (2, 100, 12, 2, 64, dict(causal=False, kv_len=61)),
+    "g5-d32-window": (1, 200, 5, 1, 32, dict(causal=True, window=3)),
+    "g6-d128-full": (1, 70, 6, 1, 128, dict(causal=False)),
+    "g3-d128-bound": (2, 129, 6, 2, 128, dict(causal=False, kv_len=128)),
+}
+
+
 @pytest.mark.cuda
-def test_cuda_flash_bf16_training_call_raises():
-    """A bf16 call that needs a gradient raises a ``ValueError`` before
-    any launch (the backward kernel is f32); without a gradient the bf16
-    kernel serves as before."""
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(TC_BWD))
+def test_cuda_flash_grad_kernels_in_both_dtypes(case, dtype):
+    """The forward (out, lse) and the backward kernel (dq, dk, dv) on the
+    tensor cores against their plain versions, in f32 at 2e-4 of each
+    output's largest magnitude (TF32 off) and in bf16 at 5e-2; a second
+    launch of each gives the same bits; where a key bound is given, NaN
+    in K and V past it changes no bit of out, lse, dq and the bounded
+    keys' dk and dv, and leaves the rest of dk and dv zero."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    q, k, v, _ = (t.cuda().bfloat16() for t in _bwd_inputs(2, 64, 64, 4, 2,
-                                                            64))
-    n0 = ops.flash_attention.launches
-    with pytest.raises(ValueError):
-        ops.flash_attention(q.requires_grad_(), k, v, causal=True)
-    assert ops.flash_attention.launches == n0
+    from repro_torch.kernels.flash_attention import kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt, _, tol = DTYPES[dtype]
+    b, s, hq, hkv, d, mode = TC_BWD[case]
+    q, k, v, dout = (t.to("cuda", tdt)
+                     for t in _bwd_inputs(b, s, s, hq, hkv, d, seed=29))
+    out, lse = kernel.flash_attention_kernel(q, k, v, with_lse=True, **mode)
+    want_out, want_lse = ref.flash_attention_ref(q, k, v, with_lse=True,
+                                                 **mode)
+    _hold(out.float(), want_out.float(), tol)
+    _hold(lse, want_lse, tol)
+    got = kernel.flash_attention_bwd_kernel(q, k, v, out, dout, lse, **mode)
+    want = ref.flash_attention_bwd_ref(q, k, v, want_out, dout, want_lse,
+                                       **mode)
+    for g, w in zip(got, want):
+        assert g.dtype == tdt and torch.isfinite(g).all()
+        _hold(g.float(), w.float(), tol)
+    out2, lse2 = kernel.flash_attention_kernel(q, k, v, with_lse=True,
+                                               **mode)
+    again = kernel.flash_attention_bwd_kernel(q, k, v, out, dout, lse,
+                                              **mode)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+    assert all(torch.equal(x, y) for x, y in zip(again, got))
+    kv_len = mode.get("kv_len")
+    if kv_len is not None:
+        kp, vp = k.clone(), v.clone()
+        kp[:, kv_len:], vp[:, kv_len:] = float("nan"), float("nan")
+        out_p, lse_p = kernel.flash_attention_kernel(q, kp, vp,
+                                                     with_lse=True, **mode)
+        dq, dk, dv = kernel.flash_attention_bwd_kernel(q, kp, vp, out_p,
+                                                       dout, lse_p, **mode)
+        assert torch.equal(out_p, out) and torch.equal(lse_p, lse)
+        assert torch.equal(dq, got[0])
+        assert torch.equal(dk[:, :kv_len], got[1][:, :kv_len])
+        assert torch.equal(dv[:, :kv_len], got[2][:, :kv_len])
+        assert not dk[:, kv_len:].any() and not dv[:, kv_len:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,hq,hkv,d,window", TC_CASES)
+def test_cuda_flash_bf16_lse_store(s, hq, hkv, d, window):
+    """The bf16 tensor-core forward's log-sum-exp against the plain one
+    (2e-4 of its scale: it is f32 from f32 scores), in the causal,
+    window and full modes; the same call without it (a null pointer, the
+    serves' launch) gives an output equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import kernel
+    args = [torch.from_numpy(a).to("cuda", torch.bfloat16)
+            for a in _inputs(s, hq, hkv, d, seed=31)]
+    for kw in (dict(causal=True), dict(causal=True, window=window),
+               dict(causal=False)):
+        out, lse = kernel.flash_attention_kernel(*args, with_lse=True, **kw)
+        _, want = ref.flash_attention_ref(*args, with_lse=True, **kw)
+        _hold(lse, want)
+        assert torch.equal(kernel.flash_attention_kernel(*args, **kw), out)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_training_call():
+    """A bf16 call that needs a gradient launches the forward kernel once
+    and the backward kernel once, and its gradient is the plain
+    version's at 5e-2 of scale; without a gradient the bf16 kernel
+    serves as before, one launch and no backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v, dout = (t.cuda().bfloat16()
+                     for t in _bwd_inputs(2, 64, 64, 4, 2, 64))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = (ops.flash_attention.launches, ops.flash_attention_bwd.launches)
+    got = torch.autograd.grad(ops.flash_attention(*leaves, causal=True),
+                              leaves, dout)
+    assert (ops.flash_attention.launches,
+            ops.flash_attention_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    want = torch.autograd.grad(ref.flash_attention_ref(*leaves, causal=True),
+                               leaves, dout)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        _hold(g.float(), w.float(), 5e-2)
     with torch.no_grad():
         ops.flash_attention(q, k, v, causal=True)
-    assert ops.flash_attention.launches == n0 + 1
+    assert (ops.flash_attention.launches,
+            ops.flash_attention_bwd.launches) == (n0[0] + 2, n0[1] + 1)

@@ -163,7 +163,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_flash_kernel_wrapper_refuses_cpu_tensors():
     from repro_torch.kernels.flash_attention import kernel, ops
-    q = torch.zeros(1, 4, 2, 16)
+    q = torch.zeros(1, 4, 2, 32)   # a head size the kernels have
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernel.flash_attention_kernel(q, q, q)
     ops.reset_counts()

@@ -8,7 +8,9 @@ by ``params_from_numpy``:
   deepseek-v3-671b (its multi-token-prediction head on);
 - three ``make_train_step`` steps of smollm-135m: loss, grad norm, lr
   and the parameters after each (whisper's gradients and the
-  free-running steps' grad norm held as their tests say);
+  free-running steps' grad norm held as their tests say); and three at
+  both packages' default activations (bf16), held against the
+  reference's own bf16 error;
 - the reference's ``test_reduced_train_step`` contract for every arch
   (finite loss, nonzero gradients), its ``loss_fn`` halves of
   ``test_ragged_moe_matches_padded`` and ``test_decode_matches_forward``,
@@ -240,6 +242,52 @@ def test_train_step_matches_jax():
     assert int(own_state.step) == 3
     for name, t in _flat(tp).items():
         assert torch.equal(t, before[name]) and not t.requires_grad
+
+
+BF16_FACTOR = 0.5     # the default step's hold, of the reference's bf16 error
+
+
+def test_default_train_step_matches_jax_in_bf16():
+    """``make_train_step`` with no ``act_dtype`` computes in bf16 in both
+    packages (the reference's default; ``train`` keeps f32 in both).
+    Three default steps of smollm-135m on the trainer's batches (B 2, S
+    16), each from the reference's bf16 run's state carried across: the
+    port's loss and grad norm may be no farther from the reference's
+    bf16 step than ``BF16_FACTOR`` times the reference's own bf16 step's
+    distance from its f32 step on the same state.  A port computing the
+    reference's bf16 arithmetic lands far nearer (0.02-0.15 of it here);
+    a port stepping in f32 lands at exactly that distance, 1.0."""
+    import inspect
+    for fn, want in ((TR.make_train_step, torch.bfloat16),
+                     (TR.train, torch.float32)):
+        assert inspect.signature(fn).parameters["act_dtype"].default == want
+    for fn, want in ((JT.make_train_step, jnp.bfloat16),
+                     (JT.train, jnp.float32)):
+        assert inspect.signature(fn).parameters["act_dtype"].default == want
+    jcfg, cfg, jp, _, _ = _setup("smollm-135m")
+    opt, jopt = (O.AdamWConfig(warmup_steps=2, total_steps=3),
+                 JO.AdamWConfig(warmup_steps=2, total_steps=3))
+    j16 = jax.jit(JT.make_train_step(jcfg, jopt))
+    j32 = jax.jit(JT.make_train_step(jcfg, jopt, act_dtype=jnp.float32))
+    tstep = TR.make_train_step(cfg, opt)
+    js = JO.init(jopt, jp)
+    it = D.batches(cfg, D.DataConfig(batch_size=B, seq_len=S))
+    carry = lambda t: params_from_numpy(jax.tree.map(np.asarray, t),
+                                        device="cpu")
+    for step in range(3):
+        batch = next(it)
+        state = O.AdamWState(torch.tensor(int(js.step), dtype=torch.int32),
+                             carry(js.mu), carry(js.nu))
+        got = TR.read_metrics(tstep(carry(jp), state, _tbatch(batch))[2])
+        _, _, m32 = j32(jp, js, _jbatch(batch))
+        jp, js, m16 = j16(jp, js, _jbatch(batch))
+        for key in ("loss", "grad_norm"):
+            ref16, ref32 = float(m16[key]), float(m32[key])
+            err, ref_err = abs(got[key] - ref16), abs(ref16 - ref32)
+            assert err <= BF16_FACTOR * ref_err, (
+                f"step {step} {key}: the port's default step {got[key]} is "
+                f"{err:.3e} from the reference's bf16 {ref16}, whose f32 "
+                f"step {ref32} is {ref_err:.3e} from it")
 
 
 @pytest.mark.parametrize("arch", ALL_ARCH_IDS)
