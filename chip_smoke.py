@@ -337,18 +337,45 @@ CUDA toolkit.  Phases, each fatal on failure:
    the CPU's bf16 distance from its f32 step; then ``trainer.train``
    on smollm-135m uncut with bf16 activations for 10 steps, held as
    (c), and the bf16 step's breakdown.
+24. training the SSM and hybrid families (``ssm_train_phase``): (a) the
+   scan forward's stored chunk states and C.B^T scratch and the scan's
+   backward kernel (``csrc/ssd_scan_bwd.cu``, which reads both) against
+   their plain versions at
+   mamba2-780m's and hymba-1.5b's training calls (B 8, S 256), a ragged
+   S at both widths, chunks of 64 and ragged P and N, with the final
+   state's gradient dropped and given: each output at 2e-4 of its
+   scale, or no farther from the plain f64 run than the plain f32 one;
+   two launches bit-equal; the autograd wrapper launches the forward and
+   the backward once.  (b) As phase 23 (b), one step of each at full
+   width cut to 2 layers, card against CPU, but the grad norm and each
+   leaf (unless within 2e-4 of its own scale) held no farther from the
+   CPU's f64 run than twice the card's own f32 step through the plain
+   versions: the card's other f32 arithmetic alone lands hymba's grad
+   norm 2.0x the CPU's f32 distance (``scripts/ssm_train_hold.py``
+   grounds the factor at two seeds and shows planted wiring faults of
+   the scan's gradient failing it).  (c) ``repro_torch.launch.train`` on
+   mamba2-780m (48 layers) and hymba-1.5b (32) uncut, 10 steps each at
+   the launcher's defaults, held as phase 23 (c) (mamba2: the scan's
+   forward 960 launches, its backward 480; hymba: 640 and 320, flash's
+   640 and 320), and each f32 step's breakdown.  (d) ``trainer.train``
+   on hymba-1.5b uncut with bf16 activations (the scan in f32), held
+   the same way.  (e) The scan's forward (with its state store) and
+   backward timed at both training calls beside their plain versions
+   and bounds.
 
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves; phase 14 runs right after
-phase 5, then phases 15 to 23 last.  The line before the
-last is a JSON object with one entry per kernel (seven: the six TPU
-kernels' counterparts and the flash backward); the last line is
+phase 5, then phases 15 to 24 last.  The line before the
+last is a JSON object with one entry per kernel (eight: the six TPU
+kernels' counterparts, the flash backward and the scan's backward); the
+last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is missing or the port's sources are not beside
 this script.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -464,7 +491,9 @@ def build_report(build, lib):
     instance of the f32 flash forward (``flash_mma_kernel``), of the
     flash backward (``flash_bwd_kernel``, f32 and bf16) or of either SSD scan
     kernel (``ssd_cb_kernel``, ``ssd_scan_kernel``; the f32 ones 3xTF32
-    on mma.sync), has no tensor-core instruction."""
+    on mma.sync), has no tensor-core instruction.  The scan's backward
+    kernels (``ssd_bwd_*``) are listed too: they compute in plain f32 on
+    the CUDA cores."""
     import re
     kern = {}
     name = None
@@ -4259,6 +4288,13 @@ TRAIN_BF16_FACTOR = 2.0        # (e): a leaf of the card's bf16 step from
 #                                bf16 distance from its f32 step (two bf16
 #                                runs each that far from f32 are at most
 #                                twice as far from each other)
+TRAIN_F32_FACTOR = 2.0         # phase 24 (b): the card's f32 step from
+#                                the CPU's f64 step, against the card's f32
+#                                step through the plain versions (where f32
+#                                rounding dominates a leaf, a kernel that
+#                                sums in another order lands about as far,
+#                                on either side; at seeds 0 and 1 at most
+#                                1.73x, scripts/ssm_train_hold.py)
 TRAIN_CPU_LAYERS = 2           # the card-against-CPU step's depth
 TRAIN_REPS = 7                 # timed calls per kernel
 # (B, Sq, Sk, Hq, Hkv, D, causal, window, kv_len): smollm-135m's training
@@ -4369,16 +4405,50 @@ def train_kernel_checks(torch, fops, fref):
     return errs
 
 
-def train_two_layer_steps(torch, fops, label, runs):
-    """One train step of smollm-135m at full width cut to
-    ``TRAIN_CPU_LAYERS`` layers, on the same weights (drawn on the CPU)
-    and the trainer's first batch, for each (device, the weights' dtype,
-    the activations' dtype) of ``runs``; activations None take
-    ``make_train_step``'s default (bf16).  Each step on the card must
-    launch the flash forward twice a layer (the remat recompute) and the
-    backward once.  Returns ({name: the step's metrics and host s},
-    {name: {leaf: its gradient in f64 on the CPU}}), each run named
-    "<device> <activations' dtype>"."""
+def train_launches(cfg, steps):
+    """The kernel launches of ``steps`` train steps of ``cfg`` on the
+    card: a layer's attention and its SSM scan each run their forward
+    twice a step (the remat recomputes each block in the backward pass)
+    and their backward once."""
+    attends = cfg.family != "ssm" and not cfg.uses_mla
+    scans = cfg.ssm is not None and cfg.family in ("ssm", "hybrid")
+    n = cfg.num_layers * steps
+    return {"flash_attention": 2 * n * attends,
+            "flash_attention_bwd": n * attends,
+            "ssd_scan": 2 * n * scans, "ssd_scan_bwd": n * scans}
+
+
+@contextlib.contextmanager
+def plain_versions_on_card():
+    """The models' attention and SSD scan through their plain versions,
+    on whatever device the tensors are (the wrappers refuse that: a CUDA
+    tensor launches the kernel or raises): the baseline of a hold that
+    isolates the kernels from the card's other f32 arithmetic."""
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.ssd_scan import ref as sref
+    from repro_torch.models import attention, ssm
+    saved = attention.flash_attention, ssm.ssd_scan
+    attention.flash_attention = fref.flash_attention_ref
+    ssm.ssd_scan = sref.ssd_chunked_ref
+    try:
+        yield
+    finally:
+        attention.flash_attention, ssm.ssd_scan = saved
+
+
+def train_two_layer_steps(torch, fops, label, runs, arch=TRAIN_ARCH,
+                          sops=None, seed=0):
+    """One train step of ``arch`` (smollm-135m by default) at full width
+    cut to ``TRAIN_CPU_LAYERS`` layers, on the same weights (drawn on the
+    CPU from ``seed``) and the trainer's first batch (its data seed
+    ``seed``), for each (device, the weights' dtype, the activations'
+    dtype, plain) of ``runs``; activations None take ``make_train_step``'s
+    default (bf16); a plain run goes under :func:`plain_versions_on_card`.
+    Each step on the card must launch the kernels as
+    :func:`train_launches` says (the flash wrappers', and the scan's
+    where ``sops`` is given; none in a plain run).  Returns ({name: the
+    step's metrics and host s}, {name: {leaf: its gradient in f64 on the
+    CPU}}), each run named "<device>[ plain] <activations' dtype>"."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
@@ -4386,89 +4456,137 @@ def train_two_layer_steps(torch, fops, label, runs):
     from repro_torch.train import trainer as T
     from repro_torch.train.checkpoint import flatten_tree
     from repro_torch.train.data import DataConfig, batches
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
-                              num_layers=TRAIN_CPU_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_CPU_LAYERS)
     opt = O.AdamWConfig(total_steps=TRAIN_STEPS)
-    raw = next(batches(cfg, DataConfig()))
-    params = M.init_params(cfg, seed=0, device="cpu")
+    raw = next(batches(cfg, DataConfig(seed=seed)))
+    params = M.init_params(cfg, seed=seed, device="cpu")
+    mods = (fops,) if sops is None else (fops, sops)
     metrics, grads = {}, {}
-    for dev, wdt, adt in runs:
+    for dev, wdt, adt, plain in runs:
+        ctx = plain_versions_on_card if plain else contextlib.nullcontext
         p = O.tree_map(lambda t: t.to(dev, wdt), params)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
         step = (T.make_train_step(cfg, opt) if adt is None else
                 T.make_train_step(cfg, opt, act_dtype=adt))
         adt = adt or torch.bfloat16
-        fops.reset_counts()
+        for mod in mods:
+            mod.reset_counts()
         t0 = time.perf_counter()
-        _, _, m = step(p, O.init(opt, p), batch)
-        name = f"{dev} {str(adt).rsplit('.', 1)[-1]}"
+        with ctx():
+            _, _, m = step(p, O.init(opt, p), batch)
+        name = (f"{dev}{' plain' if plain else ''} "
+                f"{str(adt).rsplit('.', 1)[-1]}")
         metrics[name] = T.read_metrics(m)
         metrics[name]["s"] = round(time.perf_counter() - t0, 2)
         if dev == "cuda":
-            want = (2 * cfg.num_layers, cfg.num_layers)
-            got = (fops.flash_attention.launches,
-                   fops.flash_attention_bwd.launches)
-            check(got == want, f"{label}: flash launches {got}, not {want}")
+            got = {fn.__name__: fn.launches for mod in mods
+                   for fn in mod.KERNELS}
+            want = {k: v * (not plain) for k, v in
+                    train_launches(cfg, 1).items() if k in got}
+            check(got == want, f"{label}: launches {got}, not {want}")
         p = O.tree_map(lambda t: t.detach().requires_grad_(True), p)
-        loss = M.loss_fn(p, cfg, batch, act_dtype=adt)[0]
-        g = iter(torch.autograd.grad(loss, O.tree_leaves(p)))
+        with ctx():
+            loss = M.loss_fn(p, cfg, batch, act_dtype=adt)[0]
+            g = iter(torch.autograd.grad(loss, O.tree_leaves(p)))
         grads[name] = {k: v.double().cpu() for k, v in flatten_tree(
             O.tree_map(lambda _: next(g), p)).items()}
     return metrics, grads
 
 
-def train_cpu_check(torch, fops):
-    """Phase 23 (b): :func:`train_two_layer_steps` in f32 on the card
-    (kernels) and on the CPU (plain versions) in f32 and in f64.  The
-    loss and the lr are held at ``TRAIN_TOL`` of their scale, card
-    against CPU f32.  The gradient is held another way: at this init
-    the embedding's gradient passes layer 0's RMS norm of rows of scale
-    1/sqrt(49,152), which multiplies it by ~220 and cancels most of it,
-    so two f32 runs that sum in different orders differ by ~1e-3 of the
-    grad norm (the CPU f32 run lands 7.41e-4 from the f64 one).  So the
-    card's f32 grad norm must be no farther from the CPU's f64 run than
-    the CPU's own f32 run is, and so must each gradient leaf (the
-    largest absolute error over the leaf), unless it lies within
-    ``TRAIN_TOL`` of the leaf's own largest f64 magnitude."""
+def train_f32_runs(torch, card_plain):
+    """The runs of :func:`train_cpu_check`: the CPU in f64 and f32, the
+    card in f32, and with ``card_plain`` the card in f32 through the
+    plain versions."""
     f32, f64 = torch.float32, torch.float64
-    metrics, grads = train_two_layer_steps(
-        torch, fops, "phase 23 (b)",
-        [("cpu", f64, f64), ("cpu", f32, f32), ("cuda", f32, f32)])
+    return ([("cpu", f64, f64, False), ("cpu", f32, f32, False),
+             ("cuda", f32, f32, False)]
+            + [("cuda", f32, f32, True)] * card_plain)
+
+
+def train_f32_hold(metrics, grads, arch, label, base, factor):
+    """The hold of :func:`train_cpu_check` on the runs of
+    :func:`train_f32_runs`: loss and lr within ``TRAIN_TOL`` of their
+    scale, card against CPU f32; the card's f32 grad norm no farther from
+    the CPU's f64 run than ``factor`` times the yardstick run ``base``,
+    and each gradient leaf (its largest absolute error over its largest
+    f64 magnitude) no farther than ``factor`` times ``base``'s, or within
+    ``TRAIN_TOL``.  Every leaf is logged before the checks, which name
+    all the leaves that fail.  Returns the largest ratio of the card's
+    error to ``base``'s over the grad norm and the leaves above
+    ``TRAIN_TOL``, and where it was."""
     card, cpu, exact = (metrics[k] for k in ("cuda float32", "cpu float32",
                                              "cpu float64"))
     for key in ("loss", "lr"):
         check(abs(card[key] - cpu[key]) <= TRAIN_TOL * max(1.0,
                                                            abs(cpu[key])),
-              f"phase 23 (b): {key} on the card {card[key]}, on the CPU "
+              f"{label}: {key} on the card {card[key]}, on the CPU "
               f"{cpu[key]}")
     card_err = abs(card["grad_norm"] - exact["grad_norm"])
     cpu_err = abs(cpu["grad_norm"] - exact["grad_norm"])
-    check(card_err <= cpu_err,
-          f"phase 23 (b): the card's f32 grad norm is {card_err:.3e} from "
-          f"the CPU's f64 run, the CPU's f32 one {cpu_err:.3e}")
+    base_err = abs(metrics[base]["grad_norm"] - exact["grad_norm"])
     g64 = grads["cpu float64"]
     check(sorted(grads["cuda float32"]) == sorted(g64),
-          "phase 23 (b): the card's gradient tree has other leaves")
-    leaf_errs = {}
+          f"{label}: the card's gradient tree has other leaves")
+    names = ["cuda float32", "cpu float32"] + [base] * (base != "cpu float32")
+    leaf_errs, bad = {}, []
+    worst = (card_err / max(base_err, 1e-300), "grad_norm")
     for k, w in g64.items():
         scale = w.abs().max().item()
-        ec, ep = ((grads[n][k] - w).abs().max().item() / scale
-                  for n in ("cuda float32", "cpu float32"))
-        leaf_errs[k] = (float(f"{ec:.3e}"), float(f"{ep:.3e}"))
-        check(ec <= max(TRAIN_TOL, ep),
-              f"phase 23 (b): gradient leaf {k} on the card is {ec:.3e} of "
-              f"its scale {scale:.4g} from the CPU's f64 run, the CPU's "
-              f"f32 one {ep:.3e}")
-    log(f"phase 23 (b): {TRAIN_ARCH} at full width cut to "
+        errs = [(grads[n][k] - w).abs().max().item() / scale for n in names]
+        ec, eb = errs[0], errs[names.index(base)]
+        leaf_errs[k] = [float(f"{e:.3e}") for e in errs]
+        if ec > TRAIN_TOL:
+            worst = max(worst, (ec / max(eb, 1e-300), k))
+        if ec > max(TRAIN_TOL, factor * eb):
+            bad.append(f"{k} (scale {scale:.4g})")
+    log(f"{label}: {arch} at full width cut to "
         f"{TRAIN_CPU_LAYERS} layers, one train step on the same weights and "
         f"batch (B 8, S 256, TF32 off): {json.dumps(metrics)}; loss and lr "
         f"within {TRAIN_TOL} of scale, card against CPU f32; grad norm "
         f"from the CPU's f64 run: card f32 {card_err:.3e} "
         f"({card_err / exact['grad_norm']:.2e} of it), CPU f32 "
-        f"{cpu_err:.3e} ({cpu_err / exact['grad_norm']:.2e}); each "
-        f"gradient leaf's largest error from the CPU's f64 run over the "
-        f"leaf's largest magnitude, (card f32, CPU f32): "
-        f"{json.dumps(leaf_errs)}")
+        f"{cpu_err:.3e} ({cpu_err / exact['grad_norm']:.2e})"
+        + (f", {base} {base_err:.3e}" if base != "cpu float32" else "")
+        + f"; each gradient leaf's largest error from the CPU's f64 run "
+        f"over the leaf's largest magnitude, ({', '.join(names)}): "
+        + json.dumps(leaf_errs) + f"; the card's largest ratio to {base} "
+        f"(grad norm, leaves above {TRAIN_TOL}): {worst[0]:.3f} at "
+        f"{worst[1]}")
+    check(card_err <= factor * base_err,
+          f"{label}: the card's f32 grad norm is {card_err:.3e} from the "
+          f"CPU's f64 run, {factor}x {base}'s {factor * base_err:.3e}")
+    check(not bad, f"{label}: gradient leaves {bad} on the card are farther "
+          f"from the CPU's f64 run than {factor}x {base}'s")
+    return worst
+
+
+def train_cpu_check(torch, fops, arch=TRAIN_ARCH, sops=None,
+                    label="phase 23 (b)", card_plain=False):
+    """Phase 23 (b) (and phase 24 (b) for ``arch``, with the scan's
+    counts from ``sops``): :func:`train_two_layer_steps` in f32 on the
+    card (kernels) and on the CPU (plain versions) in f32 and in f64,
+    held by :func:`train_f32_hold`.  The gradient is held against the
+    f64 run: at this init the embedding's gradient passes layer 0's RMS
+    norm of rows of scale 1/sqrt(49,152), which multiplies it by ~220
+    and cancels most of it, so two f32 runs that sum in different orders
+    differ by ~1e-3 of the grad norm (the CPU f32 run lands 7.41e-4 from
+    the f64 one).  Phase 23's yardstick is the CPU's f32 run at factor 1.
+
+    With ``card_plain`` (phase 24) the step also runs on the card through
+    the plain versions (:func:`plain_versions_on_card`), and that run is
+    the yardstick, at ``TRAIN_F32_FACTOR``: the card's other f32
+    arithmetic (cuBLAS f32 GEMMs and the elementwise passes, which sum in
+    other orders than the CPU's) is the baseline, and the hold measures
+    what the kernels add.  hymba-1.5b's gradient at this init is
+    ill-conditioned enough (the CPU's f32 leaves 0.5-2.6% of scale from
+    f64) that the card with no kernel at all lands 2.0x the CPU's f32
+    distance on the grad norm.  Returns the step's metrics."""
+    metrics, grads = train_two_layer_steps(
+        torch, fops, label, train_f32_runs(torch, card_plain), arch=arch,
+        sops=sops)
+    base, factor = (("cuda plain float32", TRAIN_F32_FACTOR) if card_plain
+                    else ("cpu float32", 1.0))
+    train_f32_hold(metrics, grads, arch, label, base, factor)
     return metrics
 
 
@@ -4484,7 +4602,8 @@ def train_bf16_cpu_check(torch, fops):
     f32 = torch.float32
     metrics, grads = train_two_layer_steps(
         torch, fops, "phase 23 (e)",
-        [("cpu", f32, f32), ("cpu", f32, None), ("cuda", f32, None)])
+        [("cpu", f32, f32, False), ("cpu", f32, None, False),
+         ("cuda", f32, None, False)])
     card, cpu, cpu32 = (metrics[k] for k in ("cuda bfloat16",
                                              "cpu bfloat16", "cpu float32"))
     for key in ("loss", "grad_norm"):
@@ -4516,13 +4635,16 @@ def train_bf16_cpu_check(torch, fops):
     return metrics
 
 
-def train_step_profile(torch, cfg, params, batch, dtype):
+def train_step_profile(torch, cfg, params, batch, dtype, phase=23):
     """Where a full-width train step's card time goes, activations in
     ``dtype``: one warm step, then CUDA events around the loss and its
     gradient and around the AdamW update, and a profile of one more
     step: device time of the flash forward (``flash_mma_kernel`` in f32,
     ``flash_tc_kernel`` in bf16), the backward kernels (``flash_bwd``),
-    the GEMMs (kernels named ``gemm`` or ``nvjet``) and the rest."""
+    the scan's forward (``ssd_cb_kernel``, ``ssd_scan_kernel``) and
+    backward (``ssd_bwd``), the GEMMs (kernels named ``gemm`` or
+    ``nvjet``) and the rest.  Fails if a kernel that the config's step
+    launches (:func:`train_launches`) has no device time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import model as M
     from repro_torch.train import optimizer as O
@@ -4551,20 +4673,29 @@ def train_step_profile(torch, cfg, params, batch, dtype):
         step()
     dev = lambda e: (getattr(e, "self_device_time_total", None)
                      or getattr(e, "self_cuda_time_total", 0))
-    parts = {"flash forward": 0.0, "flash backward": 0.0, "gemm": 0.0,
+    parts = {"flash forward": 0.0, "flash backward": 0.0,
+             "scan forward": 0.0, "scan backward": 0.0, "gemm": 0.0,
              "other": 0.0}
     for e in prof.key_averages():
         key = e.key.lower()
         part = ("flash backward" if "flash_bwd" in key else
                 "flash forward" if ("flash_mma_kernel" in key
                                     or "flash_tc_kernel" in key) else
+                "scan backward" if "ssd_bwd" in key else
+                "scan forward" if ("ssd_cb_kernel" in key
+                                   or "ssd_scan_kernel" in key) else
                 "gemm" if ("gemm" in key or "nvjet" in key) else "other")
         parts[part] += dev(e) / 1e3
     busy = sum(parts.values())
-    check(parts["flash forward"] > 0 and parts["flash backward"] > 0,
-          f"the profile attributed no flash kernel: {parts}")
+    runs = train_launches(cfg, 1)
+    for part, name in (("flash forward", "flash_attention"),
+                       ("flash backward", "flash_attention_bwd"),
+                       ("scan forward", "ssd_scan"),
+                       ("scan backward", "ssd_scan_bwd")):
+        check(parts[part] > 0 or not runs[name],
+              f"the profile attributed no {part} kernel: {parts}")
     top = sorted(prof.key_averages(), key=dev, reverse=True)[:8]
-    log(f"phase 23 train step breakdown ({TRAIN_ARCH}, B 8, S 256, "
+    log(f"phase {phase} train step breakdown ({cfg.name}, B 8, S 256, "
         f"{dname}): loss and gradient {fwd_bwd:.2f} ms, AdamW update "
         f"{update:.2f} ms (CUDA events); profiled step device busy "
         f"{busy:.2f} ms: "
@@ -4661,8 +4792,9 @@ def time_train_kernels(torch, fops, fref, spin):
 def train_run(torch, np, cfg, label, run, dtype, reset_counts, counts):
     """``run()`` trains ``cfg`` uncut for ``TRAIN_STEPS`` steps (logging
     every step), counts zeroed just before and read just after: the
-    flash forward 60 times a step (30 layers, each recomputed by the
-    remat), the backward 30, nothing else and no plain call; every
+    launches of :func:`train_launches` (smollm-135m: the flash forward
+    60 times a step, 30 layers each recomputed by the remat, the
+    backward 30), nothing else and no plain call; every
     logged loss finite, and the first batch's loss (activations in
     ``dtype``) under the trained weights below its first-step loss.
     Logged: tokens/s, step ms, peak memory.  Returns (the trained
@@ -4679,8 +4811,7 @@ def train_run(torch, np, cfg, label, run, dtype, reset_counts, counts):
     launches, plain = counts("launches"), counts("plain_calls")
     peak = torch.cuda.max_memory_allocated()
     want = {name: 0 for name in launches}
-    want.update(flash_attention=2 * cfg.num_layers * TRAIN_STEPS,
-                flash_attention_bwd=cfg.num_layers * TRAIN_STEPS)
+    want.update(train_launches(cfg, TRAIN_STEPS))
     check(launches == want, f"{label} launches {launches}, not {want}")
     check(not any(plain.values()), f"plain versions ran in {label}: "
           f"{plain}")
@@ -4764,6 +4895,287 @@ def train_phase(torch, np, fops, fref, spin, reset_counts, counts):
 
 
 # ---------------------------------------------------------------------------
+# phase 24: training the SSM and hybrid families (the scan's backward)
+# ---------------------------------------------------------------------------
+
+SSM_TRAIN_ARCHS = ("mamba2-780m", "hymba-1.5b")
+# (B, S, H, P, N, chunk, the final state's gradient given): mamba2-780m's
+# and hymba-1.5b's training calls at the launcher's B 8, S 256 (two
+# chunks; the final state dropped, as forward_train drops it) first, then
+# a ragged S at both widths, chunks of 64 with a ragged S, and ragged P
+# and N, with the final state's gradient given
+SCAN_BWD = [(8, 256, 48, 64, 128, 128, False),
+            (8, 256, 25, 64, 16, 128, False),
+            (2, 200, 48, 64, 128, 128, True),
+            (3, 200, 25, 64, 16, 128, True),
+            (2, 200, 3, 32, 16, 64, True),
+            (1, 40, 2, 33, 18, 16, True)]
+SCAN_BWD_NAMES = ("dx", "ddt", "da", "db", "dc")
+
+
+def scan_bwd_inputs(torch, gen, b, s, h, p, n):
+    """The scan's inputs (x, b, c unit normal, dt = softplus(normal), a =
+    -exp(normal)), then dy and a final-state gradient, drawn on the
+    card."""
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    args = [rand(b, s, h, p), torch.nn.functional.softplus(rand(b, s, h)),
+            -torch.exp(rand(h)), rand(b, s, n), rand(b, s, n)]
+    return args, rand(b, s, h, p), rand(b, h, p, n)
+
+
+def hold_scan_bwd(torch, sref, label, got, args, dy, dstate, chunk):
+    """The backward kernel's hold (tests/test_torch_ssd_scan.py's): each
+    output within ``TRAIN_TOL`` of its largest magnitude of the plain
+    version in f32, or no farther from the plain version's f64 run than
+    the plain f32 version is (da sums long runs of both signs, where two
+    f32 orders part by about that much).  Returns {output: its error
+    over its scale} and the largest absolute error."""
+    want = sref.ssd_scan_bwd_ref(*args, dy, dstate, chunk)
+    exact = sref.ssd_scan_bwd_ref(
+        *(t.double() for t in args), dy.double(),
+        None if dstate is None else dstate.double(), chunk)
+    errs, worst = {}, 0.0
+    for name, g, w, e in zip(SCAN_BWD_NAMES, got, want, exact):
+        check(torch.isfinite(g).all().item(), f"{label}: {name} not finite")
+        scale = max(w.abs().max().item(), 1e-30)
+        err = (g - w).abs().max().item()
+        if err > TRAIN_TOL * scale:
+            ek = (g.double() - e).abs().max().item()
+            ep = (w.double() - e).abs().max().item()
+            check(ek <= ep, f"{label}: {name} {err:.3e} from the plain f32 "
+                  f"version at scale {scale:.4g}, and {ek:.3e} from its f64 "
+                  f"run, where the plain f32 version is {ep:.3e}")
+        errs[name] = err / scale
+        worst = max(worst, err)
+    return errs, worst
+
+
+def scan_kernel_checks(torch, sops, sref):
+    """Phase 24 (a): on ``SCAN_BWD``'s calls the forward's stored chunk
+    states against the plain scan's final state of each chunk's prefix
+    and its C.B^T scratch (3xTF32) on and below the diagonal against
+    C.B^T in plain f32 (each ``SCAN_TOL`` of scale), the backward kernel
+    (which reads both) held by
+    :func:`hold_scan_bwd`, a second launch bit-equal; then the autograd
+    wrapper at both training calls launches the forward and the backward
+    once each, no plain call, its gradient held the same way.  Returns
+    the largest error over scale of each output."""
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    errs = {}
+
+    def note(e):
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    for b, s, h, p, n, chunk, given in SCAN_BWD:
+        args, dy, ds = scan_bwd_inputs(torch, gen, b, s, h, p, n)
+        ds = ds if given else None
+        label = (f"phase 24 (a) scan backward (B {b}, S {s}, H {h}, P {p}, "
+                 f"N {n}, chunk {chunk}, dstate {'given' if given else 'None'})")
+        cb = torch.empty(skernel.scratch_shape(b, s, chunk), device="cuda")
+        _, _, states = skernel.ssd_scan_kernel(*args, chunk=chunk,
+                                               scratch=cb, with_states=True)
+        cl = min(chunk, s)
+        for z in range(states.shape[1]):
+            rows = min(cl, s - z * cl)
+            bz, cz = (t[:, z * cl:z * cl + rows] for t in args[3:5])
+            want = torch.tril(cz @ bz.transpose(1, 2))
+            err = (torch.tril(cb[:, z, :rows, :rows]) - want).abs().max()
+            check(err.item() <= SCAN_TOL * max(1.0, want.abs().max().item()),
+                  f"{label}: chunk {z}'s C.B^T {err.item():.3e} off")
+            want = (sref.ssd_chunked_ref(*(t[:, :z * cl] if t.dim() > 1
+                                           else t for t in args), chunk)[1]
+                    if z else torch.zeros_like(states[:, 0]))
+            err = (states[:, z] - want).abs().max().item()
+            check(err <= SCAN_TOL * max(1.0, want.abs().max().item()),
+                  f"{label}: chunk {z}'s stored state {err:.3e} off")
+        got = skernel.ssd_scan_bwd_kernel(*args, dy, states, cb, ds,
+                                          chunk=chunk)
+        note(hold_scan_bwd(torch, sref, label, got, args, dy, ds, chunk)[0])
+        again = skernel.ssd_scan_bwd_kernel(*args, dy, states, cb, ds,
+                                            chunk=chunk)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{label}: two launches gave different gradients")
+    for b, s, h, p, n, chunk, _ in SCAN_BWD[:2]:
+        args, dy, _ = scan_bwd_inputs(torch, gen, b, s, h, p, n)
+        leaves = [t.clone().requires_grad_() for t in args]
+        sops.reset_counts()
+        got = torch.autograd.grad(sops.ssd_scan(*leaves, chunk)[0], leaves,
+                                  dy)
+        counts = (sops.ssd_scan.launches, sops.ssd_scan_bwd.launches,
+                  sops.ssd_scan.plain_calls)
+        check(counts == (1, 1, 0), f"phase 24 (a): the autograd call at H "
+              f"{h}, N {n} gave (forward, backward, plain) {counts}")
+        note(hold_scan_bwd(torch, sref, f"phase 24 (a) autograd at H {h}",
+                           got, args, dy, None, chunk)[0])
+    log(f"phase 24 (a): the scan's stored chunk states and C.B^T and its "
+        f"backward kernel held against their plain versions at {len(SCAN_BWD)} "
+        f"calls {SCAN_BWD} (max abs err over each output's largest "
+        f"magnitude {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; "
+        f"tol {TRAIN_TOL}, or no farther from the plain f64 run than the "
+        f"plain f32 one); two launches bit-equal; the autograd wrapper "
+        f"launched the forward and the backward once at both training "
+        f"calls")
+    return errs
+
+
+def scan_bwd_flops(b, s, h, p, n, chunk):
+    """Operations of the scan's forward and of its gradient at these
+    shapes, counting each product on its triangle: per row and chunk of
+    r rows, r (r + 1) / 2 pairs, G = C.B^T 2 N a pair (the forward's;
+    the backward reads it); per head, the forward 2 P a pair (intra) and
+    2 r P N for the state and for the inter term (no inter term in the
+    first chunk); the backward 2 P a pair for dW and for dx, 2 N a pair
+    for dc and for db, 2 r P N each for dS b, dS^T x, S_in c, S_in^T dy
+    and the state chain (none in the first chunk).  Returns (forward,
+    backward, the pairs summed over rows and chunks)."""
+    cl = min(chunk, s)
+    fwd = bwd = tri = 0
+    for z in range(-(-s // cl)):
+        r = min(cl, s - z * cl)
+        pairs = r * (r + 1) // 2
+        rpn = 2 * r * p * n
+        fwd += 2 * pairs * n + h * (2 * pairs * p + rpn + rpn * (z > 0))
+        bwd += h * (4 * pairs * (p + n) + 4 * rpn + rpn * (z > 0))
+        tri += pairs
+    return b * fwd, b * bwd, b * tri
+
+
+def time_scan_train(torch, sops, sref, spin):
+    """The scan's forward with its state store and its backward at both
+    training calls (``SCAN_BWD[:2]``), each beside its plain version
+    (``ssd_chunked_ref``, ``ssd_scan_bwd_ref``).  Bounds: inputs read and
+    outputs written once (the forward: x, dt, a, b, c in, y, the final
+    state, the chunk states and C.B^T's lower triangle out; the
+    backward: x, dy, dt, a, b, c, the chunk states and that triangle in,
+    dx, ddt, da, db, dc out), or the operations of
+    :func:`scan_bwd_flops` at the card's f32 rate, 3xTF32's 495 / 3
+    TFLOP/s (the repo's f32 convention; f32_cores_ms at the CUDA cores'
+    67, the backward's route, beside it).  No library call computes
+    either.  Returns mamba2-780m's backward row for the kernels line."""
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    gen = torch.Generator(device="cuda").manual_seed(240)
+    rows = {}
+    for arch, (b, s, h, p, n, chunk, _) in zip(SSM_TRAIN_ARCHS,
+                                               SCAN_BWD[:2]):
+        args, dy, _ = scan_bwd_inputs(torch, gen, b, s, h, p, n)
+        cb = torch.empty(skernel.scratch_shape(b, s, chunk), device="cuda")
+        _, _, states = skernel.ssd_scan_kernel(*args, chunk=chunk,
+                                               scratch=cb, with_states=True)
+        got = skernel.ssd_scan_bwd_kernel(*args, dy, states, cb, chunk=chunk)
+        err = hold_scan_bwd(torch, sref, f"time {arch}", got, args, dy, None,
+                            chunk)[1]
+        fwd = lambda r: skernel.ssd_scan_kernel(*args, chunk=chunk,
+                                                with_states=True)
+        fwd_plain = lambda r: sref.ssd_chunked_ref(*args, chunk)
+        bwd = lambda r: skernel.ssd_scan_bwd_kernel(*args, dy, states, cb,
+                                                    chunk=chunk)
+        bwd_plain = lambda r: sref.ssd_scan_bwd_ref(*args, dy, None, chunk)
+        ins = sum(t.numel() for t in args)
+        f_ops, b_ops, tri = scan_bwd_flops(b, s, h, p, n, chunk)
+        nbytes = {"fwd": 4 * (ins + dy.numel() + b * h * p * n
+                              + states.numel() + tri),
+                  "bwd": 4 * (2 * ins + dy.numel() + states.numel() + tri)}
+        flops = {"fwd": f_ops, "bwd": b_ops}
+        for part, fn, plain in (("fwd", fwd, fwd_plain),
+                                ("bwd", bwd, bwd_plain)):
+            t_bytes = nbytes[part] / HBM_BYTES_PER_S * 1e3
+            t_ops = 3 * flops[part] / TF32_FLOPS * 1e3
+            rows[f"{arch} {part}"] = {
+                "ms": median_ms(torch, fn, TRAIN_REPS, spin),
+                "plain_ms": median_ms(torch, plain, TRAIN_REPS, spin),
+                "library_ms": None,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes_ms": t_bytes, "ops_ms": t_ops,
+                "f32_cores_ms": flops[part] / F32_FLOPS * 1e3,
+                "MB": nbytes[part] / 1e6, "GFLOP": flops[part] / 1e9}
+        rows[f"{arch} bwd"]["max_abs_err"] = err
+    log("phase 24 (e): the scan's forward (with its state store) and "
+        "backward at the training calls (B 8, S 256; mamba2-780m H 48, P "
+        "64, N 128; hymba-1.5b H 25, P 64, N 16; chunk 128; median of "
+        f"{TRAIN_REPS} CUDA-event times, ms; ops_ms at 3xTF32's 495 / 3 "
+        "TFLOP/s, f32_cores_ms at the f32 CUDA cores' 67): " + json.dumps({
+            name: {k: (float(f"{x:.4g}") if isinstance(x, float) else x)
+                   for k, x in row.items()} for name, row in rows.items()}))
+    row = dict(rows["mamba2-780m bwd"])
+    for key in ("bytes_ms", "ops_ms", "f32_cores_ms", "MB", "GFLOP"):
+        row.pop(key)
+    return row
+
+
+# (layers, d_model, SSM heads, P, d_state, chunk, attention heads, KV
+# heads, head size, window, remat) of the uncut configs phase 24 trains
+SSM_TRAIN_WIDTHS = {
+    "mamba2-780m": (48, 1536, 48, 64, 128, 128, 0, 0, 64, None, "full"),
+    "hymba-1.5b": (32, 1600, 25, 64, 16, 128, 25, 5, 64, 2048, "full")}
+
+
+def ssm_train_phase(torch, np, fops, sops, sref, spin, reset_counts, counts):
+    """Phase 24: training the SSM and hybrid families on the card.  (a)
+    :func:`scan_kernel_checks`; (b) :func:`train_cpu_check` for
+    mamba2-780m and hymba-1.5b at full width cut to 2 layers, against
+    the card's step through the plain versions; (c)
+    ``repro_torch.launch.train.main`` on both uncut at the launcher's
+    defaults (B 8, S 256, f32, TF32 off) for ``TRAIN_STEPS`` steps, held
+    by :func:`train_run` (mamba2: the scan's forward 960 times, its
+    backward 480; hymba: 640 and 320, and flash's 640 and 320), each
+    step's breakdown; (d) ``trainer.train`` on hymba-1.5b uncut with
+    ``act_dtype=torch.bfloat16`` (the scan stays f32) for
+    ``TRAIN_STEPS`` steps, held the same way; (e)
+    :func:`time_scan_train`.  Returns (the backward's kernels-line row,
+    its launches in (c), both models' runs summed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import d_inner
+    from repro_torch.train import trainer as T
+    t0 = time.perf_counter()
+    scan_kernel_checks(torch, sops, sref)
+    for arch in SSM_TRAIN_ARCHS:
+        train_cpu_check(torch, fops, arch=arch, sops=sops,
+                        label=f"phase 24 (b) {arch}", card_plain=True)
+        torch.cuda.empty_cache()
+    bwd_launches = 0
+    for arch in SSM_TRAIN_ARCHS:
+        cfg = get_config(arch)
+        s = cfg.ssm
+        widths = (cfg.num_layers, cfg.d_model,
+                  d_inner(cfg) // s.head_dim, s.head_dim, s.d_state,
+                  s.chunk_size, cfg.num_heads, cfg.num_kv_heads,
+                  cfg.head_dim, cfg.sliding_window,
+                  cfg.remat_mode)
+        check(widths == SSM_TRAIN_WIDTHS[arch],
+              f"phase 24 does not train {arch} at full width: {widths}")
+        params, first, launches = train_run(
+            torch, np, cfg, f"phase 24 (c): {arch} full width through "
+            f"launch/train.py (f32)",
+            lambda: launch_train.main(["--arch", arch, "--full", "--steps",
+                                       str(TRAIN_STEPS), "--log-every",
+                                       "1"]),
+            torch.float32, reset_counts, counts)
+        bwd_launches += launches["ssd_scan_bwd"]
+        torch.cuda.empty_cache()
+        train_step_profile(torch, cfg, params, first, torch.float32,
+                           phase=24)
+        del params
+        torch.cuda.empty_cache()
+    cfg = get_config("hymba-1.5b")
+    params, _, _ = train_run(
+        torch, np, cfg, "phase 24 (d): hymba-1.5b full width through "
+        "trainer.train, bf16 activations",
+        lambda: T.train(cfg, T.TrainConfig(steps=TRAIN_STEPS, log_every=1),
+                        act_dtype=torch.bfloat16, device="cuda"),
+        torch.bfloat16, reset_counts, counts)
+    del params
+    torch.cuda.empty_cache()
+    row = time_scan_train(torch, sops, sref, spin)
+    log(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    return row, bwd_launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timings at the serve's shapes
 # ---------------------------------------------------------------------------
 
@@ -4787,23 +5199,26 @@ def median_ms(torch, fn, reps, spin):
     call is queued behind a spin kernel of ``spin`` ms, so the card is
     still spinning while the host enqueues the call and the events time
     the card's work, not the Python launch.  A call whose enqueueing
-    outlasted the spin is timed again; the phase fails if that keeps
-    happening."""
-    times, tries = [], 0
+    outlasted the spin is timed again behind a spin twice as long (up to
+    8x: a plain version of many small launches can take longer to
+    enqueue than one spin); the phase fails if that keeps happening."""
+    times, tries, k = [], 0, 1
     while len(times) < reps:
         tries += 1
         check(tries <= 3 * reps, "the host kept outlasting the spin kernel")
         a = torch.cuda.Event(enable_timing=True)
         z = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(SPIN_CYCLES * k)
         t0 = time.perf_counter()
         a.record()
         fn(1 + len(times))
         z.record()
         host_ms = (time.perf_counter() - t0) * 1e3
         z.synchronize()
-        if host_ms < 0.8 * spin:
+        if host_ms < 0.8 * spin * k:
             times.append(a.elapsed_time(z))
+        else:
+            k = min(2 * k, 8)
     return statistics.median(times)
 
 
@@ -6127,6 +6542,11 @@ def main() -> int:
         t["flash_attention_bwd"], train_launches = train_phase(
             torch, np, fops, fref, spin, reset_counts, counts)
 
+        # 24. training the SSM and hybrid families: the scan's backward
+        # kernel, then mamba2-780m and hymba-1.5b uncut
+        t["ssd_scan_bwd"], scan_train_launches = ssm_train_phase(
+            torch, np, fops, sops, sref, spin, reset_counts, counts)
+
         source = {"paged_decode_attention":
                   ("src/repro_torch/csrc/paged_decode_attention.cu",
                    "src/repro/kernels/decode_attention/kernel.py:298",
@@ -6155,7 +6575,12 @@ def main() -> int:
                   ("src/repro_torch/csrc/flash_attention_bwd.cu",
                    "none: the JAX package differentiates its plain jnp "
                    "attention (src/repro/models/attention.py:26)",
-                   train_launches)}
+                   train_launches),
+                  "ssd_scan_bwd":
+                  ("src/repro_torch/csrc/ssd_scan_bwd.cu",
+                   "none: the JAX package differentiates its plain jnp "
+                   "scan (src/repro/models/ssm.py:53)",
+                   {"ssd_scan_bwd": scan_train_launches})}
         rows = []
         for name, (path, tpu, count) in source.items():
             rows.append({"name": name, "route": "cuda", "source": path,

@@ -232,8 +232,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ a, const float* __restrict__ bm,
                 const float* __restrict__ cm, const float* __restrict__ cb,
-                float* __restrict__ y, float* __restrict__ state_out, int S,
-                int H, int P, int N, int C, int nc) {
+                float* __restrict__ y, float* __restrict__ state_out,
+                float* __restrict__ states, int S, int H, int P, int N, int C,
+                int nc) {
   constexpr int NTU = PT / 16;            // 8-column tiles of a y unit
   constexpr int MT = PT / 16;             // 16-row tiles of the state (p)
   constexpr int NTW = NP * PT / 1024;     // 8-column state tiles a warp
@@ -267,11 +268,29 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
     for (int q = 0; q < 4; ++q) st[nt][q] = 0.f;
   float yacc[2][NTU][4];
+  // this warp's state slice from registers into so [P, N] (the block's
+  // rows p0 + p)
+  auto put = [&](float* so) {
+    const int p = mt * 16 + g;
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt) {
+      const int n = (nb + nt) * 8 + 2 * t;
+      if (n >= N) continue;
+      const bool two = n + 1 < N, pair = two && spair;
+      if (p < pc) store2(so + (size_t)(p0 + p) * N + n, st[nt][0], st[nt][1],
+                         two, pair);
+      if (p + 8 < pc)
+        store2(so + (size_t)(p0 + p + 8) * N + n, st[nt][2], st[nt][3], two,
+               pair);
+    }
+  };
 
   for (int z = 0; z < nc; ++z) {
     const int c0 = z * C, rows = min(C, S - c0);
     const int nrt = (rows + 15) >> 4, rp = nrt * 16;
     const size_t tok0 = (size_t)row * S + c0;
+    if (states != nullptr)                     // the chunk's incoming state
+      put(states + (((size_t)row * nc + z) * H + h) * P * N);
     __syncthreads();                           // the last chunk is done
     for (int i = tid; i < rp; i += kThreads)
       dts[i] = i < rows ? dt[(tok0 + i) * H + h] : 0.f;
@@ -433,19 +452,7 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     }
   }
 
-  // the final state, from registers
-  const int p = mt * 16 + g;
-  float* so = state_out + (((size_t)row * H + h) * P + p0) * N;
-#pragma unroll
-  for (int nt = 0; nt < NTW; ++nt) {
-    const int n = (nb + nt) * 8 + 2 * t;
-    if (n >= N) continue;
-    const bool two = n + 1 < N, pair = two && spair;
-    if (p < pc) store2(so + (size_t)p * N + n, st[nt][0], st[nt][1], two,
-                       pair);
-    if (p + 8 < pc)
-      store2(so + (size_t)(p + 8) * N + n, st[nt][2], st[nt][3], two, pair);
-  }
+  put(state_out + ((size_t)row * H + h) * P * N);   // the final state
 }
 
 // Allow `bytes` of dynamic shared memory, and ask for the largest
@@ -464,8 +471,8 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 template <int PT, int NP>
 cudaError_t launch(const float* x, const float* dt, const float* a,
                    const float* b, const float* c, float* cb, float* y,
-                   float* state, int B, int S, int H, int P, int N, int C,
-                   cudaStream_t stream) {
+                   float* state, float* states, int B, int S, int H, int P,
+                   int N, int C, cudaStream_t stream) {
   const int cp = round16(C), nc = (S + C - 1) / C;
   ssd_cb_kernel<NP><<<dim3(cb_items(cp / 16), nc, B), 32, 0, stream>>>(
       b, c, cb, S, N, C, nc);
@@ -476,31 +483,33 @@ cudaError_t launch(const float* x, const float* dt, const float* a,
   err = allow_smem(ssd_scan_kernel<PT, NP>, smem2);
   if (err != cudaSuccess) return err;
   ssd_scan_kernel<PT, NP><<<dim3(H, (P + PT - 1) / PT, B), kThreads, smem2,
-                            stream>>>(x, dt, a, b, c, cb, y, state, S, H, P,
-                                      N, C, nc);
+                            stream>>>(x, dt, a, b, c, cb, y, state, states,
+                                      S, H, P, N, C, nc);
   return cudaGetLastError();
 }
 
 template <int PT>
 cudaError_t launch_pt(const float* x, const float* dt, const float* a,
                       const float* b, const float* c, float* cb, float* y,
-                      float* state, int B, int S, int H, int P, int N, int C,
-                      cudaStream_t stream) {
+                      float* state, float* states, int B, int S, int H, int P,
+                      int N, int C, cudaStream_t stream) {
   if (N <= 32)
-    return launch<PT, 32>(x, dt, a, b, c, cb, y, state, B, S, H, P, N, C,
-                          stream);
+    return launch<PT, 32>(x, dt, a, b, c, cb, y, state, states, B, S, H, P,
+                          N, C, stream);
   if (N <= 64)
-    return launch<PT, 64>(x, dt, a, b, c, cb, y, state, B, S, H, P, N, C,
-                          stream);
-  return launch<PT, 128>(x, dt, a, b, c, cb, y, state, B, S, H, P, N, C,
-                         stream);
+    return launch<PT, 64>(x, dt, a, b, c, cb, y, state, states, B, S, H, P,
+                          N, C, stream);
+  return launch<PT, 128>(x, dt, a, b, c, cb, y, state, states, B, S, H, P,
+                         N, C, stream);
 }
 
 }  // namespace
 }  // namespace repro
 
 // x [B, S, H, P]; dt [B, S, H]; a [H]; b, c [B, S, N]; y [B, S, H, P];
-// state [B, H, P, N]: all f32 and contiguous.  `chunk` is the scan's
+// state [B, H, P, N]; `states`, if not null, [B, ceil(S / C), H, P, N]
+// receives each chunk's incoming state (zero for the first), for the
+// backward (ssd_scan_bwd.cu): all f32 and contiguous.  `chunk` is the scan's
 // chunk length (C = min(chunk, S); the tail of a ragged last chunk is
 // masked).  `cb` is f32 scratch of B * ceil(S / C) * Cp * Cp floats, Cp =
 // C rounded up to 16, for C_z . B_z^T.  `p_tile` (32 or 64) is the P
@@ -508,9 +517,9 @@ cudaError_t launch_pt(const float* x, const float* dt, const float* a,
 // both kernels on `stream` and returns cudaGetLastError() after them.
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* a,
                               const void* b, const void* c, void* y,
-                              void* state, void* cb, int B, int S, int H,
-                              int P, int N, int chunk, int p_tile,
-                              void* stream) {
+                              void* state, void* states, void* cb, int B,
+                              int S, int H, int P, int N, int chunk,
+                              int p_tile, void* stream) {
   if (B == 0 || H == 0) return cudaSuccess;
   if (B < 0 || S <= 0 || H < 0 || P <= 0 || N <= 0 || chunk <= 0)
     return cudaErrorInvalidValue;
@@ -523,9 +532,10 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* a,
   float* cbf = static_cast<float*>(cb);
   float* yf = static_cast<float*>(y);
   float* sf = static_cast<float*>(state);
+  float* cs = static_cast<float*>(states);
   if (p_tile == 32)
     return repro::launch_pt<32>(f(x), f(dt), f(a), f(b), f(c), cbf, yf, sf,
-                                B, S, H, P, N, C, s);
-  return repro::launch_pt<64>(f(x), f(dt), f(a), f(b), f(c), cbf, yf, sf, B,
-                              S, H, P, N, C, s);
+                                cs, B, S, H, P, N, C, s);
+  return repro::launch_pt<64>(f(x), f(dt), f(a), f(b), f(c), cbf, yf, sf,
+                              cs, B, S, H, P, N, C, s);
 }

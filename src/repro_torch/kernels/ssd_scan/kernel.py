@@ -1,5 +1,6 @@
-"""Hand-written Hopper kernels for the Mamba2 SSD chunked scan, launched
-through ctypes (source: ``repro_torch/csrc/ssd_scan.cu``).
+"""Hand-written Hopper kernels for the Mamba2 SSD chunked scan and its
+gradient, launched through ctypes (sources: ``repro_torch/csrc/ssd_scan.cu``
+and ``ssd_scan_bwd.cu``).
 
 ``ssd_scan_kernel`` replaces the TPU kernel of the same name in
 ``src/repro/kernels/ssd_scan/kernel.py`` (body ``_kernel``).  One call
@@ -14,7 +15,15 @@ Takes CUDA tensors only; validates device, dtype, shape, contiguity and
 the widths the tensor-core tiles take (P <= 64, N <= 128, chunk <= 128
 once cut to S), allocates the outputs and the scratch, launches on the
 current stream and raises if the launch is refused.  It does not
-synchronise."""
+synchronise.  Given ``with_states``, the forward also writes each chunk's
+incoming state, which ``ssd_scan_bwd_kernel`` reads beside the forward's
+C.B^T scratch.
+
+``ssd_scan_bwd_kernel`` replaces no TPU kernel (the JAX package
+differentiates its plain ``jnp`` scan): from the forward's inputs, its
+chunk states and C.B^T scratch, dy and the final state's gradient it
+computes (dx, ddt, da, db, dc) in four CUDA kernels on the CUDA cores in
+plain f32, the same widths as the forward.  The source says more."""
 from __future__ import annotations
 
 import functools
@@ -69,15 +78,16 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def ssd_scan_kernel(x, dt, a, b, c, *, chunk: int,
-                    p_tile: Optional[int] = None,
-                    scratch: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, H, P]; dt: [B, S, H]; a: [H]; b, c: [B, S, N], all f32
-    -> (y [B, S, H, P], final state [B, H, P, N]), f32.  ``p_tile`` (32
-    or 64) overrides :func:`p_tile_for`; ``scratch``, if given, is the
-    f32 CUDA tensor of :func:`scratch_shape` that receives C.B^T (else
-    one is allocated)."""
+def states_shape(bsz: int, s: int, h: int, p: int, n: int,
+                 chunk: int) -> Tuple[int, int, int, int, int]:
+    """Shape of the chunks' incoming states the forward writes for the
+    backward: [B, chunks, H, P, N], chunks = ceil(S / min(chunk, S))."""
+    return bsz, -(-s // min(chunk, s)), h, p, n
+
+
+def _check_inputs(x, dt, a, b, c) -> Tuple[int, int, int, int, int]:
+    """Device, dtype, contiguity and shapes of the scan's inputs; returns
+    (B, S, H, P, N)."""
     f32 = torch.float32
     check_cuda("x", x, dtype=f32, dim=4)
     check_cuda("dt", dt, dtype=f32, dim=3)
@@ -91,6 +101,21 @@ def ssd_scan_kernel(x, dt, a, b, c, *, chunk: int,
         raise ValueError(
             f"shape mismatch: x {tuple(x.shape)}, dt {tuple(dt.shape)}, a "
             f"{tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}")
+    return bsz, s, h, p, n
+
+
+def ssd_scan_kernel(x, dt, a, b, c, *, chunk: int,
+                    p_tile: Optional[int] = None,
+                    scratch: Optional[torch.Tensor] = None,
+                    with_states: bool = False):
+    """x: [B, S, H, P]; dt: [B, S, H]; a: [H]; b, c: [B, S, N], all f32
+    -> (y [B, S, H, P], final state [B, H, P, N]), f32, and with
+    ``with_states`` also each chunk's incoming state (:func:`states_shape`).
+    ``p_tile`` (32 or 64) overrides :func:`p_tile_for`; ``scratch``, if
+    given, is the f32 CUDA tensor of :func:`scratch_shape` that receives
+    C.B^T (else one is allocated)."""
+    f32 = torch.float32
+    bsz, s, h, p, n = _check_inputs(x, dt, a, b, c)
     check_widths(p, n, s, chunk)
     if p_tile is None:
         p_tile = p_tile_for(bsz, h, p, _sm_count(x.device.index))
@@ -106,11 +131,66 @@ def ssd_scan_kernel(x, dt, a, b, c, *, chunk: int,
                              f"{tuple(scratch.shape)}")
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=f32, device=x.device)
+    states = (torch.empty(states_shape(bsz, s, h, p, n, chunk), dtype=f32,
+                          device=x.device) if with_states else None)
     with torch.cuda.device(x.device):
         rc = load_library().repro_ssd_scan(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), y.data_ptr(), state.data_ptr(),
+            states.data_ptr() if with_states else None,
             scratch.data_ptr(), bsz, s, h, p, n, chunk, p_tile,
             torch.cuda.current_stream(x.device).cuda_stream)
     raise_on(rc, "ssd_scan")
-    return y, state
+    return (y, state, states) if with_states else (y, state)
+
+
+def ssd_scan_bwd_kernel(x, dt, a, b, c, dy, states, cb,
+                        dstate: Optional[torch.Tensor] = None, *,
+                        chunk: int) -> Tuple[torch.Tensor, ...]:
+    """The scan's gradient: the forward's inputs (as
+    :func:`ssd_scan_kernel`), dy [B, S, H, P], ``states`` and ``cb``
+    (each chunk's incoming state and the C.B^T scratch of
+    :func:`scratch_shape`, from ``ssd_scan_kernel(..., scratch=cb,
+    with_states=True)``) and ``dstate`` [B, H, P, N] (None: the final
+    state was dropped), all f32 -> (dx [B, S, H, P], ddt [B, S, H], da
+    [H], db [B, S, N], dc [B, S, N]), f32.  Allocates the f32 scratch:
+    each chunk's outgoing state gradient, db and dc by head, dcum and da
+    by block."""
+    f32 = torch.float32
+    bsz, s, h, p, n = _check_inputs(x, dt, a, b, c)
+    check_widths(p, n, s, chunk)
+    check_cuda("dy", dy, dtype=f32, dim=4)
+    check_cuda("states", states, dtype=f32, dim=5)
+    check_cuda("cb", cb, dtype=f32, dim=4)
+    if dy.shape != x.shape:
+        raise ValueError(f"dy must be {tuple(x.shape)}, got "
+                         f"{tuple(dy.shape)}")
+    shape = states_shape(bsz, s, h, p, n, chunk)
+    if states.shape != shape:
+        raise ValueError(f"states must be {shape}, got "
+                         f"{tuple(states.shape)}")
+    if cb.shape != scratch_shape(bsz, s, chunk):
+        raise ValueError(f"cb must be {scratch_shape(bsz, s, chunk)}, got "
+                         f"{tuple(cb.shape)}")
+    if dstate is not None:
+        check_cuda("dstate", dstate, dtype=f32, dim=4)
+        if dstate.shape != (bsz, h, p, n):
+            raise ValueError(f"dstate must be {(bsz, h, p, n)}, got "
+                             f"{tuple(dstate.shape)}")
+    nc = shape[1]
+    new = functools.partial(torch.empty, dtype=f32, device=x.device)
+    dx, ddt, db, dc = (torch.empty_like(t) for t in (x, dt, b, c))
+    da = new((h,))
+    if not (bsz and h):          # no rows or no heads: nothing to launch
+        return dx, ddt, da.zero_(), db.zero_(), dc.zero_()
+    scratch = [new(shape), new((bsz, s, h, n)),
+               new((bsz, s, h, n)), new((bsz, s, h)), new((bsz, nc, h))]
+    with torch.cuda.device(x.device):
+        rc = load_library().repro_ssd_scan_bwd(
+            *(t.data_ptr() for t in (x, dt, a, b, c, dy, states, cb)),
+            None if dstate is None else dstate.data_ptr(),
+            *(t.data_ptr() for t in (dx, ddt, da, db, dc, *scratch)),
+            bsz, s, h, p, n, chunk,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    raise_on(rc, "ssd_scan_bwd")
+    return dx, ddt, da, db, dc

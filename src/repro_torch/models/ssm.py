@@ -2,9 +2,11 @@
 reference package's ``models/ssm.py``).
 
 ``mamba_forward`` runs the full-sequence block; its chunked scan goes
-through ``ops.ssd_scan``: the hand-written CUDA kernel on the card, the
+through ``ops.ssd_scan``: the hand-written CUDA kernel on the card (and,
+where the inputs need a gradient, its hand-written backward kernel), the
 plain chunked version (``ssd_chunked_ref``, the reference model's own
-``ssd_chunked``) on the CPU.  ``mamba_decode`` is the one-token
+``ssd_chunked``) under autograd on the CPU.  The scan computes in f32
+whatever the activations' dtype.  ``mamba_decode`` is the one-token
 recurrent step in plain PyTorch, as in the reference, where it runs no
 kernel either."""
 from __future__ import annotations

@@ -42,9 +42,9 @@ prediction over ``params["mtp"]``, which only training reads).  Each
 block is recomputed in the backward pass (``torch.utils.checkpoint``,
 the reference's ``nothing_saveable`` remat) unless ``cfg.remat_mode`` is
 ``"none"``; it changes memory, not values.  On the card the attention's
-gradient is the flash kernel's backward kernel; the SSD scan has no
-backward kernel yet, so training the SSM and hybrid families on the card
-raises (``kernels/ssd_scan/ops.py``).
+gradient is the flash kernel's backward kernel and the SSD scan's is the
+scan's backward kernel (``kernels/ssd_scan/ops.py`` ``SsdScanFn``), so
+every family trains there.
 
 Where the reference is functional (``.at[].set`` on donated buffers),
 this port writes into the caches, the pools and the engine's state

@@ -14,7 +14,21 @@ hand-written CUDA kernel is compared with the plain versions by the
 The kernel computes its products on the tensor cores in 3xTF32; a CPU
 emulation of that split at mamba2-780m's widths records why: 3xTF32
 meets the chunked tolerance, one tf32 product does not.
+
+The gradient: ``ssd_scan_bwd_ref`` (the backward kernel's formulas,
+written out chunk by chunk) against autograd of ``ssd_chunked_ref`` and
+``jax.vjp`` of the reference's ``ssd_chunked`` at 2e-4 of each output's
+largest magnitude, on shapes that span several chunks (S 256 with chunk
+128, a ragged S 200 with chunk 64), S below the chunk, mamba2-780m's and
+hymba-1.5b's widths, with the final state's gradient dropped and given;
+on the CPU a call that needs a gradient runs the plain scan under
+autograd.  On the card (``cuda``-marked) the backward kernel against
+the plain version at both models' widths, a ragged S and several
+chunks, two launches bit-equal, the forward's stored chunk states, the
+autograd wrapper launching the forward and the backward once each, and
+widths the kernel does not take raising before any launch.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,6 +119,83 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     args = [torch.from_numpy(a) for a in _inputs(1, 16, 2, 32, 16)]
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernel.ssd_scan_kernel(*args, chunk=8)
+    dy = torch.zeros_like(args[0])
+    states = torch.zeros(kernel.states_shape(1, 16, 2, 32, 16, 8))
+    cb = torch.zeros(kernel.scratch_shape(1, 16, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernel.ssd_scan_bwd_kernel(*args, dy, states, cb, chunk=8)
+
+
+# ---------------------------------------------------------------------------
+# the gradient
+# ---------------------------------------------------------------------------
+
+# (B, S, H, P, N, chunk): S 256 over two chunks of 128, a ragged S 200
+# over chunks of 64, S below the chunk, mamba2-780m's widths (P 64, N
+# 128) and hymba-1.5b's (P 64, N 16) over two chunks of 128
+BWD_SHAPES = [(2, 256, 3, 32, 16, 128), (2, 200, 3, 32, 16, 64),
+              (2, 40, 2, 32, 16, 64), (1, 256, 4, 64, 128, 128),
+              (2, 256, 5, 64, 16, 128)]
+BWD_NAMES = ("dx", "ddt", "da", "db", "dc")
+
+
+def _bwd_inputs(b, s, h, p, n, seed=0):
+    """The scan's inputs, then dy and a final-state gradient, unit
+    normal."""
+    rng = np.random.default_rng(seed + 100)
+    return (_inputs(b, s, h, p, n, seed),
+            rng.normal(size=(b, s, h, p)).astype(np.float32),
+            rng.normal(size=(b, h, p, n)).astype(np.float32))
+
+
+def _held(got, want, tol=CHUNKED_TOL):
+    """Each output's largest error over that output's largest magnitude,
+    all within ``tol``."""
+    for name, g, w in zip(BWD_NAMES, got, want):
+        w = np.asarray(w, np.float64)
+        assert g.shape == w.shape, (name, g.shape, w.shape)
+        scale = max(np.abs(w).max(), 1e-30)
+        assert _max_err(g, w) <= tol * scale, (name, _max_err(g, w), scale)
+
+
+@pytest.mark.parametrize("given", [False, True], ids=["dropped", "dstate"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", BWD_SHAPES)
+def test_bwd_ref_matches_autograd_and_jax_vjp(b, s, h, p, n, chunk, given):
+    """``ssd_scan_bwd_ref`` against torch autograd of ``ssd_chunked_ref``
+    (which cuts the chunk until it divides S: 50 at S 200) and against
+    ``jax.vjp`` of the reference's ``ssd_chunked`` on the same numpy
+    inputs, each output at 2e-4 of its largest magnitude."""
+    args, dy, ds = _bwd_inputs(b, s, h, p, n)
+    targs = [torch.from_numpy(a) for a in args]
+    tdy, tds = torch.from_numpy(dy), torch.from_numpy(ds)
+    got = ref.ssd_scan_bwd_ref(*targs, tdy, tds if given else None, chunk)
+    leaves = [t.clone().requires_grad_() for t in targs]
+    y, st = ref.ssd_chunked_ref(*leaves, chunk)
+    want = torch.autograd.grad((y, st), leaves,
+                               (tdy, tds if given else torch.zeros_like(st)))
+    _held(got, want)
+    _, vjp = jax.vjp(lambda *a: jax_chunked(*a, chunk),
+                     *(jnp.asarray(a) for a in args))
+    jwant = vjp((jnp.asarray(dy),
+                 jnp.asarray(ds if given else np.zeros_like(ds))))
+    _held(got, jwant)
+
+
+def test_cpu_gradient_runs_the_plain_scan_under_autograd():
+    """A CPU call whose inputs need a gradient: one plain call, no launch
+    of either kernel, and autograd's gradient equals the plain
+    backward's."""
+    ops.reset_counts()
+    args, dy, _ = _bwd_inputs(1, 48, 2, 32, 16)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    y, _ = ops.ssd_scan(*leaves, 16)
+    got = torch.autograd.grad(y, leaves, torch.from_numpy(dy))
+    assert (ops.ssd_scan.plain_calls, ops.ssd_scan.launches,
+            ops.ssd_scan_bwd.launches) == (1, 0, 0)
+    assert ops.ssd_scan_bwd in ops.KERNELS
+    want = ref.ssd_scan_bwd_ref(*(t.detach() for t in leaves),
+                                torch.from_numpy(dy), None, 16)
+    _held(got, want)
 
 
 def _tf32(t):
@@ -280,3 +371,113 @@ def test_cuda_scan_at_hymba_widths(bsz, s, p_tile):
                 assert torch.isfinite(got).all()
                 lim = tol or CHUNKED_TOL * max(1.0, want.abs().max().item())
                 assert (got - want).abs().max().item() < lim, (bsz, s)
+
+
+# the backward's card shapes (B, S, H, P, N, chunk): mamba2-780m's widths
+# over two chunks and ragged, hymba-1.5b's heads and widths, several
+# chunks of 64 with a ragged S, S below the chunk, and ragged P and N
+CUDA_BWD_SHAPES = [(2, 256, 4, 64, 128, 128), (2, 200, 3, 64, 128, 128),
+                   (2, 256, 25, 64, 16, 128), (3, 200, 25, 64, 16, 128),
+                   (2, 200, 3, 32, 16, 64), (2, 40, 2, 32, 16, 64),
+                   (1, 40, 2, 33, 18, 16)]
+
+
+def _hold_bwd(got, args, dy, dstate, chunk):
+    """The backward kernel's hold: each output within 2e-4 of its largest
+    magnitude of the plain version in f32, or, where the plain f32
+    version itself lies that far from its f64 run (da sums long runs of
+    both signs), no farther from the f64 run than the plain f32 version
+    is."""
+    want = ref.ssd_scan_bwd_ref(*args, dy, dstate, chunk)
+    exact = ref.ssd_scan_bwd_ref(*(t.double() for t in args), dy.double(),
+                                 None if dstate is None else dstate.double(),
+                                 chunk)
+    for name, g, w, e in zip(BWD_NAMES, got, want, exact):
+        assert torch.isfinite(g).all(), name
+        scale = max(w.abs().max().item(), 1e-30)
+        err = (g - w).abs().max().item()
+        if err > CHUNKED_TOL * scale:
+            assert ((g.double() - e).abs().max().item()
+                    <= (w.double() - e).abs().max().item()), (name, err,
+                                                              scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given", [False, True], ids=["dropped", "dstate"])
+def test_cuda_bwd_kernel_matches_plain_version(given):
+    """The backward kernel from the forward kernel's stored chunk states
+    and C.B^T scratch, held by :func:`_hold_bwd` on ``CUDA_BWD_SHAPES``; the stored states
+    against the plain scan's final state of each chunk's prefix at 2e-4
+    of scale; a second launch gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for bsz, s, h, p, n, chunk in CUDA_BWD_SHAPES:
+        raw, dy, ds = _bwd_inputs(bsz, s, h, p, n, seed=7)
+        args = [torch.from_numpy(a).cuda() for a in raw]
+        tdy = torch.from_numpy(dy).cuda()
+        tds = torch.from_numpy(ds).cuda() if given else None
+        cb = torch.empty(kernel.scratch_shape(bsz, s, chunk), device="cuda")
+        _, _, states = kernel.ssd_scan_kernel(*args, chunk=chunk, scratch=cb,
+                                              with_states=True)
+        cl = min(chunk, s)
+        for z in range(states.shape[1]):
+            want = (ref.ssd_chunked_ref(*(t[:, :z * cl] if t.dim() > 1 else t
+                                          for t in args), chunk)[1]
+                    if z else torch.zeros_like(states[:, 0]))
+            lim = CHUNKED_TOL * max(1.0, want.abs().max().item())
+            assert (states[:, z] - want).abs().max().item() <= lim, (s, z)
+        got = kernel.ssd_scan_bwd_kernel(*args, tdy, states, cb, tds,
+                                         chunk=chunk)
+        _hold_bwd(got, args, tdy, tds, chunk)
+        again = kernel.ssd_scan_bwd_kernel(*args, tdy, states, cb, tds,
+                                           chunk=chunk)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_launches_the_forward_and_backward_once():
+    """``ops.ssd_scan`` on CUDA leaves that need a gradient, at
+    mamba2-780m's and hymba-1.5b's widths: one forward and one backward
+    launch, no plain call, and the gradient held by :func:`_hold_bwd`,
+    with the final state's gradient given and dropped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for (bsz, s, h, p, n, chunk), given in (((2, 256, 4, 64, 128, 128), True),
+                                           ((2, 256, 25, 64, 16, 128),
+                                            False)):
+        raw, dy, ds = _bwd_inputs(bsz, s, h, p, n, seed=8)
+        leaves = [torch.from_numpy(a).cuda().requires_grad_() for a in raw]
+        tdy = torch.from_numpy(dy).cuda()
+        tds = torch.from_numpy(ds).cuda() if given else None
+        ops.reset_counts()
+        y, st = ops.ssd_scan(*leaves, chunk)
+        outs, grads = ((y, st), (tdy, tds)) if given else ((y,), (tdy,))
+        got = torch.autograd.grad(outs, leaves, grads)
+        assert (ops.ssd_scan.launches, ops.ssd_scan_bwd.launches,
+                ops.ssd_scan.plain_calls) == (1, 1, 0)
+        _hold_bwd(got, [t.detach() for t in leaves], tdy, tds, chunk)
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_refuses_widths_before_launch():
+    """P above 64, N above 128 and a chunk above 128 raise a ValueError
+    in the backward's wrapper, as in the forward's, and launch
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    for p, n, chunk in [(128, 16, 64), (64, 256, 64), (64, 16, 256)]:
+        raw, dy, _ = _bwd_inputs(1, 256, 2, p, n)
+        args = [torch.from_numpy(a).cuda() for a in raw]
+        states = torch.zeros(kernel.states_shape(1, 256, 2, p, n, chunk),
+                             device="cuda")
+        cb = torch.zeros(kernel.scratch_shape(1, 256, chunk), device="cuda")
+        ops.reset_counts()
+        with pytest.raises(ValueError):
+            ops.ssd_scan_bwd(*args, torch.from_numpy(dy).cuda(), states, cb,
+                             None, chunk)
+        leaves = [t.requires_grad_() for t in args]
+        with pytest.raises(ValueError):
+            ops.ssd_scan(*leaves, chunk)
+        assert (ops.ssd_scan.launches, ops.ssd_scan_bwd.launches) == (0, 0)

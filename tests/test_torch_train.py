@@ -4,8 +4,10 @@ by ``params_from_numpy``:
 
 - ``model.loss_fn`` (loss, ``ce`` and the MoE ``aux``) for every arch of
   ``configs/`` at 2e-4 of scale, and every gradient leaf at 2e-4 of the
-  largest for smollm-135m, olmoe-1b-7b, whisper-large-v3 and
-  deepseek-v3-671b (its multi-token-prediction head on);
+  largest for smollm-135m, olmoe-1b-7b, whisper-large-v3,
+  deepseek-v3-671b (its multi-token-prediction head on), mamba2-780m and
+  hymba-1.5b; the loss and every gradient leaf of mamba2-780m again at S
+  256, where the scan crosses eight chunks;
 - three ``make_train_step`` steps of smollm-135m: loss, grad norm, lr
   and the parameters after each (whisper's gradients and the
   free-running steps' grad norm held as their tests say); and three at
@@ -25,9 +27,11 @@ by ``params_from_numpy``:
 - the reference's ``test_train_loss_descends`` through the port's
   launcher.
 
-On the CPU the flash wrapper runs its plain version under autograd; the
-kernels' gradient on the card is held in ``test_torch_flash_attention.py``
-and by ``chip_smoke.py`` phase 23.
+On the CPU the flash and scan wrappers run their plain versions under
+autograd; the kernels' gradients on the card are held in
+``test_torch_flash_attention.py`` and ``test_torch_ssd_scan.py`` and by
+``chip_smoke.py`` phases 23 (smollm-135m) and 24 (mamba2-780m and
+hymba-1.5b).
 """
 import dataclasses
 import functools
@@ -63,18 +67,20 @@ torch.set_num_threads(1)
 TOL = 2e-4            # f32, of the reference's scale
 OPT_TOL = 1e-6        # AdamW's update on one tree
 GRAD_ARCHS = ("smollm-135m", "olmoe-1b-7b", "whisper-large-v3",
-              "deepseek-v3-671b")
+              "deepseek-v3-671b", "mamba2-780m", "hymba-1.5b")
 B, S = 2, 16
+S_LONG = 256          # eight chunks of the reduced SSM configs' 32
 
 
 @functools.lru_cache(maxsize=None)
-def _setup(arch):
-    """(JAX config, port config, JAX params, port params, numpy batch)."""
+def _setup(arch, s=S):
+    """(JAX config, port config, JAX params, port params, numpy batch of
+    ``s`` tokens a row)."""
     jcfg, cfg = jax_config(arch).reduced(), get_config(arch).reduced()
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     rng = np.random.default_rng(1)
-    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, s)).astype(
         np.int32)}
     if cfg.family == "vlm":
         batch["patches"] = rng.standard_normal(
@@ -195,6 +201,28 @@ def test_grads_match_jax(arch):
             f"{name}: the port's f32 gradient is {e / scale:.3e} of scale "
             f"from the reference's f32 one, which is {ref_err / scale:.3e} "
             f"from its f64 run")
+
+
+def test_ssm_loss_and_grads_match_jax_across_chunks():
+    """mamba2-780m at S 256, eight chunks of the reduced config's 32, so
+    the scan's gradient crosses chunks (``_setup``'s S 16 is one chunk):
+    the loss at 2e-4 of scale and every gradient leaf at 2e-4 of the
+    tree's largest gradient magnitude.  (The hybrid's embedding gradient
+    at S 256 is ill-conditioned in f32: each package's f32 leaf lies ~1e-3
+    of scale from an f64 run, its attention's share the larger, so two
+    f32 runs cannot meet 2e-4 there; its scan's gradient across chunks
+    at its widths is held in ``test_torch_ssd_scan.py``.)"""
+    jcfg, cfg, jp, tp, batch = _setup("mamba2-780m", S_LONG)
+    assert cfg.ssm.chunk_size * 8 == S_LONG
+    jl, _ = JM.loss_fn(jp, jcfg, _jbatch(batch), act_dtype=jnp.float32)
+    want = _jax_grads(jcfg, jp, batch)
+    loss, _, tgrads = _port_grads(cfg, tp, batch)
+    _close(loss.detach(), jl)
+    got = _flat(tgrads)
+    assert sorted(got) == sorted(want)
+    scale = max(np.abs(w).max() for w in want.values())
+    for name, w in want.items():
+        _close(got[name], w, scale=scale)
 
 
 def test_train_step_matches_jax():
