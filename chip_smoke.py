@@ -362,10 +362,30 @@ CUDA toolkit.  Phases, each fatal on failure:
    the same way.  (e) The scan's forward (with its state store) and
    backward timed at both training calls beside their plain versions
    and bounds.
+25. sanitized serves under PyTorch's sync detector (``sync_phase``):
+   the port's hot-path lint (``repro_torch/analysis/hotlint.py``) swept
+   over ``src/repro_torch`` must report nothing; then, with
+   ``REPRO_SANITIZE=1`` and ``torch.cuda.set_sync_debug_mode("warn")``
+   (a ``warnings.showwarning`` hook records each reported call's
+   innermost ``repro_torch`` frame), one path to each of the six counted
+   sync sites, every engine warmed (its graph captured) first: (a)
+   phase 15's chaos plan on chatglm-6b uncut in bf16 (``step_window``,
+   its NaN guard, ``_swap_out``); (b) a speculative serve
+   (``_spec_window``), (c) one ``snapshot``, (d) one padded
+   ``BatchEngine`` batch after a warm one (``serve_batch``), (e)
+   ``ContinuousEngine.step``s, at chatglm-6b's widths cut to 2 layers.
+   Fatal checks: the ledger's sites equal the lint's
+   ``collect_sync_sites``, ``check_sync_ledger`` passes on them, the
+   ledger sums to the engines' ``host_syncs`` (and each path's to its
+   own), every reported synchronising call sits at a site the lint
+   suppresses (counted or ``uncounted:``), and no window of (a) reports
+   more syncs than the ledger counts in it.  Logged: each path's ledger
+   and detector counts by site and line, each window's pair, the
+   phase's seconds.
 
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves; phase 14 runs right after
-phase 5, then phases 15 to 24 last.  The line before the
+phase 5, then phases 15 to 25 last.  The line before the
 last is a JSON object with one entry per kernel (eight: the six TPU
 kernels' counterparts, the flash backward and the scan's backward); the
 last line is
@@ -6111,6 +6131,333 @@ def time_int8(torch, dops, dref, calls, spin):
 
 
 # ---------------------------------------------------------------------------
+# phase 25: sanitized serves under PyTorch's sync detector (§13)
+# ---------------------------------------------------------------------------
+
+SYNC_CUT = 2                   # chatglm-6b's layers in (b)-(e)
+SYNC_SERVE = 16                # phase 5's first requests in (b)-(e)
+SYNC_STEPS = 4                 # ContinuousEngine steps under the detector
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class sync_detector:
+    """Inside the block, ``torch.cuda.set_sync_debug_mode("warn")``
+    reports every synchronising CUDA call the process makes as a
+    warning, under ``warnings.catch_warnings(record=True)`` with
+    ``simplefilter("always")``.  The warning carries no frame, so a
+    ``warnings.showwarning`` hook takes ``traceback.extract_stack()`` and
+    records the innermost ``repro_torch`` frame of the call (file
+    basename, function, line; None when none is on the stack) in
+    :attr:`records`.  Only the detector's own warning is recorded (not
+    its "prototype feature" notice)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.records = []
+
+    def __enter__(self):
+        import traceback
+        import warnings
+
+        def hook(message, category, filename, lineno, file=None, line=None):
+            if SYNC_WARNING not in str(message):
+                return
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "/repro_torch/" in f.filename.replace(os.sep, "/")]
+            self.records.append(
+                (os.path.basename(frames[-1].filename), frames[-1].name,
+                 frames[-1].lineno) if frames else None)
+
+        self.torch.cuda.synchronize()
+        self._cw = warnings.catch_warnings(record=True)
+        self._cw.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+        self._cw.__exit__(*exc)
+
+    def by_site(self, records=None):
+        out = {}
+        for r in self.records if records is None else records:
+            site = r[:2] if r is not None else None
+            out[site] = out.get(site, 0) + 1
+        return out
+
+
+def detector_calibration(torch):
+    """What the sync detector reports on this card's PyTorch, one call
+    at a time: name -> number of synchronising calls reported.  Fails
+    unless the calls that wait for the device (a readback, a blocking
+    copy either way, an index write of a Python value, a stream's
+    synchronize, a data-dependent shape) are reported and their
+    asynchronous forms (``fill_``, ``non_blocking`` copies) are not, so
+    that a silent detector cannot pass the phase."""
+    dev = torch.device("cuda")
+    x = torch.arange(16, device=dev, dtype=torch.float32)
+    pinned = torch.empty(16, pin_memory=True)
+    host = torch.ones(16)
+    event = torch.cuda.Event()
+    event.record()
+
+    def capture():
+        graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        y = torch.zeros(16, device=dev)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            y.add_(1)
+            graph.capture_begin()
+            y.add_(1)
+            graph.capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph.replay()
+
+    calls = {
+        "item": lambda: x[0].item(),
+        "cpu": lambda: x.cpu(),
+        "stream_synchronize":
+            lambda: torch.cuda.current_stream().synchronize(),
+        "index_write_scalar": lambda: x.__setitem__(0, 1.0),
+        "copy_to_pinned": lambda: pinned.copy_(x),
+        "to_device": lambda: host.to(dev),
+        "nonzero": lambda: x.nonzero(),
+        "fill_": lambda: x[0].fill_(1.0),
+        "copy_to_pinned_non_blocking":
+            lambda: pinned.copy_(x, non_blocking=True),
+        "to_device_non_blocking": lambda: host.to(dev, non_blocking=True),
+        "device_synchronize": lambda: torch.cuda.synchronize(),
+        "event_synchronize": lambda: event.synchronize(),
+        "graph_capture_and_replay": capture,
+    }
+    out = {}
+    for name, fn in calls.items():
+        with sync_detector(torch) as det:
+            fn()
+        out[name] = len(det.records)
+    waits = ("item", "cpu", "stream_synchronize", "index_write_scalar",
+             "copy_to_pinned", "to_device", "nonzero")
+    asynchronous = ("fill_", "copy_to_pinned_non_blocking",
+                    "to_device_non_blocking")
+    check(all(out[n] >= 1 for n in waits)
+          and not any(out[n] for n in asynchronous),
+          f"phase 25: the sync detector's reports {out}")
+    return out
+
+
+def _ledger_delta(before, after):
+    return {k: after.get(k, 0) - before.get(k, 0) for k in after
+            if after.get(k, 0) != before.get(k, 0)}
+
+
+def sync_phase(torch, src):
+    """Phase 25: the lint's sweep of the tree, then one path to each of
+    the six counted sync sites under ``REPRO_SANITIZE=1`` and PyTorch's
+    sync detector, every engine warmed (its graph captured) first:
+    (a) phase 15's chaos plan on chatglm-6b uncut in bf16 (``step_window``
+    and its NaN guard, ``_swap_out``), each window's detector syncs held
+    against the ledger's counts in it; (b) a speculative serve
+    (``_spec_window``); (c) one snapshot (``snapshot``); (d) one padded
+    ``BatchEngine`` batch (``serve_batch``), after a first batch that
+    warms its path; (e) ``ContinuousEngine.step``s.  (b)-(e) run at
+    chatglm-6b's widths cut to ``SYNC_CUT`` layers.  Returns what the
+    log and PERF.md need."""
+    import dataclasses
+    import tempfile
+    from repro_torch.analysis import hotlint
+    from repro_torch.analysis import sanitizer as san
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import Batch
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import (BatchEngine, ContinuousEngine,
+                                            PagedContinuousEngine,
+                                            drive_paged)
+    from repro_torch.serving.faults import FaultEvent, FaultInjector
+    from repro_torch.workload.apps import make_shared_head_dataset
+
+    t_phase = time.perf_counter()
+    tree = os.path.join(src, "repro_torch")
+    findings = hotlint.lint([tree])
+    check(not findings, "the lint's sweep of src/repro_torch: "
+          + "; ".join(f.render() for f in findings))
+    static = hotlint.collect_sync_sites([tree])
+    suppressed = hotlint.suppressed_sync_sites([tree])
+    log(f"phase 25: lint sweep clean; counted sites {sorted(static)}; "
+        f"suppressed sites {sorted(suppressed.items())}")
+    calibration = detector_calibration(torch)
+    log(f"phase 25: synchronising calls the detector reports, one call "
+        f"each: {json.dumps(calibration)}")
+
+    saved = os.environ.get("REPRO_SANITIZE")
+    os.environ["REPRO_SANITIZE"] = "1"
+    san.reset_sync_ledger()
+    paths = {}
+    engine_syncs = 0           # every engine's host_syncs, warm-ups too
+    try:
+        cfg = get_config("chatglm-6b")
+        reqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
+                                        gen_length=GEN_LENGTH, seed=0)
+
+        def run(label, engine, fn):
+            """``fn()`` under the detector; the ledger's and the engine's
+            counts of it."""
+            led0, syncs0 = san.sync_ledger(), engine.host_syncs
+            with sync_detector(torch) as det:
+                fn()
+                torch.cuda.current_stream().query()
+            paths[label] = {"ledger": _ledger_delta(led0, san.sync_ledger()),
+                            "host_syncs": engine.host_syncs - syncs0,
+                            "detector": det.by_site(),
+                            "records": list(det.records)}
+            return det
+
+        # (a) the chaos plan on chatglm-6b uncut, warmed first
+        params = M.init_params(cfg, seed=0, device="cuda",
+                               dtype=torch.bfloat16)
+        inj = FaultInjector(chaos_plan(FaultEvent))
+        eng = PagedContinuousEngine(
+            cfg, params, device="cuda", dtype=torch.bfloat16, faults=inj,
+            default_ttl=CHAOS_TTL, swap_blocks=CHAOS_SWAP_BLOCKS,
+            prefix_cache=True, warmup=True, **CHAOS)
+        windows = []
+        step_window = eng.step_window
+
+        def counted_window(*a, **kw):
+            led0, n0 = san.sync_ledger(), len(det_a.records)
+            try:
+                return step_window(*a, **kw)
+            finally:
+                windows.append((sum(_ledger_delta(
+                    led0, san.sync_ledger()).values()),
+                    len(det_a.records) - n0))
+
+        eng.step_window = counted_window
+        det_a = sync_detector(torch)
+        led0, syncs0 = san.sync_ledger(), eng.host_syncs
+        with det_a:
+            st = drive_paged(eng, list(reqs), max_steps=100_000)
+            torch.cuda.current_stream().query()
+        del eng.step_window
+        paths["chaos"] = {"ledger": _ledger_delta(led0, san.sync_ledger()),
+                          "host_syncs": eng.host_syncs - syncs0,
+                          "detector": det_a.by_site(),
+                          "records": list(det_a.records),
+                          "served": st["served"], "windows": len(windows),
+                          "swap_outs": eng.swap_outs,
+                          "quarantined": eng.quarantined}
+        inj.release(eng.allocator)
+        check(eng.graph_captures == 1 and eng.swap_outs > 0
+              and eng.quarantined > 0,
+              f"phase 25 (a): captures {eng.graph_captures}, swap-outs "
+              f"{eng.swap_outs}, quarantined {eng.quarantined}")
+        over = [(i, w) for i, w in enumerate(windows) if w[1] > w[0]]
+        check(not over, f"phase 25 (a): windows whose detector syncs "
+              f"exceed the ledger's counts (window, (ledger, detector)): "
+              f"{over}")
+        engine_syncs += eng.host_syncs
+        del eng, params, inj
+        torch.cuda.empty_cache()
+
+        # (b)-(e) at chatglm-6b's widths cut to SYNC_CUT layers
+        cut = dataclasses.replace(cfg, num_layers=SYNC_CUT)
+        params = M.init_params(cut, seed=0, device="cuda",
+                               dtype=torch.bfloat16)
+        some = list(reqs[:SYNC_SERVE])
+        eng = PagedContinuousEngine(
+            cut, params, device="cuda", dtype=torch.bfloat16,
+            prefix_cache=True, spec_decode=True, draft_k=DRAFT_K,
+            warmup=True, **SERVE)
+        run("spec", eng, lambda: drive_paged(eng, list(some),
+                                             max_steps=100_000))
+        check(eng.graph_captures == 1 and eng.spec_windows > 0,
+              f"phase 25 (b): captures {eng.graph_captures}, spec windows "
+              f"{eng.spec_windows}")
+        engine_syncs += eng.host_syncs
+        del eng
+
+        eng = PagedContinuousEngine(cut, params, device="cuda",
+                                    dtype=torch.bfloat16, prefix_cache=True,
+                                    warmup=True, **SERVE)
+        eng.join_many(list(some))
+        eng.step_window()
+        eng.join_many([])          # a window boundary: no wave pending
+        with tempfile.TemporaryDirectory() as tmp:
+            run("snapshot", eng,
+                lambda: eng.snapshot(os.path.join(tmp, "snap.npz")))
+        engine_syncs += eng.host_syncs
+        del eng
+
+        be = BatchEngine(cut, params, device="cuda", dtype=torch.bfloat16,
+                         max_gen=GEN_LENGTH)
+        be.serve_batch(Batch(list(some[:8])))        # warms the path
+        run("padded", be, lambda: be.serve_batch(Batch(list(some[8:]))))
+        check(be.graph_captures == 2, f"phase 25 (d): {be.graph_captures} "
+              f"captures in two batches")
+
+        ce = ContinuousEngine(cut, params, device="cuda",
+                              dtype=torch.bfloat16, slots=4, max_len=256,
+                              max_gen=GEN_LENGTH)
+        for r in some[:4]:
+            ce.join(r)
+        ce.step()                                     # warms the step
+
+        def steps():
+            for _ in range(SYNC_STEPS):
+                ce.step()
+
+        run("continuous", ce, steps)
+        ledger = san.sync_ledger()
+        engine_syncs += be.host_syncs + ce.host_syncs
+        del ce, be, params
+        torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_SANITIZE", None)
+        else:
+            os.environ["REPRO_SANITIZE"] = saved
+
+    # the holds
+    check(set(ledger) == static,
+          f"phase 25: the ledger's sites {sorted(ledger)} are not the "
+          f"lint's {sorted(static)}")
+    san.check_sync_ledger(static)
+    check(sum(ledger.values()) == engine_syncs,
+          f"phase 25: the ledger sums to {sum(ledger.values())}, the "
+          f"engines' host_syncs to {engine_syncs}")
+    for label, p in paths.items():
+        check(sum(p["ledger"].values()) == p["host_syncs"],
+              f"phase 25 {label}: ledger {p['ledger']} against host_syncs "
+              f"{p['host_syncs']}")
+        stray = sorted({r for r in p["records"]
+                        if r is None or r[:2] not in suppressed},
+                       key=str)
+        check(not stray, f"phase 25 {label}: synchronising calls at "
+              f"frames the lint does not suppress: {stray}")
+    seconds = time.perf_counter() - t_phase
+    def sites(counts):
+        return json.dumps({"/".join(k) if k else "none": v
+                           for k, v in sorted(counts.items(), key=str)})
+
+    for label, p in paths.items():
+        lines = {str(r): p["records"].count(r) for r in set(p["records"])}
+        log(f"phase 25 {label}: ledger {sites(p['ledger'])}; host_syncs "
+            f"{p['host_syncs']}; detector by site {sites(p['detector'])}; "
+            f"by line {json.dumps(sorted(lines.items()))}")
+    log(f"phase 25 (a): {paths['chaos']['windows']} windows, "
+        f"(ledger, detector) syncs each: {windows}; served "
+        f"{paths['chaos']['served']}, swap-outs "
+        f"{paths['chaos']['swap_outs']}, quarantined "
+        f"{paths['chaos']['quarantined']}")
+    log(f"phase 25: six sites reached, the ledger equal to the lint's "
+        f"sites and to host_syncs ({engine_syncs}), every detector sync "
+        f"at a suppressed site; {seconds:.1f} s")
+    return {"paths": paths, "windows": windows, "seconds": seconds,
+            "calibration": calibration}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -6546,6 +6893,10 @@ def main() -> int:
         # kernel, then mamba2-780m and hymba-1.5b uncut
         t["ssd_scan_bwd"], scan_train_launches = ssm_train_phase(
             torch, np, fops, sops, sref, spin, reset_counts, counts)
+
+        # 25. the lint's sweep, then the six counted sync sites under
+        # REPRO_SANITIZE=1 and PyTorch's sync detector
+        sync_phase(torch, src)
 
         source = {"paged_decode_attention":
                   ("src/repro_torch/csrc/paged_decode_attention.cu",

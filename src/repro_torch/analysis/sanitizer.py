@@ -19,9 +19,10 @@
   retained set and the swap tier's device holds at teardown, sanitizer
   on or off.
 
-The reference's :func:`check_sync_ledger` compares the ledger with the
-static ``# hotlint: sync`` sites of its own lint; the port has no such
-lint yet (ROADMAP §1 item 7), so callers pass the sites they expect.
+:func:`check_sync_ledger` compares the ledger with the static
+``# hotlint: sync`` sites of the port's lint,
+``repro_torch.analysis.hotlint.collect_sync_sites`` (as the reference's
+compares with its own lint's).
 
 >>> s = ShadowAllocator()
 >>> s.on_allocate(0, [3])
@@ -135,7 +136,8 @@ def reset_sync_ledger() -> None:
 
 
 def check_sync_ledger(static_sites) -> None:
-    """Every observed sync site must be one of ``static_sites``."""
+    """Every observed sync site must be one of ``static_sites``, the
+    lint's ``hotlint.collect_sync_sites(["src/repro_torch"])``."""
     stray = sorted(set(_SYNC_LEDGER) - set(static_sites))
     if stray:
         raise SyncLedgerError(

@@ -47,7 +47,8 @@ def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
     dim = np.arange(d // 2)[None, :]
     ang = pos / np.power(10000.0, 2 * dim / d)
     table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
-    return torch.from_numpy(table.astype(np.float32)).to(device)
+    return torch.from_numpy(table.astype(np.float32)).to(device,
+                                                         non_blocking=True)
 
 
 def gelu_mlp(x: torch.Tensor, p) -> torch.Tensor:

@@ -785,7 +785,9 @@ def prefill_wave(params: Dict, cfg: ModelConfig, pages: Dict, state: Dict,
     sl = slots.long()
     state["tables"][sl] = tables.to(state["tables"].dtype)
     state["positions"][sl] = positions.to(state["positions"].dtype)
-    state["active"][sl] = True
+    # index_fill_, not ``[sl] = True``: an index write of a Python value
+    # copies it from the host and waits for the device
+    state["active"].index_fill_(0, sl, True)
     state["logits"][sl] = logits[row_sel.long()].to(state["logits"].dtype)
     return pages, state
 

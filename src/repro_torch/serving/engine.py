@@ -156,7 +156,9 @@ def _restore_slot(tables: torch.Tensor, positions: torch.Tensor,
     for bit, asynchronously from pinned memory on the card."""
     tables[slot].copy_(row)
     positions[slot:slot + 1].copy_(pos)
-    active[slot] = True
+    # fill_, not ``active[slot] = True``: an index write of a Python
+    # value copies it from the host and waits for the device
+    active[slot].fill_(True)
     logits[slot].copy_(logits_row, non_blocking=True)
 
 
@@ -299,6 +301,7 @@ class BatchEngine(_DenseEngine):
         # request finishes (request waiting!).  decode_time excludes the
         # prefill: a barrier, not a readback
         if self.device.type == "cuda":
+            # hotlint: sync(uncounted: decode_time barrier, not a readback)
             torch.cuda.synchronize(self.device)
         t_dec = time.perf_counter()
         graph, start = None, 0
@@ -323,7 +326,7 @@ class BatchEngine(_DenseEngine):
                     num_steps=k, act_dtype=self.dtype)
             else:
                 toks, start = graph.window(k, start), 0
-            # the window token readback: one sync per window
+            # hotlint: sync(window token readback — one sync per window)
             chunks.append(toks.cpu().numpy())
             self.host_syncs += count_sync()
             remaining -= k
@@ -370,6 +373,10 @@ class ContinuousEngine(_DenseEngine):
                                   device=self.device)
         self.positions = np.zeros(slots, np.int32)   # host mirror
 
+    # device-resident attrs: hotlint taints reads of these in hot regions
+    # (positions is a HOST mirror here, deliberately absent)
+    _DEVICE_STATE = ("cache", "logits")
+
     def _merge_cache_slot(self, slot: int, single_cache) -> None:
         """Copy a single-request prefill cache into slot ``slot``, leaf by
         leaf, each cut or zero-padded along axis 2 to the slot's (a KV
@@ -380,7 +387,7 @@ class ContinuousEngine(_DenseEngine):
             for dst, src in zip(leaves, single_cache[key]):
                 n = min(src.shape[2], dst.shape[2])
                 dst[:, slot, :n] = src[:, 0, :n].to(dst.dtype)
-                dst[:, slot, n:] = 0
+                dst[:, slot, n:].zero_()
 
     @property
     def has_capacity(self) -> bool:
@@ -426,6 +433,7 @@ class ContinuousEngine(_DenseEngine):
         self.positions = self.positions + 1
         # read the tokens back only after the decode step is queued: the
         # copy waits for the argmax, not for the step
+        # hotlint: sync(per-step token readback, overlapped with decode)
         tok_host = next_tok.cpu().numpy()
         self.host_syncs += count_sync()
         for slot, a in enumerate(self.active):
@@ -694,6 +702,14 @@ class PagedContinuousEngine:
             self.warmup()
 
     _NULL_SEQ = NULL_SEQ   # allocator seq_id owning the null block
+
+    # device-resident attrs: hotlint taints reads of these in hot regions,
+    # and flags any rebinding of them once a captured graph reads them
+    # (pos_host and the allocator tables are HOST mirrors, deliberately
+    # absent: reading them costs nothing)
+    _DEVICE_STATE = ("pages", "tables", "positions", "active_mask", "logits",
+                     "draft_pages", "draft_tables", "draft_logits",
+                     "_null_row")
 
     # §16: the allocator seq_ids owning a slot's DRAFT pool blocks live in
     # a negative band of their own, apart from NULL_SEQ (-1) and the
@@ -1128,8 +1144,10 @@ class PagedContinuousEngine:
             self.allocator.free_seq(self._draft_seq(slot))
             self.draft_tables[slot] = self._null_row
         self.tables[slot] = self._null_row
-        self.positions[slot] = 0
-        self.active_mask[slot] = False
+        # fill_, not an index write of a Python value, which copies it
+        # from the host and waits for the device
+        self.positions[slot].fill_(0)
+        self.active_mask[slot].fill_(False)
         self.pos_host[slot] = 0
         self.active[slot] = None
 
@@ -1221,6 +1239,7 @@ class PagedContinuousEngine:
         # the logits-row copy, in the logits' dtype, for a bit-exact resume
         logits_row = self.swap.host_empty(self.logits.shape[1:],
                                           self.logits.dtype)
+        # hotlint: sync(§15 swap-out logits-row snapshot for bit-exact resume)
         logits_row.copy_(self.logits[slot])
         self.host_syncs += count_sync()
         image = {"req": req, "generated": a["generated"],
@@ -1233,10 +1252,14 @@ class PagedContinuousEngine:
         self.allocator.free_seq(slot)
         self._release(slot)
         self.swap.swap_out(req.req_id, table, fresh, vals, self.allocator)
-        if fresh:
-            # the swap-out page copy: ONE readback per suspension
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+        if fresh and self.device.type == "cuda":
+            # the swap-out page copy: ONE readback per suspension (the
+            # tier's copies are asynchronous, so the wait for them is it)
+            # hotlint: sync(§15 swap-out page snapshot — ONE readback per suspension)
+            torch.cuda.current_stream(self.device).synchronize()
+            self.host_syncs += count_sync()
+        elif fresh:
+            # a CPU engine's copies have landed: the same one readback
             self.host_syncs += count_sync()
         self._swapped[req.req_id] = image
         self._swap_debt.add(req.req_id)
@@ -1580,6 +1603,7 @@ class PagedContinuousEngine:
         if self._nan_guard and any(a is not None for a in self.active):
             # the guard's readback: one finite flag per slot, reduced on
             # the device (the reference reads the whole [B, V] logits)
+            # hotlint: sync(§14 NaN/Inf quarantine guard readback)
             finite = torch.isfinite(self.logits).all(dim=1).cpu().numpy()
             self.host_syncs += count_sync()
             self.guard_readbacks += 1
@@ -1588,7 +1612,7 @@ class PagedContinuousEngine:
                     # quarantine: clear the poisoned row in place (idle
                     # rows feed the fused argmax, masked) and evict for
                     # readmission, which re-prefills from the prompt
-                    self.logits[slot] = 0.0
+                    self.logits[slot].fill_(0.0)
                     evicted.append(self._evict(slot))
                     self.quarantined += 1
         if (self.spec_decode and self._nan_guard
@@ -1598,6 +1622,7 @@ class PagedContinuousEngine:
             # the slot's draft for good (proposals stop, the stream goes
             # on at one verified token a window) and evicts nothing.  One
             # flag per slot, reduced on the device
+            # hotlint: sync(§16 draft-health guard readback)
             dfinite = torch.isfinite(self.draft_logits).all(dim=1) \
                 .cpu().numpy()
             self.host_syncs += count_sync()
@@ -1691,7 +1716,7 @@ class PagedContinuousEngine:
             "used_tokens": self.allocator.used_blocks * self.bt,
         }
         toks = self._decode(k)
-        # the one window token readback (§9 fused decode)
+        # hotlint: sync(the one window token readback — §9 fused decode)
         toks = toks.cpu().numpy()
         self.host_syncs += count_sync()
         self.decode_steps += k
@@ -1726,7 +1751,7 @@ class PagedContinuousEngine:
         token); only a fresh admission builds a new draft."""
         self.allocator.free_seq(self._draft_seq(slot))
         self.draft_tables[slot] = self._null_row
-        self.draft_logits[slot] = 0.0
+        self.draft_logits[slot].fill_(0.0)
         self.active[slot]["draft_cold"] = True
         self.draft_quarantined += 1
 
@@ -1759,7 +1784,7 @@ class PagedContinuousEngine:
             "active": self.num_active,
             "used_tokens": self.allocator.used_blocks * self.bt,
         }
-        # the one spec-window readback: packed tokens and emit counts
+        # hotlint: sync(the one spec-window readback — §16 packed tokens + accept counts)
         packed = self._speculate(max_emit).cpu().numpy()
         self.host_syncs += count_sync()
         self.spec_windows += 1
@@ -1959,6 +1984,7 @@ class PagedContinuousEngine:
                       self.active_mask.clone(), self.logits.clone(), 0,
                       row_t, pos_t, row)
         if self.device.type == "cuda":
+            # hotlint: sync(uncounted: warmup waits for its swap pass, before any serve)
             torch.cuda.current_stream(self.device).synchronize()
 
     def _warm_waves(self, params, cfg, pages, tables: torch.Tensor,
@@ -2065,10 +2091,11 @@ class PagedContinuousEngine:
         if used:
             # the page readback: ONE copy of the whole pool image (a bf16
             # pool's bytes as they are; the file keeps them as uint16)
+            # hotlint: sync(§17 snapshot page readback — ONE gather for the whole pool image)
             vals = M.gather_pages(
                 self.pages, self._upload(np.array(used, np.int32))[0]).cpu()
             self.host_syncs += count_sync()
-        # the logits readback, for a bit-exact restore
+        # hotlint: sync(§17 snapshot logits readback for bit-exact restore)
         logits = self.logits.cpu()
         self.host_syncs += count_sync()
         return snaplib.save_engine(self, path, page_blocks=used,

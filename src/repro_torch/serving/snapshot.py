@@ -605,7 +605,8 @@ def load_engine(engine, path: str) -> None:
     # 3. device pools: exactly the snapshot's blocks, scattered in place
     if blocks:
         (blk,) = engine._upload(np.array(blocks, np.int32))
-        M.scatter_pages(engine.pages, blk, vals.to(engine.device))
+        M.scatter_pages(engine.pages, blk,
+                        vals.to(engine.device, non_blocking=True))
 
     # 4. slot state: tables/positions/mask/logits, in place, + host mirrors
     rows = np.full((engine.slots, engine.max_blocks), engine.null_block,

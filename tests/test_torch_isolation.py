@@ -29,7 +29,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         "hybrid_phase.py", "hybrid_rehearsal.py", "mla_vlm_phases.py",
         "mla_vlm_rehearsal.py", "moe_rehearsal.py",
         "padded_graph_breakeven.py", "recovery_rehearsal.py",
-        "run_cuda_tests.py", "spec_rehearsal.py", "ssd_scan_phases.py")]
+        "run_cuda_tests.py", "spec_rehearsal.py", "ssd_scan_phases.py",
+        "hotlint_torch.py", "sync_compare.py", "sync_phase.py")]
 
 
 def _imported_modules(path):

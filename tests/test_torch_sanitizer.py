@@ -9,23 +9,27 @@ against the reference's ``tests/test_sanitizer.py`` on the CPU:
   admission fail loudly, on the port as on JAX;
 - the ``REPRO_SANITIZE`` sync ledger sums to the engine's
   ``host_syncs``, and under faults and the swap tier its (file,
-  function) sites and counts equal the JAX engine's.  The reference also
-  compares the ledger with its lint's static sync sites; the port has no
-  such lint yet (ROADMAP §1 item 7).
+  function) sites and counts equal the JAX engine's, and lie within the
+  static sync sites of the port's lint (``hotlint.collect_sync_sites``),
+  as the reference's lie within its own lint's.
 
 The reference's donation test checks a JAX buffer rule that PyTorch has
 no counterpart of."""
+from pathlib import Path
+
 import pytest
 
 from repro.analysis import sanitizer as jax_sanitizer
 from repro.core.types import Request as JaxRequest
-from repro_torch.analysis import sanitizer
+from repro_torch.analysis import hotlint, sanitizer
 from repro_torch.analysis.sanitizer import (BlockLeakError, DoubleFreeError,
                                             SharedWriteError)
 from repro_torch.core.types import Request
 from repro_torch.serving.paged_cache import BlockAllocator
 
 from test_torch_chaos import SIDES, make_engine, run_pair
+
+ROOT = Path(__file__).resolve().parent.parent
 
 
 # ---------------------------------------------------------------------------
@@ -154,5 +158,8 @@ def test_sync_ledger_matches_counter_and_jax(monkeypatch):
     assert {fn for _, fn in ledgers["torch"]} == {
         "step_window", "_swap_out"}
     sanitizer.check_sync_ledger(set(ledgers["jax"]))
+    static = hotlint.collect_sync_sites([str(ROOT / "src" / "repro_torch")])
+    assert set(ledgers["torch"]) <= static
+    sanitizer.check_sync_ledger(static)
     with pytest.raises(sanitizer.SyncLedgerError):
         sanitizer.check_sync_ledger({("engine.py", "step_window")})
