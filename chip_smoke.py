@@ -383,12 +383,38 @@ CUDA toolkit.  Phases, each fatal on failure:
    and detector counts by site and line, each window's pair, the
    phase's seconds.
 
+26. context-parallel decode (``cp_phase``; ``scripts/cp_phase.py`` runs
+   it alone): qwen2.5-14b uncut with its 40 query heads padded to 48 and
+   ``decode_cp`` (the reference's hillclimb ``cp_flash_decode``), at
+   decode_32k's 32,768-slot cache.  (b) One layer's
+   ``gqa_decode_attention_cp`` on two ranks, processes on the one card
+   over a gloo group (NCCL refuses two ranks on one card) on a (data 1,
+   model 2) mesh, the cache split 2 x 16,384, each rank's half through
+   the decode kernel's partial mode: against the one-device decode
+   kernel on the whole cache, f32 within 1e-5 and bf16 within 1e-2 of
+   scale; each rank's partial kernel against its plain version.  (a)
+   One device, no mesh, bf16, 4 rows: ``decode_cp`` decodes 3 steps
+   from a seeded cache bit-equal to the flag off (logits and written
+   slots), the dense decode kernel 48 times a step; 4 of phase 7's
+   requests through ``BatchEngine``, streams equal on and off.  (c) The
+   two ranks run 3 whole f32 ``decode_step``s under the mesh's rules
+   (1 row: the f32 weights, 61.1 GB, are shared by CUDA IPC, and the
+   row's 12.9 GB cache is split between the ranks), each rank's logits
+   within 2e-4 of scale of the same steps on one device; the partial
+   kernel 48 times a step on each rank, no dense decode; the
+   sanitizer's ledger counts the merge's 3 host-staged all-reduces a
+   layer and step at ``gqa_decode_attention_cp``.  Logged beside the
+   card's name and power limit: the partial kernel's ms, bound,
+   plain-version and SDPA ms at (c)'s shard and (b)'s bf16 shard, the
+   merge's ms a layer, the step ms on a rank against one device, greedy
+   agreement.
+
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves; phase 14 runs right after
-phase 5, then phases 15 to 25 last.  The line before the
-last is a JSON object with one entry per kernel (eight: the six TPU
-kernels' counterparts, the flash backward and the scan's backward); the
-last line is
+phase 5, then phases 15 to 26 last.  The line before the
+last is a JSON object with one entry per kernel (nine: the six TPU
+kernels' counterparts, the flash backward, the scan's backward and the
+decode kernel's context-parallel partial); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is missing or the port's sources are not beside
 this script.
@@ -6459,6 +6485,669 @@ def sync_phase(torch, src):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 26: context-parallel decode (qwen2.5-14b at decode_32k)
+# ---------------------------------------------------------------------------
+
+# The reference's only decode_cp config, hillclimb's cp_flash_decode
+# (src/repro/launch/hillclimb.py:92-97: qwen2.5-14b, its 40 query heads
+# padded to 48), at decode_32k's cache length.  Two ranks share the one
+# H100 as processes over a gloo group (NCCL refuses two ranks on one
+# card), on a (data 1, model 2) mesh.
+CP_ARCH = "qwen2.5-14b"
+CP_SEQ = 32768                 # decode_32k's seq_len
+CP_RANKS = 2
+CP_ROWS = 4                    # (a), bf16: 25.8 GB of cache, 29.6 of weights
+CP_F32_ROWS = 1                # (c), f32: 12.9 GB of cache beside 61.1 GB
+#                                of f32 weights, shared by both ranks
+CP_STEPS = 3
+CP_POSITIONS = (32767, 20000, 16383, 0)   # (a): the ring's last slot (its
+#                                           second step wraps to slot 0),
+#                                           rank 1's half, the halves' edge
+CP_F32_POSITIONS = (16383,)    # (c): rank 1's half empty at the first
+#                                step, its first slot written at the second
+CP_LENGTHS = (32768, 20000, 16384, 1)     # (b): a row whose second half
+#                                           is empty, one all in rank 0's
+CP_ATTN_TOL = 1e-5             # f32, absolute (tests/test_partitioning.py)
+CP_BF16_TOL = 2 ** -7          # bf16 and int8 (bf16 out), of each row's
+#                                own scale: both paths merge f32 partials,
+#                                in other orders, then round to bf16, one
+#                                step at most (2^-7 of the row's largest)
+CP_PARTIAL_TOL = 2e-5          # partial kernel vs plain, of each output's
+#                                scale: f32 sums of up to 16,384 terms
+CP_TOL = 2e-4                  # (c)'s f32 logits, of scale
+CP_INT8_TOL = 1e-2             # (c)'s logits on the int8 cache, of scale:
+#                                a new K/V value that f32 rounding moves
+#                                across an int8 rounding boundary moves by
+#                                one step, 1/127 of its row's largest, and
+#                                the steps compound it (0, 3.6e-4, 2.0e-3
+#                                of scale at steps 1-3 on an H100); the
+#                                written values are held apart
+CP_JOIN_S = 600                # a rank's whole task, joined and killed
+CP_MERGE_REPS = 51
+
+
+def cp_config(decode_cp=True, cache_int8=False):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(CP_ARCH), pad_heads_to=48,
+                               decode_cp=decode_cp, cache_int8=cache_int8)
+
+
+def cp_cache(torch, cfg, rows, dtype, rules=None):
+    """The seeded decode cache {"kv": (k, v)}, each [L, rows, CP_SEQ,
+    Hkv, D] in ``dtype`` (with ``cfg.cache_int8``, the same draw in f32
+    quantised: int8 values and bf16 scales), and the rules to decode it
+    with.  With ``rules`` (a mesh's), each whole layer leaf is drawn on
+    every rank from the same seed and placed by ``model.shard_cache``,
+    which keeps this rank's block, so the blocks tile the one-device
+    cache exactly; the rules are those ``shard_cache`` returns."""
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import _quant_i8
+    kv, out_rules = None, rules
+    for layer in range(cfg.num_layers):
+        full = []
+        for i in range(2):
+            gen = torch.Generator(device="cuda").manual_seed(
+                26_000 + 2 * layer + i)
+            x = torch.randn((1, rows, CP_SEQ, cfg.num_kv_heads,
+                             cfg.head_dim), generator=gen, device="cuda")
+            full.append(x if cfg.cache_int8 else x.to(dtype))
+        if cfg.cache_int8:
+            (k8, ks), (v8, vs) = (_quant_i8(x) for x in full)
+            full = [k8, v8, ks, vs]
+        layer_cache = {"kv": tuple(full)}
+        if rules is not None:
+            layer_cache, out_rules = M.shard_cache(cfg, layer_cache, rules)
+        if kv is None:
+            kv = tuple(torch.empty((cfg.num_layers,) + x.shape[1:],
+                                   dtype=x.dtype, device="cuda")
+                       for x in layer_cache["kv"])
+        for leaf, x in zip(kv, layer_cache["kv"]):
+            leaf[layer] = x[0]
+        del full, layer_cache
+    return {"kv": kv}, out_rules
+
+
+def cp_tokens(vocab, rows):
+    import random
+    rng = random.Random(26)
+    return [[rng.randrange(3, vocab) for _ in range(rows)]
+            for _ in range(CP_STEPS)]
+
+
+def cp_steps(torch, M, params, cfg, cache, positions, tokens, dtype,
+             rules=None):
+    """CP_STEPS decode steps: (the f32 logits of each, on the card, and
+    each step's host ms to a synchronised card)."""
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    logits, ms = [], []
+    for step in range(CP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = M.decode_step(
+            params, cfg, cache,
+            {"tokens": torch.tensor(tokens[step], dtype=torch.int32,
+                                    device="cuda"),
+             "positions": pos + step}, rules=rules, act_dtype=dtype)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg.float())
+    return logits, ms
+
+
+CP_ATTN_TAGS = ("f32", "bf16", "int8")
+
+
+def _cp_attn_task(torch, mesh, shared):
+    """(b) on one rank: its blocks of the f32, bf16 and int8 caches, the
+    context-parallel attention (counts zeroed just before, read just
+    after), and its partial kernel against the plain version on its
+    shard."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.models.attention import (batch_spec,
+                                              gqa_decode_attention_cp)
+    from repro_torch.partitioning import shard_local
+    out = {}
+    r = mesh.get_local_rank("model")
+    lengths = shared["lengths"]
+    spec = (batch_spec(mesh, lengths.shape[0]), "model")
+    for tag in CP_ATTN_TAGS:
+        q = shared[f"q_{tag}"]
+        names = ("k", "v", "ks", "vs") if tag == "int8" else ("k", "v")
+        blocks = [shard_local(shared[f"{n}_{tag}"], spec, mesh).contiguous()
+                  for n in names]
+        if tag == "int8":
+            fn, plain = (ops.decode_attention_int8_partial,
+                         ref.decode_attention_int8_partial_ref)
+            scales = {"k_scale": blocks[2], "v_scale": blocks[3]}
+        else:
+            fn, plain = (ops.decode_attention_partial,
+                         ref.decode_attention_partial_ref)
+            scales = {}
+        ops.reset_counts()
+        o = gqa_decode_attention_cp(q[:, None], blocks[0], blocks[1],
+                                    lengths, mesh=mesh, **scales)
+        torch.cuda.synchronize()
+        launches = {f.__name__: f.launches for f in ops.KERNELS}
+        local = torch.clamp(lengths - r * blocks[0].shape[1], 0,
+                            blocks[0].shape[1])
+        got = fn(q, *blocks, local)
+        want = plain(q, *blocks, local)
+        errs = []
+        for name, x, y in zip(("o", "m", "l"), got, want):
+            live = torch.isfinite(y)
+            check(torch.equal(torch.isfinite(x), live),
+                  f"phase 26 (b) {tag} rank {r}: {name}'s -inf differ")
+            if not live.any():
+                continue
+            err = (x[live] - y[live]).abs().max().item()
+            scale = max(1.0, y[live].abs().max().item())
+            check(err <= CP_PARTIAL_TOL * scale,
+                  f"phase 26 (b) {tag} rank {r}: partial {name} err {err} "
+                  f"at scale {scale}")
+            errs.append(err)
+        out[tag] = {"out": o[:, 0].float().cpu().numpy(),
+                    "launches": launches, "partial_errs": errs}
+        del blocks
+    return out
+
+
+def _cp_steps_task(torch, mesh, shared):
+    """(c) on one rank: its block of the seeded f32 cache (placed by
+    ``model.shard_cache``), CP_STEPS whole decode steps under the rules
+    it returns (counts zeroed just before, read just after; the
+    sanitizer's ledger on); the same on the int8 cache (counts zeroed
+    again); then the merge's three all-reduces timed at a layer's
+    shapes."""
+    import torch.distributed as dist
+    from repro_torch.analysis import sanitizer as san
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.models import model as M
+    from repro_torch.partitioning import sharding_rules, with_mesh_rules
+    cfg = cp_config()
+    mrules = with_mesh_rules(sharding_rules("decode"), mesh)
+    cache, rules = cp_cache(torch, cfg, CP_F32_ROWS, torch.float32, mrules)
+    check(rules.get("_kv_len") == CP_SEQ
+          and cache["kv"][0].shape[2] == CP_SEQ // CP_RANKS,
+          f"phase 26 (c): shard_cache kept {tuple(cache['kv'][0].shape)}")
+    os.environ["REPRO_SANITIZE"] = "1"
+    san.reset_sync_ledger()
+    ops.reset_counts()
+    logits, ms = cp_steps(torch, M, shared["params"], cfg, cache,
+                          CP_F32_POSITIONS, shared["tokens"], torch.float32,
+                          rules=rules)
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    ledger = san.sync_ledger()
+    os.environ["REPRO_SANITIZE"] = "0"
+    del cache
+    cfg8 = cp_config(cache_int8=True)
+    cache, rules8 = cp_cache(torch, cfg8, CP_F32_ROWS, torch.float32,
+                             mrules)
+    ops.reset_counts()
+    logits8, ms8 = cp_steps(torch, M, shared["params"], cfg8, cache,
+                            CP_F32_POSITIONS, shared["tokens"],
+                            torch.float32, rules=rules8)
+    launches8 = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    written8 = cp_written(cache, mesh.get_local_rank("model"),
+                          cache["kv"][0].shape[2])
+    del cache
+    hq = max(cfg.num_heads, cfg.pad_heads_to)
+    group = mesh.get_group("model")
+    m = torch.randn(CP_F32_ROWS, hq, device="cuda")
+    l = torch.rand(CP_F32_ROWS, hq, device="cuda")
+    o = torch.randn(CP_F32_ROWS, hq, cfg.head_dim, device="cuda")
+    merge = []
+    for _ in range(CP_MERGE_REPS):
+        dist.barrier(group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mm = m.clone()
+        dist.all_reduce(mm, op=dist.ReduceOp.MAX, group=group)
+        corr = torch.exp(m - mm)
+        ll = l * corr
+        dist.all_reduce(ll, group=group)
+        oo = o * corr[..., None]
+        dist.all_reduce(oo, group=group)
+        torch.cuda.synchronize()
+        merge.append((time.perf_counter() - t0) * 1e3)
+    return {"logits": [x.cpu().numpy() for x in logits], "step_ms": ms,
+            "launches": launches,
+            "logits8": [x.cpu().numpy() for x in logits8], "step_ms8": ms8,
+            "launches8": launches8, "written8": written8,
+            "ledger": {"/".join(k): v
+                                             for k, v in ledger.items()},
+            "merge_ms": statistics.median(merge)}
+
+
+CP_TASKS = {"attn": _cp_attn_task, "steps": _cp_steps_task}
+
+
+def cp_written(cache, r=0, block=CP_SEQ):
+    """{global slot: [each leaf's slot, every layer and row, as numpy
+    f32]} for the slots (c)'s steps write that lie in block ``r`` of
+    ``block`` slots of ``cache``."""
+    out = {}
+    for pos in CP_F32_POSITIONS:
+        for step in range(CP_STEPS):
+            x = (pos + step) % CP_SEQ
+            if r * block <= x < (r + 1) * block:
+                out[x] = [leaf[:, :, x - r * block].float().cpu().numpy()
+                          for leaf in cache["kv"]]
+    return out
+
+
+def cp_rank(rank, world, port, task, shared, results):
+    """One rank of phase 26, a process of its own on the card: joins a
+    gloo group of ``world`` ranks, builds the (1, world) mesh, runs
+    ``CP_TASKS[task]`` and puts (rank, "ok" or "error", result) on
+    ``results``.  Results hold numpy arrays, pickled by value: a tensor
+    shared through the queue would need this process alive when the
+    parent reads it."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=300))
+        from repro_torch.launch.mesh import make_test_mesh
+        mesh = make_test_mesh((1, world), ("data", "model"),
+                              device_type="cuda")
+        out = CP_TASKS[task](torch, mesh, shared)
+        dist.barrier()
+        results.put((rank, "ok", out))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def cp_spawn(task, shared):
+    """Run ``task`` on CP_RANKS processes (CUDA tensors in ``shared``
+    pass by CUDA IPC, no copy); the ranks are joined within CP_JOIN_S
+    seconds and killed on any failure.  Returns their results by rank."""
+    import queue
+    import socket
+    import torch
+    import torch.multiprocessing as tmp
+    ctx = tmp.get_context("spawn")
+    results = ctx.Queue()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [ctx.Process(target=cp_rank,
+                         args=(r, CP_RANKS, port, task, shared, results))
+             for r in range(CP_RANKS)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + CP_JOIN_S
+    try:
+        while len(got) < CP_RANKS:
+            try:
+                rank, status, out = results.get(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise SmokeFailure(f"phase 26 {task}: ranks {sorted(got)} "
+                                   f"of {CP_RANKS} answered in "
+                                   f"{CP_JOIN_S} s") from None
+            check(status == "ok", f"phase 26 {task} rank {rank}:\n{out}")
+            got[rank] = out
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        check(all(p.exitcode == 0 for p in procs),
+              f"phase 26 {task}: exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        torch.cuda.ipc_collect()   # free what the ranks held of ``shared``
+    return [got[r] for r in range(CP_RANKS)]
+
+
+def cp_attention_check(torch, ops):
+    """(b): one layer's context-parallel attention at decode_32k's
+    shapes (B 4, S 32,768 split 2 x 16,384, 48 query heads over 8 KV
+    heads of 128) against the one-device decode kernel on the whole
+    cache: f32 within CP_ATTN_TOL; bf16, and the int8 cache (the f32
+    draw quantised, bf16 queries) against the one-device int8 kernel,
+    each row within CP_BF16_TOL of its own scale; each rank's partial
+    kernel (float, int8) launched once and held against its plain
+    version."""
+    from repro_torch.models.transformer import _quant_i8
+    cfg = cp_config()
+    hq, hkv, d = max(cfg.num_heads, cfg.pad_heads_to), cfg.num_kv_heads, \
+        cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(261)
+    shared = {"lengths": torch.tensor(CP_LENGTHS, dtype=torch.int32,
+                                      device="cuda")}
+    b = len(CP_LENGTHS)
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        shared[f"q_{tag}"] = torch.randn(b, hq, d, generator=gen,
+                                         device="cuda").to(dt)
+        for n in ("k", "v"):
+            shared[f"{n}_{tag}"] = torch.randn(b, CP_SEQ, hkv, d,
+                                               generator=gen,
+                                               device="cuda").to(dt)
+    shared["q_int8"] = shared["q_bf16"]
+    for n in ("k", "v"):
+        shared[f"{n}_int8"], shared[f"{n}s_int8"] = _quant_i8(
+            shared[f"{n}_f32"])
+    want = {tag: ops.decode_attention(shared[f"q_{tag}"], shared[f"k_{tag}"],
+                                      shared[f"v_{tag}"], shared["lengths"])
+            for tag in ("f32", "bf16")}
+    want["int8"] = ops.decode_attention_int8(
+        shared["q_int8"], shared["k_int8"], shared["v_int8"],
+        shared["ks_int8"], shared["vs_int8"], shared["lengths"])
+    torch.cuda.synchronize()
+    ranks = cp_spawn("attn", shared)
+    kernel = {"f32": "decode_attention_partial",
+              "bf16": "decode_attention_partial",
+              "int8": "decode_attention_int8_partial"}
+    rows = {}
+    for tag in CP_ATTN_TAGS:
+        w = want[tag].float().cpu()
+        row_scale = w.flatten(1).abs().amax(1)               # [B]
+        errs, ratios = [], []
+        for r in ranks:
+            diff = (torch.from_numpy(r[tag]["out"]) - w).flatten(1).abs()
+            errs.append(diff.max().item())
+            ratios.append((diff.amax(1) / row_scale).max().item())
+        if tag == "f32":
+            bound = CP_ATTN_TOL
+            check(max(errs) <= bound, f"phase 26 (b) f32: the ranks' "
+                  f"outputs lie {errs} from the one-device kernel's, bound "
+                  f"{bound}")
+            said = f"bound {bound:.3e} absolute"
+        else:
+            check(max(ratios) <= CP_BF16_TOL, f"phase 26 (b) {tag}: the "
+                  f"ranks' outputs lie {ratios} of a row's own scale from "
+                  f"the one-device kernel's, bound {CP_BF16_TOL}")
+            said = (f"largest of a row's own scale {max(ratios):.3e}, "
+                    f"bound {CP_BF16_TOL:.3e}; row scales "
+                    f"{[round(x, 5) for x in row_scale.tolist()]}")
+        for r in ranks:
+            n = r[tag]["launches"]
+            want_n = {name: 0 for name in n}
+            want_n[kernel[tag]] = 1
+            check(n == want_n, f"phase 26 (b) {tag}: launches {n}")
+        rows[tag] = {"errs": errs, "ratios": ratios,
+                     "partial_errs": [r[tag]["partial_errs"] for r in ranks]}
+        log(f"phase 26 (b) {tag}: both ranks' context-parallel attention "
+            f"({kernel[tag]} once a rank) within {max(errs):.3e} of the "
+            f"one-device {'int8 ' if tag == 'int8' else ''}decode kernel "
+            f"({said}); partial kernel against its plain version (o, m, l "
+            f"max abs err) {rows[tag]['partial_errs']}")
+    del shared, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def cp_one_device(torch, M, ops, reset_counts, counts):
+    """(a): qwen2.5-14b uncut in bf16 on one device, no mesh: the
+    decode_cp config decodes CP_STEPS steps from the seeded cache of
+    CP_ROWS rows bit-equal to the flag off (logits and the written
+    slots), the dense decode kernel once a layer and step, no partial;
+    then a few requests through BatchEngine, flag on against off."""
+    from repro_torch.core.types import Batch
+    from repro_torch.serving.engine import BatchEngine
+    on, off = cp_config(), cp_config(decode_cp=False)
+    t0 = time.perf_counter()
+    params = M.init_params(on, seed=0, device="cuda", dtype=torch.bfloat16)
+    log(f"phase 26 (a) {CP_ARCH} weights (bf16, 48 query heads): "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    tokens = cp_tokens(on.vocab_size, CP_ROWS)
+    runs = {}
+    for label, cfg in (("off", off), ("on", on)):
+        cache, _ = cp_cache(torch, cfg, CP_ROWS, torch.bfloat16)
+        reset_counts()
+        logits, ms = cp_steps(torch, M, params, cfg, cache, CP_POSITIONS,
+                              tokens, torch.bfloat16)
+        launches = counts("launches")
+        rows = torch.arange(CP_ROWS, device="cuda")
+        slots = [(torch.tensor(CP_POSITIONS, device="cuda") + s) % CP_SEQ
+                 for s in range(CP_STEPS)]
+        written = torch.stack([leaf[:, rows, sl] for leaf in cache["kv"]
+                               for sl in slots])
+        runs[label] = (logits, written, ms, launches)
+        del cache
+        torch.cuda.empty_cache()
+    (l_off, w_off, ms_off, n_off), (l_on, w_on, ms_on, n_on) = \
+        runs["off"], runs["on"]
+    layers = on.num_layers
+    for label, n in (("off", n_off), ("on", n_on)):
+        want = {name: 0 for name in n}
+        want["decode_attention"] = layers * CP_STEPS
+        check(n == want, f"phase 26 (a) flag {label}: launches {n}, not "
+              f"{want}")
+    check(all(torch.equal(a, b) for a, b in zip(l_on, l_off))
+          and torch.equal(w_on, w_off),
+          "phase 26 (a): decode_cp on one device is not bit-equal to the "
+          "flag off")
+    reqs, targets = phase7_requests(on.vocab_size)
+    reqs = reqs[:4]
+    streams = {}
+    for label, cfg in (("off", off), ("on", on)):
+        eng = BatchEngine(cfg, params, dtype=torch.bfloat16, device="cuda",
+                          max_gen=DENSE_MAX_GEN)
+        res = eng.serve_batch(Batch(requests=list(reqs)))
+        streams[label] = res.generated
+        del eng
+    check(streams["on"] == streams["off"]
+          and all(len(streams["on"][r.req_id]) == targets[r.req_id]
+                  for r in reqs),
+          "phase 26 (a): BatchEngine's streams differ with decode_cp on")
+    log(f"phase 26 (a) {CP_ARCH} uncut bf16, {CP_ROWS} rows x {CP_SEQ} "
+        f"slots, positions {CP_POSITIONS}: {CP_STEPS} steps with decode_cp "
+        f"on bit-equal to off (logits and written slots), dense decode "
+        f"{layers * CP_STEPS} launches each; step host ms on "
+        f"{[round(x, 2) for x in ms_on]}, off "
+        f"{[round(x, 2) for x in ms_off]}; BatchEngine served "
+        f"{len(reqs)} requests "
+        f"({sum(len(s) for s in streams['on'].values())} tokens), streams "
+        f"equal on and off")
+    del params
+    torch.cuda.empty_cache()
+
+
+def cp_partial_times(torch, ops, ref, spin, b, s, hq, hkv, d, dtype,
+                     lengths, int8=False):
+    """The partial kernel at a shard of [b, s] slots with ``lengths``
+    valid (``int8``: the int8 kernel on the same draw quantised), beside
+    its plain version, its bound and SDPA with a length mask on the same
+    shard (the nearest single PyTorch call: it returns the normalised
+    output, not the partial; for int8, on the shard dequantised apart,
+    as ``time_int8``'s yardstick); median CUDA-event ms."""
+    import torch.nn.functional as F
+    from repro_torch.models.transformer import _quant_i8
+    gen = torch.Generator(device="cuda").manual_seed(262)
+    q = torch.randn(b, hq, d, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda")
+            .to(torch.float32 if int8 else dtype) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if int8:
+        (k8, ks), (v8, vs) = _quant_i8(k), _quant_i8(v)
+        fn, args = ops.decode_attention_int8_partial, (q, k8, v8, ks, vs,
+                                                       lens)
+        plain_fn = ref.decode_attention_int8_partial_ref
+        k, v = ((x.float() * sc.float()[..., None]).to(dtype)
+                for x, sc in ((k8, ks), (v8, vs)))
+    else:
+        fn, args = ops.decode_attention_partial, (q, k, v, lens)
+        plain_fn = ref.decode_attention_partial_ref
+    kern = lambda r: fn(*args)
+    plain = lambda r: plain_fn(*args)
+    got, want = kern(0), plain(0)
+    err = max(((x - y)[torch.isfinite(y)].abs().max().item()
+               if torch.isfinite(y).any() else 0.0)
+              for x, y in zip(got, want))
+    n0 = fn.launches
+    row = {"ms": median_ms(torch, kern, 11, spin),
+           "plain_ms": median_ms(torch, plain, 5, spin)}
+    fn.launches = n0   # timing launches: not the main path's
+    w = int(lens.max())
+    kt, vt = (x[:, :w].transpose(1, 2).repeat_interleave(hq // hkv, 1)
+              .contiguous() for x in (k, v))
+    mask = (torch.arange(w, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    lib = lambda r: F.scaled_dot_product_attention(q[:, :, None, :], kt, vt,
+                                                   attn_mask=mask)
+    lib(0)
+    row["library_ms"] = median_ms(torch, lib, 11, spin)
+    e = q.element_size()
+    n_keys = int(lens.clamp(max=s).sum())
+    kv_bytes = (2 * n_keys * hkv * (d + 2) if int8   # int8 values, bf16
+                else 2 * n_keys * hkv * d * e)       # scales
+    nbytes = q.numel() * e + kv_bytes + b * 4 + 4 * b * hq * (d + 2)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * d * hq * n_keys)
+    row["max_abs_err"] = err
+    return row
+
+
+def cp_phase(torch, ops, ref, spin, reset_counts, counts):
+    """Phase 26: context-parallel decode.  (a) one device, no mesh
+    (``cp_one_device``); (b) one layer's context-parallel attention on
+    two ranks (``cp_attention_check``); (c) the two ranks run whole f32
+    decode steps of qwen2.5-14b uncut, 1 row (CP_F32_ROWS: the f32
+    weights, 61.1 GB, are shared by CUDA IPC; two f32 copies would not
+    fit), each rank's cache placed by ``model.shard_cache``, held at
+    CP_TOL of scale against the same steps on one device, then the same
+    on the int8 cache (the int8 partial kernel; CP_INT8_TOL, and the
+    written K/V against the one-device write); then the partial
+    kernels, the merge and the steps timed.  Returns ({kernel: timing
+    row}, {kernel: launches on rank 0}, (b)'s rows)."""
+    import numpy as np
+    from repro_torch.models import model as M
+    t_start = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout else "?"
+    attn = cp_attention_check(torch, ops)
+    cp_one_device(torch, M, ops, reset_counts, counts)
+    cfg, cfg8 = cp_config(), cp_config(cache_int8=True)
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    log(f"phase 26 (c) f32 weights: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    tokens = cp_tokens(cfg.vocab_size, CP_F32_ROWS)
+    one = {}
+    for c, dense in ((cfg, "decode_attention"),
+                     (cfg8, "decode_attention_int8")):
+        cache, _ = cp_cache(torch, c, CP_F32_ROWS, torch.float32)
+        reset_counts()
+        lg, ms = cp_steps(torch, M, params, c, cache, CP_F32_POSITIONS,
+                          tokens, torch.float32)
+        n = counts("launches")
+        want = {name: 0 for name in n}
+        want[dense] = layers * CP_STEPS
+        check(n == want, f"phase 26 (c) one-device launches {n}, not {want}")
+        one[dense] = ([x.cpu() for x in lg], ms, cp_written(cache))
+        del cache
+        torch.cuda.empty_cache()
+    ranks = cp_spawn("steps", {"params": params, "tokens": tokens})
+    site = "attention.py/gqa_decode_attention_cp"
+    errs, agree = {"f32": [], "int8": []}, {"f32": [], "int8": []}
+    # the int8 K/V the steps wrote: each slot by one rank, its values
+    # within one int8 step and its scales within one bf16 step of the
+    # one-device run's
+    want8 = one["decode_attention_int8"][2]
+    got8 = {x: leaves for res in ranks for x, leaves in
+            res["written8"].items()}
+    check(sorted(got8) == sorted(want8)
+          and sum(len(res["written8"]) for res in ranks) == len(want8),
+          f"phase 26 (c) int8: slots written {sorted(got8)}, "
+          f"not {sorted(want8)}")
+    moved = 0
+    for x, leaves in want8.items():
+        for i, (g, w) in enumerate(zip(got8[x], leaves)):
+            d = np.abs(g - w)
+            bound = 1.0 if i < 2 else 2.0 ** -7 * np.abs(w)
+            check(bool((d <= bound).all()), f"phase 26 (c) int8 slot {x} "
+                  f"leaf {i}: {d.max()} from the one-device write")
+            moved += int((d > 0).sum()) if i < 2 else 0
+    tol = {"f32": CP_TOL, "int8": CP_INT8_TOL}
+    for r, res in enumerate(ranks):
+        for tag, key, kern, dense in (
+                ("f32", "", "decode_attention_partial", "decode_attention"),
+                ("int8", "8", "decode_attention_int8_partial",
+                 "decode_attention_int8")):
+            want = {name: 0 for name in res["launches" + key]}
+            want[kern] = layers * CP_STEPS
+            check(res["launches" + key] == want, f"phase 26 (c) {tag} rank "
+                  f"{r} launches {res['launches' + key]}, not {want}")
+            for got, w in zip(res["logits" + key], one[dense][0]):
+                got = torch.from_numpy(got)
+                scale = max(1.0, w.abs().max().item())
+                err = (got - w).abs().max().item()
+                check(err <= tol[tag] * scale, f"phase 26 (c) {tag} rank "
+                      f"{r}: logits {err} from the one-device run at scale "
+                      f"{scale}")
+                errs[tag].append(err / scale)
+                agree[tag].append(torch.equal(got.argmax(-1), w.argmax(-1)))
+        check(res["ledger"] == {site: 3 * layers * CP_STEPS},
+              f"phase 26 (c) rank {r} sync ledger {res['ledger']}")
+    del params
+    torch.cuda.empty_cache()
+    hq = max(cfg.num_heads, cfg.pad_heads_to)
+    half = CP_SEQ // CP_RANKS
+    shard = (CP_F32_ROWS, half, hq, cfg.num_kv_heads, cfg.head_dim,
+             torch.float32, [half] * CP_F32_ROWS)
+    rows = {"decode_attention_partial":
+            cp_partial_times(torch, ops, ref, spin, *shard),
+            "decode_attention_int8_partial":
+            cp_partial_times(torch, ops, ref, spin, *shard, int8=True)}
+    b_lens = [min(x, half) for x in CP_LENGTHS]
+    b_row = cp_partial_times(torch, ops, ref, spin, len(CP_LENGTHS), half,
+                             hq, cfg.num_kv_heads, cfg.head_dim,
+                             torch.bfloat16, b_lens)
+    r0 = ranks[0]
+    for tag in ("f32", "int8"):
+        log(f"phase 26 (c) {CP_ARCH} uncut, f32 activations, "
+            f"{'int8' if tag == 'int8' else 'f32'} cache, {CP_F32_ROWS} "
+            f"row x {CP_SEQ} slots on 2 ranks (cut: {CP_F32_ROWS} row, the "
+            f"f32 weights shared by CUDA IPC), positions "
+            f"{CP_F32_POSITIONS}: logits within {max(errs[tag]):.3e} of "
+            f"scale of the one-device run (each step, rank 0 then 1: "
+            f"{[float(f'{e:.3e}') for e in errs[tag]]}; bound {tol[tag]}); "
+            f"greedy "
+            f"tokens agree {sum(agree[tag])}/{len(agree[tag])}; partial "
+            f"kernel launches a rank {layers * CP_STEPS}, dense decode 0")
+    log(f"phase 26 (c) int8: the {len(want8)} written slots each from one "
+        f"rank, values within one int8 step and scales within one bf16 "
+        f"step of the one-device write; {moved} int8 values moved a step")
+    log(f"phase 26 (c) sync ledger {r0['ledger']}")
+    fmt = lambda row: json.dumps({k: (round(v, 4) if isinstance(v, float)
+                                      else v) for k, v in row.items()})
+    log(f"phase 26 [{card}] partial kernels at (c)'s shard (f32 q, 1 x "
+        f"{half} valid of {half}, 48/8 heads of 128): float "
+        + fmt(rows["decode_attention_partial"]) + "; int8 "
+        + fmt(rows["decode_attention_int8_partial"])
+        + f"; float at (b)'s bf16 shard (4 rows, {b_lens} valid): "
+        + fmt(b_row))
+    log(f"phase 26 [{card}] merge (3 all-reduces on gloo, host-staged) "
+        f"{r0['merge_ms']:.3f} ms a layer, rank 1 "
+        f"{ranks[1]['merge_ms']:.3f}; step host ms rank 0 "
+        f"{[round(x, 2) for x in r0['step_ms']]}, rank 1 "
+        f"{[round(x, 2) for x in ranks[1]['step_ms']]}, one device "
+        f"{[round(x, 2) for x in one['decode_attention'][1]]}; int8 cache "
+        f"rank 0 {[round(x, 2) for x in r0['step_ms8']]}, one device "
+        f"{[round(x, 2) for x in one['decode_attention_int8'][1]]}; "
+        f"phase 26 {time.perf_counter() - t_start:.1f} s")
+    launches = {"decode_attention_partial":
+                r0["launches"]["decode_attention_partial"],
+                "decode_attention_int8_partial":
+                r0["launches8"]["decode_attention_int8_partial"]}
+    return rows, launches, attn
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -6495,6 +7184,7 @@ def main() -> int:
         log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
         build_report(build, lib)
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 3")
         # 3. kernels against their plain versions
         from repro_torch.kernels.decode_attention import ops, ref
         from repro_torch.kernels.flash_attention import ops as fops
@@ -6516,6 +7206,7 @@ def main() -> int:
             # the backward kernel has no plain route: no plain_calls
             return {fn.__name__: getattr(fn, attr, 0) for fn in all_kernels}
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 4")
         # 4. the paged and dense models on the card against the CPU
         model_check(torch, np)
         dense_model_check(torch, np)
@@ -6525,6 +7216,7 @@ def main() -> int:
                                transformer._quant_i8)
         ssm_int8_model_checks(torch, np, transformer._quant_i8)
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 5")
         # 5. serve chatglm-6b at full width through the paged engine
         from repro_torch.launch.serve import (run_engine_backend,
                                               run_paged_engine_backend)
@@ -6608,6 +7300,7 @@ def main() -> int:
         del engine, res, windows   # the recorder holds the pools' views
         torch.cuda.empty_cache()
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 14")
         # 14. phase 5's serve on an engine warmed up ahead of time
         wreqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
                                          gen_length=GEN_LENGTH, seed=0)
@@ -6647,6 +7340,7 @@ def main() -> int:
         del wengine, w, served
         torch.cuda.empty_cache()
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 6")
         # 6. paged timings at the serve's shapes
         spin = spin_ms(torch)
         log(f"spin kernel: {spin:.2f} ms")
@@ -6662,6 +7356,7 @@ def main() -> int:
         del pages, decoded, waves
         torch.cuda.empty_cache()
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 7")
         # 7. serve chatglm-6b at full width through the padded BatchEngine
         from repro_torch.workload.generator import poisson_workload
         dreqs = poisson_workload(8, 60, seed=0, max_len=DENSE_MAX_LEN,
@@ -6735,6 +7430,7 @@ def main() -> int:
         del dengine, dres, results, drep   # drep: the last batch's cache
         torch.cuda.empty_cache()
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 8")
         # 8. padded timings at the serve's shapes
         t["flash_attention"] = summarize(
             "flash_attention", *time_flash(torch, fops, fref,
@@ -6745,17 +7441,20 @@ def main() -> int:
         del dprefill, ddecode
         torch.cuda.empty_cache()
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 11")
         # 11. serve mamba2-780m at full width through the padded
         # BatchEngine, on phase 7's requests
         slaunches, scans, res11 = ssm_serve(torch, ssm_module, hbm,
                                             reset_counts, counts)
         torch.cuda.empty_cache()
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 12")
         # 12. an int8 decode window of chatglm-6b at full width
         i8launches, i8calls = int8_window(torch, np, transformer, ref,
                                           reset_counts, counts)
         torch.cuda.empty_cache()
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 13")
         # 13. timings of the scan and the int8 kernel at the kept inputs
         t["ssd_scan"] = summarize(
             "ssd_scan", *time_scan(torch, sops, sref, scans, spin))
@@ -6765,6 +7464,7 @@ def main() -> int:
         del scans, i8calls
         torch.cuda.empty_cache()
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 15")
         # 15. the chaos serve: the lifecycle and the host swap tier
         from repro_torch.models import model as M
         cparams = M.init_params(cfg, seed=0, device="cuda",
@@ -6809,11 +7509,13 @@ def main() -> int:
         del chaos16
         torch.cuda.empty_cache()
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 16")
         # 16. speculative decoding: the draft-and-verify window as one
         # captured graph
         spec_phase(torch, ops, ref, cfg, reqs, streams5, shapes5, streams32,
                    res5, spin, reset_counts, counts)
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 17")
         # 17. kill and recover: the snapshot, the journal and the
         # restore in place under the captured decode graph
         t17 = recovery_phase(torch, ops, ref, cfg, reqs, streams5, shapes5,
@@ -6823,6 +7525,7 @@ def main() -> int:
                 key: (round(v, 4) if isinstance(v, float) else v)
                 for key, v in t17.items()}}))
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 18")
         # 18. olmoe-1b-7b's MoE paged serve at full width, its capacity
         # dispatch inside the captured decode graph
         t18, moe_launches = moe_phase(torch, ops, ref, transformer, res5,
@@ -6834,6 +7537,7 @@ def main() -> int:
                     for key, v in row.items()}}
                 for name, row in t18.items()}))
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 19")
         # 19. hymba-1.5b's hybrid padded serve at full width, its
         # attention and SSM heads under the captured decode graph, and
         # the sliding window at a 4,096-token prefill
@@ -6849,6 +7553,7 @@ def main() -> int:
                     for key, v in row.items()}}
                 for name, row in t19.items()}))
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 20")
         # 20. deepseek-v3-671b's MLA padded serve at its published
         # widths (2 layers, no MTP), its absorbed decode and capacity
         # dispatch under the captured decode graph
@@ -6858,6 +7563,7 @@ def main() -> int:
                                  reset_counts, counts)
         log(f"phase 20 kernel launches: {mla_launches}")
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 21")
         # 21. internvl2-26b's vlm padded serve uncut, its 256-patch
         # prefix in every prefill and decode cache
         t21, vlm_launches = vlm_phase(
@@ -6870,6 +7576,7 @@ def main() -> int:
                     for key, v in row.items()}}
                 for name, row in t21.items()}))
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 22")
         # 22. whisper-large-v3's enc-dec padded serve uncut: its encoder
         # and cross-attention prefill through the flash kernel's full
         # mode with a key bound, both decode attentions through the
@@ -6884,19 +7591,29 @@ def main() -> int:
                           for key, v in row.items()}}
                 for name, row in t22.items()}))
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 23")
         # 23. training: the flash kernel's backward, then smollm-135m at
         # full width through launch/train.py
         t["flash_attention_bwd"], train_launches = train_phase(
             torch, np, fops, fref, spin, reset_counts, counts)
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 24")
         # 24. training the SSM and hybrid families: the scan's backward
         # kernel, then mamba2-780m and hymba-1.5b uncut
         t["ssd_scan_bwd"], scan_train_launches = ssm_train_phase(
             torch, np, fops, sops, sref, spin, reset_counts, counts)
 
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 25")
         # 25. the lint's sweep, then the six counted sync sites under
         # REPRO_SANITIZE=1 and PyTorch's sync detector
         sync_phase(torch, src)
+
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 26")
+        # 26. context-parallel decode: qwen2.5-14b at decode_32k on one
+        # device with decode_cp, then on two ranks of one card over gloo
+        cp_rows, cp_launches, _ = cp_phase(
+            torch, ops, ref, spin, reset_counts, counts)
+        t.update(cp_rows)
 
         source = {"paged_decode_attention":
                   ("src/repro_torch/csrc/paged_decode_attention.cu",
@@ -6931,7 +7648,20 @@ def main() -> int:
                   ("src/repro_torch/csrc/ssd_scan_bwd.cu",
                    "none: the JAX package differentiates its plain jnp "
                    "scan (src/repro/models/ssm.py:53)",
-                   {"ssd_scan_bwd": scan_train_launches})}
+                   {"ssd_scan_bwd": scan_train_launches}),
+                  "decode_attention_partial":
+                  ("src/repro_torch/csrc/decode_attention.cu",
+                   "none: the reference computes the shard's partial in "
+                   "plain jnp inside shard_map "
+                   "(src/repro/models/attention.py:83)",
+                   cp_launches),
+                  "decode_attention_int8_partial":
+                  ("src/repro_torch/csrc/decode_attention.cu",
+                   "none: the reference dequantises the int8 cache, then "
+                   "computes the shard's partial in plain jnp inside "
+                   "shard_map (src/repro/models/attention.py:83, "
+                   "src/repro/launch/hillclimb.py:98)",
+                   cp_launches)}
         rows = []
         for name, (path, tpu, count) in source.items():
             rows.append({"name": name, "route": "cuda", "source": path,

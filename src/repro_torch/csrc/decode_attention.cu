@@ -86,3 +86,48 @@ extern "C" int repro_decode_attention_int8(
     return repro::launch_dense<__nv_bfloat16, int8_t>(a, S, D, s);
   return cudaErrorInvalidValue;
 }
+
+// The context-parallel shard's partial (see the header): as
+// repro_decode_attention, but the merged state goes to o f32 [B, Hq, D]
+// (unnormalised), m f32 [B, Hq] (natural log; -inf for a row with no
+// valid slot) and l f32 [B, Hq] instead of an output.
+extern "C" int repro_decode_attention_partial(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* lengths, void* o, void* m, void* l, int B, int S, int Hq,
+    int Hkv, int D, int dtype, void* stream, int splits, void* part_o,
+    void* part_ml, void* counters) {
+  repro::SplitArgs a{q, k_cache, v_cache, nullptr, nullptr, lengths,
+                     nullptr, B, Hq, Hkv, splits, part_o, part_ml,
+                     counters};
+  a.cp_o = o;
+  a.cp_m = m;
+  a.cp_l = l;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kFloat32)
+    return repro::launch_dense<float, float>(a, S, D, s);
+  if (dtype == repro::kBFloat16)
+    return repro::launch_dense<__nv_bfloat16, __nv_bfloat16>(a, S, D, s);
+  return cudaErrorInvalidValue;
+}
+
+// The int8 cache's shard partial: repro_decode_attention_int8's inputs,
+// repro_decode_attention_partial's outputs.
+extern "C" int repro_decode_attention_int8_partial(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* k_scale, const void* v_scale, const void* lengths, void* o,
+    void* m, void* l, int B, int S, int Hq, int Hkv, int D, int dtype,
+    void* stream, int splits, void* part_o, void* part_ml,
+    void* counters) {
+  repro::SplitArgs a{q, k_cache, v_cache, k_scale, v_scale, lengths,
+                     nullptr, B, Hq, Hkv, splits, part_o, part_ml,
+                     counters};
+  a.cp_o = o;
+  a.cp_m = m;
+  a.cp_l = l;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kFloat32)
+    return repro::launch_dense<float, int8_t>(a, S, D, s);
+  if (dtype == repro::kBFloat16)
+    return repro::launch_dense<__nv_bfloat16, int8_t>(a, S, D, s);
+  return cudaErrorInvalidValue;
+}

@@ -47,6 +47,15 @@
 // * Scores live in the log2 domain (q is scaled by D**-0.5 * log2(e) in
 //   f32) and use exp2f.
 //
+// Partial mode (the context-parallel decode's shard, models/attention.py
+// gqa_decode_attention_cp): given cp_o, cp_m and cp_l, the final merge
+// writes the shard's merged f32 state instead of dividing: the
+// unnormalised output o [B, Hq, D], its max m [B, Hq] and its sum of
+// exponentials l [B, Hq], with m converted from the log2 domain to the
+// natural log (m * ln 2; o and l are the same sums in either base), so
+// that ranks merge m with the plain version's units.  A shard with no
+// valid row writes m = -inf, l = 0, o = 0.
+//
 // int8 (dense rows only): the cache moves half the bf16 cache's bytes.
 // Each (token, head) scale is read once per lane group, a tile ahead, and
 // folded into the score (s_k q.k) and into p (p s_v) instead of
@@ -69,6 +78,24 @@ constexpr int kStages = 3;              // per-warp ring depth
 constexpr int kWarpTileBytes = 2048;    // K bytes per warp tile (V alike)
 constexpr int kMaxHeads = 8;            // query heads a block keeps
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The merged state of one output row: the output (divided), or in
+// partial mode the unnormalised output, m in natural-log units and l.
+template <typename T>
+__device__ __forceinline__ void store_row(T* out, float* cp_o, float* cp_m,
+                                          float* cp_l, size_t row, int D,
+                                          int d, float O, float M, float L) {
+  if (cp_o == nullptr) {
+    out[row * D + d] = from_f32<T>(O / fmaxf(L, 1e-30f));
+    return;
+  }
+  cp_o[row * D + d] = O;
+  if (d == 0) {
+    cp_m[row] = M * kLn2;  // -inf stays -inf
+    cp_l[row] = L;
+  }
+}
 
 // 8 consecutive cache values from shared memory as f32
 template <typename KV>
@@ -128,8 +155,9 @@ decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k_rows,
                     const __nv_bfloat16* __restrict__ v_scale,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     float* __restrict__ part_o, float* __restrict__ part_ml,
-                    int* __restrict__ counters, Rows rows, int Hq, int Hkv,
-                    int splits, float qscale) {
+                    int* __restrict__ counters, float* __restrict__ cp_o,
+                    float* __restrict__ cp_m, float* __restrict__ cp_l,
+                    Rows rows, int Hq, int Hkv, int splits, float qscale) {
   constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
   static_assert(!(kInt8 && Rows::kGather), "int8 caches are dense");
   constexpr int LPR = D / 8;                     // lanes per cache row
@@ -348,7 +376,7 @@ decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k_rows,
     }
     const size_t row = (size_t)b * Hq + hq0 + g;
     if (splits == 1) {
-      out[row * D + d] = from_f32<T>(O / fmaxf(L, 1e-30f));
+      store_row(out, cp_o, cp_m, cp_l, row, D, d, O, M, L);
     } else {
       const size_t pi = row * splits + sp;
       part_o[pi * D + d] = O;
@@ -389,18 +417,20 @@ decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k_rows,
         L = fmaf(__ldcg(ml + 2 * s + 1), f, L);
       }
     }
-    out[row * D + d] = from_f32<T>(O / fmaxf(L, 1e-30f));
+    store_row(out, cp_o, cp_m, cp_l, row, D, d, O, M, L);
   }
 }
 
 // The launch's arguments apart from the template: K and V rows (cache or
 // pages), int8 scales (null for a float cache), lengths, output, split
-// scratch (null for one split) and the row policy.
+// scratch (null for one split), and the partial mode's f32 outputs
+// (null, the default, to write `out`).
 struct SplitArgs {
   const void *q, *k, *v, *k_scale, *v_scale, *lengths;
   void* out;
   int B, Hq, Hkv, splits;
   void *part_o, *part_ml, *counters;
+  void *cp_o = nullptr, *cp_m = nullptr, *cp_l = nullptr;
 };
 
 template <typename T, typename KV, int D, int GM, typename Rows>
@@ -423,8 +453,9 @@ cudaError_t launch_split(const SplitArgs& a, Rows rows,
           static_cast<const __nv_bfloat16*>(a.v_scale),
           static_cast<const int*>(a.lengths), static_cast<T*>(a.out),
           static_cast<float*>(a.part_o), static_cast<float*>(a.part_ml),
-          static_cast<int*>(a.counters), rows, a.Hq, a.Hkv, a.splits,
-          qscale);
+          static_cast<int*>(a.counters), static_cast<float*>(a.cp_o),
+          static_cast<float*>(a.cp_m), static_cast<float*>(a.cp_l), rows,
+          a.Hq, a.Hkv, a.splits, qscale);
   return cudaGetLastError();
 }
 
@@ -451,8 +482,9 @@ cudaError_t launch_split_any(const SplitArgs& a, int D, Rows rows,
 }
 
 inline bool bad_split_args(const SplitArgs& a, int capacity) {
+  const bool cp = a.cp_o != nullptr;
   return a.B < 0 || capacity <= 0 || a.Hkv <= 0 || a.Hq % a.Hkv != 0 ||
-         a.splits < 1 ||
+         a.splits < 1 || (cp && (a.cp_m == nullptr || a.cp_l == nullptr)) ||
          (a.splits > 1 && (a.part_o == nullptr || a.part_ml == nullptr ||
                            a.counters == nullptr));
 }

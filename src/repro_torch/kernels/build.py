@@ -112,6 +112,12 @@ def load_library() -> ctypes.CDLL:
     lib.repro_decode_attention_int8.argtypes = \
         [p] * 7 + [i] * 6 + [p, i, p, p, p]
     lib.repro_decode_attention_int8.restype = i
+    lib.repro_decode_attention_partial.argtypes = \
+        [p] * 7 + [i] * 6 + [p, i, p, p, p]
+    lib.repro_decode_attention_partial.restype = i
+    lib.repro_decode_attention_int8_partial.argtypes = \
+        [p] * 9 + [i] * 6 + [p, i, p, p, p]
+    lib.repro_decode_attention_int8_partial.restype = i
     lib.repro_ssd_scan.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.repro_ssd_scan.restype = i
     lib.repro_ssd_scan_bwd.argtypes = [p] * 19 + [i] * 6 + [p]

@@ -10,7 +10,10 @@ Each replaces the TPU kernel of the same name in
 ``decode_attention_int8_kernel`` (body ``_kernel_i8``),
 ``paged_decode_attention_kernel`` (body ``_paged_kernel``) and
 ``paged_prefix_prefill_attention_kernel`` (body
-``_prefix_prefill_kernel``).  All four are bound by the bytes they read:
+``_prefix_prefill_kernel``).  The dense decode kernel's partial mode
+(:func:`decode_attention_partial_kernel` and its int8 form) is the
+context-parallel decode's shard, which the reference computes in plain
+``jnp`` (no TPU kernel).  All four are bound by the bytes they read:
 each block walks only the cache rows or pages its row's length covers, so
 the bytes follow the real context, not the cache or table width (the
 sources say more).
@@ -123,9 +126,10 @@ def _split_counters(device: torch.device, n: int) -> torch.Tensor:
 
 
 def _split_plan(q, slots: int, hkv: int, sms: int,
-                splits: Optional[int] = None
-                ) -> Tuple[int, torch.Tensor, Optional[torch.Tensor],
-                           Optional[torch.Tensor], Optional[torch.Tensor]]:
+                splits: Optional[int] = None, output: bool = True
+                ) -> Tuple[int, Optional[torch.Tensor],
+                           Optional[torch.Tensor], Optional[torch.Tensor],
+                           Optional[torch.Tensor]]:
     b, hq, d = q.shape
     if d not in DECODE_HEAD_SIZES:
         raise ValueError(f"decode head size {d} not in "
@@ -135,7 +139,7 @@ def _split_plan(q, slots: int, hkv: int, sms: int,
         splits = plan_splits(b, slots, hkv * chunks, sms)
     elif not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"splits {splits} not in [1, {MAX_SPLITS}]")
-    out = torch.empty_like(q)
+    out = torch.empty_like(q) if output else None
     if splits == 1:
         return splits, out, None, None, None
     part_o = torch.empty((b, hq, splits, d), dtype=torch.float32,
@@ -146,14 +150,16 @@ def _split_plan(q, slots: int, hkv: int, sms: int,
             _split_counters(q.device, b * hkv * chunks))
 
 
-def decode_plan(q, k_cache, lengths, sms: int
-                ) -> Tuple[int, torch.Tensor, Optional[torch.Tensor],
-                           Optional[torch.Tensor], Optional[torch.Tensor]]:
+def decode_plan(q, k_cache, lengths, sms: int, output: bool = True
+                ) -> Tuple[int, Optional[torch.Tensor],
+                           Optional[torch.Tensor], Optional[torch.Tensor],
+                           Optional[torch.Tensor]]:
     """The host side of a dense decode launch, on any device: check the
-    shapes and head size, choose the splits and allocate the output and
-    the split scratch (f32 partial outputs [B, Hq, splits, D], (max, sum)
-    pairs [B, Hq, splits, 2] and the zeroed split counters; None for one
-    split).  Reads no tensor's values."""
+    shapes and head size, choose the splits and allocate the output
+    (None with ``output=False``: the partial mode writes its own f32
+    outputs) and the split scratch (f32 partial outputs [B, Hq, splits,
+    D], (max, sum) pairs [B, Hq, splits, 2] and the zeroed split
+    counters; None for one split).  Reads no tensor's values."""
     b, hq, d = q.shape
     _, s, hkv, dk = k_cache.shape
     if k_cache.shape[0] != b or dk != d or hq % hkv \
@@ -161,7 +167,7 @@ def decode_plan(q, k_cache, lengths, sms: int
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, cache "
             f"{tuple(k_cache.shape)}, lengths {tuple(lengths.shape)}")
-    return _split_plan(q, s, hkv, sms)
+    return _split_plan(q, s, hkv, sms, output=output)
 
 
 def paged_decode_plan(q, k_pages, block_tables, lengths, sms: int,
@@ -188,9 +194,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def decode_attention_kernel(q, k_cache, v_cache, lengths) -> torch.Tensor:
-    """q: [B, Hq, D]; caches: [B, S, Hkv, D] (one layer of the model's
-    cache, a contiguous slice); lengths: [B] int32 -> [B, Hq, D]."""
+def _check_dense(q, k_cache, v_cache, lengths) -> int:
+    """Validate a dense decode launch's tensors; returns q's dtype code."""
     code = dtype_code(q)
     check_cuda("q", q, dim=3)
     check_cuda("k_cache", k_cache, dtype=q.dtype, dim=4)
@@ -199,6 +204,33 @@ def decode_attention_kernel(q, k_cache, v_cache, lengths) -> torch.Tensor:
     if v_cache.shape != k_cache.shape:
         raise ValueError(f"shape mismatch: caches {tuple(k_cache.shape)}/"
                          f"{tuple(v_cache.shape)}")
+    return code
+
+
+def _check_int8(q, k_cache, v_cache, k_scale, v_scale, lengths) -> int:
+    """Validate an int8-cache decode launch's tensors; returns q's dtype
+    code."""
+    code = dtype_code(q)
+    check_cuda("q", q, dim=3)
+    check_cuda("k_cache", k_cache, dtype=torch.int8, dim=4)
+    check_cuda("v_cache", v_cache, dtype=torch.int8, dim=4)
+    check_cuda("k_scale", k_scale, dtype=torch.bfloat16, dim=3)
+    check_cuda("v_scale", v_scale, dtype=torch.bfloat16, dim=3)
+    check_cuda("lengths", lengths, dtype=torch.int32, dim=1)
+    if (v_cache.shape != k_cache.shape
+            or k_scale.shape != k_cache.shape[:3]
+            or v_scale.shape != k_scale.shape):
+        raise ValueError(
+            f"shape mismatch: caches {tuple(k_cache.shape)}/"
+            f"{tuple(v_cache.shape)}, scales {tuple(k_scale.shape)}/"
+            f"{tuple(v_scale.shape)}")
+    return code
+
+
+def decode_attention_kernel(q, k_cache, v_cache, lengths) -> torch.Tensor:
+    """q: [B, Hq, D]; caches: [B, S, Hkv, D] (one layer of the model's
+    cache, a contiguous slice); lengths: [B] int32 -> [B, Hq, D]."""
+    code = _check_dense(q, k_cache, v_cache, lengths)
     b, hq, d = q.shape
     _, s, hkv, _ = k_cache.shape
     splits, out, part_o, part_ml, counters = decode_plan(
@@ -218,20 +250,7 @@ def decode_attention_int8_kernel(q, k_cache, v_cache, k_scale, v_scale,
     """q: [B, Hq, D] (f32 or bf16); caches: int8 [B, S, Hkv, D]; scales:
     bf16 [B, S, Hkv] (slices of the model's int8 cache); lengths: [B]
     int32 -> [B, Hq, D] in q's dtype."""
-    code = dtype_code(q)
-    check_cuda("q", q, dim=3)
-    check_cuda("k_cache", k_cache, dtype=torch.int8, dim=4)
-    check_cuda("v_cache", v_cache, dtype=torch.int8, dim=4)
-    check_cuda("k_scale", k_scale, dtype=torch.bfloat16, dim=3)
-    check_cuda("v_scale", v_scale, dtype=torch.bfloat16, dim=3)
-    check_cuda("lengths", lengths, dtype=torch.int32, dim=1)
-    if (v_cache.shape != k_cache.shape
-            or k_scale.shape != k_cache.shape[:3]
-            or v_scale.shape != k_scale.shape):
-        raise ValueError(
-            f"shape mismatch: caches {tuple(k_cache.shape)}/"
-            f"{tuple(v_cache.shape)}, scales {tuple(k_scale.shape)}/"
-            f"{tuple(v_scale.shape)}")
+    code = _check_int8(q, k_cache, v_cache, k_scale, v_scale, lengths)
     b, hq, d = q.shape
     _, s, hkv, _ = k_cache.shape
     splits, out, part_o, part_ml, counters = decode_plan(
@@ -245,6 +264,64 @@ def decode_attention_int8_kernel(q, k_cache, v_cache, k_scale, v_scale,
             _ptr(part_o), _ptr(part_ml), _ptr(counters))
     raise_on(rc, "decode_attention_int8")
     return out
+
+
+def _partial_outputs(q) -> Tuple[torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """The partial mode's f32 outputs: o [B, Hq, D], m and l [B, Hq]."""
+    b, hq, d = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (torch.empty((b, hq, d), **f32), torch.empty((b, hq), **f32),
+            torch.empty((b, hq), **f32))
+
+
+def decode_attention_partial_kernel(q, k_cache, v_cache, lengths
+                                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """The context-parallel shard's partial: q [B, Hq, D]; caches [B, S,
+    Hkv, D] (this rank's shard); lengths [B] int32 (valid slots of the
+    shard) -> (o f32 [B, Hq, D] unnormalised, m f32 [B, Hq] the scores'
+    max in natural log (-inf with no valid slot), l f32 [B, Hq] the sum
+    of exp(score - m))."""
+    code = _check_dense(q, k_cache, v_cache, lengths)
+    b, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    splits, _, part_o, part_ml, counters = decode_plan(
+        q, k_cache, lengths, _sm_count(q.device.index), output=False)
+    o, m, l = _partial_outputs(q)
+    with torch.cuda.device(q.device):
+        rc = load_library().repro_decode_attention_partial(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), b,
+            s, hq, hkv, d, code,
+            torch.cuda.current_stream(q.device).cuda_stream, splits,
+            _ptr(part_o), _ptr(part_ml), _ptr(counters))
+    raise_on(rc, "decode_attention_partial")
+    return o, m, l
+
+
+def decode_attention_int8_partial_kernel(q, k_cache, v_cache, k_scale,
+                                         v_scale, lengths
+                                         ) -> Tuple[torch.Tensor,
+                                                    torch.Tensor,
+                                                    torch.Tensor]:
+    """:func:`decode_attention_partial_kernel` on an int8 shard: caches
+    int8 [B, S, Hkv, D], scales bf16 [B, S, Hkv]."""
+    code = _check_int8(q, k_cache, v_cache, k_scale, v_scale, lengths)
+    b, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    splits, _, part_o, part_ml, counters = decode_plan(
+        q, k_cache, lengths, _sm_count(q.device.index), output=False)
+    o, m, l = _partial_outputs(q)
+    with torch.cuda.device(q.device):
+        rc = load_library().repro_decode_attention_int8_partial(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
+            o.data_ptr(), m.data_ptr(), l.data_ptr(), b, s, hq, hkv, d,
+            code, torch.cuda.current_stream(q.device).cuda_stream, splits,
+            _ptr(part_o), _ptr(part_ml), _ptr(counters))
+    raise_on(rc, "decode_attention_int8_partial")
+    return o, m, l
 
 
 def _check_aligned(**tensors) -> None:

@@ -55,6 +55,46 @@ decode_attention_int8.plain_calls = 0
 
 
 @hot_path
+def decode_attention_partial(q, k_cache, v_cache, lengths):
+    """The context-parallel shard's partial: q [B, Hq, D]; caches [B, S,
+    Hkv, D] (a rank's shard); lengths [B] valid slots of the shard ->
+    (o [B, Hq, D] unnormalised, m [B, Hq] in natural log, l [B, Hq]),
+    all f32 (``ref.decode_attention_partial_ref``)."""
+    if device_route(q) == "cpu":
+        decode_attention_partial.plain_calls += 1
+        return ref.decode_attention_partial_ref(q, k_cache, v_cache, lengths)
+    out = kernel.decode_attention_partial_kernel(
+        q.contiguous(), k_cache, v_cache,
+        lengths.to(torch.int32).contiguous())
+    decode_attention_partial.launches += 1
+    return out
+
+
+decode_attention_partial.launches = 0
+decode_attention_partial.plain_calls = 0
+
+
+@hot_path
+def decode_attention_int8_partial(q, k_cache, v_cache, k_scale, v_scale,
+                                  lengths):
+    """:func:`decode_attention_partial` on an int8 shard with bf16
+    scales [B, S, Hkv]."""
+    if device_route(q) == "cpu":
+        decode_attention_int8_partial.plain_calls += 1
+        return ref.decode_attention_int8_partial_ref(
+            q, k_cache, v_cache, k_scale, v_scale, lengths)
+    out = kernel.decode_attention_int8_partial_kernel(
+        q.contiguous(), k_cache, v_cache, k_scale, v_scale,
+        lengths.to(torch.int32).contiguous())
+    decode_attention_int8_partial.launches += 1
+    return out
+
+
+decode_attention_int8_partial.launches = 0
+decode_attention_int8_partial.plain_calls = 0
+
+
+@hot_path
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
                            splits=None):
     """q: [B, Hq, D]; pages: [num_blocks, bt, Hkv, D]; block_tables:
@@ -104,7 +144,8 @@ paged_prefix_prefill_attention.launches = 0
 paged_prefix_prefill_attention.plain_calls = 0
 
 KERNELS = (decode_attention, decode_attention_int8, paged_decode_attention,
-           paged_prefix_prefill_attention)
+           paged_prefix_prefill_attention, decode_attention_partial,
+           decode_attention_int8_partial)
 
 
 def reset_counts() -> None:

@@ -46,6 +46,42 @@ def decode_attention_int8_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return decode_attention_ref(q, k, v, lengths)
 
 
+def decode_attention_partial_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor,
+                                 lengths: torch.Tensor):
+    """One shard's online-softmax partial, the reference's ``local``
+    body of ``gqa_decode_attention_cp`` before its merge: q [B, Hq, D];
+    caches [B, S, Hkv, D]; lengths [B] valid slots of the shard ->
+    (o f32 [B, Hq, D] = sum_k exp(s_k - m) v_k, m f32 [B, Hq] = max_k
+    s_k in natural log, l f32 [B, Hq] = sum_k exp(s_k - m)).  A row
+    with no valid slot gives m = -inf, l = 0, o = 0 (no NaN); masked
+    slots' values are zeroed, as in :func:`decode_attention_ref`."""
+    b, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    g = hq // hkv
+    qf = q.float().reshape(b, hkv, g, d) * d ** -0.5
+    sc = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float())
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < lengths[:, None])[:, None, None, :]
+    sc = torch.where(valid, sc, torch.full_like(sc, float("-inf")))
+    m = sc.amax(dim=-1)
+    p = torch.where(valid, torch.exp(sc - m[..., None]),
+                    torch.zeros((), device=q.device))
+    vf = torch.where(valid[:, 0, 0, :, None, None], v_cache.float(),
+                     torch.zeros((), device=q.device))
+    o = torch.einsum("bhgk,bkhd->bhgd", p, vf)
+    return o.reshape(b, hq, d), m.reshape(b, hq), p.sum(-1).reshape(b, hq)
+
+
+def decode_attention_int8_partial_ref(q, k_cache, v_cache, k_scale,
+                                      v_scale, lengths):
+    """:func:`decode_attention_partial_ref` on an int8 shard, dequantised
+    in f32 as :func:`decode_attention_int8_ref` does."""
+    k = k_cache.float() * k_scale.float()[..., None]
+    v = v_cache.float() * v_scale.float()[..., None]
+    return decode_attention_partial_ref(q, k, v, lengths)
+
+
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor,
                                block_tables: torch.Tensor,

@@ -213,8 +213,10 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
                 tokens: torch.Tensor, positions: torch.Tensor, *,
-                act_dtype: torch.dtype = torch.bfloat16):
-    """tokens [B]; positions [B].  Writes each row's self K/V at slot
+                rules=None, act_dtype: torch.dtype = torch.bfloat16):
+    """tokens [B]; positions [B].  ``rules`` is accepted as the
+    reference's is and not read: the encoder-decoder family has no
+    context-parallel branch.  Writes each row's self K/V at slot
     ``positions % S`` in place, attends its first ``min(positions + 1,
     S)`` slots, then the cross cache's first ``encoder_seq`` rows (cross
     K/V come precomputed from the prefill).  The position embedding is

@@ -49,21 +49,94 @@ arithmetic of a token independent of its batch, wave or window.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import params as params_lib
+from repro_torch import partitioning
 from repro_torch.analysis.sanitizer import hot_path
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer
+from repro_torch.models.attention import batch_spec
 
 batch_invariant = transformer.batch_invariant
 
 
 def _is_encdec(cfg: ModelConfig) -> bool:
     return cfg.family == "audio"
+
+
+class ParamStruct(NamedTuple):
+    """A parameter leaf's stand-in: shape, dtype and logical axes (the
+    reference's ``ParamSpec`` without its initialiser)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    axes: Tuple[Optional[str], ...]
+
+
+def model_spec(cfg: ModelConfig, dtype: torch.dtype = torch.float32):
+    """The parameter tree of ``cfg`` as :class:`ParamStruct` leaves, no
+    allocation: ``dtype``, except the SSM decay parameters and the MoE
+    router, which are f32 (``transformer.KEEP_F32``), as the reference's
+    ``model_spec`` declares them."""
+    def make(tree, f32: bool):
+        if isinstance(tree, dict):
+            return {k: make(v, k in transformer.KEEP_F32)
+                    for k, v in tree.items()}
+        return ParamStruct(tree.shape, torch.float32 if f32 else dtype,
+                           tree.axes)
+    return make(params_lib.param_specs(cfg), False)
+
+
+def param_axes(cfg: ModelConfig, dtype: torch.dtype = torch.float32):
+    """The logical axes of every parameter leaf (the reference's
+    ``param_axes``), as ``partitioning.tree_shardings`` reads them."""
+    def axes(tree):
+        if isinstance(tree, dict):
+            return {k: axes(v) for k, v in tree.items()}
+        return tree.axes
+    return axes(model_spec(cfg, dtype))
+
+
+def cache_struct(cfg: ModelConfig, batch: int, seq: int,
+                 dtype: torch.dtype = torch.bfloat16):
+    """({key: ((shape, dtype), ...)}, logical axes) of the decode cache
+    (``transformer.cache_struct``, ``encdec.cache_struct``)."""
+    mod = encdec if _is_encdec(cfg) else transformer
+    return mod.cache_struct(cfg, batch, seq, dtype)
+
+
+def shard_cache(cfg: ModelConfig, cache, rules: Dict[str, Any]):
+    """Place a whole decode ``cache`` on the mesh of ``rules``
+    (``partitioning.with_mesh_rules``): returns (this rank's cache, the
+    rules to decode it with).
+
+    A GQA config that decodes context-parallel on the mesh
+    (``transformer.context_parallel``: ``decode_cp`` and a model axis
+    that divides the cache) keeps this rank's block of each ``"kv"``
+    leaf: the sequence over the model axis, the rows as
+    ``attention.batch_spec`` shards them (a contiguous copy of
+    ``partitioning.shard_local``'s view, as the decode kernel reads
+    whole rows).  The returned rules record the whole cache's slot
+    count under ``"_kv_len"``, which tells the decode that the cache
+    is a block.  Every other leaf stays whole, as every rank computes
+    the rest of the model.  Any other config or cache is returned whole
+    with ``rules`` unchanged, and decodes as on one device: the
+    reference's fallback to plain decode attention."""
+    mesh = rules["_mesh"]
+    if "kv" not in cache or cfg.uses_mla or _is_encdec(cfg):
+        return cache, rules
+    _, b, s = cache["kv"][0].shape[:3]
+    if not transformer.context_parallel(cfg, mesh, s):
+        return cache, rules
+    spec = (None, batch_spec(mesh, b, rules.get("cache_batch", ("data",))),
+            "model")
+    local = dict(cache)
+    local["kv"] = tuple(partitioning.shard_local(t, spec, mesh).contiguous()
+                        for t in cache["kv"])
+    return local, dict(rules, _kv_len=s)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
@@ -121,17 +194,23 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
 
 @hot_path
 def decode_step(params, cfg: ModelConfig, cache, batch: Dict[str, Any], *,
-                act_dtype: torch.dtype = torch.bfloat16):
+                rules=None, act_dtype: torch.dtype = torch.bfloat16):
     """One token per row against the dense cache (updated in place).
-    Returns (logits [B, V], cache)."""
+    Returns (logits [B, V], cache).  ``rules`` (``partitioning.
+    with_mesh_rules``) carry a mesh to a ``cfg.decode_cp`` config's
+    context-parallel attention; the cache is then the whole cache, or
+    this rank's block of it with the rules :func:`shard_cache`
+    returned, and the logits are every row's, on every rank."""
     mod = encdec if _is_encdec(cfg) else transformer
     return mod.decode_step(params, cfg, cache, batch["tokens"],
-                           batch["positions"], act_dtype=act_dtype)
+                           batch["positions"], rules=rules,
+                           act_dtype=act_dtype)
 
 
 @hot_path
 def decode_multi(params, cfg: ModelConfig, cache, batch: Dict[str, Any], *,
-                 num_steps: int, act_dtype: torch.dtype = torch.bfloat16):
+                 num_steps: int, rules=None,
+                 act_dtype: torch.dtype = torch.bfloat16):
     """Fused ``num_steps``-step greedy decode against a dense cache.
 
     batch: {"logits": [B, padded_vocab] seed logits (from prefill or the
@@ -147,7 +226,7 @@ def decode_multi(params, cfg: ModelConfig, cache, batch: Dict[str, Any], *,
         tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1).to(torch.int32)
         logits, cache = decode_step(params, cfg, cache,
                                     {"tokens": tok, "positions": positions},
-                                    act_dtype=act_dtype)
+                                    rules=rules, act_dtype=act_dtype)
         positions = positions + 1
         toks.append(tok)
     return logits, cache, positions, torch.stack(toks, dim=1)
@@ -363,3 +442,58 @@ def gather_pages(pages, blocks):
 def scatter_pages(pages, blocks, values):
     """Scatter swapped-in host pages back into the pools, in place (§15)."""
     return transformer.scatter_pages(pages, blocks, values)
+
+
+# ---------------------------------------------------------------------------
+# Shapes for dry-runs: (shape, dtype) stand-ins, no allocation
+# ---------------------------------------------------------------------------
+
+def decode_cache_len(cfg: ModelConfig, shape: InputShape) -> int:
+    """Cache capacity for a decode shape: the full seq_len, or the
+    sliding window for SWA and long-context runs."""
+    if cfg.family == "ssm":
+        return 1  # unused; SSM caches are constant-size states
+    if shape.name == "long_500k":
+        return cfg.sliding_window or 8192
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, shape.seq_len)
+    return shape.seq_len
+
+
+def supports_shape(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
+    if shape.name == "long_500k" and cfg.family == "audio":
+        return False, ("enc-dec speech model: 448-token decoder context and "
+                       "a fixed 30s audio window make a 524288-token decode "
+                       "architecturally meaningless (see DESIGN.md)")
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
+    """``(shape, dtype)`` stand-ins and logical axes of every model input
+    of the workload shape: {"specs": {...}, "axes": {...}}.  (The
+    reference's ``cache_dtype`` argument is not taken: it reads it
+    nowhere, as no input here is a cache.)"""
+    b, s = shape.global_batch, shape.seq_len
+    tok = lambda *sh: (tuple(sh), torch.int32)
+    emb = lambda *sh: (tuple(sh), torch.bfloat16)
+    specs: Dict[str, Any] = {}
+    axes: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        s_text = s - cfg.num_patches if cfg.family == "vlm" else s
+        specs["tokens"] = tok(b, s_text)
+        axes["tokens"] = ("act_batch", "act_seq")
+        if cfg.family == "vlm":
+            specs["patches"] = emb(b, cfg.num_patches, cfg.d_model)
+            axes["patches"] = ("act_batch", None, "act_embed")
+        if cfg.family == "audio":
+            specs["frames"] = emb(b, cfg.encoder_seq, cfg.d_model)
+            axes["frames"] = ("act_batch", None, "act_embed")
+        if shape.kind == "prefill":
+            specs["lengths"] = tok(b)
+            axes["lengths"] = ("act_batch",)
+    else:  # decode: one new token against a seq_len cache
+        specs["tokens"] = tok(b)
+        specs["positions"] = tok(b)
+        axes["tokens"] = ("act_batch",)
+        axes["positions"] = ("act_batch",)
+    return {"specs": specs, "axes": axes}

@@ -65,13 +65,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention_int8, paged_decode_attention,
     paged_prefix_prefill_attention)
-from repro_torch.models.attention import (gqa_decode_attention,
+from repro_torch.models.attention import (batch_block, batch_spec,
+                                         gqa_decode_attention,
+                                         gqa_decode_attention_cp,
                                          gqa_prefill_attention)
 from repro_torch.models.layers import apply_rope, rms_norm, swiglu, upcast
 from repro_torch.models.mla import mla_decode, mla_prefill
 from repro_torch.models.moe import moe_forward, moe_forward_ragged
 from repro_torch.models.ssm import (mamba_decode, mamba_forward,
                                     mamba_state_spec)
+from repro_torch.partitioning import mesh_shape, shard_local
 
 # SSM decay parameters and the MoE router stay f32 whatever the compute
 # dtype, as in the reference (its ``_KEEP_F32``)
@@ -264,9 +267,20 @@ def _quant_i8(t: torch.Tensor):
     return q.to(torch.int8), sc.to(torch.bfloat16)
 
 
+def context_parallel(cfg: ModelConfig, mesh, s_cache: int) -> bool:
+    """Whether a ``cfg`` decode against a cache of ``s_cache`` slots
+    (the whole cache's, on every rank) takes the context-parallel
+    branch on ``mesh``: the reference's condition, ``decode_cp`` and a
+    mesh with a ``model`` axis that divides the cache
+    (``src/repro/models/transformer.py:174-183``)."""
+    return bool(cfg.decode_cp and mesh is not None
+                and "model" in mesh.axis_names
+                and s_cache % mesh_shape(mesh)["model"] == 0)
+
+
 def _attention_decode(ap: Dict, x: torch.Tensor, cfg: ModelConfig,
                       kv: Tuple[torch.Tensor, ...],
-                      positions: torch.Tensor) -> torch.Tensor:
+                      positions: torch.Tensor, rules=None) -> torch.Tensor:
     """One-token GQA attention against one layer's cache: ``kv`` is (k,
     v), each [B, S, Hkv, D], or with ``cfg.cache_int8`` (k int8, v int8,
     k scales, v scales [B, S, Hkv] bf16).  The new K/V (quantised, for
@@ -274,31 +288,78 @@ def _attention_decode(ap: Dict, x: torch.Tensor, cfg: ModelConfig,
     cache is shorter than the sequence), then attention reads the first
     ``min(positions + 1, S)`` slots.  The int8 kernel dequantises in f32;
     the reference model dequantises into a bf16 copy of the cache and
-    runs the float attention on it (ROADMAP §3)."""
-    if cfg.decode_cp:
-        raise NotImplementedError(
-            f"{cfg.name}: context-parallel decode (gqa_decode_attention_cp)"
-            f" needs a device mesh and is not ported yet")
-    s_cache = kv[0].shape[1]
+    runs the float attention on it (ROADMAP §3).
+
+    With a mesh in ``rules`` (``partitioning.with_mesh_rules``), under
+    :func:`context_parallel`, ``gqa_decode_attention_cp`` merges the
+    ranks' partials of their blocks of the cache: global slots
+    ``[r * S/n, (r + 1) * S/n)`` of the ``n`` ranks of the model axis,
+    and this rank's rows (``attention.batch_block``).  A cache that
+    ``model.shard_cache`` placed is that block (the rules it returns
+    record the whole cache's S under ``"_kv_len"``); only the rank whose
+    block holds slot ``positions % S`` writes the new K/V (GSPMD's write
+    of the reference, by hand).  A whole cache (no record) is written
+    on every rank, and each rank copies its block out of it for the
+    kernel.  The int8 cache takes the same route, its shard dequantised
+    inside the partial kernel.  Otherwise a ``decode_cp`` config
+    decodes exactly as with the flag off, as the reference's does."""
+    rules = rules or {}
+    mesh = rules.get("_mesh")
+    local_s = kv[0].shape[1]
+    placed = rules.get("_kv_len")
+    s_cache = local_s if placed is None else placed
+    cp = context_parallel(cfg, mesh, s_cache)
     q, k, v = _qkv(ap, x, cfg)
     q = apply_rope(q, positions[:, None], cfg.rope_theta)
     k = apply_rope(k, positions[:, None], cfg.rope_theta)
-    rows = torch.arange(x.shape[0], device=x.device)
-    slot = (positions % s_cache).long()
+    slot, mine = positions, None
+    if cp:
+        batch_axes = rules.get("cache_batch", ("data",))
+        b0, bl = batch_block(mesh, x.shape[0], batch_axes)
+    if placed is not None:
+        if not cp or local_s * mesh_shape(mesh)["model"] != placed \
+                or kv[0].shape[0] != bl:
+            raise ValueError(
+                f"a cache block of {tuple(kv[0].shape[:2])} (rows, slots) "
+                f"is not this rank's block of a {placed}-slot cache: "
+                f"place the cache with model.shard_cache")
+        slot = positions[b0:b0 + bl] % s_cache
+        mine = (slot // local_s) == mesh.get_local_rank("model")
+        k, v = k[b0:b0 + bl], v[b0:b0 + bl]
+    slot = (slot % local_s).long()
+    rows = torch.arange(slot.shape[0], device=x.device)
     valid = torch.clamp(positions + 1, max=s_cache)
+
+    def write(leaf, new):
+        new = new[:, 0].to(leaf.dtype)
+        if mine is not None:     # other ranks' slots keep what they hold
+            keep = mine.view(-1, *([1] * (new.dim() - 1)))
+            new = torch.where(keep, new, leaf[rows, slot])
+        leaf[rows, slot] = new
+
     if cfg.cache_int8:
-        k_cache, v_cache, k_sc, v_sc = kv
-        for cache, scales, new in ((k_cache, k_sc, k), (v_cache, v_sc, v)):
+        for cache, scales, new in ((kv[0], kv[2], k), (kv[1], kv[3], v)):
             values, scale = _quant_i8(new)
-            cache[rows, slot] = values[:, 0]
-            scales[rows, slot] = scale[:, 0]
-        out = decode_attention_int8(q[:, 0], k_cache, v_cache, k_sc, v_sc,
-                                    valid)[:, None]
+            write(cache, values)
+            write(scales, scale)
     else:
-        k_cache, v_cache = kv
-        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
-        out = gqa_decode_attention(q, k_cache, v_cache, valid)
+        write(kv[0], k)
+        write(kv[1], v)
+    if cp:
+        blocks = kv
+        if placed is None:
+            spec = (batch_spec(mesh, x.shape[0], batch_axes), "model")
+            blocks = tuple(shard_local(t, spec, mesh).contiguous()
+                           for t in kv)
+        scales = ({"k_scale": blocks[2], "v_scale": blocks[3]}
+                  if cfg.cache_int8 else {})
+        out = gqa_decode_attention_cp(q, blocks[0], blocks[1], valid,
+                                      mesh=mesh, batch_axes=batch_axes,
+                                      **scales)
+    elif cfg.cache_int8:
+        out = decode_attention_int8(q[:, 0], *kv, valid)[:, None]
+    else:
+        out = gqa_decode_attention(q, kv[0], kv[1], valid)
     return _out_proj(out.to(x.dtype), ap["wo"])
 
 
@@ -342,10 +403,11 @@ def block_forward(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 def block_decode(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
                  layer_cache: Dict[str, Tuple[torch.Tensor, ...]],
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, rules=None) -> torch.Tensor:
     """One-token block; writes this layer's cache entry (``layer_cache``:
     the leaves of ``cache["kv"]`` and/or ``cache["ssm"]`` at this layer)
-    in place."""
+    in place.  ``rules`` reach the GQA attention's context-parallel
+    branch (:func:`_attention_decode`)."""
     h = _norm(x, bp["norm1"], cfg.norm_eps)
     y = None
     if cfg.uses_mla:
@@ -353,7 +415,7 @@ def block_decode(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
                        layer_cache["kv"], positions, cfg.rope_theta)
     elif "kv" in layer_cache:
         y = _attention_decode(bp["attn"], h, cfg, layer_cache["kv"],
-                              positions)
+                              positions, rules)
     if "ssm" in layer_cache:
         state = layer_cache["ssm"]
         ym, new = mamba_decode(bp["mamba"], h, cfg.ssm, d_inner(cfg),
@@ -534,12 +596,17 @@ def lm_loss(params: Dict, cfg: ModelConfig, tokens, *, patches=None,
 
 
 def decode_step(params: Dict, cfg: ModelConfig, cache: Dict, tokens,
-                positions, *, act_dtype: torch.dtype = torch.bfloat16):
+                positions, *, rules=None,
+                act_dtype: torch.dtype = torch.bfloat16):
     """tokens: [B] new ids; positions: [B] tokens already cached (the new
     token's absolute position; an SSM step does not read it).  For the
     vlm family the positions are text-relative: the cache holds the
     patch prefix, so ``cfg.num_patches`` is added here, as in the
-    reference.  Returns (logits [B, V], cache updated in place)."""
+    reference.  Returns (logits [B, V], cache updated in place).
+    With a mesh in ``rules``, a :func:`context_parallel` decode's cache
+    is the whole cache or this rank's block of it (``model.shard_cache``
+    and the rules it returns), and every rank computes the rest of the
+    model for every row."""
     _require_dense(cfg)
     params = cast_params(params, act_dtype)
     if cfg.family == "vlm":
@@ -548,7 +615,8 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict, tokens,
     for i in range(cfg.num_layers):
         x = block_decode(_layer(params["blocks"], i), x, cfg,
                          {key: tuple(leaf[i] for leaf in leaves)
-                          for key, leaves in cache.items()}, positions)
+                          for key, leaves in cache.items()}, positions,
+                         rules)
     return _logits(params, cfg, x)[:, 0], cache
 
 

@@ -23,7 +23,7 @@ memory the weights take on the card."""
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,8 +31,21 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import KEEP_F32, d_inner
 
-# name -> (shape, init, scale) for one leaf of the parameter tree
-Spec = Tuple[Tuple[int, ...], str, float]
+class Spec(NamedTuple):
+    """One leaf of the parameter tree: its shape, initialiser ("normal",
+    "zeros" or "ones"), the normal's std multiplier and its logical axes
+    (the reference's ``ParamSpec.axes``, one name or None a dimension,
+    which ``partitioning.resolve_spec`` maps onto a mesh)."""
+    shape: Tuple[int, ...]
+    init: str
+    scale: float
+    axes: Tuple[Optional[str], ...]
+
+
+def _w(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
+       init: str = "normal") -> Spec:
+    assert len(shape) == len(axes), (shape, axes)
+    return Spec(tuple(shape), init, 1.0, tuple(axes))
 
 
 def _mamba_spec(cfg: ModelConfig, d_in: int) -> Dict[str, Spec]:
@@ -41,14 +54,22 @@ def _mamba_spec(cfg: ModelConfig, d_in: int) -> Dict[str, Spec]:
     s, d = cfg.ssm, cfg.d_model
     n_h, n = d_in // s.head_dim, s.d_state
     conv_dim = d_in + 2 * n
-    return {"in_proj": ((d, 2 * d_in + 2 * n + n_h), "normal", 1.0),
-            "conv_w": ((conv_dim, s.conv_kernel), "normal", 1.0),
-            "conv_b": ((conv_dim,), "zeros", 1.0),
-            "A_log": ((n_h,), "ones", 1.0),
-            "D": ((n_h,), "ones", 1.0),
-            "dt_bias": ((n_h,), "zeros", 1.0),
-            "norm_w": ((d_in,), "ones", 1.0),
-            "out_proj": ((d_in, d), "normal", 1.0)}
+    return {"in_proj": _w((d, 2 * d_in + 2 * n + n_h),
+                          ("embed", "ssm_inner")),
+            "conv_w": _w((conv_dim, s.conv_kernel), ("ssm_inner", "conv")),
+            "conv_b": _w((conv_dim,), ("ssm_inner",), "zeros"),
+            "A_log": _w((n_h,), ("ssm_heads",), "ones"),
+            "D": _w((n_h,), ("ssm_heads",), "ones"),
+            "dt_bias": _w((n_h,), ("ssm_heads",), "zeros"),
+            "norm_w": _w((d_in,), ("ssm_inner",), "ones"),
+            "out_proj": _w((d_in, d), ("ssm_inner", "embed"))}
+
+
+def _mlp_spec(d: int, d_ff: int) -> Dict[str, Spec]:
+    """A SwiGLU MLP (the reference's ``layers.mlp_spec``)."""
+    return {"gate": _w((d, d_ff), ("embed", "mlp")),
+            "up": _w((d, d_ff), ("embed", "mlp")),
+            "down": _w((d_ff, d), ("mlp", "embed"))}
 
 
 def _moe_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -56,15 +77,13 @@ def _moe_spec(cfg: ModelConfig) -> Dict[str, Any]:
     f32), the routed experts and, when asked, the shared ones."""
     m, d = cfg.moe, cfg.d_model
     e, f = m.num_experts, m.d_ff_expert
-    spec: Dict[str, Any] = {"router": ((d, e), "normal", 1.0),
-                            "gate": ((e, d, f), "normal", 1.0),
-                            "up": ((e, d, f), "normal", 1.0),
-                            "down": ((e, f, d), "normal", 1.0)}
+    spec: Dict[str, Any] = {
+        "router": _w((d, e), ("embed", "experts")),
+        "gate": _w((e, d, f), ("experts", "embed", "expert_mlp")),
+        "up": _w((e, d, f), ("experts", "embed", "expert_mlp")),
+        "down": _w((e, f, d), ("experts", "expert_mlp", "embed"))}
     if m.num_shared:
-        fs = f * m.num_shared
-        spec["shared"] = {"gate": ((d, fs), "normal", 1.0),
-                          "up": ((d, fs), "normal", 1.0),
-                          "down": ((fs, d), "normal", 1.0)}
+        spec["shared"] = _mlp_spec(d, f * m.num_shared)
     return spec
 
 
@@ -75,29 +94,35 @@ def _mla_spec(cfg: ModelConfig) -> Dict[str, Spec]:
     up-projections, and the output projection."""
     m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
     qh = m.qk_nope_dim + m.qk_rope_dim
-    return {"q_a": ((d, m.q_lora_rank), "normal", 1.0),
-            "q_a_norm": ((m.q_lora_rank,), "ones", 1.0),
-            "q_b": ((m.q_lora_rank, h, qh), "normal", 1.0),
-            "kv_a": ((d, m.kv_lora_rank + m.qk_rope_dim), "normal", 1.0),
-            "kv_a_norm": ((m.kv_lora_rank,), "ones", 1.0),
-            "k_b": ((m.kv_lora_rank, h, m.qk_nope_dim), "normal", 1.0),
-            "v_b": ((m.kv_lora_rank, h, m.v_head_dim), "normal", 1.0),
-            "out": ((h, m.v_head_dim, d), "normal", 1.0)}
+    heads = ("lora", "q_heads", "head_dim")
+    return {"q_a": _w((d, m.q_lora_rank), ("embed", "lora")),
+            "q_a_norm": _w((m.q_lora_rank,), ("lora",), "ones"),
+            "q_b": _w((m.q_lora_rank, h, qh), heads),
+            "kv_a": _w((d, m.kv_lora_rank + m.qk_rope_dim),
+                       ("embed", "lora")),
+            "kv_a_norm": _w((m.kv_lora_rank,), ("lora",), "ones"),
+            "k_b": _w((m.kv_lora_rank, h, m.qk_nope_dim), heads),
+            "v_b": _w((m.kv_lora_rank, h, m.v_head_dim), heads),
+            "out": _w((h, m.v_head_dim, d), ("q_heads", "head_dim", "embed"))}
 
 
 def _attn_spec(cfg: ModelConfig) -> Dict[str, Spec]:
     """One GQA sub-layer, its query heads padded to ``pad_heads_to``."""
     d, hkv, hd = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
     hq = max(cfg.num_heads, cfg.pad_heads_to)
-    attn = {"wq": ((d, hq, hd), "normal", 1.0),
-            "wk": ((d, hkv, hd), "normal", 1.0),
-            "wv": ((d, hkv, hd), "normal", 1.0),
-            "wo": ((hq, hd, d), "normal", 1.0)}
+    attn = {"wq": _w((d, hq, hd), ("embed", "q_heads", "head_dim")),
+            "wk": _w((d, hkv, hd), ("embed", "kv_heads", "head_dim")),
+            "wv": _w((d, hkv, hd), ("embed", "kv_heads", "head_dim")),
+            "wo": _w((hq, hd, d), ("q_heads", "head_dim", "embed"))}
     if cfg.qkv_bias:
-        attn["bq"] = ((hq, hd), "zeros", 1.0)
-        attn["bk"] = ((hkv, hd), "zeros", 1.0)
-        attn["bv"] = ((hkv, hd), "zeros", 1.0)
+        attn["bq"] = _w((hq, hd), ("q_heads", "head_dim"), "zeros")
+        attn["bk"] = _w((hkv, hd), ("kv_heads", "head_dim"), "zeros")
+        attn["bv"] = _w((hkv, hd), ("kv_heads", "head_dim"), "zeros")
     return attn
+
+
+def _norm(d: int) -> Spec:
+    return _w((d,), ("embed",), "ones")
 
 
 def _block_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -107,7 +132,7 @@ def _block_spec(cfg: ModelConfig) -> Dict[str, Any]:
     SSM family's inner width (``transformer.d_inner``), then the FFN's
     norm and the FFN (MoE or SwiGLU MLP)."""
     d = cfg.d_model
-    spec: Dict[str, Any] = {"norm1": ((d,), "ones", 1.0)}
+    spec: Dict[str, Any] = {"norm1": _norm(d)}
     if cfg.family == "ssm":
         spec["mamba"] = _mamba_spec(cfg, d_inner(cfg))
         return spec
@@ -117,13 +142,11 @@ def _block_spec(cfg: ModelConfig) -> Dict[str, Any]:
         spec["attn"] = _attn_spec(cfg)
     if cfg.family == "hybrid":
         spec["mamba"] = _mamba_spec(cfg, d_inner(cfg))
-    spec["norm2"] = ((d,), "ones", 1.0)
+    spec["norm2"] = _norm(d)
     if cfg.moe is not None:
         spec["moe"] = _moe_spec(cfg)
     else:
-        spec["mlp"] = {"gate": ((d, cfg.d_ff), "normal", 1.0),
-                       "up": ((d, cfg.d_ff), "normal", 1.0),
-                       "down": ((cfg.d_ff, d), "normal", 1.0)}
+        spec["mlp"] = _mlp_spec(d, cfg.d_ff)
     return spec
 
 
@@ -132,17 +155,17 @@ def _mha_spec(cfg: ModelConfig) -> Dict[str, Spec]:
     ``encdec._mha_spec``): Q, K, V and output projections, biases on Q,
     V and the output (zeros), none on K."""
     d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
-    return {"wq": ((d, h, hd), "normal", 1.0),
-            "bq": ((h, hd), "zeros", 1.0),
-            "wk": ((d, h, hd), "normal", 1.0),
-            "wv": ((d, h, hd), "normal", 1.0),
-            "bv": ((h, hd), "zeros", 1.0),
-            "wo": ((h, hd, d), "normal", 1.0),
-            "bo": ((d,), "zeros", 1.0)}
+    return {"wq": _w((d, h, hd), ("embed", "q_heads", "head_dim")),
+            "bq": _w((h, hd), ("q_heads", "head_dim"), "zeros"),
+            "wk": _w((d, h, hd), ("embed", "kv_heads", "head_dim")),
+            "wv": _w((d, h, hd), ("embed", "kv_heads", "head_dim")),
+            "bv": _w((h, hd), ("kv_heads", "head_dim"), "zeros"),
+            "wo": _w((h, hd, d), ("q_heads", "head_dim", "embed")),
+            "bo": _w((d,), ("embed",), "zeros")}
 
 
 def _ln_spec(d: int) -> Dict[str, Spec]:
-    return {"w": ((d,), "ones", 1.0), "b": ((d,), "zeros", 1.0)}
+    return {"w": _norm(d), "b": _w((d,), ("embed",), "zeros")}
 
 
 def _encdec_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -152,15 +175,15 @@ def _encdec_specs(cfg: ModelConfig) -> Dict[str, Any]:
     their final LayerNorm, the decoder blocks (``ln1``, ``self``,
     ``ln_x``, ``cross``, ``ln2``, ``mlp``) and theirs."""
     d = cfg.d_model
-    mlp = {"up": ((d, cfg.d_ff), "normal", 1.0),
-           "up_b": ((cfg.d_ff,), "zeros", 1.0),
-           "down": ((cfg.d_ff, d), "normal", 1.0),
-           "down_b": ((d,), "zeros", 1.0)}
+    mlp = {"up": _w((d, cfg.d_ff), ("embed", "mlp")),
+           "up_b": _w((cfg.d_ff,), ("mlp",), "zeros"),
+           "down": _w((cfg.d_ff, d), ("mlp", "embed")),
+           "down_b": _w((d,), ("embed",), "zeros")}
     enc = {"ln1": _ln_spec(d), "attn": _mha_spec(cfg), "ln2": _ln_spec(d),
            "mlp": mlp}
     dec = {"ln1": _ln_spec(d), "self": _mha_spec(cfg), "ln_x": _ln_spec(d),
            "cross": _mha_spec(cfg), "ln2": _ln_spec(d), "mlp": mlp}
-    return {"embed": ((cfg.padded_vocab, d), "normal", 1.0),
+    return {"embed": _w((cfg.padded_vocab, d), ("vocab", "embed")),
             "enc_blocks": _stack(enc, cfg.encoder_layers),
             "enc_ln": _ln_spec(d),
             "dec_blocks": _stack(dec, cfg.num_layers),
@@ -171,36 +194,36 @@ def _stack(spec, n: int):
     """Every leaf of ``spec`` with a leading layers axis of ``n``."""
     if isinstance(spec, dict):
         return {k: _stack(v, n) for k, v in spec.items()}
-    shape, init, scale = spec
-    return (n,) + shape, init, scale
+    return spec._replace(shape=(n,) + spec.shape,
+                         axes=("layers",) + spec.axes)
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """Shapes and initialisers of a config's parameters: for the
-    encoder-decoder family :func:`_encdec_specs`; for the decoder-only
-    families the reference package's ``transformer.model_spec``: the
-    embedding, one block spec stacked over the layers, the final norm,
-    the LM head unless it is tied, the vlm family's patch ``projector
-    [d, d]`` and, with ``cfg.mtp_depth``, deepseek-v3's
-    multi-token-prediction module ``"mtp"`` (``proj [2d, d]``, one
-    unstacked block, ``norm_h`` and ``norm_e``), which only training
-    reads."""
+    """Shapes, initialisers and logical axes of a config's parameters:
+    for the encoder-decoder family :func:`_encdec_specs`; for the
+    decoder-only families the reference package's
+    ``transformer.model_spec``: the embedding, one block spec stacked
+    over the layers, the final norm, the LM head unless it is tied, the
+    vlm family's patch ``projector [d, d]`` and, with ``cfg.mtp_depth``,
+    deepseek-v3's multi-token-prediction module ``"mtp"`` (``proj [2d,
+    d]``, one unstacked block, ``norm_h`` and ``norm_e``), which only
+    training reads."""
     if cfg.family == "audio":
         return _encdec_specs(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
     spec: Dict[str, Any] = {
-        "embed": ((v, d), "normal", 1.0),
+        "embed": _w((v, d), ("vocab", "embed")),
         "blocks": _stack(_block_spec(cfg), cfg.num_layers),
-        "final_norm": ((d,), "ones", 1.0)}
+        "final_norm": _norm(d)}
     if not cfg.tie_embeddings:
-        spec["lm_head"] = ((d, v), "normal", 1.0)
+        spec["lm_head"] = _w((d, v), ("embed", "vocab"))
     if cfg.family == "vlm":
-        spec["projector"] = ((d, d), "normal", 1.0)
+        spec["projector"] = _w((d, d), ("embed", "embed_out"))
     if cfg.mtp_depth:
-        spec["mtp"] = {"proj": ((2 * d, d), "normal", 1.0),
+        spec["mtp"] = {"proj": _w((2 * d, d), ("embed", "embed_out")),
                        "block": _block_spec(cfg),
-                       "norm_h": ((d,), "ones", 1.0),
-                       "norm_e": ((d,), "ones", 1.0)}
+                       "norm_h": _norm(d),
+                       "norm_e": _norm(d)}
     return spec
 
 
@@ -227,7 +250,7 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
         if isinstance(spec, dict):
             return {k: make(s, torch.float32 if k in KEEP_F32 else dt)
                     for k, s in spec.items()}
-        shape, init, scale = spec
+        shape, init, scale, _ = spec
         if init == "zeros":
             return torch.zeros(shape, dtype=dt, device=device)
         if init == "ones":

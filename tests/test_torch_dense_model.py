@@ -5,9 +5,9 @@ and ring-packed for a sliding-window model), ``decode_step`` logits and
 caches, and, in the port itself, the fused ``decode_multi`` against
 sequential ``decode_step`` calls.  Configs: chatglm-6b (MHA) and
 qwen2.5-14b (GQA, QKV bias), reduced (the MoE family has its own file,
-``test_torch_moe.py``).  Families the port does not cover yet and
-context-parallel caches raise, and the padded engines refuse an
-int8 cache (the SSM family and the int8 decode path have their own test
+``test_torch_moe.py``).  Families the port does not cover yet raise,
+a ``decode_cp`` config decodes on one device as the reference's does,
+and the padded engines refuse an int8 cache (the SSM family and the int8 decode path have their own test
 files)."""
 import dataclasses
 import functools
@@ -191,19 +191,41 @@ def test_unported_families_raise(arch):
 
 @pytest.mark.parametrize("flag", ["cache_int8", "decode_cp"])
 def test_int8_and_context_parallel_caches_raise(flag):
-    """Context-parallel decode is not ported; an int8 cache decodes
-    (tests/test_torch_int8_decode.py), but the padded engines refuse it,
-    as the reference's cannot serve one either."""
-    _, cfg, _, params = _setup("chatglm-6b")
+    """An int8 cache decodes (tests/test_torch_int8_decode.py), but the
+    padded engines refuse it, as the reference's cannot serve one
+    either.  A ``decode_cp`` config on one device (no mesh in the rules)
+    decodes as the reference's does, through plain decode attention:
+    ``decode_step`` on a seeded [1, 8] cache at position 5 gives the
+    reference's logits and cache at 2e-4 of scale, and the flag-off
+    port's bit for bit (the context-parallel branch is
+    tests/test_torch_decode_cp.py's)."""
+    jcfg, cfg, jp, params = _setup("chatglm-6b")
     cfg = dataclasses.replace(cfg, **{flag: True})
     if flag == "cache_int8":
         with pytest.raises(NotImplementedError, match="cannot serve an int8"):
             ContinuousEngine(cfg, params, device="cpu")
         return
-    cache = {"kv": tuple(torch.zeros(cfg.num_layers, 1, 8, cfg.num_kv_heads,
-                                     cfg.head_dim) for _ in range(2))}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        M.decode_step(params, cfg, cache,
-                      {"tokens": torch.ones(1, dtype=torch.int32),
-                       "positions": torch.ones(1, dtype=torch.int32)},
-                      act_dtype=torch.float32)
+    jcfg = dataclasses.replace(jcfg, decode_cp=True)
+    rng = np.random.default_rng(0)
+    kv = tuple(rng.standard_normal((cfg.num_layers, 1, 8, cfg.num_kv_heads,
+                                    cfg.head_dim)).astype(np.float32)
+               for _ in range(2))
+    batch = {"tokens": np.array([7], np.int32),
+             "positions": np.array([5], np.int32)}
+    jl, jc = JM.decode_step(jp, jcfg, {"kv": tuple(map(jnp.asarray, kv))},
+                            {k: jnp.asarray(v) for k, v in batch.items()},
+                            act_dtype=jnp.float32)
+    outs = []
+    for c in (cfg, dataclasses.replace(cfg, decode_cp=False)):
+        cache = {"kv": tuple(torch.from_numpy(a.copy()) for a in kv)}
+        logits, cache = M.decode_step(
+            params, c, cache, {k: torch.from_numpy(v.copy())
+                               for k, v in batch.items()},
+            act_dtype=torch.float32)
+        outs.append((logits, cache))
+    (tl, tc), (off_l, off_c) = outs
+    _allclose(tl.numpy(), jl)
+    for got, want in zip(tc["kv"], jc["kv"]):
+        _allclose(got.numpy(), want)
+    assert torch.equal(tl, off_l)
+    assert all(torch.equal(a, b) for a, b in zip(tc["kv"], off_c["kv"]))

@@ -234,6 +234,19 @@ def _jax_prefill_f64(cache_len):
         return jax.tree.map(np.asarray, (logits, cache))
 
 
+def _port_prefill_f64(cache_len):
+    """The port's prefill in f64 throughout (``layers.upcast`` keeps f64
+    through LayerNorm and attention)."""
+    jp, _ = _params()
+    tp64 = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu",
+                             dtype=torch.float64)
+    return M.prefill(tp64, CFG, {
+        "tokens": torch.from_numpy(_tokens(S)[:, :S].copy()),
+        "lengths": torch.tensor(LENGTHS, dtype=torch.int32),
+        "frames": torch.from_numpy(_frames().astype(np.float64))},
+        act_dtype=torch.float64, cache_len=cache_len)
+
+
 @pytest.mark.parametrize("cache_len", [None, 24, 8],
                          ids=["S", "grown", "cut"])
 def test_prefill_matches_jax(cache_len):
@@ -243,37 +256,55 @@ def test_prefill_matches_jax(cache_len):
     decoder calls a layer (causal self, cross at Sq 16, Sk 512, key
     bound 16) through flash.
 
-    The self K/V of layer 1 is held another way.  Both packages compute
-    the same operations (compared one by one at f32: LayerNorm, Q/K/V,
-    attention, cross attention, GELU MLP, residuals), but with random
-    weights the cross attention's scores reach ~540, so its softmax
-    amplifies the f32 rounding of a 64-term dot product (the two
-    packages sum it in different orders) to ~4e-4 of scale in layer 0's
-    output, which layer 1's K/V inherit.  So the whole self cache is
-    held so that the port's f32 error against the reference's f64 run
-    is no larger than the reference's own f32 error against it, and
-    layer 0's self K/V, before any softmax, at 2e-4 of scale."""
+    The self K/V is held another way, in f64 and in f32.  Both packages
+    compute the same operations (compared one by one at f32: LayerNorm,
+    Q/K/V, attention, cross attention, GELU MLP, residuals), but with
+    random weights the cross attention's scores reach ~540, so its
+    softmax amplifies the f32 rounding of a 64-term dot product (the two
+    packages sum it in different orders) to ~1e-4 of scale and more in
+    layer 0's output, which layer 1's K/V inherit; how far depends on
+    the CPU that sums it.
+
+    - f64: the port's f64 self cache against the reference's x64 run.
+      That run still scores attention and normalises in f32 (the
+      ``astype(float32)`` of its ``gqa_prefill_attention`` and
+      ``layer_norm``), so it carries an f32 attention error of its own
+      (~1e-4 of scale from the port's f64 run, measured on the CPU).
+      The two must lie within the f32 runs' own rounding: the port's
+      f32 run's distance from its f64 run plus the reference's f32
+      run's distance from its x64 run.
+    - f32: the two f32 caches within 2e-4 of scale, widened by those
+      same two distances.
+    Layer 0's self K/V, before any softmax, stays at 2e-4 of scale."""
     flash_ops.reset_counts()
     tl, tc = _port_prefill(cache_len)
     assert flash_ops.flash_attention.plain_calls == \
         CFG.encoder_layers + 2 * CFG.num_layers
     jl, jc = _jax_prefill(cache_len)
     _, jc64 = _jax_prefill_f64(cache_len)
+    _, tc64 = _port_prefill_f64(cache_len)
     _close(tl.numpy(), jl)
     for key, rows in (("kv", cache_len or S), ("cross", F_PAD)):
-        for got, want, exact in zip(tc[key], jc[key], jc64[key]):
+        for got, want, got64, want64 in zip(tc[key], jc[key], tc64[key],
+                                            jc64[key]):
             assert got.shape == (CFG.num_layers, 2, rows, CFG.num_heads,
                                  CFG.head_dim)
             if key == "cross":
                 _close(got.numpy(), want)
                 continue
             _close(got[0].numpy(), want[0])
-            port_err, _ = _err(got, exact)
-            ref_err, _ = _err(want, exact)
-            assert port_err <= ref_err, (
-                f"self {key}: the port's f32 error {port_err:.3e} against "
-                f"the reference's f64 run exceeds the reference's own f32 "
-                f"error {ref_err:.3e}")
+            port_round, _ = _err(got, got64.numpy())
+            ref_round, _ = _err(want, want64)
+            err64, _ = _err(got64.numpy(), want64)
+            assert err64 <= port_round + ref_round, (
+                f"self {key}: the port's f64 cache lies {err64:.3e} from "
+                f"the reference's x64 run, past the f32 runs' own "
+                f"rounding {port_round:.3e} + {ref_round:.3e}")
+            err, scale = _err(got, want)
+            assert err <= TOL * scale + port_round + ref_round, (
+                f"self {key}: the f32 caches differ by {err:.3e}, past "
+                f"2e-4 of {scale:.3e} plus the runs' own rounding "
+                f"{port_round:.3e} + {ref_round:.3e}")
 
 
 @pytest.mark.parametrize("cache_len", [24, 16], ids=["room", "ring"])

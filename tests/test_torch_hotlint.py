@@ -81,7 +81,7 @@ def test_seeded_violation_caught_by_matching_rule(name, rule):
 
 
 def test_abi_rule_reads_every_kernel_source():
-    """All eight entry points are declared in ``build.py`` and defined
+    """All ten entry points are declared in ``build.py`` and defined
     in ``csrc/*.cu``; the rule parses each signature (16-26 parameters)."""
     from repro_torch.analysis.rules import ctypes_abi
     project = hotlint.build_project([str(PORT)])
@@ -91,6 +91,8 @@ def test_abi_rule_reads_every_kernel_source():
         "repro_paged_decode_attention", "repro_paged_prefix_prefill_attention",
         "repro_flash_attention", "repro_flash_attention_bwd",
         "repro_decode_attention", "repro_decode_attention_int8",
+        "repro_decode_attention_partial",
+        "repro_decode_attention_int8_partial",
         "repro_ssd_scan", "repro_ssd_scan_bwd"}
     assert all(16 <= len(kinds) <= 26 for _, kinds in sigs.values())
 
