@@ -13,8 +13,10 @@ CUDA toolkit.  Phases, each fatal on failure:
    tensor-core instructions (HGMMA, HMMA) from ``cuobjdump -sass`` where
    the toolkit has it; fails if the bf16 flash or bf16 prefix-prefill
    kernel, the f32 flash forward (3xTF32), the flash backward (every
-   f32 and bf16 instance) or either SSD scan kernel (C.B^T and the
-   scan, every instance) has none;
+   f32 and bf16 instance), either SSD scan kernel (C.B^T and the
+   scan, every instance) or a kernel of the scan's backward (chain,
+   chunk, db/dc; every instance) has none, or if a kernel of the
+   scan's backward spills;
 3. kernels: each hand-written kernel against its plain PyTorch version
    on the card, on chatglm-6b's shapes, GQA shapes and edge shapes, in
    f32 (TF32 off, tolerance 2e-4) and bf16 (5e-2): paged decode with
@@ -361,7 +363,7 @@ CUDA toolkit.  Phases, each fatal on failure:
    on hymba-1.5b uncut with bf16 activations (the scan in f32), held
    the same way.  (e) The scan's forward (with its state store) and
    backward timed at both training calls beside their plain versions
-   and bounds.
+   and bounds, each split by its CUDA kernels' device times.
 25. sanitized serves under PyTorch's sync detector (``sync_phase``):
    the port's hot-path lint (``repro_torch/analysis/hotlint.py``) swept
    over ``src/repro_torch`` must report nothing; then, with
@@ -535,11 +537,11 @@ def build_report(build, lib):
     HMMA) in the library's SASS where the toolkit has ``cuobjdump``.
     Fails if the bf16 flash or bf16 prefix-prefill kernel, or an
     instance of the f32 flash forward (``flash_mma_kernel``), of the
-    flash backward (``flash_bwd_kernel``, f32 and bf16) or of either SSD scan
-    kernel (``ssd_cb_kernel``, ``ssd_scan_kernel``; the f32 ones 3xTF32
-    on mma.sync), has no tensor-core instruction.  The scan's backward
-    kernels (``ssd_bwd_*``) are listed too: they compute in plain f32 on
-    the CUDA cores."""
+    flash backward (``flash_bwd_kernel``, f32 and bf16), of either SSD scan
+    kernel (``ssd_cb_kernel``, ``ssd_scan_kernel``) or of the scan's
+    backward (``ssd_bwd_chain_kernel``, ``ssd_bwd_chunk_kernel``,
+    ``ssd_bwd_bc_kernel``; the f32 ones 3xTF32 on mma.sync), has no
+    tensor-core instruction, or if a scan backward kernel spills."""
     import re
     kern = {}
     name = None
@@ -586,10 +588,18 @@ def build_report(build, lib):
         log(f"  {names[mangled][:110]}: {k.get('regs', '?')} registers, "
             f"{k.get('smem', '?')} smem, spills {k.get('spill', '?')}, "
             f"HGMMA {hg}, HMMA {hm}")
+    bwd = [n for n in kern if "ssd_bwd_" in n]
+    check(len(bwd) == 9 and all(kern[n].get("spill") == "0/0 B"
+                                for n in bwd),
+          "the scan's backward kernels spill, or are not the nine "
+          "instances: " + json.dumps({names[n][:60]: kern[n].get("spill")
+                                      for n in bwd}))
     if tc:
         for kind in ("flash_tc_kernel", "flash_mma_kernel",
                      "flash_bwd_kernel", "prefix_prefill_tc_kernel",
-                     "ssd_cb_kernel", "ssd_scan_kernel"):
+                     "ssd_cb_kernel", "ssd_scan_kernel",
+                     "ssd_bwd_chain_kernel", "ssd_bwd_chunk_kernel",
+                     "ssd_bwd_bc_kernel"):
             fns = [n for n in tc if kind in n]
             check(fns and all(tc[n][0] + tc[n][1] > 0 for n in fns),
                   f"a {kind} has no tensor-core instruction: "
@@ -5067,26 +5077,66 @@ def scan_kernel_checks(torch, sops, sref):
     return errs
 
 
-def scan_bwd_flops(b, s, h, p, n, chunk):
+def scan_bwd_flops(b, s, h, p, n, chunk, dstate=False):
     """Operations of the scan's forward and of its gradient at these
-    shapes, counting each product on its triangle: per row and chunk of
-    r rows, r (r + 1) / 2 pairs, G = C.B^T 2 N a pair (the forward's;
-    the backward reads it); per head, the forward 2 P a pair (intra) and
-    2 r P N for the state and for the inter term (no inter term in the
-    first chunk); the backward 2 P a pair for dW and for dx, 2 N a pair
-    for dc and for db, 2 r P N each for dS b, dS^T x, S_in c, S_in^T dy
-    and the state chain (none in the first chunk).  Returns (forward,
-    backward, the pairs summed over rows and chunks)."""
+    shapes, each product counted on its triangle and only where its
+    operands can be nonzero: per row and chunk of r rows, r (r + 1) / 2
+    pairs, G = C.B^T 2 N a pair (the forward's; the backward reads it).
+    The forward, per head: 2 P a pair (intra), 2 r P N for the outgoing
+    state, and 2 r P N for the inter term except in the first chunk,
+    whose incoming state is zero.  The backward, per head: 2 P a pair
+    for dW and for dx's intra term; 2 r P N each for dS.b and dS^T.x,
+    except in the last chunk when no final-state gradient is given
+    (``dstate``), where dS is zero; and, except in the first chunk, 2 r
+    P N for S_in^T.dy and 2 r P N for the chain's (exp(cum) o DY)^T.C.
+    S_in^T.dy serves dc's inter term and dcum's alike: dy_i.(S_in c_i)
+    = c_i.(S_in^T dy_i), so C.S_in^T is not counted.  Once per row and
+    chunk, 2 N a pair each for db's and dc's intra products (B and C are
+    shared by the heads, so their dG are summed before those two).
+    Returns (forward, backward, the pairs summed over rows and
+    chunks)."""
     cl = min(chunk, s)
+    nc = -(-s // cl)
     fwd = bwd = tri = 0
-    for z in range(-(-s // cl)):
+    for z in range(nc):
         r = min(cl, s - z * cl)
         pairs = r * (r + 1) // 2
         rpn = 2 * r * p * n
+        ds_live = dstate or z < nc - 1
         fwd += 2 * pairs * n + h * (2 * pairs * p + rpn + rpn * (z > 0))
-        bwd += h * (4 * pairs * (p + n) + 4 * rpn + rpn * (z > 0))
+        bwd += 4 * pairs * n + h * (4 * pairs * p + 2 * rpn * ds_live
+                                    + 2 * rpn * (z > 0))
         tri += pairs
     return b * fwd, b * bwd, b * tri
+
+
+def kernel_split(torch, fn, calls=5):
+    """{CUDA kernel: device ms a call} over ``calls`` calls ``fn(1)``,
+    ``fn(2)``, ... under ``torch.profiler`` (the kernels one call
+    launches, apart).  A window in which the profiler delivered no
+    device event (seen late in a long process) is profiled again, with
+    four times the calls, up to twice; {} if it never delivers one."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+
+    def name(key):                # the function's name, template included
+        m = re.search(r"(\w+(?:<[^<>()]*>)?)\(", key)
+        return m.group(1) if m else key[:40]
+
+    dev = lambda e: (getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0))
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for r in range(calls):
+                fn(r + 1)
+            torch.cuda.synchronize()
+        split = {name(e.key): dev(e) / 1e3 / calls
+                 for e in prof.key_averages() if dev(e) > 0}
+        if split:
+            return split
+        calls *= 4
+    return {}
 
 
 def time_scan_train(torch, sops, sref, spin):
@@ -5099,8 +5149,9 @@ def time_scan_train(torch, sops, sref, spin):
     dx, ddt, da, db, dc out), or the operations of
     :func:`scan_bwd_flops` at the card's f32 rate, 3xTF32's 495 / 3
     TFLOP/s (the repo's f32 convention; f32_cores_ms at the CUDA cores'
-    67, the backward's route, beside it).  No library call computes
-    either.  Returns mamba2-780m's backward row for the kernels line."""
+    67 beside it).  Each part also carries its CUDA kernels' device ms a
+    call (:func:`kernel_split`).  No library call computes either.
+    Returns mamba2-780m's backward row for the kernels line."""
     from repro_torch.kernels.ssd_scan import kernel as skernel
     gen = torch.Generator(device="cuda").manual_seed(240)
     rows = {}
@@ -5137,17 +5188,24 @@ def time_scan_train(torch, sops, sref, spin):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes_ms": t_bytes, "ops_ms": t_ops,
                 "f32_cores_ms": flops[part] / F32_FLOPS * 1e3,
-                "MB": nbytes[part] / 1e6, "GFLOP": flops[part] / 1e9}
+                "MB": nbytes[part] / 1e6, "GFLOP": flops[part] / 1e9,
+                "kernels_ms": kernel_split(torch, fn)}
         rows[f"{arch} bwd"]["max_abs_err"] = err
     log("phase 24 (e): the scan's forward (with its state store) and "
         "backward at the training calls (B 8, S 256; mamba2-780m H 48, P "
         "64, N 128; hymba-1.5b H 25, P 64, N 16; chunk 128; median of "
         f"{TRAIN_REPS} CUDA-event times, ms; ops_ms at 3xTF32's 495 / 3 "
-        "TFLOP/s, f32_cores_ms at the f32 CUDA cores' 67): " + json.dumps({
-            name: {k: (float(f"{x:.4g}") if isinstance(x, float) else x)
-                   for k, x in row.items()} for name, row in rows.items()}))
+        "TFLOP/s, f32_cores_ms at the f32 CUDA cores' 67; kernels_ms: "
+        "each CUDA kernel's device ms a call, torch.profiler): "
+        + json.dumps({name: {k: (float(f"{x:.4g}") if isinstance(x, float)
+                                 else {kk: float(f"{xx:.4g}")
+                                       for kk, xx in x.items()}
+                                 if isinstance(x, dict) else x)
+                             for k, x in row.items()}
+                      for name, row in rows.items()}))
     row = dict(rows["mamba2-780m bwd"])
-    for key in ("bytes_ms", "ops_ms", "f32_cores_ms", "MB", "GFLOP"):
+    for key in ("bytes_ms", "ops_ms", "f32_cores_ms", "MB", "GFLOP",
+                "kernels_ms"):
         row.pop(key)
     return row
 

@@ -38,17 +38,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
-
-
-def _use_tree(tree: str) -> None:
-    """Make ``import repro_torch`` load ``tree``'s package."""
-    for name in list(sys.modules):
-        if name == "repro_torch" or name.startswith("repro_torch."):
-            del sys.modules[name]
-    src = os.path.join(os.path.abspath(tree), "src")
-    sys.path[:] = [p for p in sys.path
-                   if not p.endswith(os.sep + "src")] + [src]
-    sys.path.insert(0, src)
+from chip_tools import use_tree  # noqa: E402
 
 
 def _load(build, built):
@@ -105,7 +95,7 @@ def main(trees) -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     built = {}
     for tree in trees:
-        _use_tree(tree)
+        use_tree(tree)
         from repro_torch.configs import get_config
         from repro_torch.kernels import build
         from repro_torch.models import model as M

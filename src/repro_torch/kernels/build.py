@@ -120,6 +120,6 @@ def load_library() -> ctypes.CDLL:
     lib.repro_decode_attention_int8_partial.restype = i
     lib.repro_ssd_scan.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.repro_ssd_scan.restype = i
-    lib.repro_ssd_scan_bwd.argtypes = [p] * 19 + [i] * 6 + [p]
+    lib.repro_ssd_scan_bwd.argtypes = [p] * 19 + [i] * 7 + [p]
     lib.repro_ssd_scan_bwd.restype = i
     return lib

@@ -22,8 +22,11 @@ C.B^T scratch.
 ``ssd_scan_bwd_kernel`` replaces no TPU kernel (the JAX package
 differentiates its plain ``jnp`` scan): from the forward's inputs, its
 chunk states and C.B^T scratch, dy and the final state's gradient it
-computes (dx, ddt, da, db, dc) in four CUDA kernels on the CUDA cores in
-plain f32, the same widths as the forward.  The source says more."""
+computes (dx, ddt, da, db, dc) in three CUDA kernels on the tensor cores
+in 3xTF32 (each chunk's state gradient walked in reverse; every per-head
+term, one block per group of :func:`head_group_for` heads, chunk and
+row; db and dc with the heads as the k dimension), the same widths as
+the forward.  The source says more."""
 from __future__ import annotations
 
 import functools
@@ -71,6 +74,33 @@ def p_tile_for(bsz: int, h: int, p: int, sms: int) -> int:
     and c once per head instead of twice, and was faster from B 2 on an
     H100 (PERF.md)."""
     return 32 if p <= 32 or 2 * bsz * h <= sms else 64
+
+
+def head_group_for(bsz: int, nchunks: int, h: int, sms: int) -> int:
+    """The heads a block of the backward's chunk kernel takes, in order:
+    the fewest that leave at most one (group, chunk, row) block for each
+    SM (the kernel fits one block an SM): a block leaves one dG partial
+    for db and dc whatever its group, so larger groups mean fewer
+    partials, and more blocks than SMs would run in a second wave.
+    mamba2-780m's training call (B 8, two chunks, 48 heads) takes 6 (128
+    blocks), hymba-1.5b's (25 heads) 4 (112).  Where the rows and chunks
+    alone outnumber the SMs, all the heads."""
+    for group in range(1, h):
+        if bsz * nchunks * -(-h // group) <= sms:
+            return group
+    return max(h, 1)
+
+
+def bwd_scratch_shapes(bsz: int, s: int, h: int, p: int, n: int, chunk: int,
+                       group: int):
+    """Shapes of the backward's f32 scratch: each chunk's outgoing state
+    gradient (as :func:`states_shape`), each group's dG^T [B, chunks,
+    groups, Cp, Cp], u and exp(cum) [B, S, H] each, and da's part [B,
+    chunks, H] a (row, chunk)."""
+    _, nc, cp, _ = scratch_shape(bsz, s, chunk)
+    return [states_shape(bsz, s, h, p, n, chunk),
+            (bsz, nc, -(-h // group), cp, cp), (bsz, s, h), (bsz, s, h),
+            (bsz, nc, h)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,9 +183,8 @@ def ssd_scan_bwd_kernel(x, dt, a, b, c, dy, states, cb,
     :func:`scratch_shape`, from ``ssd_scan_kernel(..., scratch=cb,
     with_states=True)``) and ``dstate`` [B, H, P, N] (None: the final
     state was dropped), all f32 -> (dx [B, S, H, P], ddt [B, S, H], da
-    [H], db [B, S, N], dc [B, S, N]), f32.  Allocates the f32 scratch:
-    each chunk's outgoing state gradient, db and dc by head, dcum and da
-    by block."""
+    [H], db [B, S, N], dc [B, S, N]), f32.  Allocates the f32 scratch of
+    :func:`bwd_scratch_shapes` at :func:`head_group_for`'s group."""
     f32 = torch.float32
     bsz, s, h, p, n = _check_inputs(x, dt, a, b, c)
     check_widths(p, n, s, chunk)
@@ -177,20 +206,20 @@ def ssd_scan_bwd_kernel(x, dt, a, b, c, dy, states, cb,
         if dstate.shape != (bsz, h, p, n):
             raise ValueError(f"dstate must be {(bsz, h, p, n)}, got "
                              f"{tuple(dstate.shape)}")
-    nc = shape[1]
     new = functools.partial(torch.empty, dtype=f32, device=x.device)
     dx, ddt, db, dc = (torch.empty_like(t) for t in (x, dt, b, c))
     da = new((h,))
     if not (bsz and h):          # no rows or no heads: nothing to launch
         return dx, ddt, da.zero_(), db.zero_(), dc.zero_()
-    scratch = [new(shape), new((bsz, s, h, n)),
-               new((bsz, s, h, n)), new((bsz, s, h)), new((bsz, nc, h))]
+    group = head_group_for(bsz, shape[1], h, _sm_count(x.device.index))
+    scratch = [new(sh) for sh in bwd_scratch_shapes(bsz, s, h, p, n, chunk,
+                                                    group)]
     with torch.cuda.device(x.device):
         rc = load_library().repro_ssd_scan_bwd(
             *(t.data_ptr() for t in (x, dt, a, b, c, dy, states, cb)),
             None if dstate is None else dstate.data_ptr(),
             *(t.data_ptr() for t in (dx, ddt, da, db, dc, *scratch)),
-            bsz, s, h, p, n, chunk,
+            bsz, s, h, p, n, chunk, group,
             torch.cuda.current_stream(x.device).cuda_stream)
     raise_on(rc, "ssd_scan_bwd")
     return dx, ddt, da, db, dc

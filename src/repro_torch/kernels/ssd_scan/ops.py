@@ -9,7 +9,8 @@ launches in ``.launches`` (and :func:`ssd_scan` its plain-version calls in
 main path went through the kernels.  A launch is one call of a kernel
 wrapper, which counts once: the forward runs two CUDA kernels (C.B^T once
 per row and chunk, then the scan on the tensor cores in 3xTF32), the
-backward four.
+backward three (each chunk's state gradient; the per-head terms; db and
+dc, all on the tensor cores in 3xTF32).
 
 Training: on the CPU autograd runs through the plain chunked scan.  On
 the card, a call whose inputs need a gradient goes through

@@ -30,7 +30,10 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         "mla_vlm_rehearsal.py", "moe_rehearsal.py",
         "padded_graph_breakeven.py", "recovery_rehearsal.py",
         "run_cuda_tests.py", "spec_rehearsal.py", "ssd_scan_phases.py",
-        "hotlint_torch.py", "sync_compare.py", "sync_phase.py")]
+        "hotlint_torch.py", "sync_compare.py", "sync_phase.py",
+        "chip_tools.py", "cp_phase.py", "ssd_scan_bwd_compare.py",
+        "ssd_scan_bwd_phases.py", "ssm_train_hold.py", "ssm_train_phase.py",
+        "train_phase.py")]
 
 
 def _imported_modules(path):

@@ -13,7 +13,9 @@ hand-written CUDA kernel is compared with the plain versions by the
 (``chip_smoke.py`` makes the same comparison at mamba2-780m's shapes).
 The kernel computes its products on the tensor cores in 3xTF32; a CPU
 emulation of that split at mamba2-780m's widths records why: 3xTF32
-meets the chunked tolerance, one tf32 product does not.
+meets the chunked tolerance, one tf32 product does not.  The same holds
+for the backward kernel's algorithm at mamba2-780m's and hymba-1.5b's
+widths, emulated with its products in tf32 (``_bwd_tf32``).
 
 The gradient: ``ssd_scan_bwd_ref`` (the backward kernel's formulas,
 written out chunk by chunk) against autograd of ``ssd_chunked_ref`` and
@@ -265,6 +267,114 @@ def test_tf32_split_precision_at_mamba2_widths(passes, meets):
     assert (err < CHUNKED_TOL * scale) == meets, (err, scale)
 
 
+def _bwd_tf32(x, dt, a, b, c, dy, chunk, passes):
+    """The backward kernel's algorithm with every product's operands in
+    tf32 (``passes`` 1 or 3), the final state's gradient dropped: per
+    chunk, walked in reverse, the incoming state's gradient dS_in =
+    exp(tot) dS + (exp(cum) o DY)^T . C; per head dx = u o (B . dS^T) +
+    (dt o (G o L))^T . DY with du = rowsum(X o B . dS^T), dW^T = X . DY^T
+    on the triangle, dy . S_in c = rowsum(DY o C . S_in^T); db = sum_h
+    (u o X_h) . dS_h + (sum_h dG_h)^T . C and dc = sum_h (exp(cum) o
+    DY_h) . S_in_h + (sum_h dG_h) . B, the heads' dG summed before its
+    two products.  G = C.B^T in 3xTF32 (the forward's scratch).  S must
+    be a multiple of ``chunk``; returns (dx, ddt, da, db, dc)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = s // chunk
+    mm = lambda u, v: _mm_tf32(u, v, passes)
+    xc = x.reshape(bsz, nc, chunk, h, p).permute(0, 1, 3, 2, 4)
+    yc = dy.reshape(bsz, nc, chunk, h, p).permute(0, 1, 3, 2, 4)
+    dtc = dt.reshape(bsz, nc, chunk, h).permute(0, 1, 3, 2)  # [B,Nc,H,L]
+    bc = b.reshape(bsz, nc, chunk, n)
+    cc = c.reshape(bsz, nc, chunk, n)
+    cum = torch.cumsum(dtc * a[:, None], dim=-1)
+    tot = cum[..., -1:]
+    ecum, dec = torch.exp(cum), torch.exp(tot - cum)
+    u = dec * dtc
+    upper = torch.triu(torch.ones((chunk, chunk), dtype=torch.bool))
+    diff = cum[..., None, :] - cum[..., :, None]          # [j, i]: i - j
+    lt = torch.exp(torch.where(upper, diff, torch.full_like(diff, -1e30)))
+    gt = _mm_tf32(cc, bc.transpose(-1, -2), 3).transpose(-1, -2)  # G^T
+    # the forward's incoming states, in f32
+    states = [torch.zeros((bsz, h, p, n))]
+    for z in range(nc - 1):
+        upd = torch.einsum("bhl,bhlp,bln->bhpn", u[:, z], xc[:, z], bc[:, z])
+        states.append(states[-1] * torch.exp(tot[:, z])[..., None] + upd)
+    dxs, ddts, dbs, dcs, das = [], [], [], [], []
+    d_s = torch.zeros((bsz, h, p, n))
+    for z in reversed(range(nc)):
+        xz, yz, dtz, bz, cz = xc[:, z], yc[:, z], dtc[:, z], bc[:, z], cc[:, z]
+        s_in = states[z]
+        v = mm(bz[:, None], d_s.transpose(-1, -2))          # [B,H,L,P]
+        du = (xz * v).sum(-1)
+        dwt = mm(xz, yz.transpose(-1, -2)) * upper          # [B,H,j,i]
+        w_t = gt[:, z, None] * lt[:, z] * dtz[..., :, None]
+        dx = u[:, z, ..., None] * v + mm(w_t, yz)
+        r_t = dwt * gt[:, z, None] * lt[:, z]
+        dgs = (dwt * lt[:, z] * dtz[..., :, None]).sum(1)   # [B,j,i]
+        yy = mm(cz[:, None], s_in.transpose(-1, -2))
+        dyy = (yz * yy).sum(-1)
+        dtot = (torch.exp(tot[:, z, :, 0]) * (d_s * s_in).sum((-1, -2))
+                + (du * u[:, z]).sum(-1))
+        dcum = (ecum[:, z] * dyy - du * u[:, z]
+                + (r_t * dtz[..., None]).sum(-2) - dtz * r_t.sum(-1))
+        dcum[..., -1] += dtot
+        ds = torch.flip(torch.cumsum(torch.flip(dcum.double(), [-1]), -1),
+                        [-1])
+        ddts.append(du * dec[:, z] + r_t.sum(-1) + a[:, None] * ds.float())
+        das.append((ds * dtz.double()).sum((0, 2)))
+        dxs.append(dx)
+        flat = lambda t: t.permute(0, 2, 1, 3).reshape(bsz, chunk, h * p)
+        dbs.append(mm(flat(u[:, z, ..., None] * xz),
+                      d_s.reshape(bsz, h * p, n)) + mm(dgs, cz))
+        dcs.append(mm(flat(ecum[:, z, ..., None] * yz),
+                      s_in.reshape(bsz, h * p, n))
+                   + mm(dgs.transpose(-1, -2), bz))
+        d_s = (d_s * torch.exp(tot[:, z])[..., None]
+               + mm((ecum[:, z, ..., None] * yz).transpose(-1, -2),
+                    cz[:, None]))
+    order = lambda ts: torch.stack(ts[::-1], 1)
+    dx = order(dxs).permute(0, 1, 3, 2, 4).reshape(bsz, s, h, p)
+    ddt = order(ddts).permute(0, 1, 3, 2).reshape(bsz, s, h)
+    da = torch.stack(das).sum(0).float()
+    return (dx, ddt, da, order(dbs).reshape(bsz, s, n),
+            order(dcs).reshape(bsz, s, n))
+
+
+def _bwd_held(got, args, dy):
+    """Whether each output meets the backward kernel's hold (as
+    :func:`_hold_bwd`: 2e-4 of its largest magnitude of the plain f32
+    version, or no farther from the f64 run than the plain f32 version
+    is), the final state's gradient dropped; {output: held}."""
+    want = ref.ssd_scan_bwd_ref(*args, dy, None, 128)
+    exact = ref.ssd_scan_bwd_ref(*(t.double() for t in args), dy.double(),
+                                 None, 128)
+    out = {}
+    for name, g, w, e in zip(BWD_NAMES, got, want, exact):
+        scale = max(w.abs().max().item(), 1e-30)
+        out[name] = ((g - w).abs().max().item() <= CHUNKED_TOL * scale
+                     or ((g.double() - e).abs().max().item()
+                         <= (w.double() - e).abs().max().item()))
+    return out
+
+
+@pytest.mark.parametrize("passes,meets", [(3, True), (1, False)])
+@pytest.mark.parametrize("h,n", [(48, 128), (25, 16)],
+                         ids=["mamba2-780m", "hymba-1.5b"])
+def test_bwd_tf32_split_precision_at_training_widths(h, n, passes, meets):
+    """Why the backward kernel splits every operand: at mamba2-780m's
+    (H 48, P 64, N 128) and hymba-1.5b's (H 25, N 16) widths, B 1, S 256,
+    chunk 128, the kernel's algorithm with 3xTF32 products meets the
+    hold of every output (:func:`_bwd_held`), and with one tf32 product
+    does not (each of the five outputs misses it at both widths)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, dy, _ = _bwd_inputs(1, 256, h, 64, n, seed=4)
+    args = [torch.from_numpy(t) for t in args]
+    dy = torch.from_numpy(dy)
+    held = _bwd_held(_bwd_tf32(*args, dy, 128, passes), args, dy)
+    assert all(held.values()) == meets, held
+
+
 def test_widths_the_tensor_core_tiles_take():
     """Every config's widths (P 64, N 128, chunk 128), the reduced
     model's (P 32, N 16, chunk 32) and the test shapes are taken; wider
@@ -289,6 +399,29 @@ def test_p_tile_splits_p_only_where_blocks_are_few():
     assert [kernel.p_tile_for(b, 48, 64, 132) for b in (1, 2, 3, 4, 20)
             ] == [32, 64, 64, 64, 64]
     assert kernel.p_tile_for(20, 48, 32, 132) == 32
+
+
+def test_head_group_keeps_the_chunk_kernel_to_one_block_an_sm():
+    """On 132 SMs the backward's chunk kernel takes 6 of mamba2-780m's 48
+    heads a block at the training call (B 8, two chunks: 128 blocks) and
+    4 of hymba-1.5b's 25 (112); one head where rows and chunks alone
+    fill fewer SMs, all of them where they fill more; each group size
+    leaves at most one block an SM, and one head fewer would not; the
+    scratch has one dG partial a group."""
+    assert kernel.head_group_for(8, 2, 48, 132) == 6
+    assert kernel.head_group_for(8, 2, 25, 132) == 4
+    assert kernel.head_group_for(2, 4, 3, 132) == 1
+    assert kernel.head_group_for(70, 2, 48, 132) == 48
+    for bsz, nc, h in [(8, 2, 48), (8, 2, 25), (2, 2, 48), (3, 2, 25),
+                       (1, 1, 2), (20, 2, 48), (2, 32, 25)]:
+        grp = kernel.head_group_for(bsz, nc, h, 132)
+        assert 1 <= grp <= h
+        assert bsz * nc * -(-h // grp) <= 132
+        if grp > 1:
+            assert bsz * nc * -(-h // (grp - 1)) > 132
+    shapes = kernel.bwd_scratch_shapes(8, 256, 48, 64, 128, 128, 6)
+    assert shapes == [(8, 2, 48, 64, 128), (8, 2, 8, 128, 128),
+                      (8, 256, 48), (8, 256, 48), (8, 2, 48)]
 
 
 # the cuda test's shapes (B, S, H, P, N, chunk, p_tile): the reference's,
