@@ -16,7 +16,10 @@ CUDA toolkit.  Phases, each fatal on failure:
    f32 and bf16 instance), either SSD scan kernel (C.B^T and the
    scan, every instance) or a kernel of the scan's backward (chain,
    chunk, db/dc; every instance) has none, or if a kernel of the
-   scan's backward spills;
+   scan's backward spills; then the host's µs to call one dense decode
+   launch through its registered op, through the wrapper and through
+   ``kernel.py`` directly (every launch below goes through its op,
+   ``repro_torch::<name>``);
 3. kernels: each hand-written kernel against its plain PyTorch version
    on the card, on chatglm-6b's shapes, GQA shapes and edge shapes, in
    f32 (TF32 off, tolerance 2e-4) and bf16 (5e-2): paged decode with
@@ -411,9 +414,30 @@ CUDA toolkit.  Phases, each fatal on failure:
    merge's ms a layer, the step ms on a rank against one device, greedy
    agreement.
 
+27. the dry run and the roofline (``roofline_phase``;
+   ``scripts/roofline_phase.py`` runs it alone).  (a)
+   ``repro_torch.launch.dryrun --all`` (10 archs x 4 shapes x 2 meshes,
+   on meta tensors over a fake 512-rank group) and
+   ``repro_torch.launch.hillclimb``, side by side in subprocesses with a
+   time limit, beside (b)'s mamba2 and chatglm steps: every record
+   listed with its predicted peak against the card's memory and its
+   dominant term; fails on an error record, a missing record or a CUDA
+   context in either.  (b) smollm-135m's and
+   mamba2-780m's f32 training steps (B 8, S 256) and chatglm-6b's bf16
+   padded decode step (20 rows, every cache at its 512 slots), each
+   dry-run at its shapes, then run under ``FlopCounterMode`` (FLOPs equal
+   to the dry run's), profiled (busy at least 0.95 x the larger of
+   t_compute and the memory floor; busy against the upper byte count
+   logged) and its peak (``max_memory_allocated`` less what was allocated
+   beside its arguments) within 10% of the predicted one; smollm's
+   eager step host ms and chatglm's bytes beside ``padded_step_bound``'s
+   logged.
+
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves; phase 14 runs right after
-phase 5, then phases 15 to 26 last.  The line before the
+phase 5, then phases 15 to 25, 27 (before 26: the weights phase 26
+shares with its ranks by CUDA IPC stay allocated in this process after
+they exit) and 26 last.  The line before the
 last is a JSON object with one entry per kernel (nine: the six TPU
 kernels' counterparts, the flash backward, the scan's backward and the
 decode kernel's context-parallel partial); the last line is
@@ -7206,6 +7230,257 @@ def cp_phase(torch, ops, ref, spin, reset_counts, counts):
     return rows, launches, attn
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+ROOF_JOBS = 6                  # (a): the dry run's worker processes
+ROOF_TIMEOUT = 300             # (a): each subprocess's limit, s
+ROOF_BUSY = 0.95               # (b): busy >= this x max(t_compute, floor)
+ROOF_PEAK_TOL = 0.10           # (b): predicted peak against the allocator's
+RECORDED_STEP_MS = 215.83      # smollm-135m's f32 eager step as PERF.md
+#                                §5 records it (the launcher's median)
+
+
+def op_host_cost(torch, card):
+    """Phase 2's line: the host's µs to call one decode launch through
+    its registered op, through the wrapper, and through ``kernel.py``
+    directly (alternated, median of each; bf16, 4 rows of 8/2 heads of
+    128 against 256 slots: the card keeps up with the host)."""
+    from repro_torch.kernels.decode_attention import kernel, ops
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    q = torch.randn(4, 8, 128, generator=gen, **bf)
+    k = torch.randn(4, 256, 2, 128, generator=gen, **bf)
+    v = torch.randn(4, 256, 2, 128, generator=gen, **bf)
+    n = torch.full((4,), 256, dtype=torch.int32, device="cuda")
+    calls = {"kernel.py": lambda: kernel.decode_attention_kernel(q, k, v, n),
+             "registered op": lambda: ops._DECODE_OP(q, k, v, n),
+             "wrapper": lambda: ops.decode_attention(q, k, v, n)}
+    times = {name: [] for name in calls}
+    for name in list(calls) + list(calls)[::-1] + list(calls):
+        fn = calls[name]
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    ops.reset_counts()
+    log(f"phase 2 [{card}] host us a dense decode launch (median of 3 x "
+        f"1,000 calls): " + json.dumps(
+            {k: round(statistics.median(v), 2) for k, v in times.items()}))
+
+
+def _wall(popen_args, timeout):
+    """Run a command in its own session; kill the session past
+    ``timeout``.  Returns (returncode, stdout, stderr, seconds)."""
+    import signal
+    t0 = time.perf_counter()
+    p = subprocess.Popen(popen_args, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True,
+                         env=dict(os.environ, PYTHONPATH=os.path.join(
+                             ROOT, "src")))
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        raise RuntimeError(f"{popen_args[2]} passed its {timeout} s limit: "
+                           f"{err[-2000:]}")
+    return p.returncode, out, err, time.perf_counter() - t0
+
+
+def dryrun_start(pool, tmp):
+    """(a), started: ``launch.dryrun --all`` and ``launch.hillclimb`` in
+    subprocesses, side by side on ``pool``'s threads, writing under
+    ``tmp``.  Returns {name: future} for :func:`dryrun_check`."""
+    cmds = {"dryrun": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--all", "--jobs", str(ROOF_JOBS), "--out",
+                       os.path.join(tmp, "dryrun.jsonl")],
+            "hillclimb": [sys.executable, "-m",
+                          "repro_torch.launch.hillclimb", "--out",
+                          os.path.join(tmp, "hillclimb.jsonl")]}
+    return {k: pool.submit(_wall, c, ROOF_TIMEOUT) for k, c in cmds.items()}
+
+
+def dryrun_check(futs, tmp, total_gib):
+    """(a), finished: every record of :func:`dryrun_start`'s runs listed
+    by status with its predicted peak against the card's memory and its
+    dominant term."""
+    dry, hill = os.path.join(tmp, "dryrun.jsonl"), os.path.join(
+        tmp, "hillclimb.jsonl")
+    done = {k: f.result() for k, f in futs.items()}
+    summary = {}
+    for name, (rc, out, err, secs) in done.items():
+        check(rc == 0, f"{name} exited {rc}: {err[-3000:]}")
+        summary[name] = json.loads(out.strip().splitlines()[-1])
+        recs = [json.loads(x) for x in open(dry if name == "dryrun"
+                                            else hill)]
+        by = {s: sum(r["status"] == s for r in recs)
+              for s in ("ok", "skipped", "error")}
+        over = [r for r in recs if r["status"] == "ok"
+                and r["peak_mem_gib"] > total_gib]
+        log(f"phase 27 (a) {name}: {len(recs)} records {by} in "
+            f"{secs:.1f} s (trace s summed "
+            f"{sum(r.get('trace_s') or 0 for r in recs):.1f}); "
+            f"{len(over)} of {by['ok']} ok records need more than the "
+            f"card's {total_gib:.1f} GiB; {json.dumps(summary[name])}")
+        for r in recs:
+            tag = r.get("iteration") or r["mesh"]
+            if r["status"] == "ok":
+                log(f"  {r['arch']} {r['shape']} {tag}: peak "
+                    f"{r['peak_mem_gib']:.2f} / {total_gib:.1f} GiB, "
+                    f"{r['dominant']} (t_compute {r['t_compute_s']:.4g} s, "
+                    f"t_memory {r['t_memory_s']:.4g} s, floor "
+                    f"{r['t_memory_lb_s']:.4g} s, collective "
+                    f"{r['t_collective_s']:.4g} s)")
+            else:
+                log(f"  {r['arch']} {r['shape']} {tag}: {r['status']} "
+                    f"{(r.get('reason') or r.get('error', ''))[-300:]}")
+        check(by["error"] == 0 and summary[name]["errors"] == 0,
+              f"{name}: {by['error']} error records")
+        check(not summary[name]["cuda_initialized"]
+              and summary[name]["memory_allocated"] == 0,
+              f"{name} touched the card: {summary[name]}")
+    check(len([json.loads(x) for x in open(dry)]) == 80,
+          "the dry run did not write 10 archs x 4 shapes x 2 meshes")
+
+
+def roofline_step(torch, label, fn, args, cfg, kind, tokens):
+    """(b) one step: dry-run ``fn(*args)`` (meta stand-ins), then run it
+    on the card under ``FlopCounterMode`` (equal FLOPs), profiled (busy
+    >= ``ROOF_BUSY`` x max(t_compute, the memory floor)), and its peak
+    (``max_memory_allocated`` over the step, less what was allocated
+    beside its arguments) within ``ROOF_PEAK_TOL`` of the prediction.
+    Returns the counts."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import dryrun, roofline as rl
+    t0 = time.perf_counter()
+    c = rl.count_costs(fn, *args)
+    trace = time.perf_counter() - t0
+    static = dryrun.static_bytes(args)
+    floor = dryrun.memory_floor_bytes(cfg, kind, static, tokens) / rl.HBM_BW
+    t_compute, t_memory = c["flops"] / rl.PEAK_FLOPS, c["bytes"] / rl.HBM_BW
+    out = fn(*args)                               # warm
+    del out
+    torch.cuda.synchronize()
+    beside = torch.cuda.memory_allocated() - static
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - beside
+    del out
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    del out
+    busy = _device_us(prof) / 1e3
+    lower = max(t_compute, floor) * 1e3
+    log(f"phase 27 (b) {label}: FLOPs dry {c['flops']:.6g}, card "
+        f"{fc.get_total_flops():.6g}; busy {busy:.3f} ms against "
+        f"t_compute {t_compute * 1e3:.3f}, the memory floor "
+        f"{floor * 1e3:.3f} (t_memory_lb_s) and t_memory "
+        f"{t_memory * 1e3:.3f} ms (the upper count: busy is "
+        f"{busy / (t_memory * 1e3):.3f} of it); peak predicted "
+        f"{c['peak_bytes'] / 2 ** 30:.3f} GiB, max_memory_allocated "
+        f"{peak / 2 ** 30:.3f} GiB ({c['peak_bytes'] / peak - 1:+.2%}); "
+        f"dominant {rl.Roofline(c['flops'], c['bytes'], 0, {}, 0).dominant}"
+        f"; traced in {trace:.1f} s")
+    check(fc.get_total_flops() == c["flops"],
+          f"{label}: the card's FLOPs {fc.get_total_flops()} are not the "
+          f"dry run's {c['flops']}")
+    check(busy >= ROOF_BUSY * lower,
+          f"{label}: busy {busy:.3f} ms under {ROOF_BUSY} x {lower:.3f} ms")
+    check(abs(c["peak_bytes"] - peak) <= ROOF_PEAK_TOL * peak,
+          f"{label}: predicted peak {c['peak_bytes']} not within "
+          f"{ROOF_PEAK_TOL:.0%} of {peak}")
+    return {**c, "busy_ms": busy, "peak": peak}
+
+
+def roofline_phase(torch, card):
+    """Phase 27: the dry run and the roofline.  (b)
+    :func:`roofline_step` at three steps earlier phases run at full
+    width: smollm-135m's f32 training step at phase 23's B 8, S 256 (and
+    its eager host ms against ``RECORDED_STEP_MS``), mamba2-780m's (phase
+    24's), and chatglm-6b's bf16 padded decode step at phase 7's 20 rows
+    with every row's cache at capacity (the roofline's bytes beside
+    :func:`padded_step_bound`'s); (a) (:func:`dryrun_start`, CPU only)
+    runs beside the two device-bound steps, after the host-bound smollm
+    step is timed."""
+    import concurrent.futures
+    import tempfile
+    import types
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as T
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    log(f"phase 27: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"allocated before it")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tmp = tempfile.TemporaryDirectory()
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    futs = None
+    for arch in (TRAIN_ARCH, "mamba2-780m"):
+        cfg = get_config(arch)
+        opt = O.AdamWConfig(total_steps=TRAIN_STEPS)
+        params = M.init_params(cfg, seed=0, device="cuda")
+        args = (params, O.init(opt, params), {"tokens": torch.randint(
+            0, cfg.vocab_size, (8, 256), generator=gen, device="cuda",
+            dtype=torch.int32)})
+        step = T.make_train_step(cfg, opt, act_dtype=torch.float32)
+        roofline_step(torch, f"{arch} f32 train step, B 8, S 256", step,
+                      args, cfg, "train", 8 * 256)
+        if arch == TRAIN_ARCH:
+            ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+                del out
+            log(f"phase 27 (b) [{card}] {arch}'s eager f32 step, host ms "
+                f"(synchronised, median of 5): {statistics.median(ms):.2f} "
+                f"against the {RECORDED_STEP_MS} PERF.md §5 records")
+            futs = dryrun_start(pool, tmp.name)
+        del params, args
+        torch.cuda.empty_cache()
+    cfg = get_config("chatglm-6b")
+    cap = 1 << (DENSE_MAX_LEN + DENSE_MAX_GEN - 1).bit_length()
+    rows = 20
+    params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    cache = M.init_cache(cfg, rows, cap, torch.bfloat16, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows,),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32),
+             "positions": torch.full((rows,), cap - 1, dtype=torch.int32,
+                                     device="cuda")}
+    c = roofline_step(
+        torch, f"chatglm-6b bf16 padded decode step, {rows} rows at "
+        f"{cap} slots", lambda p, k, b: M.decode_step(
+            p, cfg, k, b, act_dtype=torch.bfloat16),
+        (params, cache, batch), cfg, "decode", rows)
+    ms, w, s, kv = padded_step_bound(
+        types.SimpleNamespace(cfg=cfg, params=params),
+        [types.SimpleNamespace(length=cap)] * rows, cap, 0)
+    log(f"phase 27 (b) chatglm-6b decode step bytes: the roofline's "
+        f"{c['bytes'] / 1e9:.3f} GB (every op's operands and results) "
+        f"against padded_step_bound's {w + s + kv:.3f} GB (weights {w:.3f}"
+        f", cache {kv:.3f}; {ms:.3f} ms)")
+    del params, cache, batch
+    torch.cuda.empty_cache()
+    with tmp, pool:
+        dryrun_check(futs, tmp.name, total)
+    log(f"phase 27: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -7241,6 +7516,7 @@ def main() -> int:
         build.load_library()
         log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
         build_report(build, lib)
+        op_host_cost(torch, card)
 
         log(f"[{time.perf_counter() - t_start:.1f} s] phase 3")
         # 3. kernels against their plain versions
@@ -7665,6 +7941,14 @@ def main() -> int:
         # 25. the lint's sweep, then the six counted sync sites under
         # REPRO_SANITIZE=1 and PyTorch's sync detector
         sync_phase(torch, src)
+
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 27")
+        # 27. the dry run and the roofline: launch/dryrun.py --all and
+        # launch/hillclimb.py on the fake 512-rank group, then three
+        # full-width steps against their dry runs.  Before phase 26: the
+        # f32 weights phase 26 shares with its ranks by CUDA IPC stay
+        # allocated in this process after the ranks exit
+        roofline_phase(torch, card)
 
         log(f"[{time.perf_counter() - t_start:.1f} s] phase 26")
         # 26. context-parallel decode: qwen2.5-14b at decode_32k on one

@@ -1,15 +1,54 @@
-"""Hand-written Hopper kernels of the port and their plain versions."""
+"""Hand-written Hopper kernels of the port and their plain versions.
+
+Every kernel launch is one registered torch op, ``repro_torch::<name>``
+(:func:`register_op`), with three parts: a ``"CUDA"`` implementation
+(the ctypes launch of ``*/kernel.py``), a fake implementation (the
+outputs' shapes and dtypes, no data: what fake and meta tensors run) and
+a flop formula for ``torch.utils.flop_counter`` (the matrix products of
+the function the reference's model computes at that call).  So a dry
+run (``launch/roofline.py``) sees each kernel as one op at its
+boundary, as XLA sees a custom call.  No CPU implementation is
+registered: the wrappers send CPU tensors to the plain versions before
+they reach an op.  Each CUDA implementation is marked ``@hot_path``, so
+the hot-path lint's closure reaches the launchers through it, as it did
+through the wrappers' direct calls."""
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+import torch.utils.flop_counter
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
 
 
 def device_route(t: torch.Tensor) -> str:
-    """Where a wrapper sends ``t``: ``"cuda"`` to the kernel, ``"cpu"`` to
-    the plain version; any other device raises."""
-    if t.device.type in ("cuda", "cpu"):
-        return t.device.type
+    """Where a wrapper sends ``t``: ``"cuda"`` to the kernel's op (on a
+    ``meta`` tensor the op's fake implementation: shapes only, as the
+    dry run traces), ``"cpu"`` to the plain version; any other device
+    raises."""
+    if t.device.type in ("cuda", "meta"):
+        return "cuda"
+    if t.device.type == "cpu":
+        return "cpu"
     raise ValueError(f"the kernels run on cuda or cpu, not {t.device}")
+
+
+def register_op(name: str, schema: str, cuda: Callable, fake: Callable,
+                flops: Callable):
+    """Define ``repro_torch::<name><schema>`` with ``cuda`` as its CUDA
+    implementation, ``fake`` as its fake (and meta) implementation and
+    ``flops(*shapes, out_shape=...)`` as its flop formula (tensor
+    arguments arrive as shapes); returns the op.  A second import of the
+    package in one process (``scripts/chip_tools.py`` ``use_tree``)
+    keeps the definition and replaces the implementations."""
+    if not hasattr(torch.ops.repro_torch, name):
+        _LIB.define(name + schema)
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIB)
+    op = getattr(torch.ops.repro_torch, name)
+    torch.utils.flop_counter.register_flop_formula(op)(flops)
+    return op
 
 
 # Shared by the ctypes launchers (``*/kernel.py``).

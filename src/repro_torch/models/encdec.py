@@ -175,12 +175,14 @@ def _dec_train_layer(bp: Dict, x: torch.Tensor, enc_out: torch.Tensor,
 
 
 def lm_loss(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-            frames: torch.Tensor, *,
+            frames: torch.Tensor, *, rules=None,
             act_dtype: torch.dtype = torch.bfloat16):
     """Next-token CE of the decoder over ``tokens`` [B, S] (labels
     shifted by one), given the encoder's output for ``frames`` [B, F, d]:
     the logits of every position (the tied embedding as the head).
-    Returns (ce, {"ce", "aux": 0}), as the reference's."""
+    Returns (ce, {"ce", "aux": 0}), as the reference's.  ``rules`` is
+    accepted as the reference's is and not read (no constraint to
+    place: ``partitioning.constrain`` is the identity)."""
     params = cast_params(params, act_dtype)
     enc = encode(params, cfg, frames, act_dtype=act_dtype, remat=True)
     s = tokens.shape[1]
@@ -197,14 +199,15 @@ def lm_loss(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-            lengths: torch.Tensor, frames: torch.Tensor, *,
+            lengths: torch.Tensor, frames: torch.Tensor, *, rules=None,
             act_dtype: torch.dtype = torch.bfloat16,
             cache_len: Optional[int] = None):
     """Encode ``frames`` and run the decoder over the right-padded
     prompts.  Returns (next-token logits [B, V] at ``lengths - 1``,
     cache {"kv": self K/V [L, B, cache_len, H, D], "cross": cross K/V
     [L, B, F', H, D]}); the logits are computed at those positions only
-    (the rows are independent, as in the dense prefill)."""
+    (the rows are independent, as in the dense prefill).  ``rules`` as
+    :func:`lm_loss`'s."""
     params = cast_params(params, act_dtype)
     enc = encode(params, cfg, frames, act_dtype=act_dtype)
     return _decoder(params, cfg, tokens, enc, lengths, act_dtype=act_dtype,

@@ -154,21 +154,23 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any], *,
-            act_dtype: torch.dtype = torch.bfloat16):
+            rules=None, act_dtype: torch.dtype = torch.bfloat16):
     """The training loss of a batch {"tokens": [B, S], and "patches" or
     "frames" for the vlm and encoder-decoder families}: (loss, {"ce",
-    "aux"}), as the reference's ``loss_fn``."""
+    "aux"}), as the reference's ``loss_fn``.  ``rules`` are passed on as
+    the reference's are; the port places nothing by them
+    (``partitioning.constrain`` is the identity)."""
     if _is_encdec(cfg):
         return encdec.lm_loss(params, cfg, batch["tokens"], batch["frames"],
-                              act_dtype=act_dtype)
+                              rules=rules, act_dtype=act_dtype)
     return transformer.lm_loss(params, cfg, batch["tokens"],
-                               patches=batch.get("patches"),
+                               patches=batch.get("patches"), rules=rules,
                                act_dtype=act_dtype)
 
 
 @hot_path
 def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
-            act_dtype: torch.dtype = torch.bfloat16,
+            rules=None, act_dtype: torch.dtype = torch.bfloat16,
             cache_len: Optional[int] = None):
     """Prefill right-padded prompts.  Returns (next-token logits [B, V],
     dense cache of capacity ``cache_len``: a float KV cache, also for an
@@ -181,14 +183,15 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     ``ContinuousEngine`` sizes it without the patches and ring-packs).
     The encoder-decoder family encodes ``batch["frames"]`` first; its
     self K/V is zero-padded or cut (not ring-packed) to ``cache_len``,
-    and its cross K/V has the encoder's padded rows."""
+    and its cross K/V has the encoder's padded rows.  ``rules`` are
+    passed on as the reference's are (see :func:`loss_fn`)."""
     if _is_encdec(cfg):
         return encdec.prefill(params, cfg, batch["tokens"], batch["lengths"],
-                              batch["frames"], act_dtype=act_dtype,
-                              cache_len=cache_len)
+                              batch["frames"], rules=rules,
+                              act_dtype=act_dtype, cache_len=cache_len)
     return transformer.prefill(params, cfg, batch["tokens"],
                                batch["lengths"],
-                               patches=batch.get("patches"),
+                               patches=batch.get("patches"), rules=rules,
                                act_dtype=act_dtype, cache_len=cache_len)
 
 
@@ -416,6 +419,19 @@ def verify_window_into(params, cfg: ModelConfig, pages,
     state["logits"].copy_(logits)
     state["positions"].copy_(positions)
     packed_out.copy_(packed)
+
+
+def write_prefill_pages(pages, kv, table):
+    """One request's dense prefill cache into its blocks, in place."""
+    return transformer.write_prefill_pages(pages, kv, table)
+
+
+def write_prefill_pages_batched(pages, kv, tables, *, null_block: int = 0,
+                                pad_to: int = 0):
+    """Block-granular write of a batched dense prefill cache into each
+    row's blocks, in place (``transformer.write_prefill_pages_batched``)."""
+    return transformer.write_prefill_pages_batched(
+        pages, kv, tables, null_block=null_block, pad_to=pad_to)
 
 
 def write_suffix_pages_batched(pages, kv, block_tables, starts, lengths, *,

@@ -443,7 +443,7 @@ def _fit_cache(leaf: torch.Tensor, s: int, cache_len: int) -> torch.Tensor:
 
 
 def prefill(params: Dict, cfg: ModelConfig, tokens, lengths, *,
-            patches=None, act_dtype: torch.dtype = torch.bfloat16,
+            patches=None, rules=None, act_dtype: torch.dtype = torch.bfloat16,
             cache_len: Optional[int] = None):
     """Build the decode cache.  tokens: [B, S] right-padded to S (the
     prompts attend causally over their pads, and an SSM row's state
@@ -467,7 +467,8 @@ def prefill(params: Dict, cfg: ModelConfig, tokens, lengths, *,
     The logits are computed for each row's last valid position only
     (the reference computes all rows and picks one; the rows are
     independent, so only the size of the product differs: at full width
-    the S-row product would be B * S * padded_vocab values)."""
+    the S-row product would be B * S * padded_vocab values).  ``rules``
+    is accepted as :func:`lm_loss`'s is."""
     _require_dense(cfg)
     vlm = cfg.family == "vlm"
     if vlm and patches is None:
@@ -564,13 +565,16 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def lm_loss(params: Dict, cfg: ModelConfig, tokens, *, patches=None,
-            act_dtype: torch.dtype = torch.bfloat16, mtp_coef: float = 0.3):
+            rules=None, act_dtype: torch.dtype = torch.bfloat16,
+            mtp_coef: float = 0.3):
     """Next-token CE over ``tokens`` [B, S] (labels shifted by one), plus
     the MoE aux loss, plus with ``cfg.mtp_depth`` ``mtp_coef`` times the
     multi-token-prediction CE (position t predicts t + 2 from the last
     hidden state and token t + 1's embedding, through ``params["mtp"]``;
     the last two positions masked).  The vlm family's patch positions
-    are dropped first.  Returns (loss, {"ce", "aux"})."""
+    are dropped first.  Returns (loss, {"ce", "aux"}).  ``rules`` is
+    accepted as the reference's is; nothing here places by it
+    (``partitioning.constrain`` is the identity)."""
     logits, aux, hidden = forward_train(params, cfg, tokens, patches=patches,
                                         act_dtype=act_dtype)
     s = tokens.shape[1]
@@ -992,6 +996,49 @@ def verify_window(params: Dict, cfg: ModelConfig, pages: Dict, proposed,
     packed = torch.cat([proposed.to(torch.int32),
                         emitted[:, None].to(torch.int32)], dim=1)
     return new_logits, pages, positions + emitted, packed
+
+
+def write_prefill_pages_batched(pages: Dict, kv, tables, *,
+                                null_block: int = 0, pad_to: int = 0
+                                ) -> Dict:
+    """Write a batched dense prefill cache (k, v each [L, B, S, Hkv, D])
+    into every request's blocks, in place, one indexed write per pool.
+
+    ``tables`` is a list of host-side block-id lists, one per batch row;
+    short or empty rows pad with ``null_block`` (rows past
+    ``len(tables)``, a bucket's pad rows, are all null).  Each row's S is
+    cut or zero-padded to the common table capacity; positions past a
+    request's prompt land in its own reserved blocks or in the null
+    block, never in another request's pages.  ``pad_to`` fixes the
+    blocks a row (an engine's ``max_blocks``).  All-empty tables with
+    ``pad_to=0`` write nothing (block 0 is a live block).  The reference
+    package's ``write_prefill_pages_batched``, which no engine calls
+    since its wave admission (DESIGN.md §12); kept for parity."""
+    bt = pages["k"].shape[2]
+    b = kv[0].shape[1]
+    max_nb = max([len(t) for t in tables] + [pad_to])
+    if max_nb == 0:
+        return pages
+    rows = torch.full((b, max_nb), null_block, dtype=torch.long)
+    for i, t in enumerate(tables):
+        rows[i, :len(t)] = torch.tensor(list(t), dtype=torch.long)
+    idx = rows.reshape(-1).to(pages["k"].device)
+    cap = max_nb * bt
+    for key, c in zip(("k", "v"), kv):
+        pool = pages[key]
+        n_layers, bb, s, h, dh = c.shape
+        c = c[:, :, :min(s, cap)]
+        if c.shape[2] < cap:
+            c = torch.nn.functional.pad(c, (0, 0, 0, 0, 0, cap - c.shape[2]))
+        pool[:, idx] = c.reshape(n_layers, bb * max_nb, bt, h, dh).to(
+            pool.dtype)
+    return pages
+
+
+def write_prefill_pages(pages: Dict, kv, table) -> Dict:
+    """One request's :func:`write_prefill_pages_batched` (k, v each [L,
+    1, S, Hkv, D])."""
+    return write_prefill_pages_batched(pages, kv, [list(table)])
 
 
 def write_suffix_pages_batched(pages: Dict, kv, block_tables, starts,

@@ -23,12 +23,14 @@ from repro_torch.train.data import DataConfig, batches
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig,
-                    act_dtype: torch.dtype = torch.bfloat16) -> Callable:
+                    rules=None, act_dtype: torch.dtype = torch.bfloat16
+                    ) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``: metrics {"loss", "ce", "aux", "grad_norm",
     "lr"} as tensors on the parameters' device.  Activations are
     ``act_dtype``, bf16 unless the caller says otherwise, as the
     reference's; :func:`train` passes its own (f32 by default).
+    ``rules`` reach ``model.loss_fn``, as the reference's do.
     ``params`` is a tree of tensors, which the step leaves as they are
     (it differentiates detached views of them) and returns anew, as the
     reference's."""
@@ -37,7 +39,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig,
         params = opt_lib.tree_map(lambda p: p.detach().requires_grad_(True),
                                   params)
         leaves = opt_lib.tree_leaves(params)
-        loss, metrics = M.loss_fn(params, cfg, batch, act_dtype=act_dtype)
+        loss, metrics = M.loss_fn(params, cfg, batch, rules=rules,
+                                  act_dtype=act_dtype)
         grads = iter(torch.autograd.grad(loss, leaves))
         grad_tree = opt_lib.tree_map(lambda _: next(grads), params)
         with torch.no_grad():

@@ -26,8 +26,8 @@ try:
     from hypothesis import given, settings
     from hypothesis import strategies as st
 except ImportError:
-    from repro.testing import given, settings
-    from repro.testing import strategies as st
+    from repro_torch.testing import given, settings
+    from repro_torch.testing import strategies as st
 
 from repro.configs import get_config as jax_config
 from repro.models import model as JM

@@ -33,7 +33,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         "hotlint_torch.py", "sync_compare.py", "sync_phase.py",
         "chip_tools.py", "cp_phase.py", "ssd_scan_bwd_compare.py",
         "ssd_scan_bwd_phases.py", "ssm_train_hold.py", "ssm_train_phase.py",
-        "train_phase.py")]
+        "train_phase.py", "roofline_phase.py")]
 
 
 def _imported_modules(path):
@@ -52,6 +52,26 @@ def test_port_imports_neither_jax_nor_the_reference(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_hypothesis_shim_runs_properties():
+    """``repro_torch.testing``, the tests' stand-in for ``hypothesis``
+    where it is missing, draws each strategy's values and runs a
+    property over them, as the reference's shim does."""
+    from repro_torch.testing import given, settings
+    from repro_torch.testing import strategies as st
+    seen = []
+
+    @settings(max_examples=7)
+    @given(st.integers(0, 5), st.lists(st.booleans(), min_size=1,
+                                       max_size=3),
+           st.sampled_from("ab"))
+    def prop(n, flags, c):
+        seen.append((n, flags, c))
+        assert 0 <= n <= 5 and 1 <= len(flags) <= 3 and c in "ab"
+
+    prop()
+    assert len(seen) == 7
 
 
 def test_port_files_found():

@@ -31,8 +31,8 @@ try:
     from hypothesis import given, settings
     from hypothesis import strategies as st
 except ImportError:
-    from repro.testing import given, settings
-    from repro.testing import strategies as st
+    from repro_torch.testing import given, settings
+    from repro_torch.testing import strategies as st
 
 from repro.core import types as jax_types
 from repro_torch.analysis.sanitizer import (SWAP_HOLDER, ShadowAllocator,
