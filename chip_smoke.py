@@ -222,10 +222,12 @@ CUDA toolkit.  Phases, each fatal on failure:
    used slots equal the file's ``swap_store`` through the layout
    conversion, the store is pinned, the resumed requests' decode is
    held, the tier drains.  (c) The f32 witness (TF32 off, inside
-   ``batch_invariant()``, phase 16 (c)'s weights and pool): an uncrashed
-   serve, then (a)'s crash and recovery, whose every stream must equal
-   it, with no journal mismatch; a bf16 stream of (a) that differs from
-   phase 5's fails only where (c) differs too.
+   ``batch_invariant()``, phase 16 (c)'s pool; chatglm-6b's widths cut
+   to ``P17_F32_LAYERS`` = 7 of its 28 layers, the service given the
+   uncut config to price, so the schedule is (a)'s): an uncrashed serve, then
+   (a)'s crash and recovery, whose every stream must equal it, with no
+   journal mismatch; a bf16 stream of (a) that differs from phase 5's
+   fails only where (c) differs too.
 
 18. MoE serve: ``run_paged_engine_backend("olmoe-1b-7b", ...,
    reduced=False)`` in bf16 (16 layers, d_model 2048, 64 experts top 8;
@@ -378,7 +380,8 @@ CUDA toolkit.  Phases, each fatal on failure:
    its NaN guard, ``_swap_out``); (b) a speculative serve
    (``_spec_window``), (c) one ``snapshot``, (d) one padded
    ``BatchEngine`` batch after a warm one (``serve_batch``), (e)
-   ``ContinuousEngine.step``s, at chatglm-6b's widths cut to 2 layers.
+   ``ContinuousEngine.step``s (its step captured at its warm-up step:
+   one capture), at chatglm-6b's widths cut to 2 layers.
    Fatal checks: the ledger's sites equal the lint's
    ``collect_sync_sites``, ``check_sync_ledger`` passes on them, the
    ledger sums to the engines' ``host_syncs`` (and each path's to its
@@ -387,6 +390,32 @@ CUDA toolkit.  Phases, each fatal on failure:
    more syncs than the ledger counts in it.  Logged: each path's ledger
    and detector counts by site and line, each window's pair, the
    phase's seconds.
+28. continuous serve (``continuous_phase``;
+   ``scripts/continuous_phase.py`` runs it alone): chatglm-6b uncut in
+   bf16 (seed-0 weights) through ``ContinuousEngine(slots=32,
+   max_len=256, max_gen=64)`` (a 4.7 GB cache), phase 5's 48 requests
+   driven by the reference's loop (``benchmarks/extensions.py``
+   ``paged_vs_dense``: join while there is room, step, repeat).  Fatal
+   checks: every request finishes with ``min(gen_length, max_gen)``
+   tokens in the vocab and the slots drain; one capture of the step
+   (``DecodeGraph.continuous``, at the first step), every later step a
+   replay; the dense decode kernel 28 times a step and flash 28 times a
+   join, no plain version; ``host_syncs`` one a step; at least half of
+   the steps return with the current stream still busy (the readback
+   waits for the token, not for the step); every join's layer-0 flash
+   call (B = 1) and a sample of steps' layer-0 decode attention (32
+   rows on the 320-slot cache; a replayed step's from the tensors the
+   graph captured) held against the plain versions as phase 8 holds
+   them; then, on 32 fresh joins, an
+   8-step window of the graphed engine bit-equal to ``decode_step`` run
+   eagerly on a clone of its state (tokens, logits, positions, every
+   cache leaf).  Logged beside the card: tokens/s, peak concurrency,
+   steps, the capture's host ms and the MiB it reserved, the window's
+   host ms, busy ms and idle share a step, graphed and eager (one
+   readback a step), both profiled, and phase 14's paged tokens/s on the
+   same requests and weights (the reference's paged-vs-dense comparison;
+   not held).  Both kernels timed at these inputs as phase 8 times them
+   (flash once for each prompt bucket the joins met).
 
 26. context-parallel decode (``cp_phase``; ``scripts/cp_phase.py`` runs
    it alone): qwen2.5-14b uncut with its 40 query heads padded to 48 and
@@ -435,9 +464,9 @@ CUDA toolkit.  Phases, each fatal on failure:
 
 Phases 9 and 10 run right after phase 4, so that a fault in a kernel or
 a model stops the run before the serves; phase 14 runs right after
-phase 5, then phases 15 to 25, 27 (before 26: the weights phase 26
-shares with its ranks by CUDA IPC stay allocated in this process after
-they exit) and 26 last.  The line before the
+phase 5, then phases 15 to 25, 28, 27 (before 26: the weights phase
+26 shares with its ranks by CUDA IPC stay allocated in this process
+after they exit) and 26 last.  The line before the
 last is a JSON object with one entry per kernel (nine: the six TPU
 kernels' counterparts, the flash backward, the scan's backward and the
 decode kernel's context-parallel partial); the last line is
@@ -992,9 +1021,10 @@ class Recorder:
 
 class replays:
     """Inside the ``with`` block every replay of an engine's captured
-    decode step (``DecodeGraph.replay``, paged or padded) is followed by
-    each recorder's :meth:`Recorder.replayed`, and every paged decode
-    window that ran steps is counted in ``windows``.  ``replayed_steps``
+    decode step (``DecodeGraph.replay``, paged, padded or continuous) is
+    counted in ``replays`` and followed by each recorder's
+    :meth:`Recorder.replayed`, and every paged decode window that ran
+    steps is counted in ``windows``.  ``replayed_steps``
     and ``enqueue_s`` sum the steps that ``DecodeGraph.window`` replayed
     and the host time it took to enqueue them (it does not wait for the
     card).  ``captures`` holds, for each capture, its host seconds
@@ -1003,7 +1033,7 @@ class replays:
     step's first blocks on a new capture stream)."""
 
     def __init__(self, *recorders):
-        self.recorders, self.windows = recorders, 0
+        self.recorders, self.windows, self.replays = recorders, 0, 0
         self.replayed_steps, self.enqueue_s = 0, 0.0
         self.captures = []
 
@@ -1026,6 +1056,7 @@ class replays:
 
         def replay_and_record(graph):
             replay(graph)
+            self.replays += 1
             for r in self.recorders:
                 r.replayed()
 
@@ -1276,6 +1307,7 @@ def warmed_serve(torch, reqs, reset_counts, counts):
         f"and token copy) in {rep.enqueue_s * 1e3 / max(1, rep.replayed_steps):.4f}"
         f" ms on average over {rep.replayed_steps} steps")
     return {"engine": engine, "launches": launches,
+            "tokens_per_s": tokens / wall,
             "plain_calls": counts("plain_calls"), "stats": st,
             "windows": rep.windows, "replayed_steps": rep.replayed_steps,
             "captures": (captures0, engine.graph_captures)}
@@ -2296,8 +2328,14 @@ RECOVER_EVERY, RECOVER_CRASH, RECOVERY_EVERY = 2, 6, 4
 # tier), the crash at window 4's first swap-out; the recovery does not
 # snapshot (its run admits in most windows)
 SWAP_EVERY, SWAP_CRASH, SWAP_RECOVERY_EVERY = 3, 4, 1_000
-P17_DISK = 10 << 30            # free disk the phase needs: (c)'s f32
-#                                snapshots take ~6.1 GB
+P17_DISK = 10 << 30            # free disk the phase needs: (a)'s bf16
+#                                snapshots take ~3.1 GB, (c)'s f32 ~6.1 GB
+#                                at 28 layers
+# (c)'s depth: chatglm-6b's widths cut to 7 of its 28 layers, which
+# takes ~3/4 of the f32 witness's time off the whole script's (phase 28
+# was added within its 1,200 s); its service is given the uncut config
+# to price, so the schedule and every hold are (a)'s
+P17_F32_LAYERS = 7
 
 
 def p17_events(FaultEvent, kind):
@@ -2319,8 +2357,9 @@ def crash_run(torch, cfg, params, device, dtype, ckpt, *, every, events,
     (its crash among them) and the NaN guard off (one readback a window,
     as in phase 5), driven by ``drive_paged`` under a ``RecoveryManager``
     that snapshots every ``every`` windows into ``ckpt``: with
-    ``service`` as the launcher drives it (``magnus_service``: phase 5's
-    schedule), else over the request list (as phase 15).  Returns the
+    ``service`` (the config its memory model prices) as the launcher
+    drives it (``magnus_service``: phase 5's schedule), else (None) over
+    the request list (as phase 15).  Returns the
     engine, the requests, the manager and the crash's (seam, window), or
     None if it did not fire."""
     from repro_torch.serving import snapshot as snaplib
@@ -2334,8 +2373,9 @@ def crash_run(torch, cfg, params, device, dtype, ckpt, *, every, events,
               **{k: geometry[k] for k in ("max_concurrency", "max_len",
                                           "max_gen")})
     drive = {}
-    if service:
-        allocator, svc, ewma, refill, backlog = magnus_service(cfg, geometry)
+    if service is not None:
+        allocator, svc, ewma, refill, backlog = magnus_service(service,
+                                                               geometry)
         engine = PagedContinuousEngine(cfg, params, allocator=allocator,
                                        prefix_cache=svc.prefix_cache,
                                        mispredict=ewma, **kw)
@@ -2811,7 +2851,7 @@ def recovery_phase(torch, ops, ref, cfg, reqs5, streams5, shapes5, sched5,
         a = p17_run(torch, ops, ref, cfg, params, torch.bfloat16,
                     os.path.join(tmp, "a"), kind="window", geometry=SERVE,
                     every=RECOVER_EVERY, recovery_every=RECOVERY_EVERY,
-                    service=True, swap_blocks=0, warm=True,
+                    service=cfg, swap_blocks=0, warm=True,
                     reset_counts=reset_counts, counts=counts, spin=spin)
         check_p17("phase 17 (a)", a, cfg.num_layers, sched5=sched5)
         log_p17("phase 17 (a)", a, res5)
@@ -2832,7 +2872,7 @@ def recovery_phase(torch, ops, ref, cfg, reqs5, streams5, shapes5, sched5,
         b = p17_run(torch, ops, ref, cfg, params, torch.bfloat16,
                     os.path.join(tmp, "b"), kind="swap", geometry=CHAOS,
                     every=SWAP_EVERY, recovery_every=SWAP_RECOVERY_EVERY,
-                    service=False, swap_blocks=CHAOS_SWAP_BLOCKS,
+                    service=None, swap_blocks=CHAOS_SWAP_BLOCKS,
                     warm="decode", reset_counts=reset_counts, counts=counts)
         check_p17("phase 17 (b)", b, cfg.num_layers)
         check(b["crashed"]["crash"][0] == "swap"
@@ -2864,10 +2904,12 @@ def recovery_phase(torch, ops, ref, cfg, reqs5, streams5, shapes5, sched5,
 
 def p17_f32_witness(torch, ops, ref, cfg, ckpt, reset_counts, counts):
     """Phase 17 (c): in f32 (TF32 off) inside ``batch_invariant()``, on
-    phase 16 (c)'s f32 weights and pool, an uncrashed serve of phase 5's
-    requests as the launcher drives them, then (a)'s crash and
+    phase 16 (c)'s pool and chatglm-6b's widths cut to
+    ``P17_F32_LAYERS`` layers (seed-0 weights), an uncrashed serve of
+    phase 5's requests as the launcher drives them, then (a)'s crash and
     recovery, whose every stream must equal the uncrashed serve's, with
     no journal mismatch and nothing re-prefilled."""
+    import dataclasses
     import gc
     from repro_torch.models import model as M
     from repro_torch.serving.engine import PagedContinuousEngine, drive_paged
@@ -2875,11 +2917,16 @@ def p17_f32_witness(torch, ops, ref, cfg, ckpt, reset_counts, counts):
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 is on for f32 GEMMs")
     geometry = dict(SERVE, num_blocks=SPEC_F32_BLOCKS)
+    # the depth cut; the service deliberately prices the uncut config,
+    # as (a)'s does, so the witness keeps (a)'s 28-layer schedule
+    published = cfg
+    cfg = dataclasses.replace(cfg, num_layers=P17_F32_LAYERS)
     params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
     with M.batch_invariant():
         reqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
                                         gen_length=GEN_LENGTH, seed=0)
-        allocator, svc, ewma, refill, backlog = magnus_service(cfg, geometry)
+        allocator, svc, ewma, refill, backlog = magnus_service(published,
+                                                               geometry)
         eng = PagedContinuousEngine(
             cfg, params, device="cuda", dtype=torch.float32,
             allocator=allocator, prefix_cache=svc.prefix_cache,
@@ -2900,7 +2947,7 @@ def p17_f32_witness(torch, ops, ref, cfg, ckpt, reset_counts, counts):
         torch.cuda.empty_cache()
         c = p17_run(torch, ops, ref, cfg, params, torch.float32, ckpt,
                     kind="window", geometry=geometry, every=RECOVER_EVERY,
-                    recovery_every=RECOVERY_EVERY, service=True,
+                    recovery_every=RECOVERY_EVERY, service=published,
                     swap_blocks=0, warm="decode", reset_counts=reset_counts,
                     counts=counts, holds=False)
     check_p17("phase 17 (c)", c, cfg.num_layers, sched5=sched,
@@ -2909,7 +2956,8 @@ def p17_f32_witness(torch, ops, ref, cfg, ckpt, reset_counts, counts):
     got = [c["engine"].generated[r.req_id] for r in c["reqs"]]
     differ = [i for i, (x, y) in enumerate(zip(got, want)) if x != y]
     rep = c["report"]
-    log(f"phase 17 (c), f32 witness: uncrashed serve {wall:.2f} s, "
+    log(f"phase 17 (c), f32 witness at {cfg.num_layers} layers: uncrashed "
+        f"serve {wall:.2f} s, "
         f"{sched}; {N_REQUESTS - len(differ)} of {N_REQUESTS} recovered "
         f"streams equal it (differing: {differ}); journal mismatches "
         f"{rep['journal_mismatches']}, confirmed "
@@ -6509,13 +6557,15 @@ def sync_phase(torch, src):
                               max_gen=GEN_LENGTH)
         for r in some[:4]:
             ce.join(r)
-        ce.step()                                     # warms the step
+        ce.step()                        # warms the step: its capture
 
         def steps():
             for _ in range(SYNC_STEPS):
                 ce.step()
 
         run("continuous", ce, steps)
+        check(ce.graph_captures == 1, f"phase 25 (e): {ce.graph_captures} "
+              f"captures of the continuous step")
         ledger = san.sync_ledger()
         engine_syncs += be.host_syncs + ce.host_syncs
         del ce, be, params
@@ -6566,6 +6616,215 @@ def sync_phase(torch, src):
 
 
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# phase 28: ContinuousEngine's serve, its step one CUDA graph per engine
+# ---------------------------------------------------------------------------
+
+CONT = dict(slots=32, max_len=256, max_gen=64)
+CONT_WINDOW = 8                # the held and profiled window's steps
+
+
+def continuous_phase(torch, ops, ref, fops, fref, spin, reset_counts, counts,
+                     paged_tp=None, card="?"):
+    """Phase 28: phase 5's requests through ``ContinuousEngine`` at full
+    width, by the reference's loop; the holds and logs of the module
+    docstring.  ``paged_tp`` is phase 14's paged tokens/s on the same
+    requests and weights (None when the phase runs alone).  Returns (the
+    kernels' timings at the serve's inputs, the serve's launches)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.workload.apps import make_shared_head_dataset
+
+    t_phase = time.perf_counter()
+    cfg = get_config("chatglm-6b")
+    reqs = make_shared_head_dataset(N_REQUESTS, n_apps=3,
+                                    gen_length=GEN_LENGTH, seed=0)
+    eng = ContinuousEngine(cfg, seed=0, dtype=torch.bfloat16, device="cuda",
+                           **CONT)
+    cache_gb = sum(t.nbytes for v in eng.cache.values() for t in v) / 1e9
+    torch.cuda.synchronize()
+    queue, streams = list(reqs), {}
+    steps = joins = busy = peak = 0
+    join_s = 0.0
+    layers = cfg.num_layers
+    prefills, decodes = dense_recorders(transformer, layers)
+    with prefills, decodes, replays(decodes) as rep:
+        reset_counts()
+        t0 = time.perf_counter()
+        while queue or any(eng.active):
+            while queue and eng.has_capacity:
+                tj = time.perf_counter()
+                eng.join(queue.pop(0))
+                join_s += time.perf_counter() - tj
+                joins += 1
+            peak = max(peak, sum(a is not None for a in eng.active))
+            gen = {a["req"].req_id: a["generated"] for a in eng.active if a}
+            for r in eng.step():
+                streams[r.req_id] = gen[r.req_id]
+            steps += 1
+            busy += not torch.cuda.current_stream().query()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts("launches")
+    plain = counts("plain_calls")
+    tokens = sum(len(g) for g in streams.values())
+    check(len(streams) == N_REQUESTS and not any(eng.active),
+          f"phase 28: {len(streams)} of {N_REQUESTS} requests finished, "
+          f"slots {[a is not None for a in eng.active]}")
+    for r in reqs:
+        toks = streams[r.req_id]
+        check(len(toks) == min(r.gen_length, CONT["max_gen"])
+              and all(0 <= x < cfg.vocab_size for x in toks),
+              f"phase 28: request {r.req_id}: {len(toks)} tokens or one "
+              f"out of range")
+    check(eng.graph_captures == 1 == len(rep.captures)
+          and rep.replays == steps - 1,
+          f"phase 28: {eng.graph_captures} captures, {rep.replays} replays "
+          f"in {steps} steps: not one capture, whose warm-up step is the "
+          f"first step, and replays for the rest")
+    check(launches["decode_attention"] == layers * steps
+          and launches["flash_attention"] == layers * joins,
+          f"phase 28: launches {launches} against {steps} steps and "
+          f"{joins} joins")
+    check(decodes.steps == steps and prefills.steps == joins,
+          f"phase 28 recorded {decodes.steps} decode steps and "
+          f"{prefills.steps} prefills")
+    check(not any(plain.values()),
+          f"phase 28: plain versions ran on the continuous path: {plain}")
+    check(eng.host_syncs == steps,
+          f"phase 28: {eng.host_syncs} host syncs in {steps} steps")
+    check(2 * busy >= steps,
+          f"phase 28: {busy} of {steps} steps returned with the stream "
+          f"still busy: the readback waits for the step")
+    log(f"phase 28 continuous serve chatglm-6b full width bf16 ({card}): "
+        f"{tokens} tokens in {wall:.3f} s, {tokens / wall:.1f} tokens/s; "
+        f"{steps} steps, {joins} joins ({join_s:.3f} host s in join: the "
+        f"one-request prefills' enqueue), peak concurrency {peak}, host "
+        f"syncs {eng.host_syncs}, {busy} of {steps} steps returned with the "
+        f"stream busy; cache {cache_gb:.2f} GB; launches {launches}; "
+        f"phase 14's paged serve of the same requests and weights: "
+        + (f"{paged_tp:.1f} tokens/s" if paged_tp is not None
+           else "not run in this process"))
+    # the kernels at the serve's own inputs: each join's one-request
+    # prefill, and the sampled steps' decode (replayed ones from the
+    # tensors the graph captured) on the engine's 32 x 320-slot cache
+    slots = CONT["max_len"] + CONT["max_gen"]
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    check(prefills.kept and decodes.kept, "phase 28: nothing kept")
+    check(all(q.shape[0] == 1 and (q.shape[2], k.shape[2], q.shape[3])
+              == (hq, hkv, d) for q, k, _ in prefills.kept),
+          f"phase 28: flash shapes "
+          f"{sorted({(tuple(q.shape), tuple(k.shape)) for q, k, _ in prefills.kept})}"
+          f", not one request at {hq}/{hkv} heads of {d}")
+    check(all(tuple(q.shape) == (CONT["slots"], hq, d)
+              and tuple(kc.shape) == (CONT["slots"], slots, hkv, d)
+              for q, kc, _, _ in decodes.kept),
+          f"phase 28: decode shapes "
+          f"{sorted({(tuple(q.shape), tuple(kc.shape)) for q, kc, _, _ in decodes.kept})}"
+          f", not {CONT['slots']} rows on a {slots}-slot cache")
+    flash_errs = [hold(torch, "flash_attention (phase 28)",
+                       fops.flash_attention(q, k, v, causal=True),
+                       fref.flash_attention_ref(q, k, v, causal=True))
+                  for q, k, v in prefills.kept]
+    dec_errs = [hold(torch, "decode_attention (phase 28)",
+                     ops.decode_attention(q, kc, vc, ln),
+                     ref.decode_attention_ref(q, kc, vc, ln))
+                for q, kc, vc, ln in decodes.kept]
+    buckets = sorted({q.shape[1] for q, _, _ in prefills.kept})
+    log(f"phase 28 held against the plain kernels: {len(flash_errs)} "
+        f"joins' layer-0 flash calls at S {buckets} (max abs err "
+        f"{max(e for e, _ in flash_errs):.3e}), {len(dec_errs)} sampled "
+        f"decode steps' layer-0 attention on the {slots}-slot cache (max "
+        f"abs err {max(e for e, _ in dec_errs):.3e})")
+    (cap_s, cap_bytes), = rep.captures
+    log(f"phase 28: the capture took {cap_s * 1e3:.2f} host ms "
+        f"(engine.capture_time {eng.capture_time * 1e3:.2f}) and reserved "
+        f"{cap_bytes / 2 ** 20:.1f} MiB anew; {rep.replays} of {steps} "
+        f"steps replayed")
+
+    # the held window, on 32 fresh joins (one step settles them)
+    for r in make_shared_head_dataset(CONT["slots"], n_apps=3,
+                                      gen_length=GEN_LENGTH, seed=1):
+        eng.join(r)
+    eng.step()
+    clone = {"cache": {k: tuple(t.clone() for t in v)
+                       for k, v in eng.cache.items()},
+             "logits": eng.logits.clone(),
+             "positions": eng.device_positions.clone()}
+    before = [len(a["generated"]) for a in eng.active]
+    for _ in range(CONT_WINDOW):
+        eng.step()
+    got = torch.tensor([a["generated"][n:] for a, n in
+                        zip(eng.active, before)], dtype=torch.int32)
+
+    def eager_step():
+        c = clone
+        tok = torch.argmax(c["logits"][:, :cfg.vocab_size],
+                           dim=-1).to(torch.int32)
+        logits, c["cache"] = M.decode_step(
+            eng.params, cfg, c["cache"],
+            {"tokens": tok, "positions": c["positions"]},
+            act_dtype=eng.dtype)
+        c["logits"] = logits.to(eng.dtype)
+        c["positions"] = c["positions"] + 1
+        return tok.cpu()
+
+    want = torch.stack([eager_step() for _ in range(CONT_WINDOW)], 1)
+    same = (torch.equal(got, want)
+            and torch.equal(eng.logits, clone["logits"])
+            and torch.equal(eng.device_positions, clone["positions"])
+            and all(torch.equal(a, b) for k, v in eng.cache.items()
+                    for a, b in zip(v, clone["cache"][k])))
+    check(same, "phase 28: the graphed engine's window differs from "
+          "decode_step run eagerly on a clone of its state")
+    log(f"phase 28: graphed and eager {CONT_WINDOW}-step windows at "
+        f"{CONT['slots']} rows: tokens, logits, positions and cache "
+        f"bit-equal")
+
+    def run_graphed():
+        for _ in range(CONT_WINDOW):
+            eng.step()
+        return CONT_WINDOW
+
+    def run_eager():
+        for _ in range(CONT_WINDOW):
+            eager_step()
+        return CONT_WINDOW
+
+    where = f"continuous step at {CONT['slots']} rows"
+    profiles = {"graphed": window_profile(torch, run_graphed,
+                                          f"phase 28 graphed {where}"),
+                "eager": window_profile(torch, run_eager,
+                                        f"phase 28 eager {where}")}
+    log_profiles(f"phase 28 {where} ({card})", profiles)
+    del eng, clone, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_each = list({q.shape[1]: (q, k, v)
+                     for q, k, v in prefills.kept}.values())
+    t28 = {
+        "flash_attention": summarize(
+            "flash_attention (phase 28, one call a prompt bucket)",
+            *time_flash(torch, fops, fref, one_each, spin)),
+        "decode_attention": summarize(
+            "decode_attention (phase 28)", *time_dense_decode(
+                torch, ops, ref, decodes.kept, spin))}
+    log("phase 28 kernels at the continuous serve's inputs (mean of "
+        "per-shape medians, CUDA events, ms): " + json.dumps({
+            name: {"launches": launches.get(name), **{
+                key: (round(v, 4) if isinstance(v, float) else v)
+                for key, v in row.items()}}
+            for name, row in t28.items()}))
+    del prefills, decodes
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 28: {time.perf_counter() - t_phase:.1f} s")
+    return t28, launches
+
 
 # ---------------------------------------------------------------------------
 # phase 26: context-parallel decode (qwen2.5-14b at decode_32k)
@@ -7669,6 +7928,7 @@ def main() -> int:
             SERVE["max_concurrency"], n_apps=3, gen_length=GEN_LENGTH,
             seed=1), eager=True)
         log_profiles("decode step at 32 rows", graphed)
+        paged_tp = w["tokens_per_s"]
         streams5 = served["streams"]
         sched5 = {k: served[k] for k in ("steps", "waves", "host_syncs")}
         del wengine, w, served
@@ -7941,6 +8201,12 @@ def main() -> int:
         # 25. the lint's sweep, then the six counted sync sites under
         # REPRO_SANITIZE=1 and PyTorch's sync detector
         sync_phase(torch, src)
+
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 28")
+        # 28. ContinuousEngine's serve of phase 5's requests at full
+        # width, its step one CUDA graph, its readback overlapped
+        continuous_phase(torch, ops, ref, fops, fref, spin, reset_counts,
+                         counts, paged_tp, card)
 
         log(f"[{time.perf_counter() - t_start:.1f} s] phase 27")
         # 27. the dry run and the roofline: launch/dryrun.py --all and

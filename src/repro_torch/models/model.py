@@ -21,7 +21,8 @@ reference package's ``models/model.py``).  Batches are dicts of tensors:
                        cross K/V, read).  The vlm family's positions are
                        text-relative (the patch prefix is added inside)
   decode_multi       : {"logits": [B, padded_vocab], "positions": [B]}
-                       (``decode_step_into``: one of its steps in place)
+                       (``decode_step_into``: one of its steps in place,
+                       ``greedy_token_into`` then ``decode_step_fed_into``)
   prefill_wave       : {"tokens": [B, S], "lengths": [B], "prefix_lens",
                         "attn_tables", "tables", "write_lens", "cow_src",
                         "cow_dst", "slots", "row_sel", "positions"}
@@ -236,25 +237,47 @@ def decode_multi(params, cfg: ModelConfig, cache, batch: Dict[str, Any], *,
 
 
 @hot_path
+def greedy_token_into(cfg: ModelConfig, logits: torch.Tensor,
+                      tok_out: torch.Tensor) -> None:
+    """Each row's greedy token of the carried ``logits`` [B, padded
+    vocab], written into ``tok_out`` [B] (int32)."""
+    tok_out.copy_(torch.argmax(logits[:, :cfg.vocab_size], dim=-1))
+
+
+@hot_path
+def decode_step_fed_into(params, cfg: ModelConfig, cache,
+                         state: Dict[str, torch.Tensor], *,
+                         act_dtype: torch.dtype = torch.bfloat16) -> None:
+    """:func:`decode_step_into` after its argmax: run :func:`decode_step`
+    on ``state["tokens"]`` at ``state["positions"]`` (the cache written in
+    place), copy the new logits into ``state["logits"]`` and advance every
+    row's position.  ``ContinuousEngine`` takes each step's token apart,
+    so that the host can read it back while this part runs."""
+    new_logits, _ = decode_step(params, cfg, cache,
+                                {"tokens": state["tokens"],
+                                 "positions": state["positions"]},
+                                act_dtype=act_dtype)
+    state["logits"].copy_(new_logits)
+    state["positions"].add_(1)
+
+
+@hot_path
 def decode_step_into(params, cfg: ModelConfig, cache,
                      state: Dict[str, torch.Tensor], tok_out: torch.Tensor,
                      *, act_dtype: torch.dtype = torch.bfloat16) -> None:
     """One step of :func:`decode_multi` written in place, so that a CUDA
-    graph can replay it: argmax the carried ``state["logits"]``, run
-    :func:`decode_step` at ``state["positions"]`` (the dense cache, the
-    MLA latents, the SSM state, both for the hybrid family, or the self
-    K/V of the encoder-decoder family, written in place), copy the new logits into
-    ``state["logits"]``, advance every row's position (the padded batch
-    has no idle row) and write the step's token into ``tok_out`` [B].
-    ``k`` calls equal ``decode_multi(num_steps=k)``."""
-    logits, positions = state["logits"], state["positions"]
-    tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1).to(torch.int32)
-    new_logits, _ = decode_step(params, cfg, cache,
-                                {"tokens": tok, "positions": positions},
-                                act_dtype=act_dtype)
-    logits.copy_(new_logits)
-    positions.add_(1)
-    tok_out.copy_(tok)
+    graph can replay it: argmax the carried ``state["logits"]`` into
+    ``tok_out`` [B] (:func:`greedy_token_into`), then run
+    :func:`decode_step_fed_into` on that token: :func:`decode_step` at
+    ``state["positions"]`` (the dense cache, the MLA latents, the SSM
+    state, both for the hybrid family, or the self K/V of the
+    encoder-decoder family, written in place), the new logits copied
+    into ``state["logits"]``, every row's position advanced (the padded
+    batch has no idle row).  ``k`` calls equal
+    ``decode_multi(num_steps=k)``."""
+    greedy_token_into(cfg, state["logits"], tok_out)
+    decode_step_fed_into(params, cfg, cache, {**state, "tokens": tok_out},
+                         act_dtype=act_dtype)
 
 
 def supports_paged(cfg: ModelConfig) -> Tuple[bool, str]:

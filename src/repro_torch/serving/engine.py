@@ -15,13 +15,13 @@
 - Decode runs in fused multi-step windows (§9): ``k`` greedy steps on the
   device with the argmax feeding the next step, and one ``[B, k]`` token
   readback per window, counted in ``host_syncs`` (``ContinuousEngine``
-  reads its tokens back every step, as in the reference).  On the card
-  the paged engine and ``BatchEngine`` replay their decode step as a
-  captured CUDA graph (``serving/graphs.py``): the paged engine captures
-  once, at its first window or ahead of time in ``warmup()``, and
-  ``BatchEngine`` once per batch, on the batch's own cache.  This is the
-  port's counterpart of the reference's one compiled program per
-  window.
+  reads its tokens back every step, as in the reference, while the rest
+  of the step runs).  On the card every engine replays its decode step
+  as a captured CUDA graph (``serving/graphs.py``): the paged engine
+  captures once, at its first window or ahead of time in ``warmup()``,
+  ``BatchEngine`` once per batch, on the batch's own cache, and
+  ``ContinuousEngine`` once, at its first step.  This is the port's
+  counterpart of the reference's one compiled program per window.
 - Admission is a single-dispatch variable-prefix wave (§12): radix hits
   and misses ride one ``prefill_wave`` call per suffix-length bucket.
 - The paged engine's lifecycle (§14): scripted faults
@@ -351,6 +351,19 @@ class ContinuousEngine(_DenseEngine):
     join prefills alone (a single-request batch) while decoding pauses,
     and every step reads its tokens back.
 
+    A step argmaxes the carried logits into :attr:`tokens` and queues
+    their copy to the host, then runs the rest of the step
+    (``model.decode_step_fed_into``) on the engine's cache, logits and
+    :attr:`device_positions`, all written in place.  The host waits for
+    the tokens' copy only, so its bookkeeping and the next step's
+    enqueue overlap the step on the card, as the reference's readback
+    overlaps its compiled step.  On the card the rest of the step is one
+    CUDA graph (``DecodeGraph.continuous``), captured at the engine's
+    first ``step()`` (live: the warm-up is that step, as the reference
+    compiles at its first call) and replayed at every later one;
+    ``graph_captures`` counts the captures and ``capture_time`` sums
+    their host seconds.  A CPU engine runs the same step eagerly.
+
     The cache is sized without the vlm family's patch prefix, as in the
     reference: a join whose patches plus prompt bucket exceed
     ``max_len + max_gen`` ring-packs its prefill into the slot (the last
@@ -372,10 +385,22 @@ class ContinuousEngine(_DenseEngine):
         self.logits = torch.zeros((slots, cfg.padded_vocab), dtype=dtype,
                                   device=self.device)
         self.positions = np.zeros(slots, np.int32)   # host mirror
+        self.device_positions = torch.zeros(slots, dtype=torch.int32,
+                                            device=self.device)
+        self.tokens = torch.zeros(slots, dtype=torch.int32,
+                                  device=self.device)
+        cuda = self.device.type == "cuda"
+        self._tokens_host = torch.zeros(slots, dtype=torch.int32,
+                                        pin_memory=cuda)
+        self._tokens_ready = torch.cuda.Event() if cuda else None
+        self._graph: Optional[DecodeGraph] = None
+        self.graph_captures = 0
+        self.capture_time = 0.0
 
-    # device-resident attrs: hotlint taints reads of these in hot regions
-    # (positions is a HOST mirror here, deliberately absent)
-    _DEVICE_STATE = ("cache", "logits")
+    # device-resident attrs: hotlint taints reads of these in hot regions,
+    # and the captured step reads every one of them, so each is written
+    # in place (positions is the HOST mirror, deliberately absent)
+    _DEVICE_STATE = ("cache", "logits", "device_positions", "tokens")
 
     def _merge_cache_slot(self, slot: int, single_cache) -> None:
         """Copy a single-request prefill cache into slot ``slot``, leaf by
@@ -413,29 +438,47 @@ class ContinuousEngine(_DenseEngine):
         self._merge_cache_slot(slot, single_cache)
         self.logits[slot] = logits[0].to(self.dtype)
         self.positions[slot] = len(ids)
+        self.device_positions[slot].fill_(len(ids))
         self.active[slot] = {"req": req, "generated": [],
                              "target": min(req.gen_length, self.max_gen)}
         return slot
+
+    def _decode(self) -> None:
+        """The step after its argmax, in place: a CUDA engine replays its
+        captured graph, capturing it at its first step (whose warm-up is
+        this step, so it runs once); a CPU engine runs it eagerly."""
+        if self.device.type == "cpu":
+            M.decode_step_fed_into(
+                self.params, self.cfg, self.cache,
+                {"logits": self.logits, "positions": self.device_positions,
+                 "tokens": self.tokens}, act_dtype=self.dtype)
+        elif self._graph is None:
+            self._graph = DecodeGraph.continuous(self)
+            self.graph_captures += 1
+            self.capture_time += self._graph.capture_s
+        else:
+            self._graph.replay()
 
     @hot_path
     def step(self) -> List[Request]:
         """One decode iteration over all active slots; returns finished."""
         if not any(self.active):
             return []
-        next_tok = torch.argmax(self.logits[:, :self.cfg.vocab_size],
-                                dim=-1).to(torch.int32)
-        (positions,) = _upload(self.device, self.positions)
-        self.logits, self.cache = M.decode_step(
-            self.params, self.cfg, self.cache,
-            {"tokens": next_tok, "positions": positions},
-            act_dtype=self.dtype)
-        self.logits = self.logits.to(self.dtype)
+        M.greedy_token_into(self.cfg, self.logits, self.tokens)
+        # the tokens' copy is queued ahead of the rest of the step, and
+        # the host waits for it alone
+        self._tokens_host.copy_(self.tokens, non_blocking=True)
+        if self._tokens_ready is not None:
+            self._tokens_ready.record()
+        self._decode()
         self.positions = self.positions + 1
-        # read the tokens back only after the decode step is queued: the
-        # copy waits for the argmax, not for the step
-        # hotlint: sync(per-step token readback, overlapped with decode)
-        tok_host = next_tok.cpu().numpy()
-        self.host_syncs += count_sync()
+        if self._tokens_ready is not None:
+            # hotlint: sync(per-step token readback, overlapped with decode)
+            self._tokens_ready.synchronize()
+            self.host_syncs += count_sync()
+        else:
+            self.host_syncs += count_sync()
+        tok_host = self._tokens_host.numpy()
         for slot, a in enumerate(self.active):
             if a is not None:
                 a["generated"].append(int(tok_host[slot]))
@@ -445,6 +488,7 @@ class ContinuousEngine(_DenseEngine):
                 finished.append(a["req"])
                 self.active[slot] = None
                 self.positions[slot] = 0
+                self.device_positions[slot].fill_(0)
         return finished
 
 

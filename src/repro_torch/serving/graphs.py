@@ -11,7 +11,7 @@ position advance, and the token written into a static ``[B]`` buffer.
 A window of ``k`` steps is ``k`` replays, each followed by a copy of the
 token into a ``[B, max_steps]`` buffer, and then the engine's one
 ``[B, k]`` readback.  One graph serves every window length, where the
-reference compiles one program per power-of-two window.  Two engines
+reference compiles one program per power-of-two window.  Three engines
 capture one:
 
 - :meth:`DecodeGraph.paged`: ``decode_step_paged_into`` on the paged
@@ -25,6 +25,13 @@ capture one:
   positions of its own.  A ``BatchEngine`` allocates that
   cache in each batch's prefill, so it captures once per batch, and the
   graph is dropped with the batch.
+- :meth:`DecodeGraph.continuous`: ``decode_step_fed_into`` on a
+  ``ContinuousEngine``'s dense cache, logits and device positions, once
+  per engine, at its first step.  Its argmax stays outside the graph:
+  the engine writes each step's token into the graph's token buffer and
+  queues its copy to the host before the replay, so the host waits for
+  the token, not for the step (the reference's readback, which XLA's
+  asynchronous dispatch overlaps with the step).
 
 A speculative paged engine (§16) never runs the plain decode step.  It
 captures its whole window instead, :class:`SpecGraph`: the draft
@@ -160,23 +167,31 @@ class CapturedStep:
 
 class DecodeGraph(CapturedStep):
     """One greedy decode step: ``step(state, tok)`` runs it in place on
-    ``state`` and writes its token into ``tok``.  With ``warm=None``
-    (live) the warm-up step is the first step of the window being run,
-    and its token is already in ``toks[:, 0]``."""
+    ``state`` and writes its token into ``tok``, the graph's own buffer;
+    :meth:`window` gathers the tokens of its replays into ``toks``.
+    With ``warm=None`` (live) the warm-up step is the first step of the
+    window being run, and its token is already in ``toks[:, 0]``.  Given
+    the caller's ``tok`` (:meth:`continuous`), the step reads the token
+    the caller wrote there, and the graph has no ``toks`` and no
+    window."""
 
     def __init__(self, step: Callable[[State, torch.Tensor], None],
                  state: State, *, rows: int, heads: int, max_steps: int,
                  device: torch.device, stream: torch.cuda.Stream,
-                 warm: Optional[State] = None):
+                 warm: Optional[State] = None,
+                 tok: Optional[torch.Tensor] = None):
         # the closure holds the buffer, not the graph: no reference
         # cycle keeps a dropped engine's pools alive until a collection
-        self.tok = tok = torch.zeros(rows, dtype=torch.int32, device=device)
-        self.toks = torch.zeros((rows, max(max_steps, 1)), dtype=torch.int32,
-                                device=device)
+        own = tok is None
+        if own:
+            tok = torch.zeros(rows, dtype=torch.int32, device=device)
+            self.toks = torch.zeros((rows, max(max_steps, 1)),
+                                    dtype=torch.int32, device=device)
+        self.tok = tok
         super().__init__(lambda s: step(s, tok), state, rows=rows,
                          heads=heads, device=device, stream=stream, warm=warm)
-        if warm is None:
-            self.toks[:, 0].copy_(self.tok)
+        if warm is None and own:
+            self.toks[:, 0].copy_(tok)
 
     @classmethod
     def paged(cls, engine, *, live: bool) -> "DecodeGraph":
@@ -224,6 +239,28 @@ class DecodeGraph(CapturedStep):
         return cls(step, state, rows=logits.shape[0],
                    heads=_query_heads(params), max_steps=max_steps,
                    device=logits.device, stream=stream)
+
+    @classmethod
+    def continuous(cls, engine) -> "DecodeGraph":
+        """A ``ContinuousEngine``'s step after its argmax
+        (``decode_step_fed_into``) on the engine's cache, logits and
+        device positions, all written in place, reading the token the
+        engine wrote into ``engine.tokens`` before each replay.  Once per
+        engine (its cache lives as long as it does), at its first step:
+        live, the warm-up step is that step."""
+        params, cfg, cache, dtype = (engine.params, engine.cfg, engine.cache,
+                                     engine.dtype)
+        state = {"logits": engine.logits,
+                 "positions": engine.device_positions}
+
+        def step(s: State, tok: torch.Tensor) -> None:
+            M.decode_step_fed_into(params, cfg, cache, {**s, "tokens": tok},
+                                   act_dtype=dtype)
+
+        dev = engine.device
+        return cls(step, state, rows=engine.slots,
+                   heads=_query_heads(params), max_steps=0, device=dev,
+                   stream=torch.cuda.Stream(device=dev), tok=engine.tokens)
 
     def window(self, k: int, start: int = 0) -> torch.Tensor:
         """Steps ``start`` .. ``k - 1`` of a ``k``-step window, one replay

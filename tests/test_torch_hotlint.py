@@ -12,8 +12,8 @@ the reference's ``tests/test_hotlint.py`` holds its own:
 - on a copy of ``src/repro_torch``, one planted fault per rule is caught
   at its file and function: an ``.item()`` in ``step_window``, a
   rebinding of ``self.logits`` in a ``PagedContinuousEngine`` method,
-  an ``argtypes`` one entry short, and ``ContinuousEngine``'s rebinding
-  of ``self.logits`` once it captures a graph;
+  an ``argtypes`` one entry short, and a rebinding of the token buffer
+  that ``ContinuousEngine``'s captured step reads, in its ``step``;
 - the torch triggers of HL001, each on a small snippet, and the host
   values and in-place writes that must stay quiet.
 """
@@ -199,13 +199,10 @@ PLANTS = {
         "HL004", "build.py", "load_library"),
     "continuous_engine_captures": (
         "serving/engine.py",
-        "    @property\n    def has_capacity(self) -> bool:\n",
-        "    def capture(self, stream):\n"
-        "        return DecodeGraph.padded(\n"
-        "            self.params, self.cfg, self.cache, self.logits,\n"
-        "            self.logits, act_dtype=self.dtype, max_steps=1,\n"
-        "            stream=stream)\n\n"
-        "    @property\n    def has_capacity(self) -> bool:\n",
+        "        M.greedy_token_into(self.cfg, self.logits, self.tokens)\n",
+        "        self.tokens = torch.argmax(\n"
+        "            self.logits[:, :self.cfg.vocab_size], dim=-1).to(\n"
+        "            torch.int32)\n",
         "HL002", "engine.py", "ContinuousEngine.step"),
 }
 

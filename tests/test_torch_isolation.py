@@ -33,7 +33,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         "hotlint_torch.py", "sync_compare.py", "sync_phase.py",
         "chip_tools.py", "cp_phase.py", "ssd_scan_bwd_compare.py",
         "ssd_scan_bwd_phases.py", "ssm_train_hold.py", "ssm_train_phase.py",
-        "train_phase.py", "roofline_phase.py")]
+        "train_phase.py", "roofline_phase.py", "continuous_phase.py")]
 
 
 def _imported_modules(path):
